@@ -1,0 +1,91 @@
+"""Global configuration of the PyTorch port.
+
+Precision: the solver runs the f32 'highest' mode, so TF32 is switched off
+for both matmuls and cuDNN when this module is imported.  f64 is the parity
+mode (CPU tests, and the card's f64 check).
+
+Devices are never picked here: every entry point takes an explicit
+`device=`; `check_device` refuses CUDA on a machine without a card instead
+of moving the work to the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+@dataclasses.dataclass
+class Config:
+    # Working dtype when an entry point is given dtype=None.
+    dtype: str = "float64"
+    # DIIS defaults of Solver_CCSD (reference Solver_GS).
+    maxdiis: int = 15
+    mindiis: int = 2
+    # Sector-blocked soup kernels (ops/ccsd_sect.py) on the spin-sorted
+    # layout; the port has no dense kernels yet, so False makes the solver
+    # raise (ROADMAP A.2).
+    soup_sector: bool = True
+    # Closed-shell mirror symmetry on top of the sectored kernels
+    # (ops/spinsect.py sym mode), used where the solver's gate passes.
+    soup_sym: bool = True
+    # Matmul precision of the solver iterations; only 'highest' (f32 with
+    # TF32 off) is ported (ROADMAP A.8).
+    iter_precision: str = "highest"
+
+
+_CHOICES = {
+    "dtype": ("float32", "float64"),
+    "iter_precision": ("highest", "high", "default", "bf16", "hybrid"),
+}
+
+_config = Config()
+
+
+def get_config() -> Config:
+    return _config
+
+
+def set_config(**kwargs) -> Config:
+    for k, v in kwargs.items():
+        if not hasattr(_config, k):
+            raise AttributeError(f"unknown config field {k!r}")
+        if k in _CHOICES and v not in _CHOICES[k]:
+            raise ValueError(f"config.{k} must be one of {_CHOICES[k]}, "
+                             f"got {v!r}")
+        setattr(_config, k, v)
+    return _config
+
+
+def torch_dtype(dtype=None) -> torch.dtype:
+    """dtype argument (torch dtype, name, or None = config.dtype)."""
+    if dtype is None:
+        dtype = _config.dtype
+    if isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        out = {"float32": torch.float32, "float64": torch.float64}.get(
+            str(dtype))
+    if out not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be float32 or float64, got {dtype!r}")
+    return out
+
+
+def check_device(device) -> torch.device:
+    """The requested device, validated; CUDA without a card raises."""
+    if device is None:
+        raise ValueError("an explicit device= is required ('cpu' or 'cuda')")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                               "available on this machine")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev

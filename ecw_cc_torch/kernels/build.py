@@ -1,0 +1,92 @@
+"""Build the port's CUDA sources into one shared library at first use.
+
+`nvcc` compiles every `ecw_cc_torch/csrc/*.cu` for Hopper (`sm_90a`) into a
+shared library with a plain C interface, which `ctypes` loads.  The output
+lives in `ecw_cc_torch/_build/` (listed in `.gitignore`) under a name keyed
+on a hash of the sources and flags, so an edited source is rebuilt and a
+stale binary is never loaded.  Nothing here runs at import time: the CPU
+tests import every module on machines without `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import NamedTuple
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+# name -> argtypes; every function returns its launch's cudaError_t
+_SIGNATURES = {
+    "ecw_ladder_mm_f32": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "ecw_ladder_mm_f64": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+}
+
+
+class Library(NamedTuple):
+    cdll: ctypes.CDLL
+    path: str
+    build_seconds: float   # 0.0 when the binary was already on disk
+    log: str               # nvcc/ptxas output of this build ('' if cached)
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _digest(paths):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc():
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of ecw_cc_torch "
+                           "need the CUDA toolkit to build")
+    return path
+
+
+@functools.cache
+def library() -> Library:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    srcs = sources()
+    path = os.path.join(BUILD_DIR, f"libecw_torch_kernels-{_digest(srcs)}.so")
+    seconds, log = 0.0, ""
+    if not os.path.exists(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cu = [s for s in srcs if s.endswith(".cu")]
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        os.replace(tmp, path)
+    cdll = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(cdll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return Library(cdll, path, seconds, log)

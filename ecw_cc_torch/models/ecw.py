@@ -1,0 +1,317 @@
+"""User API / driver: the ECW class (port of ecw_cc_tpu/models/ecw.py;
+reference Main.py class ECW).
+
+Builds the molecule, RHF -> GHF and the host ERIs, moves the ERIs to the
+spin-sorted, sector-packed layout on the requested device, builds ground-
+state targets, and runs the warm-started ECW-CCSD lambda sweep.  Every
+host-visible quantity (fock, amplitudes, rdm1s, targets) stays in the
+reference alternating spin convention; only the device ERIs and the solver
+internals are sorted.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ecw_cc_tpu.models.eris import build_eris
+from ecw_cc_tpu.models.molecule import Molecule
+from ecw_cc_tpu.models.scf import GHF, RHF
+from ecw_cc_tpu.utils import checkpoint, convert, output, props
+from ecw_cc_torch.config import check_device, torch_dtype
+from ecw_cc_torch.models import gamma_exp
+from ecw_cc_torch.models.eris import sorted_from_host
+from ecw_cc_torch.ops.ccsd import GCC
+from ecw_cc_torch.ops.ladder import spin_sort_perm
+from ecw_cc_torch.ops.vexp import Exp
+from ecw_cc_torch.solvers.gs import Solver_CCSD
+
+format_float = "{:10.5e}"
+
+
+def _host(a):
+    return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+
+
+class ECW:
+    def __init__(self, molecule, basis, int_thresh=1e-13, out_dir=None,
+                 U_format=False, spin=0, *, device, dtype=None):
+        """Molecule, RHF -> GHF, and the sorted device ERIs on `device` in
+        `dtype` (torch dtype or name; None = config.dtype).  Reference
+        Main.py:34-253."""
+        self.device = check_device(device)
+        self.dtype = torch_dtype(dtype)
+        self.myccsd = None
+        if U_format:
+            raise NotImplementedError("UHF reference implies different orbspin")
+        mol = Molecule(molecule, basis, charge=0, spin=spin)
+        self.molecule = molecule
+        self.mol = mol
+
+        mf = RHF(mol, conv_tol=1e-11)
+        mf.kernel()
+        ghf = GHF(mf)
+        self.mf = ghf
+        self.mo_coeff = ghf.mo_coeff
+        self.mo_occ = ghf.mo_occ
+        self.nocc = int(np.sum(ghf.mo_occ > 0))
+        self.nvir = int(np.sum(ghf.mo_occ == 0))
+        self.EHF = ghf.e_tot
+        self.dim = self.nocc + self.nvir
+        self.aosize = mol.nao
+        self.rdm1_hf = ghf.make_rdm1()
+
+        self.HF_prop = [[]]
+        self.Ek_HF_GS = props.Ekin(mol, self.rdm1_hf, aobasis=True, g=True,
+                                   mo_coeff=self.mo_coeff)
+        self.v1e_HF_GS = props.v1e(mol, self.rdm1_hf, aobasis=True, g=True,
+                                   mo_coeff=self.mo_coeff)
+        self.dip_HF_GS = props.dipole(mol, self.rdm1_hf, aobasis=True, g=True,
+                                      mo_coeff=self.mo_coeff)
+
+        self.out_dir = out_dir
+        if out_dir is not None:
+            os.makedirs(out_dir, exist_ok=True)
+            rdm1_r = convert.convert_g_to_ru_rdm1(self.rdm1_hf)[0]
+            output.cube_density(mol, os.path.join(out_dir, "HF.cube"), rdm1_r)
+
+        # host f64 ERIs (alternating layout) -> sorted, sector-packed device
+        # ERIs; the sorted route is exact at any nvir
+        self.eris_host = build_eris(mol, ghf, int_thresh=int_thresh)
+        self.mo_perm = spin_sort_perm(ghf.orbspin, self.nocc)
+        self.eris, self.vvvv_op = sorted_from_host(
+            self.eris_host, self.mo_perm, dtype=self.dtype, device=self.device)
+        self.fock = np.asarray(self.eris_host.fock)
+
+        self.target_rdm1_GS = None
+        self.cal_rdm1_Delta = False
+        self.exp_data = [[]]
+        self.Ek_exp_GS = None
+        self.Delta_rdm1 = None
+        self.Eexp_GS = None
+        self.method = "scf"
+        self.diis = ""
+        self.Larray = []
+        self.Delta_lamb = []
+        self.Ep_lamb = []
+        self.vmax_lamb = []
+        self.Delta_Ek = []
+        self.solve_log = []
+        print("*** Molecule build ***")
+
+    def init_plot_var(self, Larray):
+        self.Larray = Larray
+        self.Delta_lamb = []
+        self.Ep_lamb = []
+        self.vmax_lamb = []
+        self.Delta_Ek = []
+        self.solve_log = []   # Solver_CCSD.last_solve of each lambda
+
+    # ------------------------------------------------------------------
+    # Target construction (reference Main.py:267-398)
+    # ------------------------------------------------------------------
+
+    def Build_GS_exp(self, prop="mat", posthf="HF", field=None,
+                     para_factor=None, max_def=None, basis=None):
+        """Build GS target data.  Reference Main.py:267-398."""
+        if basis is not None and "mat" in prop and self.mol.basis_name != basis:
+            print("WARNING: rdm1 comparison requires identical bases; using "
+                  f"{self.mol.basis_name} for the target rdm1")
+            basis = None
+        if "mat" in prop and max_def is not None:
+            print("WARNING: rdm1 comparison requires the same geometry")
+            max_def = None
+
+        gexp = gamma_exp.Gexp(self.mol, posthf, basis=basis)
+        if max_def is not None:
+            gexp.deform(max_def)
+        if field is not None:
+            if not isinstance(field, (list, tuple, np.ndarray)):
+                raise SyntaxError("external field must be a list [vx, vy, vz]")
+            gexp.Vext(field)
+        gexp.build()
+        if para_factor is not None:
+            gexp.underfit(para_factor)
+        self.Eexp_GS = gexp.Eexp
+
+        if isinstance(prop, str):
+            prop = [prop]
+        for p in prop:
+            if p == "mat":
+                tgt = convert.convert_r_to_g_rdm1(gexp.gamma_ao)
+                tgt = convert.ao_to_mo(tgt, self.mo_coeff)
+                self.exp_data[0].append(["mat", tgt])
+                self.Ek_exp_GS = props.Ekin(gexp.mol_def, gexp.gamma_ao,
+                                            g=False)
+                self.HF_prop[0].append(np.diag(self.mo_occ))
+            elif isinstance(p, (list, np.ndarray)):
+                raise NotImplementedError(
+                    "structure-factor targets are not wired into the driver "
+                    "(the reference also raises here, Main.py:343-344); "
+                    "build exp_data manually with ['F', F, h, rec_vec]")
+            elif p == "Ek":
+                self.exp_data[0].append(
+                    ["Ek", props.Ekin(gexp.mol_def, gexp.gamma_ao, g=False)])
+                self.HF_prop[0].append(self.Ek_HF_GS)
+                self.cal_rdm1_Delta = True
+            elif p == "v1e":
+                self.exp_data[0].append(
+                    ["v1e", props.v1e(gexp.mol_def, gexp.gamma_ao, g=False)])
+                self.HF_prop[0].append(self.v1e_HF_GS)
+                self.cal_rdm1_Delta = True
+            elif p == "dip":
+                d = props.dipole(gexp.mol_def, gexp.gamma_ao, g=False)
+                self.exp_data[0].append(["dip", list(d)])
+                self.HF_prop[0].append(self.dip_HF_GS)
+                self.cal_rdm1_Delta = True
+
+        if basis is not None and self.mol.basis_name != basis:
+            self.cal_rdm1_Delta = False
+        elif self.cal_rdm1_Delta:
+            tgt = convert.convert_r_to_g_rdm1(gexp.gamma_ao)
+            self.target_rdm1_GS = convert.ao_to_mo(tgt, self.mo_coeff)
+
+        if self.out_dir is not None:
+            output.cube_density(gexp.mol_def,
+                                os.path.join(self.out_dir, "target_GS.cube"),
+                                gexp.gamma_ao)
+        print("*** GS data stored ***")
+
+    # ------------------------------------------------------------------
+    # Solvers (reference Main.py:663-816)
+    # ------------------------------------------------------------------
+
+    def _tl_init(self, tl1ini):
+        nocc, nvir = self.nocc, self.nvir
+        if tl1ini == 1:
+            mo_ene = np.diag(self.fock)
+            eia = mo_ene[:nocc, None] - mo_ene[None, nocc:]
+            tsini = self.fock[:nocc, nocc:] / eia
+            lsini = tsini.copy()
+        elif tl1ini == 2:
+            rng = np.random.default_rng()
+            tsini = convert.convert_r_to_g_amp(
+                rng.random((nocc // 2, nvir // 2)) * 0.01)
+            lsini = convert.convert_r_to_g_amp(
+                rng.random((nocc // 2, nvir // 2)) * 0.01)
+        else:
+            tsini = np.zeros((nocc, nvir))
+            lsini = np.zeros((nocc, nvir))
+        return tsini, lsini
+
+    def CCSD_GS(self, Larray, alpha=None, diis="", nbr_cube_file=2, tl1ini=0,
+                print_ite_info=False, diis_max=15, conv="tl", conv_thres=1e-5,
+                maxiter=40, tablefmt="rst", HF_prop=False, target_rdm1_GS=None,
+                checkpoint_dir=None, resume=False, mode="sweep",
+                refine=False):
+        """GS-ECW-CCSD lambda sweep (warm-started, sequential).  Reference
+        Main.py:663-816.  mode='parallel' (ROADMAP A.13) and refine=True
+        (ROADMAP A.8) are not ported yet."""
+        if mode != "sweep":
+            raise NotImplementedError(
+                f"mode={mode!r} is not ported yet (ROADMAP A.13)")
+        if refine:
+            raise NotImplementedError(
+                "refine=True is not ported yet (ROADMAP A.8)")
+        self.diis = diis + f" diis_max={diis_max}"
+        if len(self.exp_data) > 1:
+            print("Warning: ES data found but GS solver used; only GS data "
+                  "used")
+        tsini, lsini = self._tl_init(tl1ini)
+        ts, ls = tsini.copy(), lsini.copy()
+        idx_L_print = np.round(np.linspace(0, len(Larray) - 1,
+                                           nbr_cube_file)).astype(int)
+        if target_rdm1_GS is None:
+            target_rdm1_GS = self.target_rdm1_GS
+        self.Delta_rdm1 = []
+
+        Ek_HF_GS = self.Ek_HF_GS if HF_prop else None
+        hf_prop = self.HF_prop if HF_prop else False
+        VXexp = Exp(Larray[0], [self.exp_data[0]], self.mol, self.mo_coeff,
+                    Ek_exp_GS=self.Ek_exp_GS, HF_prop=hf_prop,
+                    Ek_HF_GS=Ek_HF_GS)
+        if self.myccsd is None:
+            self.myccsd = GCC(self.eris)
+        Solve = Solver_CCSD(self.myccsd, VXexp, conv=conv,
+                            conv_thres=conv_thres, tsini=tsini, lsini=lsini,
+                            diis=diis, maxdiis=diis_max, maxiter=maxiter,
+                            vvvv_op=self.vvvv_op, mo_perm=self.mo_perm)
+        td = ld = None
+        Result = None
+        Ep = Delta = vmax = None
+        self.init_plot_var(Larray)
+        print()
+        print("##############################################")
+        print("#  Results using SCF for CCSD- GS calculation ")
+        print("##############################################")
+        print()
+        for idx_L, L in enumerate(Larray):
+            print("LAMBDA= ", L)
+            if resume and checkpoint_dir is not None:
+                saved = checkpoint.load_amplitudes(checkpoint_dir, L)
+                if saved is not None:
+                    ts, ls = saved["ts"], saved["ls"]
+                    td, ld = saved["td"], saved["ld"]
+            # amplitudes stay on the device across the warm-started sweep
+            Result = Solve.SCF(L, ts=ts, ls=ls, td=td, ld=ld, alpha=alpha,
+                               keep_device=True)
+            ts, ls, td, ld = Result[5]
+            self.solve_log.append(Solve.last_solve)
+            if checkpoint_dir is not None:
+                checkpoint.save_amplitudes(
+                    checkpoint_dir, L,
+                    {"ts": _host(ts), "ls": _host(ls), "td": _host(td),
+                     "ld": _host(ld)},
+                    meta={"Ep": float(Result[1][-1])})
+            if self.out_dir is not None and idx_L in idx_L_print:
+                fout = os.path.join(self.out_dir, f"L{L:.2f}")
+                output.cube_rdm1(Result[4], self.mo_coeff, self.mol, fout)
+            if print_ite_info:
+                output.print_iteration_table(Result, conv, tablefmt)
+            print(Result[0])
+            Ep = Result[1][-1]
+            Delta = Result[2][-1][0]
+            vmax = Result[2][-1][1]
+            print("Delta = ", Delta)
+            print()
+            if target_rdm1_GS is not None and self.cal_rdm1_Delta:
+                diff = np.subtract(target_rdm1_GS, Result[4])
+                self.Delta_rdm1.append(
+                    np.sum(np.abs(diff)) / np.sum(np.abs(
+                        target_rdm1_GS - np.diag(self.mo_occ))))
+            self.Delta_lamb.append(Delta)
+            self.Ep_lamb.append(self.EHF - Ep)
+            self.vmax_lamb.append(vmax)
+            if VXexp.Delta_Ek_GS is not None:
+                self.Delta_Ek.append(VXexp.Delta_Ek_GS)
+        print()
+        print("FINAL RESULTS")
+        print("Ep   = " + format_float.format(Ep + self.EHF))
+        print("Delta   = " + format_float.format(Delta))
+        if VXexp.Delta_Ek_GS is not None:
+            print("DEk  = " + format_float.format(VXexp.Delta_Ek_GS))
+        print()
+        print("EHF    = " + format_float.format(self.EHF))
+        if self.Eexp_GS is not None:
+            print("Eexp   = " + format_float.format(self.Eexp_GS))
+        if self.out_dir is not None:
+            self.print_results()
+        # the public API returns NumPy amplitudes (one fetch, at the end)
+        return tuple(Result[:5]) + ([_host(a) for a in Result[5]],)
+
+    def CCS_GS(self, *args, **kwargs):
+        raise NotImplementedError("CCS_GS is not ported yet (ROADMAP A.9)")
+
+    def CCS_ES(self, *args, **kwargs):
+        raise NotImplementedError("CCS_ES is not ported yet (ROADMAP A.11)")
+
+    # ------------------------------------------------------------------
+    # Output (reference Main.py:956-1179)
+    # ------------------------------------------------------------------
+
+    def print_results(self, out_dir=None):
+        return output.print_results_gs(self, out_dir)
+
+    def plot_results(self):
+        return output.plot_results_gs(self)

@@ -1,0 +1,381 @@
+"""Ground-state ECW-CCSD solver (port of ecw_cc_tpu/solvers/gs.py
+Solver_CCSD, device route; reference Solver_GS.py:521-742).
+
+The solve runs on the spin-SORTED, sector-blocked route: ERIs in the sorted
+layout with a SectoredVVVV ladder operand, the sectored t/lambda updates of
+ops/ccsd_sect.py (with the closed-shell mirror symmetry where its gate
+passes), both vvvv ladders as one stacked sector GEMM per iteration through
+the hand-written kernel, the device GS Vexp and a packed 'tl' DIIS.
+
+The JAX package compiles the solve as one lax.while_loop.  Here it is a
+Python loop whose state stays on the device; each iteration reads back one
+scalar, the convergence measure Dconv, for the loop test.  Public
+amplitudes and rdm1s are in the reference (alternating) spin convention:
+they are sorted once on entry and unsorted once on exit.
+
+Routes that are not ported raise NotImplementedError naming their ROADMAP
+item: the dense kernels (mo_perm=None or a failed structure gate, A.2),
+reduced precision and refine (A.8), and SCF_batch (A.13).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ecw_cc_tpu.utils.metrics import IterationMetrics
+from ecw_cc_torch.config import get_config
+from ecw_cc_torch.ops import ccsd as ccsd_ops
+from ecw_cc_torch.ops import ccsd_sect
+from ecw_cc_torch.ops import diis as diis_ops
+from ecw_cc_torch.ops import spinsect
+from ecw_cc_torch.ops.ladder import (SectoredVVVV,
+                                     balanced_stacked_sectored_contract)
+from ecw_cc_torch.ops.vexp import make_gs_vexp_device
+
+# status codes of a solve (as in the JAX solver)
+RUNNING, CONVERGED, MAXITER, DIVERGED = 0, 1, 2, 3
+
+
+def _perm2(t, o_idx, v_idx):
+    """Apply occ/vir index maps to a (nocc, nvir) amplitude."""
+    return t[o_idx][:, v_idx]
+
+
+def _perm4(t, o_idx, v_idx):
+    """Apply occ/vir index maps to a (nocc, nocc, nvir, nvir) amplitude."""
+    return t[o_idx][:, o_idx][:, :, v_idx][:, :, :, v_idx]
+
+
+def _record_metrics(solver_obj, name, L, Ep_it, Delta_it, conv_it):
+    """solver.last_metrics from the per-iteration histories (JSON lines to
+    $ECW_CC_TPU_METRICS when set, as in the JAX package)."""
+    m = IterationMetrics(solver=name, L=float(L) if np.isscalar(L) else None)
+    for i, Ep in enumerate(np.atleast_1d(Ep_it)):
+        row = {"Ep": float(Ep)}
+        if i < len(conv_it):
+            row["conv"] = float(conv_it[i])
+        if i < len(Delta_it):
+            d = np.ravel(Delta_it[i])
+            row["Delta"] = float(d[0])
+            if d.size == 2:
+                row["vmax"] = float(d[1])
+        m.record(i, **row)
+    solver_obj.last_metrics = m
+    path = os.environ.get("ECW_CC_TPU_METRICS")
+    if path:
+        m.write(path)
+    return m
+
+
+def _conv_text(status, L, n_ite, alpha=None):
+    if status == CONVERGED:
+        return (f"Convergence reached for lambda= {L} and alpha={alpha}, "
+                f"after {n_ite} iteration")
+    if status == MAXITER:
+        return "Max iteration reached"
+    return f"Diverges for lambda = {L} after {n_ite} iterations"
+
+
+def _not_ported(what, item):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class Solver_CCSD:
+    """Reference API: Solver_GS.Solver_CCSD (Solver_GS.py:521-742).
+
+    mycc: ops.ccsd.GCC over torch ERIs in the spin-sorted layout (the
+    device and dtype of the solve are those of mycc.eris);
+    vvvv_op: their SectoredVVVV ladder operand; mo_perm: the MO permutation
+    (new_from_old) the layout was sorted with."""
+
+    def __init__(self, mycc, VX_exp, conv="tl", conv_thres=1e-6, tsini=None,
+                 lsini=None, tdini=None, ldini=None, diis="", maxiter=40,
+                 maxdiis=None, mindiis=None, energy_term="ref", vvvv_op=None,
+                 mo_perm=None):
+        if mo_perm is None:
+            raise _not_ported("the alternating-layout (dense kernel) solve",
+                              "A.2")
+        if not isinstance(vvvv_op, SectoredVVVV):
+            raise _not_ported("a solve without a SectoredVVVV ladder operand",
+                              "A.2")
+        if conv not in ("Ep", "l", "tl"):
+            raise ValueError("Accepted convergence parameter is Ep, l or tl")
+        if diis not in ("", "tl", "rdm1"):
+            raise ValueError("diis must be '', 'tl' or 'rdm1'")
+        self.mycc = mycc
+        self.myVexp = VX_exp
+        self.vvvv_op = vvvv_op
+        self.nocc, self.nvir = mycc.nocc, mycc.nvir
+        fock = mycc.eris.fock
+        self.device, self.dtype = fock.device, fock.dtype
+        self.diis = diis
+        self.maxdiis = get_config().maxdiis if maxdiis is None else maxdiis
+        self.mindiis = get_config().mindiis if mindiis is None else mindiis
+        self.maxiter = maxiter
+        self.conv_thres = conv_thres
+        self.energy_term = energy_term
+        self.conv = conv
+
+        nocc = self.nocc
+        self.mo_perm = np.asarray(mo_perm)
+        po = self.mo_perm[:nocc]
+        pv = self.mo_perm[nocc:] - nocc
+        idx = lambda a: torch.as_tensor(a, device=self.device)
+        self._po, self._pv = idx(po), idx(pv)
+        self._io, self._iv = idx(np.argsort(po)), idx(np.argsort(pv))
+        self._ip = idx(np.argsort(self.mo_perm))
+        # sector sizes of the sorted layout, from the standard alternating
+        # [0,1,0,1,...] GHF orbspin the perm was built from: alpha = even
+        # original indices
+        gv = nocc + pv
+        self._sinfo = spinsect.SectorInfo(
+            int(np.sum(po % 2 == 0)), int(np.sum(po % 2 == 1)),
+            int(np.sum(gv % 2 == 0)), int(np.sum(gv % 2 == 1)))
+
+        self.tsini = self._amp(tsini, (nocc, self.nvir))
+        self.lsini = self._amp(lsini, (nocc, self.nvir))
+        if tdini is None:
+            # MP2 guess, built in the sorted layout and unsorted
+            diag = torch.diagonal(fock)
+            eia = diag[:nocc, None] - diag[None, nocc:]
+            eijab = eia[:, None, :, None] + eia[None, :, None, :]
+            tdini = _perm4(mycc.eris.oovv / eijab, self._io, self._iv)
+            ldini = tdini
+        self.tdini = self._amp(tdini)
+        self.ldini = self._amp(ldini)
+        self._eris_sym_checked = None
+
+    def _amp(self, a, zeros_shape=None):
+        if a is None:
+            return torch.zeros(zeros_shape, dtype=self.dtype,
+                               device=self.device)
+        if isinstance(a, torch.Tensor):
+            return a.to(device=self.device, dtype=self.dtype)
+        return torch.tensor(np.asarray(a), dtype=self.dtype,
+                            device=self.device)
+
+    # ------------------------------------------------------------------
+    # structure gates (host-side, once per solver)
+    # ------------------------------------------------------------------
+    def _vexp_mats_sorted(self):
+        """The GS target and potential matrices in the sorted layout."""
+        P = self.mo_perm
+        exp = self.myVexp
+        mats = []
+        for i, n in enumerate(exp.prop_names[0]):
+            if n == "mat":
+                mats.append(np.asarray(exp.exp_data[0][i][1])[np.ix_(P, P)])
+        for v in exp.dic_int.values():
+            arr = np.real(np.asarray(v))
+            if arr.ndim == 2:
+                mats.append(arr[np.ix_(P, P)])
+            else:
+                mats.extend(a[np.ix_(P, P)]
+                            for a in arr.reshape(-1, *arr.shape[-2:]))
+        return mats
+
+    def _vexp_block_diagonal(self):
+        """True if every GS target / potential matrix is spin-block-diagonal
+        in the sorted layout: then the amplitudes keep their spin structure
+        and the sector-blocked kernels are exact."""
+        return all(
+            spinsect.is_block_diagonal(
+                m, self._sinfo, tol=1e-10 * max(1.0, float(np.abs(m).max())))
+            for m in self._vexp_mats_sorted())
+
+    def _spin_restricted(self):
+        """Closed-shell mirror-symmetry gate for the sym kernels: equal
+        alpha/beta sector sizes, every target / potential matrix
+        spin-restricted, and the ERI blocks and ladder operand numerically
+        flip-symmetric (one device check per solver)."""
+        info = self._sinfo
+        if info.oa != info.ob or info.va != info.vb:
+            return False
+        if not all(
+                spinsect.is_spin_restricted(
+                    m, info, tol=1e-10 * max(1.0, float(np.abs(m).max())))
+                for m in self._vexp_mats_sorted()):
+            return False
+        if self._eris_sym_checked is None:
+            eris = self.mycc.eris
+            eps = float(torch.finfo(self.dtype).eps)
+            d = torch.diagonal(eris.fock)
+            no, va = info.nocc, info.va
+            worst = [(d[:info.oa] - d[info.oa:no]).abs().max(),
+                     (d[no:no + va] - d[no + va:]).abs().max()]
+            scale = [torch.ones((), dtype=self.dtype, device=self.device)]
+            for name in ("oooo", "ooov", "oovv", "ovov", "ovvo", "ovvv",
+                         "ovoo", "vovv"):
+                blk = getattr(eris, name)
+                worst.append(spinsect.spin_flip_asymmetry(blk, name, info))
+                scale.append(blk.abs().max())
+            vv = self.vvvv_op
+            if vv.wc_aa.shape != vv.wc_bb.shape:
+                self._eris_sym_checked = False
+                return False
+            worst.append((vv.wc_aa - vv.wc_bb).abs().max())
+            scale.append(vv.wc_aa.abs().max())
+            worst_v, scale_v = (float(torch.stack(worst).max()),
+                                float(torch.stack(scale).max()))
+            self._eris_sym_checked = worst_v <= 1e3 * eps * scale_v
+        return self._eris_sym_checked
+
+    # ------------------------------------------------------------------
+    # the solve
+    # ------------------------------------------------------------------
+    def SCF(self, L, ts=None, ls=None, td=None, ld=None, alpha=None, diis="",
+            keep_device=False, refine=False):
+        """Solve at constraint weight L.  Returns the reference 6-tuple
+        (conv_text, Ep_it, Delta_it, conv_it, rdm1, [ts, ls, td, ld]),
+        amplitudes as NumPy arrays (device tensors with keep_device=True)."""
+        if refine:
+            raise _not_ported("refine=True (f64 polish)", "A.8")
+        if get_config().iter_precision != "highest":
+            raise _not_ported(f"iter_precision="
+                              f"{get_config().iter_precision!r}", "A.8")
+        if not (get_config().soup_sector and self._vexp_block_diagonal()):
+            raise _not_ported("the dense-kernel solve (sector gate off or "
+                              "Vexp not spin-block-diagonal)", "A.2")
+        sym = get_config().soup_sym and self._spin_restricted()
+        amps0 = [self._amp(a) if a is not None else d for a, d in
+                 zip((ts, ls, td, ld),
+                     (self.tsini, self.lsini, self.tdini, self.ldini))]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = self._solve(L, *amps0, alpha=alpha, diis=diis or self.diis,
+                              sym=sym)
+        (ts, ls, td, ld, rdm1, ite, k, status, Ep_h, Delta_h, vmax_h,
+         conv_h) = out
+        # wall time to solution: _solve ends in a device->host copy
+        self.last_solve = {"L": L, "iterations": k, "status": status,
+                           "sym": sym,
+                           "ms": (time.perf_counter() - t0) * 1e3}
+        text = _conv_text(status, L, ite, alpha=alpha)
+        Delta_it = np.stack([Delta_h[:k], vmax_h[:k]], axis=1)
+        amps = [ts, ls, td, ld]
+        if not keep_device:
+            amps = [a.cpu().numpy() for a in amps]
+        self.myVexp.Vexp_update(rdm1, rdm1, (0, 0), L=L)
+        _record_metrics(self, "CCSD_device", L, Ep_h[:k], Delta_it,
+                        conv_h[:k])
+        return (text, Ep_h[:k], Delta_it, conv_h[:k], rdm1, amps)
+
+    def SCF_batch(self, Larray, alpha=None, diis=""):
+        raise _not_ported("SCF_batch (all lambdas in one batched solve)",
+                          "A.13")
+
+    def _solve(self, L, ts, ls, td, ld, alpha, diis, sym):
+        eris = self.mycc.eris
+        vv = self.vvvv_op
+        info = self._sinfo
+        dev, dt = self.device, self.dtype
+        nocc, nvir = self.nocc, self.nvir
+        dim = nocc + nvir
+        thres, maxiter, conv_kind = self.conv_thres, self.maxiter, self.conv
+        vexp_fn = make_gs_vexp_device(self.myVexp, perm=self.mo_perm,
+                                      dtype=dt, device=dev)
+        Lw = self.myVexp.L_check(L)[0]
+
+        # packed balanced-block space (canonical blocks when sym): the
+        # amplitudes live entirely there, so packing is lossless
+        p_ov = lambda a: spinsect.pack_balanced(a, "ov", info, sym=sym)
+        p_4 = lambda a: spinsect.pack_balanced(a, "oovv", info, sym=sym)
+        u_ov = lambda f: spinsect.unpack_balanced(f, "ov", info, sym=sym)
+        u_4 = lambda f: spinsect.unpack_balanced(f, "oovv", info, sym=sym)
+        n_ov = spinsect.packed_size("ov", info, sym=sym)
+        n_4 = spinsect.packed_size("oovv", info, sym=sym)
+
+        def conv_vec(ts, ls, td, ld, fsp):
+            if conv_kind == "tl":
+                return torch.cat([p_ov(ls.abs() + ts.abs()),
+                                  p_4(ld.abs() + td.abs())])
+            if conv_kind == "l":
+                return torch.cat([p_ov(ls), p_4(ld)])
+            return ccsd_ops.energy(eris, ts, td, fsp).reshape(1)
+
+        # one sort on entry
+        po, pv = self._po, self._pv
+        ts, ls = _perm2(ts, po, pv), _perm2(ls, po, pv)
+        td, ld = _perm4(td, po, pv), _perm4(ld, po, pv)
+        eris_sb = ccsd_sect.wrap_eris(eris, info, sym=sym)
+
+        nvec = (2 * n_ov + 2 * n_4) if diis == "tl" else dim * dim
+        dstate = (diis_ops.diis_init(nvec, self.maxdiis, dtype=dt, device=dev)
+                  if diis else None)
+        conv = torch.zeros_like(conv_vec(ts, ls, td, ld, eris.fock))
+        hist = torch.zeros((4, maxiter + 2), dtype=dt, device=dev)
+        Dconv, Dconv_v = torch.ones((), dtype=dt, device=dev), 1.0
+        ite = k = 0
+        status = RUNNING
+        rdm1 = torch.zeros((dim, dim), dtype=dt, device=dev)
+        while Dconv_v > thres and status == RUNNING:
+            conv_old = conv
+            rdm1 = ccsd_ops.gamma_CCSD(
+                ts, td, ls, ld,
+                inter=ccsd_sect.gamma_inter_sect(ts, td, ls, ld, info,
+                                                 sym=sym))
+            if diis == "rdm1":
+                dstate, vec = diis_ops.diis_update(dstate, rdm1.reshape(-1),
+                                                   self.mindiis)
+                rdm1 = vec.reshape(dim, dim)
+            V, Delta, vmax = vexp_fn(rdm1, Lw)
+            fsp = eris.fock - V
+            Ep = ccsd_ops.energy(eris, ts, td, fsp)
+            # both vvvv ladders read only pre-update amplitudes: one stacked
+            # sector GEMM per spin sector (blocked tau shared with tupdate)
+            tau_pre = ccsd_sect._tau_b(
+                spinsect.wrap(td, "oovv", info, sym=sym),
+                spinsect.wrap(ts, "ov", info, sym=sym))
+            ladder_t, ladder_l = balanced_stacked_sectored_contract(
+                vv, tau_pre, ld, info.oa, sym=sym, blocked_info=info)
+            ts, td = ccsd_sect.tupdate_sect(
+                eris, ts, td, fsp, info, alpha=alpha, vvvv_op=vv,
+                ladder_pre=ladder_t, eris_sb=eris_sb, sym=sym,
+                tau_pre=tau_pre)
+            ls, ld = ccsd_sect.lupdate_sect(
+                eris, ts, td, ls, ld, fsp, info, alpha=alpha,
+                energy_term=self.energy_term, vvvv_op=vv,
+                ladder_pre=ladder_l, eris_sb=eris_sb, sym=sym)
+            vec = None
+            if diis == "tl":
+                dstate, vec = diis_ops.diis_update(
+                    dstate, torch.cat([p_ov(ls), p_ov(ts), p_4(ld), p_4(td)]),
+                    self.mindiis)
+                ls = u_ov(vec[:n_ov])
+                ts = u_ov(vec[n_ov:2 * n_ov])
+                ld = u_4(vec[2 * n_ov:2 * n_ov + n_4])
+                td = u_4(vec[2 * n_ov + n_4:])
+            if vec is not None and conv_kind == "tl":
+                # the packed DIIS vector already holds the components
+                # conv_vec would re-pack
+                conv = torch.cat([
+                    vec[:n_ov].abs() + vec[n_ov:2 * n_ov].abs(),
+                    vec[2 * n_ov:2 * n_ov + n_4].abs()
+                    + vec[2 * n_ov + n_4:].abs()])
+            else:
+                conv = conv_vec(ts, ls, td, ld, fsp)
+            if ite > 0:
+                Dconv = torch.linalg.norm(conv - conv_old)
+                Dconv_v = float(Dconv)       # the one read per iteration
+            hist[:, k] = torch.stack([Ep, Delta, vmax, Dconv])
+            if ite >= maxiter:
+                status = MAXITER
+            elif Dconv_v > 1.0:
+                status = DIVERGED
+            else:
+                ite += 1
+            k += 1
+        if status == RUNNING:
+            status = CONVERGED
+        # one unsort on exit
+        io, iv, ip = self._io, self._iv, self._ip
+        ts, ls = _perm2(ts, io, iv), _perm2(ls, io, iv)
+        td, ld = _perm4(td, io, iv), _perm4(ld, io, iv)
+        rdm1 = rdm1[ip][:, ip]
+        hist_np = hist.cpu().numpy()
+        return (ts, ls, td, ld, rdm1.cpu().numpy(), ite, k, status,
+                hist_np[0], hist_np[1], hist_np[2], hist_np[3])
