@@ -3,14 +3,19 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase below
+    python3 chip_smoke.py --kernel-times   # phase 1 and the kernel timing only
 
 Phases, one output line each; any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), TF32 off;
-  2. build: the hand-written kernels compiled from ecw_cc_torch/csrc;
+  2. build: the hand-written kernels compiled from ecw_cc_torch/csrc, with
+     ptxas's registers and spills per kernel, and the SASS check that the
+     f64 ladder_mm runs DMMA and the f32 one no HMMA;
   3. kernel vs plain: ladder_mm against ladder_mm_ref (a @ b.T) in f32 and
-     f64 at the solver's two sector-GEMM shapes and at ragged shapes, and
-     both timed with CUDA events at the solver's shapes;
+     f64 at the solver's two sector-GEMM shapes, ragged shapes and shapes
+     at the edges of the split-K plan (printed per shape); two launches
+     bitwise equal; one launch captured in a CUDA graph and replayed twice,
+     equal to the eager result; then both timed at the solver's shapes;
   4. main path, f32: ECW('c2h2', 'cc-pvdz') -> HF target with a field ->
      CCSD_GS over lambda = 0, 0.25, 0.5 (diis 'tl', conv_thres 1e-6); every
      lambda must converge and every iteration must launch the ladder
@@ -22,9 +27,18 @@ Phases, one output line each; any failure raises and exits nonzero:
 Before the last line it prints the kernel report as one JSON object and
 the card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+
+Kernel times are device times: a sleep kernel holds the stream while the
+host enqueues a run of TIMING_LAUNCHES back-to-back launches between two
+CUDA events, so the run's time over its count excludes the host's enqueue;
+the median of TIMING_RUNS runs, kernel and plain in turns.  The host's own
+cost per call (no sync between calls) is printed beside it.
 """
 
+import collections
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -38,10 +52,20 @@ FIELD = [0.05, 0.01, 0.0]
 LAMBDAS = [0.0, 0.25, 0.5]
 CONV_THRES = 1e-6
 CHAIN_ITERS = 40
+DTYPES = (torch.float32, torch.float64)
 MAIN_SHAPES = [(98, 465, 465), (98, 961, 961)]          # (M, N, K)
 RAGGED_SHAPES = [(1, 1, 1), (37, 513, 129), (100, 130, 1001)]
+# The split-K plan's edges: K across 16 chunks (split 8 -> 16 at N = 465)
+# and 17, K across a chunk boundary at N = 961, K below one chunk, one row,
+# and M = 129 (two row tiles).
+EDGE_SHAPES = [(98, 465, 240), (98, 465, 241), (98, 465, 256), (98, 465, 257),
+               (98, 961, 959), (98, 961, 960), (98, 465, 15), (98, 465, 17),
+               (1, 961, 961), (129, 465, 465), (129, 961, 961)]
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}       # x max|C_ref|
-TIMING_REPEATS = 30
+TIMING_RUNS = 10
+TIMING_LAUNCHES = 50
+HOST_CALLS = 200
+SLEEP_CYCLES = 20_000_000   # ~11 ms at 1.8 GHz: longer than any enqueue run
 
 
 def phase(n, name, **fields):
@@ -65,20 +89,54 @@ def operands(shape, dtype, seed):
     return a, b
 
 
-def event_ms(fn):
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop)
+def tag(shape):
+    return "x".join(map(str, shape))
 
 
-def check_kernel(ladder_mm, ladder_mm_ref):
-    worst_main = 0.0
-    for dtype in (torch.float32, torch.float64):
-        for i, shape in enumerate(MAIN_SHAPES + RAGGED_SHAPES):
+def sass_counts(path):
+    """{kernel name: Counter of DMMA/HMMA/FFMA} from cuobjdump -sass."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = collections.Counter()
+        elif fn is not None:
+            for op in re.findall(r"\b(DMMA|HMMA|FFMA)\b", line):
+                counts[fn][op] += 1
+    return counts
+
+
+def check_sass(path):
+    """Every f64 ladder_mm instance runs DMMA; no f32 one touches the
+    tensor cores (no TF32, no HMMA)."""
+    counts = sass_counts(path)
+    f32 = {n: dict(c) for n, c in counts.items() if "ladder_mm_ntIf" in n}
+    f64 = {n: dict(c) for n, c in counts.items() if "ladder_mm_ntId" in n}
+    if not f32 or not f64:
+        raise AssertionError(f"ladder_mm kernels not found in SASS: "
+                             f"{sorted(counts)}")
+    if not all(c.get("DMMA", 0) for c in f64.values()):
+        raise AssertionError(f"an f64 ladder_mm runs no DMMA: {f64}")
+    if any(c.get("HMMA", 0) or c.get("DMMA", 0) for c in f32.values()):
+        raise AssertionError(f"an f32 ladder_mm uses tensor cores: {f32}")
+    return {"float32": list(f32.values()), "float64": list(f64.values())}
+
+
+def plan_fields(p):
+    return {"tile": [p.bm, p.bn, p.bk], "tiles": [p.m_tiles, p.n_tiles],
+            "split_k": p.split, "blocks": p.blocks}
+
+
+def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm):
+    """Kernel against plain at every shape; the main shapes' plans fill
+    the card.  Returns {(dtype, shape): (max_abs_err, plan)}."""
+    out = {}
+    for dtype in DTYPES:
+        for i, shape in enumerate(MAIN_SHAPES + RAGGED_SHAPES + EDGE_SHAPES):
             a, b = operands(shape, dtype, seed=i)
             c = ladder_mm(a, b)
             torch.cuda.synchronize()
@@ -86,30 +144,105 @@ def check_kernel(ladder_mm, ladder_mm_ref):
             torch.cuda.synchronize()
             err = float((c - ref).abs().max())
             scale = float(ref.abs().max())
-            ok = err <= TOL[dtype] * scale
+            ok = bool(torch.isfinite(c).all()) and err <= TOL[dtype] * scale
+            p = device_plan(*shape, dtype, a.device)
             phase(3, "kernel_vs_plain", dtype=str(dtype), shape=shape,
-                  max_abs_err=err, max_abs_ref=scale, ok=ok)
+                  max_abs_err=err, max_abs_ref=scale, ok=ok, **plan_fields(p))
             if not ok:
                 raise AssertionError(f"ladder_mm disagrees at {shape} "
                                      f"{dtype}: {err} > {TOL[dtype]} * "
                                      f"{scale}")
-            if dtype == torch.float32 and shape in MAIN_SHAPES:
-                worst_main = max(worst_main, err)
+            if shape in MAIN_SHAPES and p.blocks < n_sm:
+                raise AssertionError(f"plan at {shape} {dtype} launches "
+                                     f"{p.blocks} blocks on {n_sm} SMs")
+            out[(dtype, shape)] = (err, p)
+    return out
+
+
+def check_deterministic(ladder_mm):
+    """Two launches on the same inputs give the same bits; so does a launch
+    captured in a CUDA graph on a side stream, replayed twice."""
+    for dtype in DTYPES:
+        for shape in MAIN_SHAPES:
+            a, b = operands(shape, dtype, seed=11)
+            c1, c2 = ladder_mm(a, b), ladder_mm(a, b)
+            s = torch.cuda.Stream()
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                ladder_mm(a, b)   # warm-up on the capture stream
+            s.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=s):
+                cg = ladder_mm(a, b)
+            replays = []
+            for _ in range(2):
+                cg.fill_(float("nan"))
+                g.replay()
+                torch.cuda.synchronize()
+                replays.append(bool(torch.equal(cg, c1)))
+            bitwise = bool(torch.equal(c1, c2))
+            phase(3, "kernel_deterministic", dtype=str(dtype), shape=shape,
+                  bitwise=bitwise, graph_replays_equal=replays)
+            if not (bitwise and all(replays)):
+                raise AssertionError(f"ladder_mm is not deterministic at "
+                                     f"{shape} {dtype}: {bitwise}, "
+                                     f"{replays}")
+
+
+def device_run_ms(fn, n):
+    """Device ms per launch of n back-to-back launches of fn."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)   # the enqueue below ends before it does
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def host_us(fn, n):
+    """Host µs per call, n calls with no sync in between."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def time_kernel(ladder_mm, ladder_mm_ref):
+    """{(dtype, shape): times} for the kernel and a @ b.T at MAIN_SHAPES."""
     times = {}
-    for shape in MAIN_SHAPES:
-        a, b = operands(shape, torch.float32, seed=0)
-        for _ in range(5):
-            ladder_mm(a, b)
-            ladder_mm_ref(a, b)
-        torch.cuda.synchronize()
-        t_k, t_r = [], []
-        for _ in range(TIMING_REPEATS):     # in turns: plain, kernel
-            t_r.append(event_ms(lambda: ladder_mm_ref(a, b)))
-            t_k.append(event_ms(lambda: ladder_mm(a, b)))
-        times[shape] = (statistics.median(t_k), statistics.median(t_r))
-        phase(3, "kernel_time_f32", shape=shape, ms=times[shape][0],
-              plain_ms=times[shape][1], repeats=TIMING_REPEATS)
-    return worst_main, times
+    for dtype in DTYPES:
+        for shape in MAIN_SHAPES:
+            a, b = operands(shape, dtype, seed=0)
+
+            def kern():
+                return ladder_mm(a, b)
+
+            def plain():
+                return ladder_mm_ref(a, b)
+
+            for _ in range(5):
+                kern()
+                plain()
+            torch.cuda.synchronize()
+            runs = {kern: [], plain: []}
+            for i in range(TIMING_RUNS):   # plain, kernel, kernel, plain, ...
+                for fn in ((plain, kern) if i % 2 == 0 else (kern, plain)):
+                    runs[fn].append(device_run_ms(fn, TIMING_LAUNCHES))
+            t = {"ms": statistics.median(runs[kern]),
+                 "plain_ms": statistics.median(runs[plain]),
+                 "ms_runs": runs[kern], "plain_ms_runs": runs[plain],
+                 "host_us": host_us(kern, HOST_CALLS),
+                 "plain_host_us": host_us(plain, HOST_CALLS)}
+            times[(dtype, shape)] = t
+            phase(3, "kernel_time", dtype=str(dtype), shape=shape,
+                  runs=TIMING_RUNS, launches_per_run=TIMING_LAUNCHES, **t)
+    return times
 
 
 def build_ecw(device, dtype):
@@ -125,14 +258,41 @@ def solve(ecw, lambdas, **kw):
     return res, ecw.solve_log
 
 
-def main():
+def kernel_report(launches, checks, times):
+    by_dtype = {}
+    for dtype in DTYPES:
+        by_dtype[str(dtype).split(".")[-1]] = {tag(shape): {
+            "ms": times[(dtype, shape)]["ms"],
+            "plain_ms": times[(dtype, shape)]["plain_ms"],
+            "host_us": times[(dtype, shape)]["host_us"],
+            "plain_host_us": times[(dtype, shape)]["plain_host_us"],
+            "max_abs_err": checks[(dtype, shape)][0],
+            "blocks": checks[(dtype, shape)][1].blocks,
+            "split_k": checks[(dtype, shape)][1].split}
+            for shape in MAIN_SHAPES}
+    main = (torch.float32, MAIN_SHAPES[-1])
+    return {"kernels": [{
+        "name": "ladder_mm", "route": "cuda",
+        "source": "ecw_cc_torch/csrc/ladder_mm.cu",
+        "replaces": "ecw_cc_tpu/ops/ladder.py:54",
+        "launches": launches,
+        "max_abs_err": max(checks[(torch.float32, s)][0]
+                           for s in MAIN_SHAPES),
+        "ms": times[main]["ms"], "plain_ms": times[main]["plain_ms"],
+        "blocks": checks[main][1].blocks, "split_k": checks[main][1].split,
+        "deterministic": True, "by_dtype": by_dtype}]}
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU",
               file=sys.stderr)
         return 2
     import ecw_cc_torch.config  # noqa: F401  (sets the TF32 switches)
     from ecw_cc_torch.kernels import build
-    from ecw_cc_torch.kernels.ladder_mm import ladder_mm, ladder_mm_ref
+    from ecw_cc_torch.kernels import ladder_mm as lmm
+
+    ladder_mm, ladder_mm_ref = lmm.ladder_mm, lmm.ladder_mm_ref
 
     # 1. device
     smi = nvidia_smi()
@@ -140,18 +300,34 @@ def main():
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     assert tf32 == (False, False), f"TF32 is on: {tf32}"
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     phase(1, "device", nvidia_smi=smi, torch=torch.__version__,
-          cuda=torch.version.cuda, count=torch.cuda.device_count())
+          cuda=torch.version.cuda, count=torch.cuda.device_count(),
+          sms=n_sm)
+
+    if "--kernel-times" in argv:
+        # Timing only, through whatever ecw_cc_torch is importable: the
+        # same method can time an older checkout's kernel.
+        times = time_kernel(ladder_mm, ladder_mm_ref)
+        print(json.dumps({"kernel_times": {
+            f"{str(d).split('.')[-1]} {tag(s)}": t
+            for (d, s), t in times.items()}}))
+        print(smi)
+        return 0
 
     # 2. build
     t0 = time.perf_counter()
     lib = build.library()
     phase(2, "build", seconds=time.perf_counter() - t0,
           nvcc_seconds=lib.build_seconds, library=lib.path,
-          ptxas=[ln for ln in lib.log.splitlines() if "registers" in ln])
+          ptxas=[ln.strip() for ln in lib.log.splitlines()
+                 if re.search(r"registers|spill|entry function", ln)],
+          sass=check_sass(lib.path))
 
     # 3. kernel vs plain
-    worst_main, times = check_kernel(ladder_mm, ladder_mm_ref)
+    checks = check_kernel(ladder_mm, ladder_mm_ref, lmm.device_plan, n_sm)
+    check_deterministic(ladder_mm)
+    times = time_kernel(ladder_mm, ladder_mm_ref)
 
     # 4. main path, f32
     ecw32 = build_ecw("cuda", torch.float32)
@@ -206,13 +382,7 @@ def main():
     assert "jax" not in sys.modules, "jax was imported"
     phase(6, "no_jax", ok=True)
 
-    ms, plain_ms = times[MAIN_SHAPES[-1]]
-    print(json.dumps({"kernels": [{
-        "name": "ladder_mm", "route": "cuda",
-        "source": "ecw_cc_torch/csrc/ladder_mm.cu",
-        "replaces": "ecw_cc_tpu/ops/ladder.py:54",
-        "launches": launches, "max_abs_err": worst_main,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    print(json.dumps(kernel_report(launches, checks, times)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -221,4 +391,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

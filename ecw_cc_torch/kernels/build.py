@@ -29,9 +29,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 # name -> argtypes; every function returns its launch's cudaError_t
+# ladder_mm: device, a, b, c, M, N, K, bm, bn, bk, split, stream
+_LADDER_MM = [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
+              _INT, _PTR]
 _SIGNATURES = {
-    "ecw_ladder_mm_f32": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
-    "ecw_ladder_mm_f64": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "ecw_ladder_mm_f32": _LADDER_MM,
+    "ecw_ladder_mm_f64": _LADDER_MM,
 }
 
 

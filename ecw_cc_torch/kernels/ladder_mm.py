@@ -1,14 +1,22 @@
-"""The ladder GEMM C = A @ B.T: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""The ladder GEMM C = A @ B.T: the hand-written Hopper kernel, its planner
+and its plain PyTorch version.
 
 `ladder_mm` launches `csrc/ladder_mm.cu` for CUDA tensors and raises on
 anything the kernel does not take; it never falls back.  Only for CPU
 tensors does it compute the plain `ladder_mm_ref`.  `ladder_mm.launches`
 counts kernel launches, so a run can show that its main path went through
 the kernel.
+
+`plan` is pure Python: it picks the tile width and the split of K across
+the blocks of a thread block cluster that fill the card at the solver's
+skinny shapes (M = 98).  The wrapper hands the plan to the kernel, which
+checks the tile against its own.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -17,6 +25,76 @@ from ecw_cc_torch.kernels import build
 _FUNCS = {torch.float32: "ecw_ladder_mm_f32",
           torch.float64: "ecw_ladder_mm_f64"}
 _INT_MAX = 2 ** 31 - 1
+# The kernel's tiles (kBM, kBK, kMaxSplit and its BN instances in
+# csrc/ladder_mm.cu): f32 is built 64 and 32 columns wide, f64 32.
+BM, BK = 112, 16
+WIDTHS = {torch.float32: (64, 32), torch.float64: (32,)}   # widest first
+MAX_SPLIT = 16            # blocks per cluster
+
+
+class Plan(NamedTuple):
+    bm: int
+    bn: int
+    bk: int
+    m_tiles: int
+    n_tiles: int
+    split: int                # K splits = blocks per cluster
+    k_ranges: tuple           # ((k0, k1), ...) of each split, in split order
+    partials: int             # elements of partial tiles summed across each
+                              # cluster: split * tiles * bm * bn (0 if split 1)
+
+    @property
+    def tiles(self):
+        return self.m_tiles * self.n_tiles
+
+    @property
+    def blocks(self):
+        return self.tiles * self.split
+
+
+def _cdiv(x, y):
+    return -(-x // y)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(M, N, K, dtype, n_sm):
+    """The launch of C (M, N) = A (M, K) @ B (N, K).T on a card of `n_sm` SMs.
+
+    The output is cut into BM x bn tiles, bn the widest of WIDTHS[dtype]
+    whose tiles can still fill the card; K into BK chunks, dealt to `split`
+    blocks per tile (one cluster) as evenly as whole chunks allow: split s
+    takes chunks [s * chunks // split, (s+1) * chunks // split).  The split
+    is the smallest power of two, at most MAX_SPLIT and the chunk count,
+    that gives at least one full wave of n_sm blocks, or the largest there
+    is.  Powers of two because clusters of 9 to 15 blocks ran slower on an
+    H100 than clusters of 8 or 16 at the same shapes."""
+    if dtype not in _FUNCS:
+        raise TypeError(f"ladder_mm has no kernel for {dtype}")
+    if min(M, N) < 1 or K < 0 or n_sm < 1:
+        raise ValueError(f"ladder_mm cannot plan M={M}, N={N}, K={K} on "
+                         f"{n_sm} SMs")
+    m_tiles, chunks = _cdiv(M, BM), _cdiv(K, BK)
+    splits = [s for s in (1, 2, 4, 8, 16) if s <= max(1, min(chunks, MAX_SPLIT))]
+    for bn in WIDTHS[dtype]:
+        tiles = m_tiles * _cdiv(N, bn)
+        if tiles * splits[-1] >= n_sm:
+            break
+    split = next((s for s in splits if tiles * s >= n_sm), splits[-1])
+    bounds = [s * chunks // split * BK for s in range(split)] + [K]
+    k_ranges = tuple((bounds[s], min(bounds[s + 1], K)) for s in range(split))
+    partials = split * tiles * BM * bn if split > 1 else 0
+    return Plan(BM, bn, BK, m_tiles, tiles // m_tiles, split, k_ranges,
+                partials)
+
+
+@functools.cache
+def _n_sm(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_plan(M, N, K, dtype, device):
+    """`plan` for the CUDA device `device`, with its SM count read from it."""
+    return plan(M, N, K, dtype, _n_sm(device.index))
 
 
 def ladder_mm_ref(a, b):
@@ -53,10 +131,11 @@ def ladder_mm(a, b):
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if c.numel() == 0:
         return c
+    p = device_plan(M, N, K, a.dtype, a.device)
     fn = getattr(build.library().cdll, _FUNCS[a.dtype])
-    stream = torch.cuda.current_stream(a.device).cuda_stream
     err = fn(a.device.index, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-             M, N, K, stream)
+             M, N, K, p.bm, p.bn, p.bk, p.split,
+             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ladder_mm kernel launch failed: cudaError {err}")
     ladder_mm.launches += 1

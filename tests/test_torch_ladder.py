@@ -99,18 +99,31 @@ def test_ladder_mm_refuses_non_cuda_devices():
     assert ladder_mm.launches == 0
 
 
+def _card_operands(shape, dtype):
+    M, N, K = shape
+    rng = np.random.default_rng(M * N * K)
+    a = torch.as_tensor(rng.standard_normal((M, K)), dtype=dtype,
+                        device="cuda")
+    b = torch.as_tensor(rng.standard_normal((N, K)), dtype=dtype,
+                        device="cuda")
+    return a, b
+
+
 @pytest.mark.gpu
 def test_ladder_mm_kernel_matches_plain_on_card():
+    """The main, ragged and split-K edge shapes (K where the split changes
+    and around chunk boundaries, K below one chunk, M = 1, M = 129), f32
+    and f64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        for M, N, K in [(98, 465, 465), (98, 961, 961), (1, 1, 1),
-                        (37, 513, 129), (100, 130, 1001)]:
-            rng = np.random.default_rng(M * N * K)
-            a = torch.as_tensor(rng.standard_normal((M, K)), dtype=dtype,
-                                device="cuda")
-            b = torch.as_tensor(rng.standard_normal((N, K)), dtype=dtype,
-                                device="cuda")
+        for shape in [(98, 465, 465), (98, 961, 961), (1, 1, 1),
+                      (37, 513, 129), (100, 130, 1001), (98, 465, 240),
+                      (98, 465, 241), (98, 465, 256), (98, 465, 257),
+                      (98, 961, 959), (98, 961, 960), (98, 465, 15),
+                      (98, 465, 17), (1, 961, 961), (129, 465, 465),
+                      (129, 961, 961)]:
+            a, b = _card_operands(shape, dtype)
             n0 = ladder_mm.launches
             c = ladder_mm(a, b)
             torch.cuda.synchronize()
@@ -118,6 +131,32 @@ def test_ladder_mm_kernel_matches_plain_on_card():
             ref = ladder_mm_ref(a, b)
             assert float((c - ref).abs().max()) <= tol * float(
                 ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_ladder_mm_kernel_is_deterministic_on_card():
+    """Split-K sums in a fixed order: two launches give the same bits, and
+    so does a captured launch replayed twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for dtype in (torch.float32, torch.float64):
+        for shape in [(98, 465, 465), (98, 961, 961)]:
+            a, b = _card_operands(shape, dtype)
+            c1 = ladder_mm(a, b)
+            assert torch.equal(ladder_mm(a, b), c1)
+            s = torch.cuda.Stream()
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                ladder_mm(a, b)
+            s.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=s):
+                cg = ladder_mm(a, b)
+            for _ in range(2):
+                cg.fill_(float("nan"))
+                g.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(cg, c1)
 
 
 @pytest.mark.parametrize("v", [2, 5, 9])

@@ -1,0 +1,90 @@
+"""The split-K planner of the ladder GEMM kernel (ecw_cc_torch.kernels.
+ladder_mm.plan), on the CPU: the plan is pure Python, and the kernel only
+checks the tile it is handed and recomputes the same K ranges."""
+
+import numpy as np
+import pytest
+import torch
+
+from ecw_cc_torch.kernels import ladder_mm as lmm
+
+DTYPES = [torch.float32, torch.float64]
+MAIN = [(98, 465, 465), (98, 961, 961)]
+SHAPES = MAIN + [(1, 1, 1), (1, 961, 961), (129, 465, 465), (98, 465, 15),
+                 (98, 465, 240), (98, 465, 241), (98, 465, 257),
+                 (98, 961, 960), (37, 513, 129), (100, 130, 1001),
+                 (4096, 4096, 64), (5, 3, 0)]
+N_SM = 132   # NVIDIA H100 SXM
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plan_k_ranges_tile_k(shape, dtype):
+    M, N, K = shape
+    p = lmm.plan(M, N, K, dtype, N_SM)
+    assert len(p.k_ranges) == p.split >= 1
+    assert p.k_ranges[0][0] == 0 and p.k_ranges[-1][1] == K
+    for (_, k1), (k0, _) in zip(p.k_ranges, p.k_ranges[1:]):
+        assert k1 == k0                      # no gap, no overlap
+    for k0, k1 in p.k_ranges:
+        assert k0 % p.bk == 0                # whole chunks per split
+        assert k1 > k0 or K == 0             # no empty split
+    assert p.m_tiles * p.bm >= M > (p.m_tiles - 1) * p.bm
+    assert p.n_tiles * p.bn >= N > (p.n_tiles - 1) * p.bn
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", MAIN)
+def test_plan_fills_the_card_at_the_solver_shapes(shape, dtype):
+    p = lmm.plan(*shape, dtype, N_SM)
+    assert p.m_tiles == 1                   # B streams from memory once
+    assert p.blocks >= N_SM
+    assert 1 < p.split <= lmm.MAX_SPLIT     # one cluster per output tile
+    assert p.bn in lmm.WIDTHS[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plan_partials_are_split_tiles_tile(shape, dtype):
+    """A split tile leaves one partial tile per block in its cluster."""
+    p = lmm.plan(*shape, dtype, N_SM)
+    if p.split > 1:
+        assert p.partials == p.split * p.tiles * p.bm * p.bn
+    else:
+        assert p.partials == 0
+    assert p.blocks == p.tiles * p.split
+    assert p.split in (1, 2, 4, 8, 16)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 5, 7), (7, 1, 5),
+                                   (7, 5, 1), (1, 1, 961), (1, 961, 1)])
+def test_plan_degenerate_shapes(shape):
+    M, N, K = shape
+    p = lmm.plan(M, N, K, torch.float32, N_SM)
+    assert p.m_tiles == 1 and p.n_tiles >= 1
+    assert 1 <= p.split <= max(1, -(-K // p.bk))
+    assert p.blocks == p.tiles * p.split
+    assert p.k_ranges[0][0] == 0 and p.k_ranges[-1][1] == K
+
+
+def test_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(TypeError):
+        lmm.plan(98, 465, 465, torch.float16, N_SM)
+    with pytest.raises(ValueError):
+        lmm.plan(0, 465, 465, torch.float32, N_SM)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:-1])
+def test_split_sum_in_plan_order_matches_plain(shape):
+    """The kernel's arithmetic, emulated: each split's partial product over
+    its K range, summed in split order 0..S-1, equals a @ b.T."""
+    M, N, K = shape
+    rng = np.random.default_rng(sum(shape))
+    a = torch.tensor(rng.standard_normal((M, K)), dtype=torch.float64)
+    b = torch.tensor(rng.standard_normal((N, K)), dtype=torch.float64)
+    p = lmm.plan(M, N, K, torch.float64, N_SM)
+    c = torch.zeros((M, N), dtype=torch.float64)
+    for k0, k1 in p.k_ranges:
+        c = c + a[:, k0:k1] @ b[:, k0:k1].T
+    ref = lmm.ladder_mm_ref(a, b)
+    assert float((c - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
