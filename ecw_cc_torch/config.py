@@ -4,9 +4,9 @@ Precision: the solver runs the f32 'highest' mode, so TF32 is switched off
 for both matmuls and cuDNN when this module is imported.  f64 is the parity
 mode (CPU tests, and the card's f64 check).
 
-Devices are never picked here: every entry point takes an explicit
-`device=`; `check_device` refuses CUDA on a machine without a card instead
-of moving the work to the CPU.
+Every entry point runs on the card (`device="cuda"`) unless the caller asks
+for the CPU; `check_device` refuses CUDA on a machine without a card
+instead of moving the work to the CPU.
 """
 
 from __future__ import annotations
@@ -78,7 +78,8 @@ def torch_dtype(dtype=None) -> torch.dtype:
 def check_device(device) -> torch.device:
     """The requested device, validated; CUDA without a card raises."""
     if device is None:
-        raise ValueError("an explicit device= is required ('cpu' or 'cuda')")
+        raise ValueError("device=None: pass 'cuda' (the default of the "
+                         "entry points) or 'cpu'")
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

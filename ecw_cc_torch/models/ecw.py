@@ -1,31 +1,34 @@
 """User API / driver: the ECW class (port of ecw_cc_tpu/models/ecw.py;
 reference Main.py class ECW).
 
-Builds the molecule, RHF -> GHF and the host ERIs, moves the ERIs to the
-spin-sorted, sector-packed layout on the requested device, builds ground-
-state targets, and runs the warm-started ECW-CCSD lambda sweep.  Every
-host-visible quantity (fock, amplitudes, rdm1s, targets) stays in the
-reference alternating spin convention; only the device ERIs and the solver
-internals are sorted.
+Builds the molecule and RHF -> GHF, then the spin-sorted, sector-packed
+ERIs on the requested device: at f32 through the device transform
+(build_eris_device), at f64 (the parity mode) from the host f64 ERIs.  Then
+it builds ground-state targets and runs the warm-started ECW-CCSD lambda
+sweep.  Every host-visible quantity (fock, amplitudes, rdm1s, targets)
+stays in the reference alternating spin convention; only the device ERIs
+and the solver internals are sorted.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
+import torch
 
-from ecw_cc_tpu.models.eris import build_eris
-from ecw_cc_tpu.models.molecule import Molecule
-from ecw_cc_tpu.models.scf import GHF, RHF
-from ecw_cc_tpu.utils import checkpoint, convert, output, props
 from ecw_cc_torch.config import check_device, torch_dtype
 from ecw_cc_torch.models import gamma_exp
-from ecw_cc_torch.models.eris import sorted_from_host
+from ecw_cc_torch.models.eris import (build_eris, build_eris_device,
+                                      sorted_from_host)
+from ecw_cc_torch.models.molecule import Molecule
+from ecw_cc_torch.models.scf import GHF, RHF
 from ecw_cc_torch.ops.ccsd import GCC
 from ecw_cc_torch.ops.ladder import spin_sort_perm
 from ecw_cc_torch.ops.vexp import Exp
 from ecw_cc_torch.solvers.gs import Solver_CCSD
+from ecw_cc_torch.utils import checkpoint, convert, output, props
 
 format_float = "{:10.5e}"
 
@@ -36,15 +39,18 @@ def _host(a):
 
 class ECW:
     def __init__(self, molecule, basis, int_thresh=1e-13, out_dir=None,
-                 U_format=False, spin=0, *, device, dtype=None):
+                 U_format=False, spin=0, *, device="cuda", dtype=None):
         """Molecule, RHF -> GHF, and the sorted device ERIs on `device` in
         `dtype` (torch dtype or name; None = config.dtype).  Reference
-        Main.py:34-253."""
+        Main.py:34-253.  `self.timings` gets the host-clock seconds of the
+        set-up: 'integrals_scf', and at f32 'x_half_s' and 'device_s' of
+        the device transform."""
         self.device = check_device(device)
         self.dtype = torch_dtype(dtype)
         self.myccsd = None
         if U_format:
             raise NotImplementedError("UHF reference implies different orbspin")
+        t0 = time.perf_counter()
         mol = Molecule(molecule, basis, charge=0, spin=spin)
         self.molecule = molecule
         self.mol = mol
@@ -58,6 +64,7 @@ class ECW:
         self.nocc = int(np.sum(ghf.mo_occ > 0))
         self.nvir = int(np.sum(ghf.mo_occ == 0))
         self.EHF = ghf.e_tot
+        self.timings = {"integrals_scf": time.perf_counter() - t0}
         self.dim = self.nocc + self.nvir
         self.aosize = mol.nao
         self.rdm1_hf = ghf.make_rdm1()
@@ -76,13 +83,25 @@ class ECW:
             rdm1_r = convert.convert_g_to_ru_rdm1(self.rdm1_hf)[0]
             output.cube_density(mol, os.path.join(out_dir, "HF.cube"), rdm1_r)
 
-        # host f64 ERIs (alternating layout) -> sorted, sector-packed device
-        # ERIs; the sorted route is exact at any nvir
-        self.eris_host = build_eris(mol, ghf, int_thresh=int_thresh)
+        # sorted, sector-packed device ERIs (the sorted route is exact at
+        # any nvir).  f32: the MO transform runs on the device, and no host
+        # G-format ERIs are built; f64: from the host f64 ERIs (alternating
+        # layout), the parity mode.  The host ERIs stay available lazily.
+        self._int_thresh = int_thresh
+        self._eris_host = None
         self.mo_perm = spin_sort_perm(ghf.orbspin, self.nocc)
-        self.eris, self.vvvv_op = sorted_from_host(
-            self.eris_host, self.mo_perm, dtype=self.dtype, device=self.device)
-        self.fock = np.asarray(self.eris_host.fock)
+        if self.dtype == torch.float32:
+            self.eris, self.vvvv_op = build_eris_device(
+                mol, ghf, dtype=self.dtype, device=self.device,
+                pack_ladder=True, sort_spin=True, timings=self.timings)
+        else:
+            self.eris, self.vvvv_op = sorted_from_host(
+                self.eris_host, self.mo_perm, dtype=self.dtype,
+                device=self.device)
+        # host-visible quantities stay in the reference (alternating) MO
+        # convention; only the device eris/solver internals are sorted
+        ip = np.argsort(self.mo_perm)
+        self.fock = _host(self.eris.fock).astype(np.float64)[np.ix_(ip, ip)]
 
         self.target_rdm1_GS = None
         self.cal_rdm1_Delta = False
@@ -99,6 +118,15 @@ class ECW:
         self.Delta_Ek = []
         self.solve_log = []
         print("*** Molecule build ***")
+
+    @property
+    def eris_host(self):
+        """Host f64 ERI container in the alternating layout (built lazily:
+        the f32 route transforms on the device instead)."""
+        if self._eris_host is None:
+            self._eris_host = build_eris(self.mol, self.mf,
+                                         int_thresh=self._int_thresh)
+        return self._eris_host
 
     def init_plot_var(self, Larray):
         self.Larray = Larray

@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from ecw_cc_tpu.models.molecule import Molecule
-from ecw_cc_tpu.models.scf import RHF
+from ecw_cc_torch.models.molecule import Molecule
+from ecw_cc_torch.models.scf import RHF
 
 
 class Gexp:

@@ -15,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ecw_cc_tpu.utils import convert
-from ecw_cc_tpu.utils import props as uprops
+from ecw_cc_torch.utils import convert
+from ecw_cc_torch.utils import props as uprops
 
 GS_PROPS = ("mat", "Ek", "v1e", "dip", "F")
 

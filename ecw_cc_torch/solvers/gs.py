@@ -26,7 +26,6 @@ import time
 import numpy as np
 import torch
 
-from ecw_cc_tpu.utils.metrics import IterationMetrics
 from ecw_cc_torch.config import get_config
 from ecw_cc_torch.ops import ccsd as ccsd_ops
 from ecw_cc_torch.ops import ccsd_sect
@@ -35,6 +34,7 @@ from ecw_cc_torch.ops import spinsect
 from ecw_cc_torch.ops.ladder import (SectoredVVVV,
                                      balanced_stacked_sectored_contract)
 from ecw_cc_torch.ops.vexp import make_gs_vexp_device
+from ecw_cc_torch.utils.metrics import IterationMetrics
 
 # status codes of a solve (as in the JAX solver)
 RUNNING, CONVERGED, MAXITER, DIVERGED = 0, 1, 2, 3

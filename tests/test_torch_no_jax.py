@@ -1,12 +1,21 @@
-"""The PyTorch port never imports JAX: in a fresh interpreter where
-`import jax` fails, import ecw_cc_torch, build its solver on H2/6-31G
-through the ECW driver and run one solve."""
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package.
 
+  - in a fresh interpreter where `import jax` and `import ecw_cc_tpu` fail,
+    import ecw_cc_torch, build its solver on H2/6-31G through the ECW
+    entry point at f64 (host ERIs) and f32 (device ERI build), and run a solve;
+  - no file of the port, and not chip_smoke.py, has an import statement
+    naming jax or ecw_cc_tpu (read with `ast`, so lazy imports inside
+    functions count too).
+"""
+
+import ast
+import glob
 import os
 import subprocess
 import sys
 import textwrap
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -16,19 +25,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None          # any `import jax` now raises
+    sys.modules["ecw_cc_tpu"] = None   # and so does `import ecw_cc_tpu...`
     import torch
     torch.set_num_threads(1)
     import ecw_cc_torch
     from ecw_cc_torch import ECW
-    ecw = ECW("H 0 0 0\\nH 0 0 1", "6-31g", device="cpu",
-              dtype=torch.float64)
-    ecw.Build_GS_exp("mat", "HF", field=[0.05, 0.01, 0.0])
-    res = ecw.CCSD_GS([0.5], diis="tl", conv_thres=1e-8)
-    assert "Convergence reached" in res[0], res[0]
-    assert ecw.solve_log[0]["sym"]
+    for dt, thres in ((torch.float64, 1e-8), (torch.float32, 1e-6)):
+        ecw = ECW("H 0 0 0\\nH 0 0 1", "6-31g", device="cpu", dtype=dt)
+        ecw.Build_GS_exp("mat", "HF", field=[0.05, 0.01, 0.0])
+        res = ecw.CCSD_GS([0.5], diis="tl", conv_thres=thres)
+        assert "Convergence reached" in res[0], res[0]
+        assert ecw.solve_log[0]["sym"]
     bad = sorted(m for m in sys.modules
-                 if m == "jax" or m.startswith(("jax.", "jaxlib")))
-    assert sys.modules["jax"] is None and bad == ["jax"], bad
+                 if m in ("jax", "ecw_cc_tpu")
+                 or m.startswith(("jax.", "jaxlib", "ecw_cc_tpu.")))
+    assert sys.modules["jax"] is None and sys.modules["ecw_cc_tpu"] is None
+    assert bad == ["ecw_cc_tpu", "jax"], bad
     print("NO_JAX_OK", res[1][-1])
 """)
 
@@ -41,3 +53,27 @@ def test_port_runs_without_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+FORBIDDEN = ("jax", "jaxlib", "ecw_cc_tpu")
+PORT_FILES = sorted(
+    os.path.relpath(p, REPO) for p in
+    glob.glob(os.path.join(REPO, "ecw_cc_torch", "**", "*.py"),
+              recursive=True)
+    + [os.path.join(REPO, "chip_smoke.py")])
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_no_import_of_jax_or_the_jax_package(rel):
+    roots = set(_imported_roots(os.path.join(REPO, rel)))
+    assert not roots & set(FORBIDDEN), (rel, sorted(roots & set(FORBIDDEN)))

@@ -139,14 +139,24 @@ def test_unported_routes_raise(sorted_problem):
 
 
 def test_explicit_device_is_required():
+    """The entry points run on the card unless the caller asks for the CPU:
+    device defaults to 'cuda', which raises without a card (no silent CPU
+    fallback); None is refused."""
+    import inspect
+
     from ecw_cc_torch.config import check_device
+    from ecw_cc_torch.models import eris
 
     with pytest.raises(ValueError, match="device"):
         check_device(None)
+    for fn in (ecw_cc_torch.ECW.__init__, eris.build_eris_device,
+               eris.from_numpy, eris.sorted_from_host,
+               eris.ErisHost.to_device):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         assert check_device("cuda").type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             check_device("cuda")
-    with pytest.raises(TypeError):
-        ecw_cc_torch.ECW("h2o", "sto-3g")      # no device= given
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ecw_cc_torch.ECW("h2o", "sto-3g")      # no device= given
