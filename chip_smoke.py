@@ -6,7 +6,11 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --kernel-times   # phase 1 and the kernel timing only
     python3 chip_smoke.py --profile        # phase 1 and a profiler trace of
-                                           # the f32 chain, cc-pVDZ and cc-pVTZ
+                                           # the f32 chain, cc-pVDZ and cc-pVTZ,
+                                           # sectored and packed routes
+    python3 chip_smoke.py --routes         # phase 1 and the timed f32 lambda
+                                           # sweep on each route, nvir 16 to
+                                           # 162
 
 Phases, one output line each (and one "phase_seconds" line at the end of
 each); any failure raises and exits nonzero:
@@ -16,27 +20,48 @@ each); any failure raises and exits nonzero:
      f64 ladder_mm runs DMMA and the f32 one no HMMA;
   3. kernel vs plain: ladder_mm against ladder_mm_ref (a @ b.T) in f32 and
      f64 at the solver's sector-GEMM shapes of C2H2/cc-pVDZ and cc-pVTZ,
-     ragged shapes and shapes at the edges of the split-K plan (printed
-     per shape, with its plan); two launches bitwise equal; one launch
-     captured in a CUDA graph and replayed twice, equal to the eager
-     result; then both timed at the solver's shapes;
-  4. main path, f32: ECW('c2h2', 'cc-pvdz') (ERIs transformed on the card)
-     -> HF target with a field -> CCSD_GS over lambda = 0, 0.25, 0.5 (diis
-     'tl', conv_thres 1e-6); every lambda must converge and every
-     iteration must launch the ladder kernel; then a fixed 41-iteration
-     chain (conv_thres 0) for ms/iter;
+     at the GEMMs of the dense, packed and stacked-sector routes (phase
+     9), ragged shapes and shapes at the edges of the split-K plan
+     (printed per shape, with its plan); two launches bitwise equal; one
+     launch captured in a CUDA graph and replayed twice, equal to the
+     eager result; then both timed at the solver's shapes;
+  4. main path, f32: ECW('c2h2', 'cc-pvdz') (ERIs transformed on the card,
+     alternating layout, a PackedVVVV at nvir 62) -> HF target with a
+     field -> CCSD_GS over lambda = 0, 0.25, 0.5 (diis 'tl', conv_thres
+     1e-6); every lambda must converge on the packed route with exactly
+     one ladder launch per iteration; then a fixed 41-iteration chain
+     (conv_thres 0) for ms/iter;
   5. main path, f64: lambda = 0.25 on the card (through the kernel) and on
-     the CPU (plain versions) must take the same iterations and agree in Ep
-     to 1e-9 Ha; the f32 card solve must agree to 1e-5 Ha, iterations +-1;
-  6. ERI build at cc-pVDZ on the card: build_eris_device (sorted, sectored)
-     at f64 and at f32 against the host f64 build_eris + sorted_from_host,
-     block by block, to 1e-10 and 3e-6;
+     the CPU (plain versions), both on ECW's f64 route (host ERIs in the
+     alternating layout, a PackedVVVV at nvir 62: one ladder launch per
+     iteration), must take the same iterations and agree in Ep to 1e-9
+     Ha; the f32 card solve must agree to 1e-5 Ha, iterations +-1;
+  6. ERI build at cc-pVDZ on the card: build_eris_device at f64 and at f32,
+     alternating with a PackedVVVV (ECW's build) against the host f64
+     build_eris and its packed vvvv, and sorted with a SectoredVVVV against
+     sorted_from_host, block by block, to 1e-10 and 3e-6;
   7. main path at full width, C2H2/cc-pVTZ f32: ECW -> HF target ->
-     CCSD_GS([0.25]) must converge with 2 ladder launches per iteration,
-     and agree with the same solve on f64 ERIs built on the card to 1e-5
-     Ha, iterations +-1; prints the set-up seconds, peak device memory
-     of the build and the solve, and ms/iter of a 20-iteration chain;
-  8. neither JAX nor the JAX package ecw_cc_tpu was imported.
+     CCSD_GS([0.25]) must converge on the packed route with 1 ladder
+     launch per iteration, and agree with the same solve on f64 ERIs
+     built on the card to 1e-5 Ha, iterations +-1; prints the set-up
+     seconds, peak device memory of the build and the solve, and ms/iter
+     of a 20-iteration chain;
+  9. the sorted and dense routes:
+     (a) C2H2/cc-pVTZ f32 on phase 7's molecule, SCF and target with
+         build_eris_device(pack_ladder=True, sort_spin=True) and its
+         mo_perm: lambda = 0.25 on the sectored route with exactly 2
+         ladder launches per iteration (mirror symmetry), within 1e-5 Ha
+         and +-1 iteration of phase 7's packed solve; build seconds, peak
+         memory of build and solve, ms/iter of a 20-iteration chain;
+     (b) C2H2/cc-pVDZ f32 with a target that couples the spins: on sorted
+         ERIs the gate fails and the dense route takes 3 launches per
+         iteration, on ECW's alternating packed ERIs 1; the two agree to
+         1e-5 Ha, iterations +-1;
+     (c) C2H2/cc-pVDZ with ladder_mode='dense': f32 on dense alternating
+         device ERIs, 2 launches per iteration of the 196x3844x3844 GEMM,
+         against phase 5's f32 solve (1e-5 Ha, +-1 iteration); f64 on the
+         card against the CPU (same iterations, 1e-9 Ha);
+  8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported.
 Before the last line it prints the kernel report as one JSON object and
 the card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -79,7 +104,15 @@ PROFILE_ITERS = 10
 DTYPES = (torch.float32, torch.float64)
 MAIN_SHAPES = [(98, 465, 465), (98, 961, 961)]          # (M, N, K), pVDZ
 TZ_SHAPES = [(98, 3240, 3240), (98, 6561, 6561)]        # cc-pVTZ
-TIMED_SHAPES = MAIN_SHAPES + TZ_SHAPES
+# phase 9's routes (C2H2, nocc 14): the dense ladder at cc-pVDZ, the
+# stacked packed GEMM at cc-pVDZ and cc-pVTZ, the stacked sector GEMMs
+DENSE_DZ, PACKED_DZ, PACKED_TZ = ((196, 3844, 3844), (392, 1891, 1891),
+                                  (392, 13041, 13041))
+ROUTE_SHAPES = [DENSE_DZ, PACKED_DZ, PACKED_TZ, (392, 465, 465),
+                (392, 961, 961)]
+TIMED_SHAPES = {torch.float32: MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES,
+                torch.float64: MAIN_SHAPES + TZ_SHAPES + [DENSE_DZ,
+                                                          PACKED_TZ]}
 RAGGED_SHAPES = [(1, 1, 1), (37, 513, 129), (100, 130, 1001)]
 # The split-K plan's edges: K across 16 chunks (split 8 -> 16 at N = 465)
 # and 17, K across a chunk boundary at N = 961, K below one chunk, one row,
@@ -188,8 +221,8 @@ def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm):
     Returns {(dtype, shape): (max_abs_err, plan)}."""
     out = {}
     for dtype in DTYPES:
-        for i, shape in enumerate(MAIN_SHAPES + TZ_SHAPES + RAGGED_SHAPES
-                                  + EDGE_SHAPES):
+        for i, shape in enumerate(MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
+                                  + RAGGED_SHAPES + EDGE_SHAPES):
             a, b = operands(shape, dtype, seed=i)
             c = ladder_mm(a, b)
             torch.cuda.synchronize()
@@ -206,7 +239,7 @@ def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm):
                 raise AssertionError(f"ladder_mm disagrees at {shape} "
                                      f"{dtype}: {err} > {TOL[dtype]} * "
                                      f"{scale}")
-            if shape in MAIN_SHAPES and p.blocks < n_sm:
+            if shape in MAIN_SHAPES + ROUTE_SHAPES and p.blocks < n_sm:
                 raise AssertionError(f"plan at {shape} {dtype} launches "
                                      f"{p.blocks} blocks on {n_sm} SMs")
             out[(dtype, shape)] = (err, p)
@@ -217,7 +250,7 @@ def check_deterministic(ladder_mm):
     """Two launches on the same inputs give the same bits; so does a launch
     captured in a CUDA graph on a side stream, replayed twice."""
     for dtype in DTYPES:
-        for shape in MAIN_SHAPES + TZ_SHAPES:
+        for shape in MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES:
             a, b = operands(shape, dtype, seed=11)
             c1, c2 = ladder_mm(a, b), ladder_mm(a, b)
             s = torch.cuda.Stream()
@@ -273,7 +306,7 @@ def time_kernel(ladder_mm, ladder_mm_ref):
     the report's library_ms."""
     times = {}
     for dtype in DTYPES:
-        for shape in TIMED_SHAPES:
+        for shape in TIMED_SHAPES[dtype]:
             a, b = operands(shape, dtype, seed=0)
             b_bytes = b.numel() * b.element_size()
             n_copies = (-(-2 * L2_BYTES // b_bytes)
@@ -327,11 +360,12 @@ def solve(ecw, lambdas, **kw):
     return res, ecw.solve_log
 
 
-def with_eris(ecw, eris, vvvv_op):
+def with_eris(ecw, eris, vvvv_op, mo_perm):
     """A shallow copy of a built ECW that solves on other device ERIs (the
-    same molecule, SCF and targets)."""
+    same molecule, SCF and targets; ECW.fock stays the alternating one)."""
     out = copy.copy(ecw)
     out.eris, out.vvvv_op, out.myccsd = eris, vvvv_op, None
+    out.mo_perm = mo_perm
     out.dtype = eris.oovv.dtype
     return out
 
@@ -342,44 +376,64 @@ def max_abs_diff(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+def sort_perm(ecw):
+    """The spin-sorting MO permutation of an ECW's GHF."""
+    from ecw_cc_torch.ops.ladder import spin_sort_perm
+
+    return spin_sort_perm(ecw.mf.orbspin, ecw.nocc)
+
+
 def check_eri_build(ecw):
-    """Phase 6: build_eris_device (sorted, sectored) at f64 and f32 on the
-    card against the host f64 build_eris + sorted_from_host, block by
-    block.  Returns {dtype name: max abs error}."""
+    """Phase 6: build_eris_device at f64 and f32 on the card, alternating
+    with a PackedVVVV (ECW's build) against the host f64 build_eris and
+    pack_vvvv of its vvvv, and sorted with a SectoredVVVV against
+    sorted_from_host, block by block.  Returns {layout dtype: error}."""
     from ecw_cc_torch.models.eris import (GEris, build_eris_device,
                                           sorted_from_host)
+    from ecw_cc_torch.ops.ladder import pack_vvvv
 
-    ref, ref_sect = sorted_from_host(ecw.eris_host, ecw.mo_perm,
-                                     dtype=torch.float64, device="cuda")
+    perm = sort_perm(ecw)
+    alt = ecw.eris_host.to_device(dtype=torch.float64, device="cuda")
+    refs = {"alternating": (alt, pack_vvvv(alt.vvvv)),
+            "sorted": sorted_from_host(ecw.eris_host, perm,
+                                       dtype=torch.float64, device="cuda")}
+    del alt
     out = {}
-    for dtype in (torch.float64, torch.float32):
-        timings = {}
-        er, sect = build_eris_device(ecw.mol, ecw.mf, dtype=dtype,
-                                     device="cuda", pack_ladder=True,
-                                     sort_spin=True, timings=timings)
-        errs = {f: max_abs_diff(getattr(er, f), getattr(ref, f))
-                for f in GEris._fields}
-        errs.update({f"sect.{f}": max_abs_diff(x, y) for f, x, y in
-                     zip(sect._fields, sect, ref_sect)})
-        worst = max(errs.values())
-        shapes_ok = all(getattr(er, f).shape == getattr(ref, f).shape
-                        for f in GEris._fields) and all(
-            x.shape == y.shape for x, y in zip(sect, ref_sect))
-        name = str(dtype).split(".")[-1]
-        phase(6, "eri_build_vs_host", dtype=name, max_abs_err=worst,
-              tol=ERI_TOL[dtype], worst_block=max(errs, key=errs.get),
-              shapes_ok=shapes_ok, **timings)
-        if not shapes_ok or worst > ERI_TOL[dtype]:
-            raise AssertionError(f"device ERI build at {name} differs from "
-                                 f"the host build: {errs}")
-        out[name] = worst
+    for layout, (ref, ref_op) in refs.items():
+        for dtype in (torch.float64, torch.float32):
+            timings = {}
+            er, op = build_eris_device(ecw.mol, ecw.mf, dtype=dtype,
+                                       device="cuda", pack_ladder=True,
+                                       sort_spin=layout == "sorted",
+                                       timings=timings)
+            # the packed build's vvvv is a placeholder: its rows are op
+            fields = [f for f in GEris._fields
+                      if getattr(ref, f).shape == getattr(er, f).shape]
+            errs = {f: max_abs_diff(getattr(er, f), getattr(ref, f))
+                    for f in fields}
+            errs.update({f"op.{f}": max_abs_diff(x, y) for f, x, y in
+                         zip(op._fields, op, ref_op)})
+            worst = max(errs.values())
+            shapes_ok = (set(GEris._fields) - set(fields) <= {"vvvv"}
+                         and all(x.shape == y.shape
+                                 for x, y in zip(op, ref_op)))
+            name = str(dtype).split(".")[-1]
+            phase(6, "eri_build_vs_host", layout=layout, dtype=name,
+                  max_abs_err=worst, tol=ERI_TOL[dtype],
+                  worst_block=max(errs, key=errs.get), shapes_ok=shapes_ok,
+                  **timings)
+            if not shapes_ok or worst > ERI_TOL[dtype]:
+                raise AssertionError(f"device ERI build ({layout}, {name}) "
+                                     f"differs from the host build: {errs}")
+            out[f"{layout} {name}"] = worst
+            del er, op
     return out
 
 
 def run_tz(ladder_mm):
     """Phase 7: the full-width C2H2/cc-pVTZ solve at f32 on device-built
-    ERIs, and its f64 reference on ERIs built on the card.  Returns the
-    ladder launches of the f32 solve."""
+    ERIs (ECW's packed route), and its f64 reference on packed ERIs built
+    on the card.  Returns the ladder launches of the f32 solve."""
     from ecw_cc_torch.models.eris import build_eris_device
 
     torch.cuda.synchronize()
@@ -399,16 +453,18 @@ def run_tz(ladder_mm):
     res, log = solve(ecw, [0.25], conv_thres=CONV_THRES)
     launches = ladder_mm.launches
     s32, ep32 = log[0], float(res[1][-1])
-    phase(7, "solve_tz_f32", iterations=s32["iterations"],
-          converged=s32["status"] == 1, Ep=ep32, Ep_total=ep32 + ecw.EHF,
-          ms=s32["ms"], ladder_launches=launches,
-          peak_bytes=torch.cuda.max_memory_allocated(), sym=s32["sym"])
-    if s32["status"] != 1:
-        raise AssertionError("the cc-pVTZ f32 solve did not converge")
-    if launches != 2 * s32["iterations"]:
+    phase(7, "solve_tz_f32", route=s32["route"],
+          iterations=s32["iterations"], converged=s32["status"] == 1,
+          Ep=ep32, Ep_total=ep32 + ecw.EHF, ms=s32["ms"],
+          ladder_launches=launches,
+          peak_bytes=torch.cuda.max_memory_allocated())
+    if s32["status"] != 1 or s32["route"] != "packed":
+        raise AssertionError(f"the cc-pVTZ f32 solve did not converge on "
+                             f"the packed route: {s32}")
+    if launches != s32["iterations"]:
         raise AssertionError(f"ladder kernel launched {launches} times in "
                              f"{s32['iterations']} cc-pVTZ iterations "
-                             "(expected 2 each)")
+                             "(expected 1 each)")
     if not np.all(np.isfinite(res[4])) or res[4].shape != (ecw.dim,) * 2:
         raise AssertionError("cc-pVTZ rdm1 is not finite or has the wrong "
                              "shape")
@@ -418,16 +474,16 @@ def run_tz(ladder_mm):
     phase(7, "chain_tz_f32", iterations=chain["iterations"], ms=chain["ms"],
           ms_per_iteration=chain["ms"] / chain["iterations"])
 
-    # the f64 reference: the same molecule, SCF and target, on f64 ERIs
-    # built on the card (the host route would hold 176^4 f64 on the host)
+    # the f64 reference: the same molecule, SCF, target and route, on f64
+    # ERIs built on the card (the host route would hold 176^4 f64 on the
+    # host)
     torch.cuda.reset_peak_memory_stats()
     timings = {}
-    er64, sect64 = build_eris_device(ecw.mol, ecw.mf, dtype=torch.float64,
-                                     device="cuda", pack_ladder=True,
-                                     sort_spin=True, timings=timings)
+    er64, packed64 = build_eris_device(ecw.mol, ecw.mf, dtype=torch.float64,
+                                       device="cuda", pack_ladder=True,
+                                       timings=timings)
     build64_peak = torch.cuda.max_memory_allocated()
-    ecw64 = with_eris(ecw, er64, sect64)
-    del ecw
+    ecw64 = with_eris(ecw, er64, packed64, None)
     torch.cuda.reset_peak_memory_stats()
     res64, log64 = solve(ecw64, [0.25], conv_thres=CONV_THRES)
     s64, ep64 = log64[0], float(res64[1][-1])
@@ -443,7 +499,149 @@ def run_tz(ladder_mm):
         raise AssertionError(f"cc-pVTZ f32 solve differs from f64: "
                              f"{s32['iterations']} vs {s64['iterations']} "
                              f"iterations, |dEp| = {dep}")
+    del ecw64, er64, packed64
+    return launches, ecw, (ep32, s32["iterations"])
+
+
+def check_route_solve(name, log, res, launches, route, per_iter,
+                      ref=None, tol=1e-5, same_iterations=False):
+    """A converged solve on `route` with `per_iter` ladder launches per
+    iteration, finite rdm1 of the right shape, and (with ref = (Ep,
+    iterations)) within tol of the reference and +-1 iteration of it (the
+    same iterations with same_iterations)."""
+    s0, ep = log[0], float(res[1][-1])
+    fields = dict(route=s0["route"], iterations=s0["iterations"],
+                  converged=s0["status"] == 1, Ep=ep, ms=s0["ms"],
+                  ladder_launches=launches,
+                  launches_per_iteration=launches / max(s0["iterations"], 1))
+    if ref is not None:
+        fields.update(Ep_ref=ref[0], dEp=abs(ep - ref[0]),
+                      iterations_ref=ref[1])
+    phase(9, name, **fields)
+    if s0["status"] != 1:
+        raise AssertionError(f"{name}: did not converge")
+    if s0["route"] != route:
+        raise AssertionError(f"{name}: took route {s0['route']}, not {route}")
+    if launches != per_iter * s0["iterations"]:
+        raise AssertionError(f"{name}: {launches} ladder launches in "
+                             f"{s0['iterations']} iterations (expected "
+                             f"{per_iter} each)")
+    dim = res[4].shape[0]
+    if not np.all(np.isfinite(res[4])) or res[4].shape != (dim, dim):
+        raise AssertionError(f"{name}: rdm1 not finite or not square")
+    if ref is not None:
+        dit = abs(s0["iterations"] - ref[1])
+        if abs(ep - ref[0]) > tol or dit > (0 if same_iterations else 1):
+            raise AssertionError(f"{name}: Ep {ep} in {s0['iterations']} "
+                                 f"iterations against {ref}")
+    return ep, s0["iterations"]
+
+
+def run_sorted_tz(ladder_mm, ecw, ref):
+    """Phase 9 (a): C2H2/cc-pVTZ f32 on sorted sectored ERIs built on the
+    card, on phase 7's molecule, SCF and target.  Returns the launches."""
+    from ecw_cc_torch.models.eris import build_eris_device
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings, t0 = {}, time.perf_counter()
+    er, sect = build_eris_device(ecw.mol, ecw.mf, dtype=torch.float32,
+                                 device="cuda", pack_ladder=True,
+                                 sort_spin=True, timings=timings)
+    torch.cuda.synchronize()
+    phase(9, "build_tz_f32_sorted", seconds=time.perf_counter() - t0,
+          **timings, peak_bytes=torch.cuda.max_memory_allocated(),
+          op_bytes=sum(w.numel() * w.element_size() for w in sect))
+    srt = with_eris(ecw, er, sect, sort_perm(ecw))
+    torch.cuda.reset_peak_memory_stats()
+    ladder_mm.launches = 0
+    res, log = solve(srt, [0.25], conv_thres=CONV_THRES)
+    launches = ladder_mm.launches
+    phase(9, "solve_tz_f32_sectored_memory",
+          peak_bytes=torch.cuda.max_memory_allocated(), sym=log[0]["sym"])
+    check_route_solve("solve_tz_f32_sectored", log, res, launches,
+                      "sectored", 2, ref=ref)
+    _, chain = solve(srt, [0.25], diis="", conv_thres=0.0,
+                     maxiter=CHAIN_ITERS_TZ)
+    chain = chain[0]
+    phase(9, "chain_tz_f32_sectored", iterations=chain["iterations"],
+          ms=chain["ms"], ms_per_iteration=chain["ms"] / chain["iterations"])
     return launches
+
+
+def run_spin_mixing(ladder_mm, ecw32):
+    """Phase 9 (b): C2H2/cc-pVDZ f32 with a target that couples the spins,
+    on sorted ERIs (the gate fails: the dense route, 3 launches per
+    iteration) and on ECW's alternating packed ERIs (1).  Returns the
+    launches."""
+    from ecw_cc_torch.models.eris import build_eris_device
+    from ecw_cc_torch.ops.ccsd import GCC
+    from ecw_cc_torch.ops.vexp import Exp
+    from ecw_cc_torch.solvers.gs import Solver_CCSD
+
+    nmo = ecw32.dim
+    rng = np.random.default_rng(0)
+    mix = rng.standard_normal((nmo, nmo)) * 1e-3
+    target = np.diag(np.asarray(ecw32.mo_occ, dtype=np.float64))
+    target = target + 0.5 * (mix + mix.T)      # couples alpha and beta
+    er, sect = build_eris_device(ecw32.mol, ecw32.mf, dtype=torch.float32,
+                                 device="cuda", pack_ladder=True,
+                                 sort_spin=True)
+    out, ref = {}, None
+    for name, eris, op, perm, route, per_iter in (
+            ("spin_mixing_sorted", er, sect, sort_perm(ecw32),
+             "dense_sorted", 3),
+            ("spin_mixing_packed", ecw32.eris, ecw32.vvvv_op, None,
+             "packed", 1)):
+        exp = Exp(0.05, [[["mat", target]]], mol=ecw32.mol,
+                  mo_coeff=ecw32.mo_coeff)
+        solver = Solver_CCSD(GCC(eris), exp, conv="tl",
+                             conv_thres=CONV_THRES, diis="tl", maxiter=60,
+                             vvvv_op=op, mo_perm=perm)
+        if perm is not None and solver._vexp_block_diagonal():
+            raise AssertionError("the spin-mixing target passed the gate")
+        ladder_mm.launches = 0
+        res = solver.SCF(0.05)
+        out[f"c2h2_ccpvdz_f32_{name}"] = launches = ladder_mm.launches
+        ref = check_route_solve(name, [solver.last_solve], res, launches,
+                                route, per_iter, ref=ref)
+    return out
+
+
+def run_dense(ladder_mm, ecw32, ref32, ecw64c, ecwc):
+    """Phase 9 (c): ladder_mode='dense' at C2H2/cc-pVDZ.  f32 on dense
+    alternating device ERIs against phase 5's f32 solve; f64 on the card
+    against the CPU.  Returns the launches."""
+    import ecw_cc_torch
+    from ecw_cc_torch.models.eris import build_eris_device
+
+    out = {}
+    ecw_cc_torch.set_config(ladder_mode="dense")
+    try:
+        er = build_eris_device(ecw32.mol, ecw32.mf, dtype=torch.float32,
+                               device="cuda")
+        v = er.nvir
+        vr = er.vvvv.view(v * v, v * v)
+        phase(9, "dense_vvvv_f32", vvvv_bytes=vr.numel() * vr.element_size(),
+              pair_swap_asymmetry=float((vr - vr.T).abs().max()),
+              max_abs=float(vr.abs().max()))
+        ladder_mm.launches = 0
+        res, log = solve(with_eris(ecw32, er, None, None), [0.25],
+                         conv_thres=CONV_THRES)
+        out["c2h2_ccpvdz_f32_dense"] = ladder_mm.launches
+        check_route_solve("solve_dz_f32_dense", log, res, ladder_mm.launches,
+                          "dense", 2, ref=ref32)
+        ladder_mm.launches = 0
+        res64, log64 = solve(ecw64c, [0.25], conv_thres=CONV_THRES)
+        out["c2h2_ccpvdz_f64_dense"] = ladder_mm.launches
+        ep64 = check_route_solve("solve_dz_f64_dense", log64, res64,
+                                 ladder_mm.launches, "dense", 2)
+        resc, logc = solve(ecwc, [0.25], conv_thres=CONV_THRES)
+        check_route_solve("solve_dz_f64_dense_cpu", logc, resc, 0, "dense",
+                          0, ref=ep64, tol=1e-9, same_iterations=True)
+    finally:
+        ecw_cc_torch.set_config(ladder_mode="auto")
+    return out
 
 
 def kernel_kind(name):
@@ -459,17 +657,24 @@ def kernel_kind(name):
     return "other"
 
 
-def profile_chain(basis):
+def profile_chain(basis, route, diis=""):
     """--profile: a torch.profiler trace of a fixed PROFILE_ITERS-iteration
     f32 chain at lambda = 0.25 (after a warm-up solve), beside the same
-    chain run without the profiler.  Prints kernels and launch calls per
-    iteration, device ms per iteration by kernel class, the ten costliest
-    kernels, and the busy share (device time over the unprofiled wall)."""
+    chain run without the profiler, on the route's ERIs (route_eris:
+    'sectored' or 'packed') of one ECW; with diis='tl' the
+    chain is instead the sweep's converged solve (DIIS, conv_thres 1e-6).
+    Prints kernels and launch calls per iteration, device ms per iteration
+    by kernel class, the ten costliest kernels and host operators, and the
+    busy share (device time over the unprofiled wall)."""
     from torch.profiler import ProfilerActivity, profile
 
-    ecw = build_ecw("cuda", torch.float32, basis=basis)
+    base = build_ecw("cuda", torch.float32, basis=basis)
+    er, op, perm, _ = route_eris(base, route)
+    ecw = with_eris(base, er, op, perm)
+    del base
     solve(ecw, [0.25], conv_thres=CONV_THRES)
-    chain = dict(diis="", conv_thres=0.0, maxiter=PROFILE_ITERS - 1)
+    chain = (dict(diis=diis, conv_thres=CONV_THRES) if diis else
+             dict(diis="", conv_thres=0.0, maxiter=PROFILE_ITERS - 1))
     _, plain = solve(ecw, [0.25], **chain)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -478,7 +683,7 @@ def profile_chain(basis):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     n = log[0]["iterations"]
-    by_kind, kernels = collections.Counter(), []
+    by_kind, kernels, host_ops = collections.Counter(), [], []
     n_kernels = launch_calls = 0
     for e in prof.key_averages():
         if e.key.startswith("cudaLaunchKernel"):
@@ -488,9 +693,12 @@ def profile_chain(basis):
             n_kernels += e.count
             by_kind[kernel_kind(e.key)] += us / 1e3 / n
             kernels.append((us, e.count, e.key[:100]))
+        else:
+            host_ops.append((e.self_cpu_time_total, e.count, e.key[:100]))
     device_ms = sum(by_kind.values())
     plain_ms = plain[0]["ms"] / plain[0]["iterations"]
-    phase("P", "profile", basis=basis, iterations=n,
+    phase("P", "profile", basis=basis, route=log[0]["route"], diis=diis,
+          iterations=n,
           kernels_per_iteration=n_kernels / n,
           launch_calls_per_iteration=launch_calls / n,
           device_ms_per_iteration=device_ms,
@@ -498,13 +706,119 @@ def profile_chain(basis):
           profiled_ms_per_iteration=wall_ms / n,
           ms_per_iteration=plain_ms, busy_share=device_ms / plain_ms,
           top_kernels=[{"name": k, "launches": c, "ms": us / 1e3}
-                       for us, c, k in sorted(kernels, reverse=True)[:10]])
+                       for us, c, k in sorted(kernels, reverse=True)[:10]],
+          top_host_ops=[{"name": k, "calls": c, "self_ms": us / 1e3}
+                        for us, c, k in sorted(host_ops, reverse=True)[:10]])
+
+
+# --routes: (molecule, basis) from nvir 16 to 162, across the 'auto'
+# dense/packed crossover at nvir 48
+ROUTE_CELLS = [("h2o", "6-31g"), ("c2h2", "6-31g"), ("h2o", "cc-pvdz"),
+               ("c2h2", "6-31g*"), ("c2h2", "cc-pvdz"), ("c2h2", "cc-pvtz")]
+ROUTE_REPS = 3
+
+
+def route_eris(ecw, route):
+    """(eris, vvvv_op, mo_perm) of an ECW f32 route on the card:
+    'sectored' (sorted, SectoredVVVV), 'packed' (alternating PackedVVVV),
+    'dense' (alternating, dense vvvv), and the build's host seconds."""
+    from ecw_cc_torch.models.eris import build_eris_device
+    from ecw_cc_torch.ops.ladder import spin_sort_perm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kw = dict(dtype=torch.float32, device="cuda")
+    if route == "dense":
+        out = (build_eris_device(ecw.mol, ecw.mf, **kw), None, None)
+    else:
+        sort = route == "sectored"
+        er, op = build_eris_device(ecw.mol, ecw.mf, pack_ladder=True,
+                                   sort_spin=sort, **kw)
+        out = (er, op, spin_sort_perm(ecw.mf.orbspin, ecw.nocc)
+               if sort else None)
+    torch.cuda.synchronize()
+    return out + (time.perf_counter() - t0,)
+
+
+def route_sweeps(ladder_mm, cells=ROUTE_CELLS, reps=ROUTE_REPS,
+                 routes=("sectored", "packed", "dense")):
+    """--routes: at each cell, the f32 warm-started sweep of phase 4 (HF
+    target with a field, lambda = 0, 0.25, 0.5, diis 'tl', conv_thres
+    1e-6) through ECW.CCSD_GS on each route's device ERIs (one SCF per
+    cell): one untimed sweep per route, then `reps` timed ones with the
+    routes in turns.  Prints one line per route and cell and returns the
+    rows."""
+    import io
+
+    import ecw_cc_torch
+
+    rows = []
+    for mol_name, basis in cells:
+        with contextlib.redirect_stdout(io.StringIO()):
+            from ecw_cc_torch import ECW
+            base = ECW(mol_name, basis, device="cuda", dtype=torch.float32)
+            base.Build_GS_exp("mat", "HF", field=FIELD)
+        ecws, build_s = {}, {}
+        for route in routes:
+            er, op, perm, build_s[route] = route_eris(base, route)
+            ecws[route] = with_eris(base, er, op, perm)
+        del base
+        runs = {r: [] for r in routes}
+        for rep in range(reps + 1):
+            for route in (routes if rep % 2 == 0 else routes[::-1]):
+                ecw = ecws[route]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ladder_mm.launches = 0
+                # the dense route's solver keeps no operand only under
+                # ladder_mode='dense' ('auto' packs eris.vvvv at nvir >= 48)
+                ecw_cc_torch.set_config(ladder_mode=(
+                    "dense" if route == "dense" else "auto"))
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res, log = solve(ecw, LAMBDAS, conv_thres=CONV_THRES)
+                ms = (time.perf_counter() - t0) * 1e3
+                ecw_cc_torch.set_config(ladder_mode="auto")
+                if rep == 0:
+                    continue                      # the untimed sweep
+                runs[route].append(dict(
+                    ms=ms, solve_ms=[s["ms"] for s in log],
+                    iterations=[s["iterations"] for s in log],
+                    Ep=[float(ecw.EHF - e) for e in ecw.Ep_lamb],
+                    route=[s["route"] for s in log],
+                    converged=all(s["status"] == 1 for s in log),
+                    launches=ladder_mm.launches,
+                    peak_bytes=torch.cuda.max_memory_allocated()))
+        for route in routes:
+            r = runs[route]
+            its = sum(r[0]["iterations"])
+            ms = statistics.median(x["ms"] for x in r)
+            row = dict(molecule=mol_name, basis=basis,
+                       nvir=ecws[route].nvir, route=route,
+                       solver_routes=r[0]["route"], build_s=build_s[route],
+                       sweep_ms=ms, sweep_ms_runs=[x["ms"] for x in r],
+                       solve_ms_runs=[x["solve_ms"] for x in r],
+                       iterations=r[0]["iterations"],
+                       ms_per_iteration=ms / its, Ep=r[0]["Ep"],
+                       launches_per_iteration=r[0]["launches"] / its,
+                       peak_bytes=max(x["peak_bytes"] for x in r),
+                       converged=all(x["converged"] for x in r))
+            rows.append(row)
+            phase("R", "route_sweep", **row)
+            if not row["converged"] or set(row["solver_routes"]) != {route}:
+                raise AssertionError(f"{mol_name}/{basis} {route}: a lambda "
+                                     "did not converge or took the route "
+                                     f"{row['solver_routes']}")
+        del ecws
+        torch.cuda.empty_cache()
+    return rows
 
 
 def kernel_report(launches, checks, times):
-    """The kernel line: the headline numbers are f32 at the largest main
-    path shape (98x6561x6561, cc-pVTZ alpha-beta); every timed shape is
-    under by_dtype.  launches: {main path: ladder launches in its run}."""
+    """The kernel line: the headline numbers are f32 at the main path's
+    cc-pVTZ shape (392x13041x13041, the stacked packed GEMM); every timed
+    shape is under by_dtype.  launches: {path: ladder launches in its
+    run}."""
     by_dtype = {}
     for dtype in DTYPES:
         by_dtype[str(dtype).split(".")[-1]] = {tag(shape): {
@@ -518,8 +832,8 @@ def kernel_report(launches, checks, times):
             "max_abs_err": checks[(dtype, shape)][0],
             "blocks": checks[(dtype, shape)][1].blocks,
             "split_k": checks[(dtype, shape)][1].split}
-            for shape in TIMED_SHAPES}
-    main = (torch.float32, TZ_SHAPES[-1])
+            for shape in TIMED_SHAPES[dtype]}
+    main = (torch.float32, PACKED_TZ)
     return {"kernels": [{
         "name": "ladder_mm", "route": "cuda",
         "source": "ecw_cc_torch/csrc/ladder_mm.cu",
@@ -527,7 +841,7 @@ def kernel_report(launches, checks, times):
         "launches": sum(launches.values()),
         "launches_by_path": launches,
         "max_abs_err": max(checks[(torch.float32, s)][0]
-                           for s in TIMED_SHAPES),
+                           for s in TIMED_SHAPES[torch.float32]),
         "ms": times[main]["ms"], "plain_ms": times[main]["plain_ms"],
         "bound_ms": times[main]["bound_ms"],
         "bound_by": times[main]["bound_by"],
@@ -571,9 +885,15 @@ def main(argv):
             for (d, s), t in times.items()}}))
         print(smi)
         return 0
+    if "--routes" in argv:
+        route_sweeps(ladder_mm)
+        print(smi)
+        return 0
     if "--profile" in argv:
-        for basis in (BASIS, BASIS_TZ):
-            profile_chain(basis)
+        for route in ("sectored", "packed"):
+            for basis in (BASIS, BASIS_TZ):
+                profile_chain(basis, route)
+            profile_chain(BASIS_TZ, route, diis="tl")
         print(smi)
         return 0
 
@@ -605,19 +925,18 @@ def main(argv):
         sweep_ms = (time.perf_counter() - t0) * 1e3
         launches = ladder_mm.launches
         iters = sum(s["iterations"] for s in log)
-        per_iter = 2 if all(s["sym"] for s in log) else 3
         for s, ep, delta in zip(log, ecw32.Ep_lamb, ecw32.Delta_lamb):
-            phase(4, "solve_f32", L=s["L"], iterations=s["iterations"],
-                  converged=s["status"] == 1, Ep=ecw32.EHF - ep, Delta=delta,
-                  ms=s["ms"], sym=s["sym"])
+            phase(4, "solve_f32", L=s["L"], route=s["route"],
+                  iterations=s["iterations"], converged=s["status"] == 1,
+                  Ep=ecw32.EHF - ep, Delta=delta, ms=s["ms"])
         phase(4, "sweep_f32", ms=sweep_ms, iterations=iters,
-              ladder_launches=launches, launches_per_iteration=per_iter)
-        if not all(s["status"] == 1 for s in log):
-            raise AssertionError("an f32 lambda did not converge")
-        if launches != per_iter * iters:
+              ladder_launches=launches, launches_per_iteration=1)
+        if not all(s["status"] == 1 and s["route"] == "packed" for s in log):
+            raise AssertionError("an f32 lambda did not converge on the "
+                                 "packed route")
+        if launches != iters:
             raise AssertionError(f"ladder kernel launched {launches} times "
-                                 f"in {iters} iterations (expected "
-                                 f"{per_iter} each)")
+                                 f"in {iters} iterations (expected 1 each)")
         if not np.all(np.isfinite(res[4])) or res[4].shape != (ecw32.dim,) * 2:
             raise AssertionError("rdm1 is not finite or has the wrong shape")
         _, chain = solve(ecw32, [0.25], diis="", conv_thres=0.0,
@@ -628,36 +947,59 @@ def main(argv):
 
     # 5. main path, f64, card against CPU; f32 (device ERIs) against both
     with timed(5, seconds):
-        res64, log64 = solve(build_ecw("cuda", torch.float64), [0.25],
-                             conv_thres=CONV_THRES)
-        resc, logc = solve(build_ecw("cpu", torch.float64), [0.25],
-                           conv_thres=CONV_THRES)
+        ecw64c = build_ecw("cuda", torch.float64)
+        ecwc = build_ecw("cpu", torch.float64)
+        if ecw64c.mo_perm is not None or ecw64c.vvvv_op is not None:
+            raise AssertionError("the f64 ECW is not on the alternating "
+                                 "host route")
+        ladder_mm.launches = 0
+        res64, log64 = solve(ecw64c, [0.25], conv_thres=CONV_THRES)
+        launches_64 = ladder_mm.launches
+        resc, logc = solve(ecwc, [0.25], conv_thres=CONV_THRES)
         res32, log32 = solve(ecw32, [0.25], conv_thres=CONV_THRES)
         d64 = abs(float(res64[1][-1]) - float(resc[1][-1]))
         d32 = abs(float(res32[1][-1]) - float(resc[1][-1]))
         it = {k: v[0]["iterations"] for k, v in
               (("cuda_f64", log64), ("cpu_f64", logc), ("cuda_f32", log32))}
-        phase(5, "f64_card_vs_cpu", iterations=it,
+        routes = {k: v[0]["route"] for k, v in
+                  (("cuda_f64", log64), ("cpu_f64", logc), ("cuda_f32", log32))}
+        phase(5, "f64_card_vs_cpu", iterations=it, routes=routes,
               Ep_cpu_f64=float(resc[1][-1]), dEp_cuda_f64=d64,
               dEp_cuda_f32=d32, ms_cuda_f64=log64[0]["ms"],
-              ms_cpu_f64=logc[0]["ms"], ms_cuda_f32=log32[0]["ms"])
+              ms_cpu_f64=logc[0]["ms"], ms_cuda_f32=log32[0]["ms"],
+              ladder_launches_cuda_f64=launches_64)
         if not all(s[0]["status"] == 1 for s in (log64, logc, log32)):
             raise AssertionError("a lambda = 0.25 solve did not converge")
+        if set(routes.values()) != {"packed"}:
+            raise AssertionError(f"phase 5 took the routes {routes}")
+        if launches_64 != it["cuda_f64"]:
+            raise AssertionError(f"f64 packed solve launched the kernel "
+                                 f"{launches_64} times in {it['cuda_f64']} "
+                                 "iterations (expected 1 each)")
         if it["cuda_f64"] != it["cpu_f64"] or d64 > 1e-9:
             raise AssertionError(f"f64 card solve differs from CPU: {it}, "
                                  f"{d64}")
         if abs(it["cuda_f32"] - it["cpu_f64"]) > 1 or d32 > 1e-5:
             raise AssertionError(f"f32 card solve differs from CPU f64: "
                                  f"{it}, {d32}")
+        ref32 = (float(res32[1][-1]), it["cuda_f32"])
 
     # 6. ERI build at cc-pVDZ on the card against the host build
     with timed(6, seconds):
         check_eri_build(ecw32)
-        del ecw32
 
     # 7. main path at full width: C2H2/cc-pVTZ
     with timed(7, seconds):
-        launches_tz = run_tz(ladder_mm)
+        launches_tz, ecw_tz, ref_tz = run_tz(ladder_mm)
+
+    # 9. the sorted and dense routes
+    with timed(9, seconds):
+        launches_9 = {"c2h2_ccpvtz_f32_sectored": run_sorted_tz(
+            ladder_mm, ecw_tz, ref_tz)}
+        del ecw_tz
+        launches_9.update(run_spin_mixing(ladder_mm, ecw32))
+        launches_9.update(run_dense(ladder_mm, ecw32, ref32, ecw64c, ecwc))
+        del ecw32, ecw64c, ecwc
 
     # 8. neither JAX nor the JAX package
     with timed(8, seconds):
@@ -670,8 +1012,10 @@ def main(argv):
     phase(0, "seconds", total=time.perf_counter() - t_start,
           by_phase=seconds)
     print(json.dumps(kernel_report(
-        {"c2h2_ccpvdz_f32_sweep": launches,
-         "c2h2_ccpvtz_f32_solve": launches_tz}, checks, times)))
+        {"c2h2_ccpvdz_f32_packed_sweep": launches,
+         "c2h2_ccpvdz_f64_packed": launches_64,
+         "c2h2_ccpvtz_f32_packed": launches_tz, **launches_9},
+        checks, times)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,10 +1,11 @@
 """
 ecw_cc_torch — the PyTorch/CUDA port of ecw_cc_tpu for one NVIDIA H100.
 
-It runs the ECW-CCSD ground-state lambda solve on the spin-sorted,
-sector-blocked route, with the vvvv ladder GEMM in a hand-written Hopper
-kernel (csrc/ladder_mm.cu); at f32 the ERIs are transformed on the card
-(models/eris.build_eris_device).  The JAX package ecw_cc_tpu stays the
+It runs the ECW-CCSD ground-state lambda solve on every route of the JAX
+solver: the spin-sorted, sector-blocked one, and the dense kernels on the
+sorted or the alternating layout, with every vvvv ladder GEMM in a
+hand-written Hopper kernel (csrc/ladder_mm.cu); at f32 the ERIs are
+transformed on the card (models/eris.build_eris_device).  The JAX package ecw_cc_tpu stays the
 reference.  This package imports neither jax nor ecw_cc_tpu: it keeps its
 own copies of the host front end (native/, models/{basis_io,basis_data,
 integrals,molecule,scf}.py, the host half of models/eris.py, utils/).

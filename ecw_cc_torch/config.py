@@ -26,9 +26,19 @@ class Config:
     # DIIS defaults of Solver_CCSD (reference Solver_GS).
     maxdiis: int = 15
     mindiis: int = 2
+    # Route of the v^4 ladder contraction (ops/ladder.py; JAX config.py:
+    # 27-44): 'dense' is one (o^2, v^2) x (v^2, v^2) GEMM against the full
+    # vvvv, 'packed' the antisymmetry-packed (o^2, p) x (p, p) GEMM of a
+    # PackedVVVV, 'auto' packed at nvir >= ops/ladder.PACKED_MIN_NVIR and
+    # dense below.  The JAX package's 'sectors' (the alternating-layout spin
+    # sectors) is deliberately not ported: 'auto' never picks it, and the
+    # spin-sorted SectoredVVVV route does the same work without strided
+    # slices.
+    ladder_mode: str = "auto"
     # Sector-blocked soup kernels (ops/ccsd_sect.py) on the spin-sorted
-    # layout; the port has no dense kernels yet, so False makes the solver
-    # raise (ROADMAP A.2).
+    # layout, where the solver's structure gate passes; False (or a target
+    # that couples the spins) runs the dense kernels of ops/ccsd.py on the
+    # same sorted layout.
     soup_sector: bool = True
     # Closed-shell mirror symmetry on top of the sectored kernels
     # (ops/spinsect.py sym mode), used where the solver's gate passes.
@@ -41,6 +51,7 @@ class Config:
 _CHOICES = {
     "dtype": ("float32", "float64"),
     "iter_precision": ("highest", "high", "default", "bf16", "hybrid"),
+    "ladder_mode": ("auto", "dense", "packed"),
 }
 
 _config = Config()
@@ -54,6 +65,13 @@ def set_config(**kwargs) -> Config:
     for k, v in kwargs.items():
         if not hasattr(_config, k):
             raise AttributeError(f"unknown config field {k!r}")
+        if k == "ladder_mode" and v == "sectors":
+            raise ValueError(
+                "config.ladder_mode='sectors' (the alternating-layout spin "
+                "sectors) is deliberately not ported: use the spin-sorted "
+                "layout (build_eris_device(sort_spin=True) and "
+                "Solver_CCSD(mo_perm=...)), whose SectoredVVVV does the "
+                "same work, or 'auto'/'dense'/'packed'")
         if k in _CHOICES and v not in _CHOICES[k]:
             raise ValueError(f"config.{k} must be one of {_CHOICES[k]}, "
                              f"got {v!r}")

@@ -1,13 +1,25 @@
 """User API / driver: the ECW class (port of ecw_cc_tpu/models/ecw.py;
 reference Main.py class ECW).
 
-Builds the molecule and RHF -> GHF, then the spin-sorted, sector-packed
-ERIs on the requested device: at f32 through the device transform
-(build_eris_device), at f64 (the parity mode) from the host f64 ERIs.  Then
-it builds ground-state targets and runs the warm-started ECW-CCSD lambda
-sweep.  Every host-visible quantity (fock, amplitudes, rdm1s, targets)
-stays in the reference alternating spin convention; only the device ERIs
-and the solver internals are sorted.
+Builds the molecule and RHF -> GHF, then the device ERIs, always in the
+reference alternating layout:
+
+  - f32, ladder_mode resolving to 'packed' (nvir >= 48 under 'auto'): the
+    device transform with a PackedVVVV (the packed solve, one ladder GEMM
+    per iteration);
+  - f32, 'dense': the dense device transform;
+  - f64 (the parity mode): the host f64 ErisHost, uploaded; the solver
+    derives its ladder operand per ladder_mode.
+
+The JAX ECW (ecw_cc_tpu/models/ecw.py:74-112) builds the spin-sorted
+layout at f32 by default (config.spin_sorted) for its sector-blocked
+solve.  On the H100 the alternating packed route ran the whole f32 sweep
+faster at every nvir measured, 16 to 162 (`chip_smoke.py --routes`,
+PERF.md), so ECW does not take the sorted route; it stays reachable
+through build_eris_device(sort_spin=True) and Solver_CCSD(mo_perm=...).
+
+Then it builds ground-state targets and runs the warm-started ECW-CCSD
+lambda sweep.
 """
 
 from __future__ import annotations
@@ -20,12 +32,11 @@ import torch
 
 from ecw_cc_torch.config import check_device, torch_dtype
 from ecw_cc_torch.models import gamma_exp
-from ecw_cc_torch.models.eris import (build_eris, build_eris_device,
-                                      sorted_from_host)
+from ecw_cc_torch.models.eris import build_eris, build_eris_device
 from ecw_cc_torch.models.molecule import Molecule
 from ecw_cc_torch.models.scf import GHF, RHF
 from ecw_cc_torch.ops.ccsd import GCC
-from ecw_cc_torch.ops.ladder import spin_sort_perm
+from ecw_cc_torch.ops.ladder import resolve_mode
 from ecw_cc_torch.ops.vexp import Exp
 from ecw_cc_torch.solvers.gs import Solver_CCSD
 from ecw_cc_torch.utils import checkpoint, convert, output, props
@@ -40,11 +51,11 @@ def _host(a):
 class ECW:
     def __init__(self, molecule, basis, int_thresh=1e-13, out_dir=None,
                  U_format=False, spin=0, *, device="cuda", dtype=None):
-        """Molecule, RHF -> GHF, and the sorted device ERIs on `device` in
-        `dtype` (torch dtype or name; None = config.dtype).  Reference
-        Main.py:34-253.  `self.timings` gets the host-clock seconds of the
-        set-up: 'integrals_scf', and at f32 'x_half_s' and 'device_s' of
-        the device transform."""
+        """Molecule, RHF -> GHF, and the device ERIs on `device` in `dtype`
+        (torch dtype or name; None = config.dtype) by the route of the
+        module docstring.  Reference Main.py:34-253.  `self.timings` gets
+        the host-clock seconds of the set-up: 'integrals_scf', and at f32
+        'x_half_s' and 'device_s' of the device transform."""
         self.device = check_device(device)
         self.dtype = torch_dtype(dtype)
         self.myccsd = None
@@ -83,25 +94,26 @@ class ECW:
             rdm1_r = convert.convert_g_to_ru_rdm1(self.rdm1_hf)[0]
             output.cube_density(mol, os.path.join(out_dir, "HF.cube"), rdm1_r)
 
-        # sorted, sector-packed device ERIs (the sorted route is exact at
-        # any nvir).  f32: the MO transform runs on the device, and no host
-        # G-format ERIs are built; f64: from the host f64 ERIs (alternating
-        # layout), the parity mode.  The host ERIs stay available lazily.
+        # device ERIs by the route of the module docstring.  f32: the MO
+        # transform runs on the device and no host G-format ERIs are built;
+        # f64: the host f64 ERIs, the parity mode.  The host ERIs stay
+        # available lazily.
         self._int_thresh = int_thresh
         self._eris_host = None
-        self.mo_perm = spin_sort_perm(ghf.orbspin, self.nocc)
+        self.vvvv_op = None
+        self.mo_perm = None          # the alternating layout: no permutation
         if self.dtype == torch.float32:
-            self.eris, self.vvvv_op = build_eris_device(
-                mol, ghf, dtype=self.dtype, device=self.device,
-                pack_ladder=True, sort_spin=True, timings=self.timings)
+            build = dict(dtype=self.dtype, device=self.device,
+                         timings=self.timings)
+            if resolve_mode(self.nvir) == "packed":
+                self.eris, self.vvvv_op = build_eris_device(
+                    mol, ghf, pack_ladder=True, **build)
+            else:
+                self.eris = build_eris_device(mol, ghf, **build)
         else:
-            self.eris, self.vvvv_op = sorted_from_host(
-                self.eris_host, self.mo_perm, dtype=self.dtype,
-                device=self.device)
-        # host-visible quantities stay in the reference (alternating) MO
-        # convention; only the device eris/solver internals are sorted
-        ip = np.argsort(self.mo_perm)
-        self.fock = _host(self.eris.fock).astype(np.float64)[np.ix_(ip, ip)]
+            self.eris = self.eris_host.to_device(dtype=self.dtype,
+                                                 device=self.device)
+        self.fock = _host(self.eris.fock).astype(np.float64)
 
         self.target_rdm1_GS = None
         self.cal_rdm1_Delta = False

@@ -14,14 +14,14 @@ and `warn_if_sorted_layout`.  Three ways to device tensors:
   - `build_eris_device(mol, ghf, ...)`: the production route at f32.  The
     ill-conditioned S^-1/2 half of the transform runs on the host in f64,
     the orthonormal half and the block slicing on the device; with
-    pack_ladder=True, sort_spin=True the vvvv block goes slab by slab
-    straight into the SectoredVVVV ladder operand;
+    pack_ladder=True the vvvv block goes slab by slab straight into the
+    ladder operand, a SectoredVVVV (sort_spin=True) or a PackedVVVV;
   - `sorted_from_host(eris_host, perm)`: the host f64 blocks (alternating
     alpha/beta MO order) uploaded, permuted to the spin-SORTED layout
     (alpha first within occ and vir) and packed (the f64 parity route);
-  - `from_numpy(geris, sect)`: the fields of any object with GEris /
-    SectoredVVVV field names (NumPy arrays, JAX arrays, an ErisHost) as
-    they are, so both packages compute on identical inputs.
+  - `from_numpy(geris, op)`: the fields of any object with GEris /
+    SectoredVVVV / PackedVVVV field names (NumPy arrays, JAX arrays, an
+    ErisHost) as they are, so both packages compute on identical inputs.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ecw_cc_torch.config import check_device, torch_dtype
-from ecw_cc_torch.ops.ladder import (SectoredVVVV, _pack_pairs,
+from ecw_cc_torch.ops.ladder import (PackedVVVV, SectoredVVVV, _pack_pairs,
                                      pack_vvvv_sorted, spin_sort_perm)
 
 
@@ -219,6 +219,20 @@ def warn_if_sorted_layout(eris, where):
             RuntimeWarning, stacklevel=3)
 
 
+def _packed_rows_from_slab(slab4, lo, hi):
+    """PackedVVVV rows from one alternating-layout <ab||ef> slab (w, v, v,
+    v) whose first axis covers a = lo..hi-1: the rows (a, b) with b > a,
+    their (e, f) columns packed to e < f (pair rows with a fixed leading a
+    are contiguous in row-major a<b pair order).  Port of JAX eris.py:152,
+    on the exact slice [lo, hi)."""
+    v = slab4.shape[1]
+    rows = [slab4[a - lo, a + 1:].reshape(v - a - 1, v * v)
+            for a in range(lo, hi) if a + 1 < v]
+    if not rows:                      # a slab holding only a = v-1
+        return slab4.new_zeros((0, v * (v - 1) // 2))
+    return _pack_pairs(torch.cat(rows, dim=0), v)
+
+
 def _sector_rows_from_slab(slab4, lo, hi, ma):
     """Sectored ladder rows from one sorted-layout <ab||ef> slab (w, v, v, v)
     whose first axis covers a = lo..hi-1: returns (aa_rows, ab_rows,
@@ -268,11 +282,11 @@ def build_eris_device(mol, ghf, *, dtype=None, device="cuda",
     transform, so every block comes out in the spin-SORTED layout where
     sector slices are contiguous.  With pack_ladder=True the dense
     (v,v,v,v) block is never formed: each vvvv slab goes straight to its
-    SectoredVVVV rows, the GEris carries a (nvir,0,0,0) placeholder for
-    vvvv, and the return value is a (GEris, SectoredVVVV) pair.  With
-    pack_ladder=False the dense GEris is returned.  pack_ladder=True
-    without sort_spin would need the PackedVVVV operand of the dense route,
-    which the port does not have yet (ROADMAP A.2).
+    ladder rows, the GEris carries a (nvir,0,0,0) placeholder for vvvv, and
+    the return value is a (GEris, op) pair: op is the SectoredVVVV with
+    sort_spin=True, the PackedVVVV of the alternating layout without it
+    (the peak is the same nmo^4 chemists' tensor either way).  With
+    pack_ladder=False the dense GEris is returned.
 
     PRECISION: the transform is COMPENSATED by splitting it through the
     orthonormalized AO basis,
@@ -295,11 +309,6 @@ def build_eris_device(mol, ghf, *, dtype=None, device="cuda",
     ('x_half_s', 'device_s'; the device is synchronized before each
     reading), or None.
     """
-    if pack_ladder and not sort_spin:
-        raise NotImplementedError(
-            "pack_ladder=True with sort_spin=False needs the PackedVVVV "
-            "ladder operand of the dense route, not ported yet (ROADMAP "
-            "A.2); use sort_spin=True")
     dtype = torch_dtype(dtype)
     dev = check_device(device)
     t0 = time.perf_counter()
@@ -368,16 +377,27 @@ def build_eris_device(mol, ghf, *, dtype=None, device="cuda",
     width = max(1, -(-nvir // 6))
     allow_vv = allow[nocc:, nocc:]
     slabs, groups = [], ([], [], [])
+    if pack_ladder and not sort_spin:
+        # the PackedVVVV rows, filled slab by slab: no second copy of the
+        # (p, p) operand at the end of the build
+        npair = nvir * (nvir - 1) // 2
+        wc = torch.empty((npair, npair), dtype=dtype, device=dev)
     for lo in range(0, nvir, width):
         hi = min(lo + width, nvir)
         t = C[nocc + lo:nocc + hi, nocc:, nocc:, nocc:]   # chemists (a,e,b,f)
         t = t * (allow_vv[lo:hi, :, None, None] * allow_vv[None, None])
         slab = t.permute(0, 2, 1, 3) - t.permute(0, 2, 3, 1)
         del t
-        if pack_ladder:
+        if pack_ladder and sort_spin:
             for g, rows in zip(groups, _sector_rows_from_slab(slab, lo, hi,
                                                               ma)):
                 g.append(rows)
+        elif pack_ladder:
+            # the a < b pair rows of a = lo..hi-1 start after the
+            # lo*v - lo(lo+1)/2 rows of the smaller a
+            r0, r1 = (lo * nvir - lo * (lo + 1) // 2,
+                      hi * nvir - hi * (hi + 1) // 2)
+            wc[r0:r1] = _packed_rows_from_slab(slab, lo, hi)
         else:
             slabs.append(slab.contiguous())
         del slab
@@ -386,9 +406,12 @@ def build_eris_device(mol, ghf, *, dtype=None, device="cuda",
                                      device=dev)
     if pack_ladder:
         blocks["vvvv"] = torch.zeros((nvir, 0, 0, 0), dtype=dtype, device=dev)
-        wc_aa, w_ab, wc_bb = (torch.cat(g, dim=0) for g in groups)
-        out = GEris(**blocks), SectoredVVVV(wc_aa=wc_aa, wc_bb=wc_bb,
-                                            w_ab=w_ab)
+        if sort_spin:
+            wc_aa, w_ab, wc_bb = (torch.cat(g, dim=0) for g in groups)
+            op = SectoredVVVV(wc_aa=wc_aa, wc_bb=wc_bb, w_ab=w_ab)
+        else:
+            op = PackedVVVV(wc=wc)
+        out = GEris(**blocks), op
     else:
         blocks["vvvv"] = torch.cat(slabs, dim=0)
         out = GEris(**blocks)
@@ -404,16 +427,19 @@ def _tensor(a, dtype, device):
     return torch.tensor(_host(a), dtype=dtype, device=device)
 
 
-def from_numpy(geris, sect=None, *, dtype, device="cuda"):
-    """Torch GEris (and SectoredVVVV, when `sect` is given) from objects
-    whose fields are array-like, on `device` in `dtype`."""
+def from_numpy(geris, op=None, *, dtype, device="cuda"):
+    """Torch GEris (and its ladder operand, when `op` is given) from objects
+    whose fields are array-like, on `device` in `dtype`.  `op` has the
+    fields of a SectoredVVVV or of a PackedVVVV (a JAX one, say), and comes
+    back as the port's type of the same name."""
     device = check_device(device)
     eris = GEris(**{f: _tensor(getattr(geris, f), dtype, device)
                     for f in GEris._fields})
-    if sect is None:
+    if op is None:
         return eris
-    return eris, SectoredVVVV(*(_tensor(getattr(sect, f), dtype, device)
-                                .contiguous() for f in SectoredVVVV._fields))
+    cls = PackedVVVV if hasattr(op, "wc") else SectoredVVVV
+    return eris, cls(*(_tensor(getattr(op, f), dtype, device).contiguous()
+                       for f in cls._fields))
 
 
 def sorted_from_host(eris_host, perm, *, dtype, device="cuda"):

@@ -12,29 +12,24 @@ targets once, spinsect.is_block_diagonal).
 
 The bare vvvv ladder comes in as `ladder_pre` (the solver's stacked
 sectored GEMM, ops/ladder.balanced_stacked_sectored_contract).  Without it
-a SectoredVVVV `vvvv_op` runs the same ladder in single-operand mode; any
-other route would need the dense ladder, which is not ported (ROADMAP A.2)
-and raises.
+a SectoredVVVV `vvvv_op` runs the same ladder in single-operand mode, and
+any other operand (a PackedVVVV) its own route through
+ops/ladder.apply_vvvv_op on the dense operand, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ecw_cc_torch.ops.ccsd import _eia
 from ecw_cc_torch.ops.l1reg import subdiff
-from ecw_cc_torch.ops.ladder import (SectoredVVVV,
+from ecw_cc_torch.ops.ladder import (SectoredVVVV, apply_vvvv_op,
                                      balanced_stacked_sectored_contract)
 from ecw_cc_torch.ops.spinsect import (SpinBlocked, div_eijab, sector_einsum,
                                        wrap)
 
 einsum = torch.einsum
 _S = sector_einsum
-
-
-def _no_ladder():
-    return NotImplementedError(
-        "sector updates need ladder_pre or a SectoredVVVV vvvv_op; the "
-        "dense ladder route is not ported (ROADMAP A.2)")
 
 
 def wrap_eris(eris, info, sym=False):
@@ -71,11 +66,6 @@ def gamma_inter_sect(t1, t2, l1, l2, info, sym=False):
            - einsum("mi,ma->ai", xt1, t1)
            - einsum("ie,ae->ai", t1, xt2) + t1.T)
     return doo, l1, dvo, dvv
-
-
-def _eia(diag_oo, diag_vv):
-    eia = diag_oo[:, None] - diag_vv[None, :]
-    return eia, eia[:, None, :, None] + eia[None, :, None, :]
 
 
 def tupdate_sect(eris, t1, t2, fsp, info, alpha=None, vvvv_op=None,
@@ -159,10 +149,11 @@ def tupdate_sect(eris, t1, t2, fsp, info, alpha=None, vvvv_op=None,
 
     # bare-vvvv ladder L1
     if ladder_pre is None:
-        if not isinstance(vvvv_op, SectoredVVVV):
-            raise _no_ladder()
-        ladder_pre = balanced_stacked_sectored_contract(
-            vvvv_op, tau, None, info.oa, sym=sym, blocked_info=info)
+        if isinstance(vvvv_op, SectoredVVVV):
+            ladder_pre = balanced_stacked_sectored_contract(
+                vvvv_op, tau, None, info.oa, sym=sym, blocked_info=info)
+        else:
+            ladder_pre = apply_vvvv_op(vvvv_op, tau.dense())
     eia, eijab = _eia(diag_oo, diag_vv)
     if hasattr(ladder_pre, "blocks"):
         t2new = t2new + ladder_pre
@@ -253,10 +244,11 @@ def lupdate_sect(eris, t1, t2, l1, l2, fsp, info, alpha=None,
     lt1 = _S("ijcd,kd->ijck", l2b, t1b)
     m3 = m3 + _S("kcba,ijck->ijab", sb["ovvv"], lt1).scale(-1.0)
     if ladder_pre is None:
-        if not isinstance(vvvv_op, SectoredVVVV):
-            raise _no_ladder()
-        ladder_pre = balanced_stacked_sectored_contract(
-            vvvv_op, l2b, None, info.oa, sym=sym, blocked_info=info)
+        if isinstance(vvvv_op, SectoredVVVV):
+            ladder_pre = balanced_stacked_sectored_contract(
+                vvvv_op, l2b, None, info.oa, sym=sym, blocked_info=info)
+        else:
+            ladder_pre = apply_vvvv_op(vvvv_op, l2)
     blocked_pre = hasattr(ladder_pre, "blocks")
     if blocked_pre:
         m3b = m3 + ladder_pre        # stays blocked: no dense round trip

@@ -1,13 +1,30 @@
-"""The vvvv 'ladder' contraction on the spin-sorted, sectored route.
+"""The vvvv 'ladder' contraction: the CCSD hot spot.
 
-Port of the sorted route of ecw_cc_tpu/ops/ladder.py.  The bare ladder
+Port of ecw_cc_tpu/ops/ladder.py.  The bare ladder
     y[ij,ab] = 0.5 sum_ef x[ij,ef] <ab||ef>
-is computed for x antisymmetric in its last two indices (tau, t2, l2) on
-the spin-SORTED MO layout (alpha first within occ and vir), where <ab||ef>
-is block-diagonal over three spin sectors and each sector is packed to its
-a<b pairs (SectoredVVVV).  Every sector product is the NT GEMM
-C = A @ B.T of the hand-written Hopper kernel (kernels/ladder_mm.py), called
-through `_sector_mm`.
+is computed for x antisymmetric in its last two indices (tau, t2, l2), on
+one of three routes:
+
+  - dense (`ladder_contract` with no operand): one (o^2, v^2) x (v^2, v^2)
+    GEMM against the full vvvv.  This is the call site of the JAX package's
+    Pallas kernel (`_ladder_mm_pallas`, ladder.py:621-629);
+  - packed (`PackedVVVV`): both pair indices restricted to e<f, a<b, so the
+    GEMM is (o^2, p) x (p, p) with p = v(v-1)/2, in either MO layout;
+  - sectored (`SectoredVVVV`): on the spin-SORTED MO layout (alpha first
+    within occ and vir) <ab||ef> is block-diagonal over three spin sectors,
+    each packed to its a<b pairs: three GEMMs.
+
+Every one of these products is the NT GEMM C = A @ B.T of the hand-written
+Hopper kernel (kernels/ladder_mm.py).  The lambda ladder
+0.5 * einsum('ijcd,cdab->ijab', l2, vvvv) is the same product by the
+pair-swap symmetry <ab||cd> = <cd||ab>.  The O(o^4 v^2) and O(o^2 v^3)
+corrections of `ladder_contract` stay torch.einsum, as they were XLA
+einsums outside any Pallas kernel in the JAX package.
+
+The JAX package's alternating-layout spin sectors (`vvvv_spin_sectors`,
+`sector_vvvv_contract`, config.ladder_mode='sectors') are deliberately not
+ported: 'auto' never picks them, and the sorted layout does the same work
+without strided slices.
 """
 
 from __future__ import annotations
@@ -17,7 +34,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ecw_cc_torch.config import get_config
 from ecw_cc_torch.kernels.ladder_mm import ladder_mm
+
+einsum = torch.einsum
+
+# ladder_mode='auto' packs the ladder operand from this nvir up (the JAX
+# package's default of config.ladder_packed_min_nvir)
+PACKED_MIN_NVIR = 48
 
 _PAIR_IDX = {}
 
@@ -45,12 +69,51 @@ def _unpack_pairs(yc, v):
     return out
 
 
+class PackedVVVV(NamedTuple):
+    """Upper-triangle-packed <ab||ef> (JAX ladder.py:202): wc[A, E] =
+    <a b||e f> with A = (a<b), E = (e<f) in row-major pair order.  wc is
+    symmetric (pair-swap symmetry); its row axis may be zero-padded."""
+    wc: torch.Tensor   # (p, p), p = nvir*(nvir-1)//2
+
+
 def pack_vvvv(vvvv):
-    """Antisymmetry-packed (p, p) ladder operand of a dense <ab||ef> block,
-    p = v(v-1)/2."""
+    """The PackedVVVV of a dense <ab||ef> block (JAX ladder.py:233)."""
     v = vvvv.shape[0]
     wc_rows = _pack_pairs(vvvv.reshape(v * v, v * v), v)       # (v^2, p)
-    return _pack_pairs(wc_rows.T.contiguous(), v).contiguous()  # (p, p)
+    return PackedVVVV(
+        wc=_pack_pairs(wc_rows.T.contiguous(), v).contiguous())  # (p, p)
+
+
+def _packed_mm(xc, packed, p):
+    """(M, p) packed rows times the packed operand, through the kernel."""
+    yc = ladder_mm(xc, packed.wc)
+    return yc[:, :p] if packed.wc.shape[0] != p else yc
+
+
+def packed_vvvv_contract(packed, x):
+    """0.5 * einsum('ijef,abef->ijab', x, vvvv) via the triangle packing
+    (JAX ladder.py:241).  x antisymmetric in its last two indices; the two
+    leading dims need not be equal.  Also the lambda ladder (pair-swap
+    symmetry)."""
+    o, o2, v, _ = x.shape
+    p = v * (v - 1) // 2
+    yc = _packed_mm(_pack_pairs(x.reshape(o * o2, v * v), v), packed, p)
+    z = _unpack_pairs(yc, v).reshape(o, o2, v, v)
+    return z - z.transpose(2, 3)
+
+
+def stacked_packed_contract(packed, x1, x2):
+    """Both per-iteration ladders (t side on tau, lambda side on l2) as one
+    (2 o^2, p) x (p, p) GEMM, so the packed operand is read once per
+    iteration (JAX ladder.py:274).  Returns (packed_vvvv_contract(packed,
+    x1), packed_vvvv_contract(packed, x2))."""
+    o, _, v, _ = x1.shape
+    p = v * (v - 1) // 2
+    xc = torch.cat([_pack_pairs(x1.reshape(o * o, v * v), v),
+                    _pack_pairs(x2.reshape(o * o, v * v), v)])
+    z = _unpack_pairs(_packed_mm(xc, packed, p), v).reshape(2, o, o, v, v)
+    z = z - z.transpose(-1, -2)
+    return z[0], z[1]
 
 
 class SectoredVVVV(NamedTuple):
@@ -80,8 +143,8 @@ def pack_vvvv_sorted(vvvv, ma):
     v = vvvv.shape[0]
     mb = v - ma
     return SectoredVVVV(
-        wc_aa=pack_vvvv(vvvv[:ma, :ma, :ma, :ma]),
-        wc_bb=pack_vvvv(vvvv[ma:, ma:, ma:, ma:]),
+        wc_aa=pack_vvvv(vvvv[:ma, :ma, :ma, :ma]).wc,
+        wc_bb=pack_vvvv(vvvv[ma:, ma:, ma:, ma:]).wc,
         w_ab=vvvv[:ma, ma:, :ma, ma:].reshape(ma * mb, ma * mb).contiguous())
 
 
@@ -125,6 +188,129 @@ def sectored_vvvv_contract(sect, x):
     y_bb = _sector_mm(x_bb, sect.wc_bb, mb * (mb - 1) // 2)
     y_ab = _sector_mm(x_ab, sect.w_ab, ma * mb)
     return _sector_assemble(y_aa, y_bb, y_ab, o, ma, mb, x.dtype, o2=o2)
+
+
+def stacked_sectored_contract(sect, x1, x2):
+    """Both per-iteration ladders as one GEMM per spin sector on the
+    stacked rows of x1 and x2 (every occupied row pair; JAX ladder.py:417):
+    the route of a sorted-layout solve whose amplitudes do not keep the
+    balanced spin structure."""
+    o, _, v, _ = x1.shape
+    ma, mb = _sector_dims(sect, v)
+    in1 = _sector_inputs(x1, ma)
+    in2 = _sector_inputs(x2, ma)
+    ncols = (ma * (ma - 1) // 2, mb * (mb - 1) // 2, ma * mb)
+    ys = [_sector_mm(torch.cat([a, b]), w, n)
+          for a, b, w, n in zip(in1, in2,
+                                (sect.wc_aa, sect.wc_bb, sect.w_ab), ncols)]
+    M = o * o
+    z1 = _sector_assemble(ys[0][:M], ys[1][:M], ys[2][:M], o, ma, mb,
+                          x1.dtype)
+    z2 = _sector_assemble(ys[0][M:], ys[1][M:], ys[2][M:], o, ma, mb,
+                          x2.dtype)
+    return z1, z2
+
+
+def ensure_sorted_vvvv_op(vvvv_op, eris, info):
+    """The operand the sorted-layout kernels need (JAX ladder.py:342): a
+    prebuilt one passes through, else the dense sorted eris.vvvv is packed
+    into a SectoredVVVV (sector sizes from `info`)."""
+    if vvvv_op is not None:
+        return vvvv_op
+    if eris.vvvv.numel() == 0:
+        raise ValueError(
+            "sectored kernels need a ladder operand: eris were built with "
+            "pack_ladder=True but no vvvv_op was threaded through")
+    return pack_vvvv_sorted(eris.vvvv, info.va)
+
+
+def apply_vvvv_op(vvvv_op, x):
+    """The bare ladder of x on a non-dense route (JAX ladder.py:264)."""
+    if isinstance(vvvv_op, PackedVVVV):
+        return packed_vvvv_contract(vvvv_op, x)
+    if isinstance(vvvv_op, SectoredVVVV):
+        return sectored_vvvv_contract(vvvv_op, x)
+    raise TypeError(
+        f"no ladder route for a {type(vvvv_op).__name__} operand: the port "
+        "takes a PackedVVVV or a SectoredVVVV (the JAX package's "
+        "alternating-layout spin sectors are deliberately not ported)")
+
+
+def resolve_mode(nvir):
+    """config.ladder_mode with 'auto' resolved for this nvir: packed at
+    nvir >= PACKED_MIN_NVIR, dense below (JAX ladder.py:569)."""
+    mode = get_config().ladder_mode
+    if mode == "auto":
+        mode = "packed" if nvir >= PACKED_MIN_NVIR else "dense"
+    return mode
+
+
+def make_vvvv_op(vvvv):
+    """The ladder operand for this vvvv block per config.ladder_mode (JAX
+    ladder.py:579): None for 'dense', a PackedVVVV for 'packed'."""
+    if vvvv.numel() == 0:
+        raise ValueError(
+            "dense vvvv was not materialized (build_eris_device("
+            "pack_ladder=True)); pass its PackedVVVV to the solver instead "
+            "of rebuilding from eris.vvvv")
+    mode = resolve_mode(vvvv.shape[0])
+    if mode == "dense":
+        return None
+    if mode == "packed":
+        return pack_vvvv(vvvv)
+    raise ValueError(f"unknown ladder_mode {mode!r}")
+
+
+def ladder_contract(eris, t1, t2, tau, vvvv_op=None, skip_quad=False,
+                    L1_pre=None, Y_pre=None):
+    """0.5 * einsum('ijef,abef->ijab', tau, Wvvvv) without forming Wvvvv
+    (JAX ladder.py:602): the bare ladder L1, the t1.ovvv correction L2 and,
+    unless skip_quad, the quadratic 0.125 tau.oovv.tau term L3 (tupdate
+    applies that term itself, with its Woooo twin, at weight 0.25).
+
+    L1_pre: the bare ladder already computed (the solver's stacked GEMM);
+    else vvvv_op's route; else the dense GEMM through the kernel, the call
+    site of the JAX package's Pallas kernel.  Y_pre: the tau.ovvv
+    intermediate 'ijef,mbef->ijmb', when the caller has it."""
+    nocc, nvir = t1.shape
+    if L1_pre is not None:
+        L1 = L1_pre
+    elif vvvv_op is not None:
+        L1 = apply_vvvv_op(vvvv_op, tau)
+    else:
+        L1 = 0.5 * dense_ladder(tau, eris.vvvv)
+
+    # the P(ab) part of the t1.ovvv correction, folded into two
+    # output-index-swapped contractions
+    Y = Y_pre if Y_pre is not None else einsum("ijef,mbef->ijmb", tau,
+                                               eris.ovvv)
+    L2 = (einsum("ijmb,ma->ijab", Y, -0.5 * t1)
+          + einsum("ijma,mb->ijab", Y, 0.5 * t1))
+    if skip_quad:
+        return L1 + L2
+    X = einsum("ijef,mnef->ijmn", tau, eris.oovv)
+    L3 = 0.125 * einsum("ijmn,mnab->ijab", X, tau)
+    return L1 + L2 + L3
+
+
+def dense_ladder(x, vvvv):
+    """sum_ef x[ij,ef] vvvv[ab,ef] as one (o^2, v^2) x (v^2, v^2) GEMM
+    through the kernel (no factor 0.5).  With x = l2 it is also
+    sum_cd l2[ij,cd] vvvv[cd,ab] by the pair-swap symmetry <ab||cd> =
+    <cd||ab>, which host-built ERIs hold to roundoff; f32 device-built
+    ones to their rounding (PERF.md records max|V - V.T| on the card)."""
+    o, o2, v, _ = x.shape
+    if vvvv.numel() == 0:
+        raise ValueError(
+            "the dense ladder needs the dense vvvv, but eris carry the "
+            "(nvir, 0, 0, 0) placeholder of a pack_ladder=True build: pass "
+            "its ladder operand (vvvv_op)")
+    # a view of vvvv as it lies, never a copy of its 60 MB-3 GB: view
+    # raises where the strides do not allow one, and the kernel on a
+    # non-contiguous operand
+    y = ladder_mm(x.reshape(o * o2, v * v).contiguous(),
+                  vvvv.view(v * v, v * v))
+    return y.reshape(o, o2, v, v)
 
 
 def _block_dtype(x):

@@ -1,21 +1,37 @@
 """Ground-state ECW-CCSD solver (port of ecw_cc_tpu/solvers/gs.py
 Solver_CCSD, device route; reference Solver_GS.py:521-742).
 
-The solve runs on the spin-SORTED, sector-blocked route: ERIs in the sorted
-layout with a SectoredVVVV ladder operand, the sectored t/lambda updates of
-ops/ccsd_sect.py (with the closed-shell mirror symmetry where its gate
-passes), both vvvv ladders as one stacked sector GEMM per iteration through
-the hand-written kernel, the device GS Vexp and a packed 'tl' DIIS.
+The routes of the JAX loop (gs.py:681-1067), chosen per solver:
+
+  - sectored: ERIs in the spin-SORTED layout (mo_perm given), and every
+    Vexp target / potential spin-block-diagonal (the structure gate) with
+    config.soup_sector: the sector-blocked updates of ops/ccsd_sect.py
+    (with the closed-shell mirror symmetry where its gate passes), both
+    ladders as one stacked sector GEMM per spin sector (a dense sorted
+    vvvv is first packed into a SectoredVVVV), and the DIIS in the packed
+    balanced-block space;
+  - dense on the sorted layout: mo_perm given but the gate fails (a target
+    that couples the spins) or soup_sector is off: the dense updates of
+    ops/ccsd.py; a SectoredVVVV runs both ladders as one stacked GEMM per
+    sector on every occupied row pair (stacked_sectored_contract, sym
+    off), any other operand as on the alternating layout;
+  - alternating (mo_perm=None): the reference layout, dense updates, and
+    the ladder operand of config.ladder_mode: a PackedVVVV (both ladders
+    as one stacked packed GEMM) or none (each update runs the dense GEMM
+    against eris.vvvv).
+Every ladder product is a launch of the hand-written GEMM kernel.
 
 The JAX package compiles the solve as one lax.while_loop.  Here it is a
 Python loop whose state stays on the device; each iteration reads back one
 scalar, the convergence measure Dconv, for the loop test.  Public
 amplitudes and rdm1s are in the reference (alternating) spin convention:
-they are sorted once on entry and unsorted once on exit.
+on the sorted layout they are sorted once on entry and unsorted once on
+exit.
 
-Routes that are not ported raise NotImplementedError naming their ROADMAP
-item: the dense kernels (mo_perm=None or a failed structure gate, A.2),
-reduced precision and refine (A.8), and SCF_batch (A.13).
+Every GS property is a device property, so the JAX package's host loop
+(_scf_host) has no counterpart.  Routes that are not ported raise
+NotImplementedError naming their ROADMAP item: reduced precision and
+refine (A.8), and SCF_batch (A.13).
 """
 
 from __future__ import annotations
@@ -31,8 +47,12 @@ from ecw_cc_torch.ops import ccsd as ccsd_ops
 from ecw_cc_torch.ops import ccsd_sect
 from ecw_cc_torch.ops import diis as diis_ops
 from ecw_cc_torch.ops import spinsect
-from ecw_cc_torch.ops.ladder import (SectoredVVVV,
-                                     balanced_stacked_sectored_contract)
+from ecw_cc_torch.models.eris import warn_if_sorted_layout
+from ecw_cc_torch.ops.ladder import (PackedVVVV, SectoredVVVV,
+                                     balanced_stacked_sectored_contract,
+                                     ensure_sorted_vvvv_op, make_vvvv_op,
+                                     stacked_packed_contract,
+                                     stacked_sectored_contract)
 from ecw_cc_torch.ops.vexp import make_gs_vexp_device
 from ecw_cc_torch.utils.metrics import IterationMetrics
 
@@ -87,28 +107,36 @@ def _not_ported(what, item):
 class Solver_CCSD:
     """Reference API: Solver_GS.Solver_CCSD (Solver_GS.py:521-742).
 
-    mycc: ops.ccsd.GCC over torch ERIs in the spin-sorted layout (the
-    device and dtype of the solve are those of mycc.eris);
-    vvvv_op: their SectoredVVVV ladder operand; mo_perm: the MO permutation
-    (new_from_old) the layout was sorted with."""
+    mycc: ops.ccsd.GCC over torch ERIs (the device and dtype of the solve
+    are those of mycc.eris); vvvv_op: their ladder operand (SectoredVVVV,
+    PackedVVVV), or None to derive it from eris.vvvv per
+    config.ladder_mode at each solve; mo_perm: the MO permutation
+    (new_from_old) the ERIs were spin-sorted with, or None for ERIs in the
+    reference alternating layout."""
 
     def __init__(self, mycc, VX_exp, conv="tl", conv_thres=1e-6, tsini=None,
                  lsini=None, tdini=None, ldini=None, diis="", maxiter=40,
                  maxdiis=None, mindiis=None, energy_term="ref", vvvv_op=None,
                  mo_perm=None):
-        if mo_perm is None:
-            raise _not_ported("the alternating-layout (dense kernel) solve",
-                              "A.2")
-        if not isinstance(vvvv_op, SectoredVVVV):
-            raise _not_ported("a solve without a SectoredVVVV ladder operand",
-                              "A.2")
         if conv not in ("Ep", "l", "tl"):
             raise ValueError("Accepted convergence parameter is Ep, l or tl")
         if diis not in ("", "tl", "rdm1"):
             raise ValueError("diis must be '', 'tl' or 'rdm1'")
+        if mo_perm is None:
+            # without mo_perm the kernels take the alternating layout; a
+            # sorted handle (ECW's f32 sectored ERIs) would scramble them
+            warn_if_sorted_layout(mycc.eris, "Solver_CCSD(mo_perm=None)")
+            if isinstance(vvvv_op, SectoredVVVV):
+                raise ValueError(
+                    "a SectoredVVVV ladder operand is in the spin-sorted "
+                    "layout: pass the mo_perm its ERIs were sorted with")
         self.mycc = mycc
         self.myVexp = VX_exp
-        self.vvvv_op = vvvv_op
+        # an operand given here is used as it is; else _get_vvvv_op builds
+        # it from eris.vvvv, anew when config.ladder_mode changes
+        self._vvvv_op = vvvv_op
+        self._vvvv_mode = "explicit" if vvvv_op is not None else None
+        self._sorted_op = None
         self.nocc, self.nvir = mycc.nocc, mycc.nvir
         fock = mycc.eris.fock
         self.device, self.dtype = fock.device, fock.dtype
@@ -121,29 +149,34 @@ class Solver_CCSD:
         self.conv = conv
 
         nocc = self.nocc
-        self.mo_perm = np.asarray(mo_perm)
-        po = self.mo_perm[:nocc]
-        pv = self.mo_perm[nocc:] - nocc
-        idx = lambda a: torch.as_tensor(a, device=self.device)
-        self._po, self._pv = idx(po), idx(pv)
-        self._io, self._iv = idx(np.argsort(po)), idx(np.argsort(pv))
-        self._ip = idx(np.argsort(self.mo_perm))
-        # sector sizes of the sorted layout, from the standard alternating
-        # [0,1,0,1,...] GHF orbspin the perm was built from: alpha = even
-        # original indices
-        gv = nocc + pv
-        self._sinfo = spinsect.SectorInfo(
-            int(np.sum(po % 2 == 0)), int(np.sum(po % 2 == 1)),
-            int(np.sum(gv % 2 == 0)), int(np.sum(gv % 2 == 1)))
+        self.mo_perm = None if mo_perm is None else np.asarray(mo_perm)
+        self._sinfo = None
+        if self.mo_perm is not None:
+            po = self.mo_perm[:nocc]
+            pv = self.mo_perm[nocc:] - nocc
+            idx = lambda a: torch.as_tensor(a, device=self.device)
+            self._po, self._pv = idx(po), idx(pv)
+            self._io, self._iv = idx(np.argsort(po)), idx(np.argsort(pv))
+            self._ip = idx(np.argsort(self.mo_perm))
+            # sector sizes of the sorted layout, from the standard
+            # alternating [0,1,0,1,...] GHF orbspin the perm was built
+            # from: alpha = even original indices
+            gv = nocc + pv
+            self._sinfo = spinsect.SectorInfo(
+                int(np.sum(po % 2 == 0)), int(np.sum(po % 2 == 1)),
+                int(np.sum(gv % 2 == 0)), int(np.sum(gv % 2 == 1)))
 
         self.tsini = self._amp(tsini, (nocc, self.nvir))
         self.lsini = self._amp(lsini, (nocc, self.nvir))
         if tdini is None:
-            # MP2 guess, built in the sorted layout and unsorted
+            # MP2 guess, built in the ERIs' layout; public amplitudes are
+            # alternating, so a sorted one is unsorted
             diag = torch.diagonal(fock)
             eia = diag[:nocc, None] - diag[None, nocc:]
             eijab = eia[:, None, :, None] + eia[None, :, None, :]
-            tdini = _perm4(mycc.eris.oovv / eijab, self._io, self._iv)
+            tdini = mycc.eris.oovv / eijab
+            if self.mo_perm is not None:
+                tdini = _perm4(tdini, self._io, self._iv)
             ldini = tdini
         self.tdini = self._amp(tdini)
         self.ldini = self._amp(ldini)
@@ -213,16 +246,55 @@ class Solver_CCSD:
                 blk = getattr(eris, name)
                 worst.append(spinsect.spin_flip_asymmetry(blk, name, info))
                 scale.append(blk.abs().max())
-            vv = self.vvvv_op
-            if vv.wc_aa.shape != vv.wc_bb.shape:
-                self._eris_sym_checked = False
-                return False
-            worst.append((vv.wc_aa - vv.wc_bb).abs().max())
-            scale.append(vv.wc_aa.abs().max())
+            vv = self._sectored_vvvv_op()
+            if isinstance(vv, SectoredVVVV):
+                if vv.wc_aa.shape != vv.wc_bb.shape:
+                    self._eris_sym_checked = False
+                    return False
+                worst.append((vv.wc_aa - vv.wc_bb).abs().max())
+                scale.append(vv.wc_aa.abs().max())
             worst_v, scale_v = (float(torch.stack(worst).max()),
                                 float(torch.stack(scale).max()))
             self._eris_sym_checked = worst_v <= 1e3 * eps * scale_v
         return self._eris_sym_checked
+
+    def _get_vvvv_op(self):
+        """The ladder operand: the one given at construction, else
+        make_vvvv_op(eris.vvvv) per config.ladder_mode (None for 'dense'),
+        rebuilt when the mode changes (JAX gs.py:1054-1067)."""
+        if self._vvvv_mode == "explicit":
+            return self._vvvv_op
+        mode = get_config().ladder_mode
+        if self._vvvv_mode != mode:
+            self._vvvv_op = make_vvvv_op(self.mycc.eris.vvvv)
+            self._vvvv_mode = mode
+            self._sorted_op = None
+        return self._vvvv_op
+
+    def route(self):
+        """'sectored', 'dense_sorted', 'packed' or 'dense': the route the
+        next solve takes under the current config (module docstring).  As
+        in the JAX loop (gs.py:691-701), the sorted layout's choice rests on
+        config.soup_sector and the structure gate alone, whatever the
+        ladder operand."""
+        if self.mo_perm is not None:
+            if get_config().soup_sector and self._vexp_block_diagonal():
+                return "sectored"
+            return "dense_sorted"
+        return ("packed" if isinstance(self._get_vvvv_op(), PackedVVVV)
+                else "dense")
+
+    def _sectored_vvvv_op(self):
+        """The sectored route's ladder operand: the resolved one, or (dense
+        ladder_mode on dense sorted ERIs) eris.vvvv packed into a
+        SectoredVVVV once per mode (JAX ladder.py:342)."""
+        vv = self._get_vvvv_op()
+        if vv is None:
+            if self._sorted_op is None:
+                self._sorted_op = ensure_sorted_vvvv_op(None, self.mycc.eris,
+                                                        self._sinfo)
+            vv = self._sorted_op
+        return vv
 
     # ------------------------------------------------------------------
     # the solve
@@ -237,22 +309,21 @@ class Solver_CCSD:
         if get_config().iter_precision != "highest":
             raise _not_ported(f"iter_precision="
                               f"{get_config().iter_precision!r}", "A.8")
-        if not (get_config().soup_sector and self._vexp_block_diagonal()):
-            raise _not_ported("the dense-kernel solve (sector gate off or "
-                              "Vexp not spin-block-diagonal)", "A.2")
-        sym = get_config().soup_sym and self._spin_restricted()
+        route = self.route()
+        sym = (route == "sectored" and get_config().soup_sym
+               and self._spin_restricted())
         amps0 = [self._amp(a) if a is not None else d for a, d in
                  zip((ts, ls, td, ld),
                      (self.tsini, self.lsini, self.tdini, self.ldini))]
         t0 = time.perf_counter()
         with torch.no_grad():
             out = self._solve(L, *amps0, alpha=alpha, diis=diis or self.diis,
-                              sym=sym)
+                              sectored=route == "sectored", sym=sym)
         (ts, ls, td, ld, rdm1, ite, k, status, Ep_h, Delta_h, vmax_h,
          conv_h) = out
         # wall time to solution: _solve ends in a device->host copy
         self.last_solve = {"L": L, "iterations": k, "status": status,
-                           "sym": sym,
+                           "route": route, "sym": sym,
                            "ms": (time.perf_counter() - t0) * 1e3}
         text = _conv_text(status, L, ite, alpha=alpha)
         Delta_it = np.stack([Delta_h[:k], vmax_h[:k]], axis=1)
@@ -268,9 +339,9 @@ class Solver_CCSD:
         raise _not_ported("SCF_batch (all lambdas in one batched solve)",
                           "A.13")
 
-    def _solve(self, L, ts, ls, td, ld, alpha, diis, sym):
+    def _solve(self, L, ts, ls, td, ld, alpha, diis, sectored, sym):
         eris = self.mycc.eris
-        vv = self.vvvv_op
+        vv = self._sectored_vvvv_op() if sectored else self._get_vvvv_op()
         info = self._sinfo
         dev, dt = self.device, self.dtype
         nocc, nvir = self.nocc, self.nvir
@@ -280,14 +351,21 @@ class Solver_CCSD:
                                       dtype=dt, device=dev)
         Lw = self.myVexp.L_check(L)[0]
 
-        # packed balanced-block space (canonical blocks when sym): the
-        # amplitudes live entirely there, so packing is lossless
-        p_ov = lambda a: spinsect.pack_balanced(a, "ov", info, sym=sym)
-        p_4 = lambda a: spinsect.pack_balanced(a, "oovv", info, sym=sym)
-        u_ov = lambda f: spinsect.unpack_balanced(f, "ov", info, sym=sym)
-        u_4 = lambda f: spinsect.unpack_balanced(f, "oovv", info, sym=sym)
-        n_ov = spinsect.packed_size("ov", info, sym=sym)
-        n_4 = spinsect.packed_size("oovv", info, sym=sym)
+        if sectored:
+            # packed balanced-block space (canonical blocks when sym): the
+            # amplitudes live entirely there, so packing is lossless
+            p_ov = lambda a: spinsect.pack_balanced(a, "ov", info, sym=sym)
+            p_4 = lambda a: spinsect.pack_balanced(a, "oovv", info, sym=sym)
+            u_ov = lambda f: spinsect.unpack_balanced(f, "ov", info, sym=sym)
+            u_4 = lambda f: spinsect.unpack_balanced(f, "oovv", info,
+                                                     sym=sym)
+            n_ov = spinsect.packed_size("ov", info, sym=sym)
+            n_4 = spinsect.packed_size("oovv", info, sym=sym)
+        else:
+            p_ov = p_4 = lambda a: a.reshape(-1)
+            u_ov = lambda f: f.reshape(nocc, nvir)
+            u_4 = lambda f: f.reshape(nocc, nocc, nvir, nvir)
+            n_ov, n_4 = nocc * nvir, nocc * nocc * nvir * nvir
 
         def conv_vec(ts, ls, td, ld, fsp):
             if conv_kind == "tl":
@@ -297,11 +375,12 @@ class Solver_CCSD:
                 return torch.cat([p_ov(ls), p_4(ld)])
             return ccsd_ops.energy(eris, ts, td, fsp).reshape(1)
 
-        # one sort on entry
-        po, pv = self._po, self._pv
-        ts, ls = _perm2(ts, po, pv), _perm2(ls, po, pv)
-        td, ld = _perm4(td, po, pv), _perm4(ld, po, pv)
-        eris_sb = ccsd_sect.wrap_eris(eris, info, sym=sym)
+        if self.mo_perm is not None:
+            # one sort on entry
+            po, pv = self._po, self._pv
+            ts, ls = _perm2(ts, po, pv), _perm2(ls, po, pv)
+            td, ld = _perm4(td, po, pv), _perm4(ld, po, pv)
+        eris_sb = ccsd_sect.wrap_eris(eris, info, sym=sym) if sectored else None
 
         nvec = (2 * n_ov + 2 * n_4) if diis == "tl" else dim * dim
         dstate = (diis_ops.diis_init(nvec, self.maxdiis, dtype=dt, device=dev)
@@ -316,8 +395,9 @@ class Solver_CCSD:
             conv_old = conv
             rdm1 = ccsd_ops.gamma_CCSD(
                 ts, td, ls, ld,
-                inter=ccsd_sect.gamma_inter_sect(ts, td, ls, ld, info,
-                                                 sym=sym))
+                inter=(ccsd_sect.gamma_inter_sect(ts, td, ls, ld, info,
+                                                  sym=sym)
+                       if sectored else None))
             if diis == "rdm1":
                 dstate, vec = diis_ops.diis_update(dstate, rdm1.reshape(-1),
                                                    self.mindiis)
@@ -325,21 +405,41 @@ class Solver_CCSD:
             V, Delta, vmax = vexp_fn(rdm1, Lw)
             fsp = eris.fock - V
             Ep = ccsd_ops.energy(eris, ts, td, fsp)
-            # both vvvv ladders read only pre-update amplitudes: one stacked
-            # sector GEMM per spin sector (blocked tau shared with tupdate)
-            tau_pre = ccsd_sect._tau_b(
-                spinsect.wrap(td, "oovv", info, sym=sym),
-                spinsect.wrap(ts, "ov", info, sym=sym))
-            ladder_t, ladder_l = balanced_stacked_sectored_contract(
-                vv, tau_pre, ld, info.oa, sym=sym, blocked_info=info)
-            ts, td = ccsd_sect.tupdate_sect(
-                eris, ts, td, fsp, info, alpha=alpha, vvvv_op=vv,
-                ladder_pre=ladder_t, eris_sb=eris_sb, sym=sym,
-                tau_pre=tau_pre)
-            ls, ld = ccsd_sect.lupdate_sect(
-                eris, ts, td, ls, ld, fsp, info, alpha=alpha,
-                energy_term=self.energy_term, vvvv_op=vv,
-                ladder_pre=ladder_l, eris_sb=eris_sb, sym=sym)
+            # both vvvv ladders read only pre-update amplitudes (tau on the
+            # t side, l2 on the lambda side): one stacked GEMM per operand
+            # block, so each block is read once per iteration
+            ladder_t = ladder_l = tau_pre = None
+            if isinstance(vv, PackedVVVV):
+                ladder_t, ladder_l = stacked_packed_contract(
+                    vv, ccsd_ops.make_tau(td, ts, ts), ld)
+            elif isinstance(vv, SectoredVVVV):
+                if sectored:
+                    # balanced rows (mirror skip when sym); the blocked tau
+                    # is shared with tupdate_sect
+                    tau_pre = ccsd_sect._tau_b(
+                        spinsect.wrap(td, "oovv", info, sym=sym),
+                        spinsect.wrap(ts, "ov", info, sym=sym))
+                    ladder_t, ladder_l = balanced_stacked_sectored_contract(
+                        vv, tau_pre, ld, info.oa, sym=sym, blocked_info=info)
+                else:
+                    ladder_t, ladder_l = stacked_sectored_contract(
+                        vv, ccsd_ops.make_tau(td, ts, ts), ld)
+            if sectored:
+                ts, td = ccsd_sect.tupdate_sect(
+                    eris, ts, td, fsp, info, alpha=alpha, vvvv_op=vv,
+                    ladder_pre=ladder_t, eris_sb=eris_sb, sym=sym,
+                    tau_pre=tau_pre)
+                ls, ld = ccsd_sect.lupdate_sect(
+                    eris, ts, td, ls, ld, fsp, info, alpha=alpha,
+                    energy_term=self.energy_term, vvvv_op=vv,
+                    ladder_pre=ladder_l, eris_sb=eris_sb, sym=sym)
+            else:
+                ts, td = ccsd_ops.tupdate(eris, ts, td, fsp=fsp, alpha=alpha,
+                                          vvvv_op=vv, ladder_pre=ladder_t)
+                ls, ld = ccsd_ops.lupdate(eris, ts, td, ls, ld, fsp=fsp,
+                                          alpha=alpha,
+                                          energy_term=self.energy_term,
+                                          vvvv_op=vv, ladder_pre=ladder_l)
             vec = None
             if diis == "tl":
                 dstate, vec = diis_ops.diis_update(
@@ -350,8 +450,8 @@ class Solver_CCSD:
                 ld = u_4(vec[2 * n_ov:2 * n_ov + n_4])
                 td = u_4(vec[2 * n_ov + n_4:])
             if vec is not None and conv_kind == "tl":
-                # the packed DIIS vector already holds the components
-                # conv_vec would re-pack
+                # the DIIS vector already holds the components conv_vec
+                # would gather
                 conv = torch.cat([
                     vec[:n_ov].abs() + vec[n_ov:2 * n_ov].abs(),
                     vec[2 * n_ov:2 * n_ov + n_4].abs()
@@ -371,11 +471,12 @@ class Solver_CCSD:
             k += 1
         if status == RUNNING:
             status = CONVERGED
-        # one unsort on exit
-        io, iv, ip = self._io, self._iv, self._ip
-        ts, ls = _perm2(ts, io, iv), _perm2(ls, io, iv)
-        td, ld = _perm4(td, io, iv), _perm4(ld, io, iv)
-        rdm1 = rdm1[ip][:, ip]
+        if self.mo_perm is not None:
+            # one unsort on exit
+            io, iv, ip = self._io, self._iv, self._ip
+            ts, ls = _perm2(ts, io, iv), _perm2(ls, io, iv)
+            td, ld = _perm4(td, io, iv), _perm4(ld, io, iv)
+            rdm1 = rdm1[ip][:, ip]
         hist_np = hist.cpu().numpy()
         return (ts, ls, td, ld, rdm1.cpu().numpy(), ite, k, status,
                 hist_np[0], hist_np[1], hist_np[2], hist_np[3])

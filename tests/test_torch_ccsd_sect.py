@@ -51,7 +51,7 @@ def system(h2o_631g):
     V[np.ix_(a, a)] = V[np.ix_(b, b)] = half + half.T
     fsp = np.asarray(er.fock) - V
     return dict(er=er, sect=sect, er_t=er_t, sect_t=sect_t, info=info,
-                fsp=fsp)
+                fsp=fsp, mol=mol, ghf=ghf)
 
 
 def _amps(system, kind, sym):
@@ -148,7 +148,8 @@ def test_sector_kernels_l1_regularized_match_jax(system, sym):
 
 def test_single_ladder_fallback_and_missing_ladder(system):
     """Without ladder_pre the updates run the SectoredVVVV ladder in
-    single-operand mode (same result); without either they raise."""
+    single-operand mode, or a PackedVVVV's own route (same result); without
+    either they raise."""
     s = system
     info = s["info"]
     t1, t2, l1, l2 = map(_t, _amps(s, "random", True))
@@ -162,9 +163,29 @@ def test_single_ladder_fallback_and_missing_ladder(system):
                                 vvvv_op=sect, sym=True)
     for r, o in zip(ref[1:], (t1n, t2n, l1n, l2n)):
         np.testing.assert_allclose(o.numpy(), r, rtol=0, atol=TOL)
-    with pytest.raises(NotImplementedError, match="A.2"):
+    # a PackedVVVV of the same sorted vvvv: apply_vvvv_op on the dense
+    # operands, as in the JAX package
+    dense = build_eris_device(s["mol"], s["ghf"], dtype="float64",
+                              sort_spin=True)
+    packed = jl.pack_vvvv(dense.vvvv)
+    pt = tl.PackedVVVV(wc=_t(packed.wc))
+    t1p, t2p = tcs.tupdate_sect(er, t1, t2, fsp, info, vvvv_op=pt, sym=True)
+    l1p, l2p = tcs.lupdate_sect(er, t1p, t2p, l1, l2, fsp, info,
+                                vvvv_op=pt, sym=True)
+    r1, r2 = jcs.tupdate_sect(s["er"], *map(jnp.asarray, (t1, t2)),
+                              jnp.asarray(fsp), info, vvvv_op=packed,
+                              sym=True)
+    q1, q2 = jcs.lupdate_sect(s["er"], r1, r2, jnp.asarray(l1),
+                              jnp.asarray(l2), jnp.asarray(fsp), info,
+                              vvvv_op=packed, sym=True)
+    for r, o in zip((r1, r2, q1, q2), (t1p, t2p, l1p, l2p)):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0,
+                                   atol=TOL)
+    for r, o in zip(ref[1:], (t1p, t2p, l1p, l2p)):
+        np.testing.assert_allclose(o.numpy(), r, rtol=0, atol=TOL)
+    with pytest.raises(TypeError, match="no ladder route"):
         tcs.tupdate_sect(er, t1, t2, fsp, info, sym=True)
-    with pytest.raises(NotImplementedError, match="A.2"):
+    with pytest.raises(TypeError, match="no ladder route"):
         tcs.lupdate_sect(er, t1, t2, l1, l2, fsp, info, sym=True)
 
 

@@ -48,8 +48,8 @@ def _assert_geris_close(a, b, atol):
 
 
 @pytest.mark.parametrize("pack_ladder,sort_spin", [
-    (False, False), (False, True), (True, True)],
-    ids=["dense-alternating", "dense-sorted", "sectored"])
+    (False, False), (False, True), (True, True), (True, False)],
+    ids=["dense-alternating", "dense-sorted", "sectored", "packed"])
 def test_build_eris_device_matches_jax(h2o_631g, pack_ladder, sort_spin):
     mol, ghf, _, _ = h2o_631g
     ref = j_build(mol, ghf, dtype="float64", pack_ladder=pack_ladder,
@@ -58,21 +58,40 @@ def test_build_eris_device_matches_jax(h2o_631g, pack_ladder, sort_spin):
                                   device="cpu", pack_ladder=pack_ladder,
                                   sort_spin=sort_spin)
     if pack_ladder:
-        (ref, ref_sect), (out, sect) = ref, out
+        (ref, ref_op), (out, op) = ref, out
         assert out.vvvv.shape == (out.nvir, 0, 0, 0)
-        for f in ("wc_aa", "wc_bb", "w_ab"):
-            x, y = _np(getattr(sect, f)), _np(getattr(ref_sect, f))
+        assert type(op).__name__ == type(ref_op).__name__
+        assert op._fields == ref_op._fields
+        for f in op._fields:
+            x, y = _np(getattr(op, f)), _np(getattr(ref_op, f))
             assert x.shape == y.shape, f
             assert np.max(np.abs(x - y)) <= 1e-12, f
+        # from_numpy carries the JAX operand over as the port's type
+        _, op_np = teris.from_numpy(ref, ref_op, dtype=torch.float64,
+                                    device="cpu")
+        assert type(op_np) is type(op)
+        for x, y in zip(op_np, ref_op):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y))
     assert out.fock.dtype == torch.float64
     _assert_geris_close(out, ref, 1e-12)
 
 
-def test_packed_unsorted_build_raises():
-    with pytest.raises(NotImplementedError, match="A.2"):
-        teris.build_eris_device(None, None, dtype=torch.float64,
-                                device="cpu", pack_ladder=True,
-                                sort_spin=False)
+def test_packed_unsorted_build_raises(h2o_631g):
+    """pack_ladder=True, sort_spin=False builds a PackedVVVV beside a vvvv
+    placeholder; rebuilding a ladder operand from that placeholder raises,
+    as the JAX package's make_vvvv_op does."""
+    from ecw_cc_torch.ops.ladder import (PackedVVVV, make_vvvv_op,
+                                         pack_vvvv)
+
+    mol, ghf, eris_host, _ = h2o_631g
+    er, op = teris.build_eris_device(mol, ghf, dtype=torch.float64,
+                                     device="cpu", pack_ladder=True,
+                                     sort_spin=False)
+    assert isinstance(op, PackedVVVV)
+    ref = pack_vvvv(torch.as_tensor(eris_host.vvvv))
+    assert float((op.wc - ref.wc).abs().max()) <= 1e-10
+    with pytest.raises(ValueError, match="not materialized"):
+        make_vvvv_op(er.vvvv)
 
 
 @pytest.fixture(scope="module")

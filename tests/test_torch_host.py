@@ -96,13 +96,18 @@ def test_eris_host_matches_jax(pair):
 
 
 @pytest.mark.parametrize("prop", ["Ekin", "v1e", "dipole"])
-@pytest.mark.parametrize("basis", ["ao", "mo"])
+@pytest.mark.parametrize("basis", ["ao", "mo", "mo_full"])
 def test_props_match_jax(pair, prop, basis):
+    """mo_full: an MO rdm1 with every element set, so the MO -> AO transform
+    is exercised whole."""
     t, j = pair["t"], pair["j"]
     rdm1 = t["ghf"].make_rdm1()
     kw = dict(aobasis=True, g=True, mo_coeff=t["ghf"].mo_coeff)
-    if basis == "mo":
+    if basis != "ao":
         rdm1 = np.diag(t["ghf"].mo_occ.astype(float))
+        if basis == "mo_full":
+            r = np.random.default_rng(3).standard_normal(rdm1.shape) * 1e-2
+            rdm1 = rdm1 + r + r.T
         kw["aobasis"] = False
     a = getattr(props, prop)(t["mol"], rdm1, **kw)
     b = getattr(jprops, prop)(j["mol"], rdm1, **kw)

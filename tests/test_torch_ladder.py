@@ -159,6 +159,30 @@ def test_ladder_mm_kernel_is_deterministic_on_card():
                 assert torch.equal(cg, c1)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(196, 3844, 3844), (392, 1891, 1891),
+                                   (392, 13041, 13041), (392, 465, 465),
+                                   (392, 961, 961)],
+                         ids=["dense-pvdz", "packed-pvdz", "packed-pvtz",
+                              "sect-aa-pvdz", "sect-ab-pvdz"])
+def test_ladder_mm_kernel_at_the_route_shapes_on_card(shape, dtype):
+    """The dense, packed and stacked-sector GEMMs of C2H2 (nocc 14): the
+    kernel against its plain version, one launch each, and two launches
+    bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    a, b = _card_operands(shape, dtype)
+    n0 = ladder_mm.launches
+    c = ladder_mm(a, b)
+    torch.cuda.synchronize()
+    assert ladder_mm.launches == n0 + 1
+    ref = ladder_mm_ref(a, b)
+    assert float((c - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(ladder_mm(a, b), c)
+
+
 @pytest.mark.parametrize("v", [2, 5, 9])
 def test_pack_pairs_roundtrip(v):
     rng = np.random.default_rng(v)

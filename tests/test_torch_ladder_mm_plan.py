@@ -10,7 +10,12 @@ from ecw_cc_torch.kernels import ladder_mm as lmm
 
 DTYPES = [torch.float32, torch.float64]
 MAIN = [(98, 465, 465), (98, 961, 961)]
-SHAPES = MAIN + [(1, 1, 1), (1, 961, 961), (129, 465, 465), (98, 465, 15),
+# C2H2 (nocc 14) on the dense, packed and stacked-sectored routes: the dense
+# ladder at cc-pVDZ (nvir 62), the stacked packed GEMM at cc-pVDZ and
+# cc-pVTZ (nvir 162), the stacked sector GEMMs at cc-pVDZ
+ROUTES = [(196, 3844, 3844), (392, 1891, 1891), (392, 13041, 13041),
+          (392, 465, 465), (392, 961, 961)]
+SHAPES = MAIN + ROUTES + [(1, 1, 1), (1, 961, 961), (129, 465, 465), (98, 465, 15),
                  (98, 465, 240), (98, 465, 241), (98, 465, 257),
                  (98, 961, 960), (37, 513, 129), (100, 130, 1001),
                  (4096, 4096, 64), (5, 3, 0)]
@@ -54,6 +59,22 @@ def test_plan_partials_are_split_tiles_tile(shape, dtype):
         assert p.partials == 0
     assert p.blocks == p.tiles * p.split
     assert p.split in (1, 2, 4, 8, 16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", ROUTES)
+def test_plan_at_the_route_shapes(shape, dtype):
+    """Two or four 112-row tiles; at least one wave of blocks, split only
+    where the tiles alone do not fill the card."""
+    M, N, K = shape
+    p = lmm.plan(M, N, K, dtype, N_SM)
+    assert p.m_tiles == -(-M // lmm.BM) in (2, 4)
+    assert p.blocks >= N_SM
+    assert p.split == 1 or p.tiles * (p.split // 2) < N_SM
+    if dtype == torch.float32 and shape == (196, 3844, 3844):
+        assert (p.tiles, p.split) == (122, 2)
+    if dtype == torch.float32 and shape == (392, 13041, 13041):
+        assert (p.tiles, p.split) == (816, 1)
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (1, 5, 7), (7, 1, 5),

@@ -2,7 +2,8 @@
 
   - in a fresh interpreter where `import jax` and `import ecw_cc_tpu` fail,
     import ecw_cc_torch, build its solver on H2/6-31G through the ECW
-    entry point at f64 (host ERIs) and f32 (device ERI build), and run a solve;
+    entry point at f64 (host ERIs) and f32 (device ERI build, dense and
+    sectored routes), and run a solve on each;
   - no file of the port, and not chip_smoke.py, has an import statement
     naming jax or ecw_cc_tpu (read with `ast`, so lazy imports inside
     functions count too).
@@ -30,12 +31,37 @@ SCRIPT = textwrap.dedent("""
     torch.set_num_threads(1)
     import ecw_cc_torch
     from ecw_cc_torch import ECW
-    for dt, thres in ((torch.float64, 1e-8), (torch.float32, 1e-6)):
+    # f64 (host ERIs) and f32 (device ERI build) on the dense alternating
+    # route that 'auto' takes at nvir 6; f32 'packed' on the alternating
+    # packed one
+    for dt, thres, mode, route in (
+            (torch.float64, 1e-8, "auto", "dense"),
+            (torch.float32, 1e-6, "auto", "dense"),
+            (torch.float32, 1e-6, "packed", "packed")):
+        ecw_cc_torch.set_config(ladder_mode=mode)
         ecw = ECW("H 0 0 0\\nH 0 0 1", "6-31g", device="cpu", dtype=dt)
         ecw.Build_GS_exp("mat", "HF", field=[0.05, 0.01, 0.0])
         res = ecw.CCSD_GS([0.5], diis="tl", conv_thres=thres)
         assert "Convergence reached" in res[0], res[0]
-        assert ecw.solve_log[0]["sym"]
+        assert ecw.solve_log[0]["route"] == route, ecw.solve_log
+    # the sorted, sectored route through the solver's own entry point
+    from ecw_cc_torch.models.eris import build_eris_device
+    from ecw_cc_torch.ops.ccsd import GCC
+    from ecw_cc_torch.ops.ladder import spin_sort_perm
+    from ecw_cc_torch.ops.vexp import Exp
+    from ecw_cc_torch.solvers.gs import Solver_CCSD
+    er, sect = build_eris_device(ecw.mol, ecw.mf, dtype=torch.float32,
+                                 device="cpu", pack_ladder=True,
+                                 sort_spin=True)
+    solver = Solver_CCSD(
+        GCC(er), Exp(0.5, [ecw.exp_data[0]], ecw.mol, ecw.mo_coeff),
+        conv_thres=1e-6, diis="tl", vvvv_op=sect,
+        mo_perm=spin_sort_perm(ecw.mf.orbspin, ecw.nocc))
+    out = solver.SCF(0.5)
+    assert "Convergence reached" in out[0], out[0]
+    assert solver.last_solve["route"] == "sectored", solver.last_solve
+    assert solver.last_solve["sym"] is True
+    assert abs(out[1][-1] - res[1][-1]) < 1e-5
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "ecw_cc_tpu")
                  or m.startswith(("jax.", "jaxlib", "ecw_cc_tpu.")))

@@ -4,7 +4,8 @@ the JAX package, f64 on the CPU:
   - Solver_CCSD.SCF against the JAX Solver_CCSD(mo_perm=..., vvvv_op=
     SectoredVVVV) on the same sorted system (mirrors
     test_ccsd_solve_sector_path_matches_dense);
-  - the ECW driver (H2O/6-31G doctest target) against the JAX ECW;
+  - ECW (H2O/6-31G doctest target) against the JAX ECW, both on the JAX
+    ECW's f64 route (alternating layout, dense ladder);
   - the routes the port does not have yet raise, naming their ROADMAP item.
 """
 
@@ -112,14 +113,22 @@ def test_ecw_ccsd_gs_matches_jax(h2o_631g):
 
 
 def test_unported_routes_raise(sorted_problem):
+    """The routes of ROADMAP A.2 are ported: the alternating layout
+    (guarded by the sorted-layout warning), a solver with no ladder operand
+    (derived from eris.vvvv, which a pack-on-build placeholder refuses) and
+    the dense route on the sorted layout.  Reduced precision and refine
+    (A.8) and SCF_batch (A.13) still raise, naming their item."""
     p = sorted_problem
     exp = TExp(0.05, [[["mat", p["target"]]]], mol=p["mol"],
                mo_coeff=p["ghf"].mo_coeff)
-    with pytest.raises(NotImplementedError, match="A.2"):
-        TSolver(TGCC(p["er_t"]), exp, vvvv_op=p["sect_t"], mo_perm=None)
-    with pytest.raises(NotImplementedError, match="A.2"):
-        TSolver(TGCC(p["er_t"]), exp, mo_perm=p["perm"])
+    with pytest.warns(RuntimeWarning, match="spin-SORTED"):
+        TSolver(TGCC(p["er_t"]), exp, mo_perm=None)
+    no_op = TSolver(TGCC(p["er_t"]), exp, mo_perm=p["perm"])
+    assert no_op.route() == "sectored"
+    with pytest.raises(ValueError, match="not materialized"):
+        no_op.SCF(0.05)
     solver = _torch_solver(p)
+    assert solver.route() == "sectored"
     with pytest.raises(NotImplementedError, match="A.8"):
         solver.SCF(0.05, refine=True)
     with pytest.raises(NotImplementedError, match="A.13"):
@@ -132,10 +141,15 @@ def test_unported_routes_raise(sorted_problem):
         ecw_cc_torch.set_config(iter_precision="highest")
     ecw_cc_torch.set_config(soup_sector=False)
     try:
-        with pytest.raises(NotImplementedError, match="A.2"):
-            solver.SCF(0.05)
+        assert solver.route() == "dense_sorted"
+        out = solver.SCF(0.05)
+        assert solver.last_solve["route"] == "dense_sorted"
+        assert "Convergence reached" in out[0]
     finally:
         ecw_cc_torch.set_config(soup_sector=True)
+    ref = _torch_solver(p).SCF(0.05)
+    assert len(out[1]) == len(ref[1])
+    assert abs(out[1][-1] - ref[1][-1]) < 1e-10
 
 
 def test_explicit_device_is_required():
