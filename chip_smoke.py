@@ -11,6 +11,9 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --routes         # phase 1 and the timed f32 lambda
                                            # sweep on each route, nvir 16 to
                                            # 162
+    python3 chip_smoke.py --targets        # phases 1, 2 and 10 only: the
+                                           # correlated targets and the CCS
+                                           # ground state
 
 Phases, one output line each (and one "phase_seconds" line at the end of
 each); any failure raises and exits nonzero:
@@ -21,7 +24,8 @@ each); any failure raises and exits nonzero:
   3. kernel vs plain: ladder_mm against ladder_mm_ref (a @ b.T) in f32 and
      f64 at the solver's sector-GEMM shapes of C2H2/cc-pVDZ and cc-pVTZ,
      at the GEMMs of the dense, packed and stacked-sector routes (phase
-     9), ragged shapes and shapes at the edges of the split-K plan
+     9) and of the target builds (phase 10), ragged shapes and shapes at
+     the edges of the split-K plan
      (printed per shape, with its plan); two launches bitwise equal; one
      launch captured in a CUDA graph and replayed twice, equal to the
      eager result; then both timed at the solver's shapes;
@@ -61,6 +65,36 @@ each); any failure raises and exits nonzero:
          device ERIs, 2 launches per iteration of the 196x3844x3844 GEMM,
          against phase 5's f32 solve (1e-5 Ha, +-1 iteration); f64 on the
          card against the CPU (same iterations, 1e-9 Ha);
+ 10. correlated targets and the CCS ground state:
+     (a) C2H2/cc-pVDZ f32 through ECW.Build_GS_exp('mat', 'CCSD(T)', field)
+         (sorted sectored target build: CCSD solve, (T) loops, response
+         density by the adjoint) and ECW.CCSD_GS over lambda = 0, 0.25,
+         0.5: E_CCSD, E_T, the iterations and seconds of each stage, peak
+         memory, Tr(target) = N to 1e-5, Delta falling with lambda, and
+         the forward and backward ladder launches exactly as the iteration
+         counts predict; then the stages of an f32 CCSD(T) target (no
+         field) on ERIs built both ways (sorted sectored as Gexp builds
+         them, and alternating packed with the dense (T) loop), twice each
+         in turns, for their seconds;
+     (b) the CCSD(T) target at f64 on the card against the CPU at
+         C2H2/6-31G (E_CCSD and E_T to 1e-10, the density to 1e-8, equal
+         adjoint iterations), and at cc-pVDZ f32 against f64 on the card
+         (1e-5 Ha, density 1e-4);
+     (c) the kernel's gradient: torch.autograd.grad of sum(ladder_mm(a, w)
+         * g) against that of a @ w.T, w symmetric, f32 and f64, at
+         98x961x961, 392x1891x1891 and a ragged shape, through autograd
+         and through torch.func.vjp, with a zero-padded operand, and
+         with an operand not declared symmetric (every backward a launch);
+     (d) C2H2/cc-pVTZ f32 on phase 7's molecule: solve_ccsd, then the (T)
+         energy dense, sector-blocked and with bf16 slabs (relative errors
+         and ms), then the CCSD(T) response density, on the sorted
+         sectored and on the alternating packed ERIs, with seconds and
+         peak memory;
+     (e) ECW.CCS_GS over lambda = 0, 0.25, 0.5 against a CCSD target at
+         cc-pVDZ: f64 on the card equal to the CPU (same target), and f32
+         within 1e-5 Ha of them; then Newton (the Jacobian by
+         torch.func.jacfwd) and the L1 proximal-gradient solve at
+         C2H2/6-31G, f64 on the card equal to the CPU;
   8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported.
 Before the last line it prints the kernel report as one JSON object and
 the card's `nvidia-smi` name and power limit; the last line is
@@ -113,6 +147,9 @@ ROUTE_SHAPES = [DENSE_DZ, PACKED_DZ, PACKED_TZ, (392, 465, 465),
 TIMED_SHAPES = {torch.float32: MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES,
                 torch.float64: MAIN_SHAPES + TZ_SHAPES + [DENSE_DZ,
                                                           PACKED_TZ]}
+# phase 10's target builds (C2H2, 196 occupied pairs, one ladder at a time):
+# the packed GEMM at cc-pVDZ and cc-pVTZ, the dense one at 6-31G (nvir 30)
+TARGET_SHAPES = [(196, 1891, 1891), (196, 13041, 13041), (196, 900, 900)]
 RAGGED_SHAPES = [(1, 1, 1), (37, 513, 129), (100, 130, 1001)]
 # The split-K plan's edges: K across 16 chunks (split 8 -> 16 at N = 465)
 # and 17, K across a chunk boundary at N = 961, K below one chunk, one row,
@@ -222,7 +259,8 @@ def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm):
     out = {}
     for dtype in DTYPES:
         for i, shape in enumerate(MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
-                                  + RAGGED_SHAPES + EDGE_SHAPES):
+                                  + TARGET_SHAPES + RAGGED_SHAPES
+                                  + EDGE_SHAPES):
             a, b = operands(shape, dtype, seed=i)
             c = ladder_mm(a, b)
             torch.cuda.synchronize()
@@ -644,6 +682,423 @@ def run_dense(ladder_mm, ecw32, ref32, ecw64c, ecwc):
     return out
 
 
+GRAD_SHAPES = [(98, 961, 961), (392, 1891, 1891), (37, 129, 129)]
+SMALL_BASIS = "6-31g"        # phase 10 (b): what the CPU finishes in ~1 min
+CARD = "cuda"                # where phase 10 builds its targets
+
+
+def fresh_targets(ecw):
+    """A shallow copy of a built ECW without its targets."""
+    out = copy.copy(ecw)
+    out.exp_data, out.HF_prop = [[]], [[]]
+    out.myccsd = out.myccs = None
+    out.cal_rdm1_Delta, out.target_rdm1_GS = False, None
+    return out
+
+
+def count_launches(ladder_mm, fn):
+    """(result of fn(), forward launches, backward launches)."""
+    ladder_mm.launches = ladder_mm.backward_launches = 0
+    out = fn()
+    back = ladder_mm.backward_launches
+    return out, ladder_mm.launches - back, back
+
+
+def target_launches(log, per_solve, route_backward):
+    """(forward, backward) ladder launches of a CCSD(T) target build from
+    its iteration counts: `per_solve` per CCSD iteration, then the map
+    once (`route_backward` products) and one backward of it per adjoint
+    iteration (the last product, with respect to the Fock matrix, does
+    not pass through a ladder: tau does not depend on f)."""
+    return (per_solve * log["ccsd"]["iterations"] + route_backward,
+            route_backward * log["adjoint"]["iterations"])
+
+
+def gexp_target(mol, method, dtype, device):
+    from ecw_cc_torch.models.gamma_exp import Gexp
+
+    g = Gexp(mol, method, device=device, dtype=dtype)
+    g.Vext(FIELD)
+    g.build()
+    return g
+
+
+def run_target_sweep(ladder_mm, ecw32):
+    """Phase 10 (a)."""
+    ecw = fresh_targets(ecw32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, fwd, back = count_launches(
+        ladder_mm, lambda: ecw.Build_GS_exp("mat", "CCSD(T)", field=FIELD))
+    torch.cuda.synchronize()
+    log = ecw.target_log
+    trace = float(np.trace(ecw.exp_data[0][0][1]))
+    nelec = int(round(float(np.sum(ecw.mo_occ))))
+    per_solve = 2 if log["sym"] else 3
+    want = target_launches(log, per_solve, 3)
+    phase(10, "target_ccsd_t_f32", seconds=time.perf_counter() - t0,
+          Eexp=ecw.Eexp_GS, stages=log, trace=trace, electrons=nelec,
+          peak_bytes=torch.cuda.max_memory_allocated(),
+          forward_launches=fwd, backward_launches=back,
+          expected_launches=want)
+    if not (log["ccsd"]["converged"] and log["adjoint"]["converged"]):
+        raise AssertionError(f"the f32 CCSD(T) target did not converge: {log}")
+    if abs(trace - nelec) > 1e-5:
+        raise AssertionError(f"Tr(target) = {trace}, not {nelec}")
+    if (fwd, back) != want or min(fwd, back) <= 0:
+        raise AssertionError(f"target build launched the kernel {fwd} times "
+                             f"forward and {back} backward, expected {want}")
+    ladder_mm.launches = 0
+    res, slog = solve(ecw, LAMBDAS, conv_thres=CONV_THRES)
+    sweep = ladder_mm.launches
+    deltas = [float(d) for d in ecw.Delta_lamb]
+    iters = [s["iterations"] for s in slog]
+    phase(10, "sweep_on_ccsd_t_target", iterations=iters, Delta=deltas,
+          Ep=[float(ecw.EHF - e) for e in ecw.Ep_lamb],
+          ms=[s["ms"] for s in slog], ladder_launches=sweep)
+    if not all(s["status"] == 1 for s in slog) or sweep != sum(iters):
+        raise AssertionError("the sweep on the CCSD(T) target did not "
+                             f"converge with 1 launch per iteration: {slog}")
+    if not deltas[-1] < deltas[0]:
+        raise AssertionError(f"Delta did not fall with lambda: {deltas}")
+    return {"c2h2_ccpvdz_f32_ccsd_t_target": fwd + back,
+            "c2h2_ccpvdz_f32_sweep_on_ccsd_t": sweep}, fwd + back, back
+
+
+def compare_targets(name, a, b, tol_e, tol_g, same_iterations):
+    de = abs(a.ECCSD_def - b.ECCSD_def)
+    det = abs((a.ECCSD_t_def - a.ECCSD_def) - (b.ECCSD_t_def - b.ECCSD_def))
+    dg = float(np.abs(a.gamma_ao - b.gamma_ao).max())
+    its = [x.log["adjoint"]["iterations"] for x in (a, b)]
+    phase(10, name, E_CCSD=b.ECCSD_def, E_T=b.ECCSD_t_def - b.ECCSD_def,
+          dE_CCSD=de, dE_T=det, max_abs_dgamma_ao=dg, adjoint_iterations=its,
+          ccsd_iterations=[x.log["ccsd"]["iterations"] for x in (a, b)],
+          stages=[a.log, b.log])
+    if de > tol_e or det > tol_e or dg > tol_g:
+        raise AssertionError(f"{name}: |dE_CCSD| {de}, |dE_T| {det}, "
+                             f"max|dgamma| {dg}")
+    if same_iterations and its[0] != its[1]:
+        raise AssertionError(f"{name}: adjoint iterations {its}")
+
+
+def run_target_parity(ladder_mm, ecw32):
+    """Phase 10 (b)."""
+    from ecw_cc_torch.models.molecule import Molecule
+
+    small = Molecule(MOLECULE, SMALL_BASIS, charge=0, spin=0)
+    card, fwd, back = count_launches(ladder_mm, lambda: gexp_target(
+        small, "CCSD(T)", torch.float64, CARD))
+    cpu = gexp_target(small, "CCSD(T)", torch.float64, "cpu")
+    compare_targets("target_f64_card_vs_cpu", card, cpu, 1e-10, 1e-8, True)
+    # the f64 target runs the dense kernels on host ERIs: one ladder
+    # product per update, so 1 launch per CCSD iteration, 1 for the map and
+    # 1 per backward of it
+    want = target_launches(card.log, 1, 1)
+    if (fwd, back) != want:
+        raise AssertionError(f"f64 target launched {fwd}/{back}, expected "
+                             f"{want}")
+    f64 = gexp_target(ecw32.mol, "CCSD(T)", torch.float64, CARD)
+    f32 = gexp_target(ecw32.mol, "CCSD(T)", torch.float32, CARD)
+    compare_targets("target_f32_vs_f64_card", f32, f64, 1e-5, 1e-4, False)
+    return {"c2h2_631g_f64_ccsd_t_target": fwd + back}, back
+
+
+def check_kernel_gradient(ladder_mm, ladder_mm_ref):
+    """Phase 10 (c)."""
+    out = {}
+    for dtype in DTYPES:
+        for i, shape in enumerate(GRAD_SHAPES):
+            M, N, _ = shape
+            rng = np.random.default_rng(100 + i)
+            a = torch.as_tensor(rng.standard_normal((M, N)), dtype=dtype,
+                                device="cuda")
+            w = torch.as_tensor(rng.standard_normal((N, N)), dtype=dtype,
+                                device="cuda")
+            w = (w + w.T).contiguous()
+            g = torch.as_tensor(rng.standard_normal((M, N)), dtype=dtype,
+                                device="cuda")
+            pad = torch.cat([w, w.new_zeros((16, N))])
+            a_k, a_p = (a.clone().requires_grad_(True) for _ in range(2))
+            ladder_mm.launches = ladder_mm.backward_launches = 0
+            # g.T.T: a cotangent that is not contiguous, as autograd makes
+            gk, = torch.autograd.grad(
+                (ladder_mm(a_k, w, symmetric=True) * g.T.contiguous().T).sum(),
+                a_k)
+            gp, = torch.autograd.grad((ladder_mm_ref(a_p, w) * g).sum(), a_p)
+            _, vjp = torch.func.vjp(
+                lambda x: ladder_mm(x, w, symmetric=True), a)
+            gv, = vjp(g)
+            # an operand neither symmetric nor declared so: the backward
+            # launches on a transposed copy
+            w_n = torch.as_tensor(rng.standard_normal((N, N)), dtype=dtype,
+                                  device="cuda")
+            a_n, a_q = (a.clone().requires_grad_(True) for _ in range(2))
+            gn, = torch.autograd.grad((ladder_mm(a_n, w_n) * g).sum(), a_n)
+            gq, = torch.autograd.grad((ladder_mm_ref(a_q, w_n) * g).sum(),
+                                      a_q)
+            a_z = a.clone().requires_grad_(True)
+            gz, = torch.autograd.grad(
+                (ladder_mm(a_z, pad, symmetric=True)[:, :N] * g).sum(), a_z)
+            launches = (ladder_mm.launches, ladder_mm.backward_launches)
+            scale = float(gp.abs().max())
+            errs = {k: float((x - y).abs().max()) for k, x, y in
+                    (("autograd", gk, gp), ("func_vjp", gv, gp),
+                     ("transposed", gn, gq), ("padded", gz, gp))}
+            ok = max(errs.values()) <= TOL[dtype] * scale
+            phase(10, "kernel_gradient", dtype=str(dtype), shape=shape,
+                  max_abs_err=errs, max_abs_ref=scale, ok=ok,
+                  launches=launches)
+            # 4 forward launches and a backward one for each
+            if not ok or launches != (8, 4):
+                raise AssertionError(f"ladder_mm gradient at {shape} {dtype}: "
+                                     f"{errs} against {TOL[dtype]} * {scale}, "
+                                     f"launches {launches}")
+            out[(dtype, shape)] = max(errs.values())
+    b = torch.ones((4, 4), device="cuda", requires_grad=True)
+    try:
+        ladder_mm(torch.ones((2, 4), device="cuda"), b)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("ladder_mm took an operand b that requires grad")
+    return out
+
+
+def timed_ms(fn, reps=2):
+    """(best host ms of `reps` synchronized calls after one warm-up, value)."""
+    val = fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        val = float(fn())
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3, val
+
+
+def target_eris(layout, mol, ghf):
+    """The (eris, vvvv_op, sect, unperm) of an f32 target build on the
+    card: 'sorted' is Gexp's route (_build_eris_sorted: the sector-blocked
+    kernels and (T) loops), 'alternating' _build_eris_auto's (a PackedVVVV,
+    the dense kernels, the dense (T) loop)."""
+    from ecw_cc_torch.models import gamma_exp
+
+    if layout == "sorted":
+        return gamma_exp._build_eris_sorted(mol, ghf, torch.float32, CARD)
+    return gamma_exp._build_eris_auto(mol, ghf, torch.float32, CARD) + (
+        None, None)
+
+
+def run_target_stages(ladder_mm, tag, mol, ghf, layouts, t_row=False):
+    """The stages of an f32 CCSD(T) target of (mol, ghf), one build per
+    entry of `layouts` (target_eris), each through the stages Gexp.build
+    runs and times (gamma_exp._run_gccsd_t_rdm1).  Phase 10 (a) runs it at
+    cc-pVDZ (twice each, in turns), (d) at cc-pVTZ, with t_row the (T)
+    energy three ways on the sorted ERIs.  Returns ({path: launches},
+    backward launches)."""
+    from ecw_cc_torch.models import gamma_exp
+    from ecw_cc_torch.utils.metrics import StageClock
+
+    out, total_back, e_ref = {}, 0, None
+    for layout in layouts:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        log = {}
+        clock = StageClock(torch.device(CARD), log)
+        built = target_eris(layout, mol, ghf)
+        clock.done("eris_s")
+        sect = built[2]
+        (e_cc, e_t, gamma), fwd, back = count_launches(
+            ladder_mm, lambda: gamma_exp._run_gccsd_t_rdm1(built, log=log))
+        cc, ad = log["ccsd"], log["adjoint"]
+        trace = float(np.trace(gamma))
+        sym = bool(sect[1]) if sect else False
+        per = (2 if sym else 3) if sect else 1
+        want = target_launches(log, per, 3 if sect else 1)
+        phase(10, f"target_{tag}_f32", layout=layout, sym=sym, E_CCSD=e_cc,
+              E_T=e_t, stages=log,
+              seconds=sum(v for k, v in log.items() if k.endswith("_s")),
+              trace=trace, peak_bytes=torch.cuda.max_memory_allocated(),
+              forward_launches=fwd, backward_launches=back,
+              expected_launches=want)
+        if not (cc["converged"] and ad["converged"]):
+            raise AssertionError(f"{tag} target ({layout}) did not "
+                                 f"converge: {cc}, {ad}")
+        if (fwd, back) != want:
+            raise AssertionError(f"{tag} target ({layout}) launched "
+                                 f"{fwd}/{back}, expected {want}")
+        if (abs(trace - ghf.nocc) > 1e-3
+                or gamma.shape != tuple(built[0].fock.shape)
+                or not np.all(np.isfinite(gamma))):
+            raise AssertionError(f"{tag} density ({layout}): trace {trace}")
+        if e_ref is None:
+            e_ref = e_cc + e_t
+        elif abs(e_cc + e_t - e_ref) > 1e-5:
+            raise AssertionError(f"{tag} E_CCSD(T) differs across layouts "
+                                 f"by {abs(e_cc + e_t - e_ref)}")
+        key = f"c2h2_{tag}_f32_ccsd_t_stages_{layout}"
+        out[key] = out.get(key, 0) + fwd + back
+        total_back += back
+        if t_row and layout == "sorted":
+            n = run_t_row(ladder_mm, tag, built)
+            out[key] += n
+        del built, gamma
+        torch.cuda.empty_cache()
+    return out, total_back
+
+
+def run_t_row(ladder_mm, tag, built):
+    """The (T) energy three ways on converged amplitudes of sorted ERIs
+    (bench.py's t row): dense pair loop, sector-blocked, bf16 slabs.
+    Returns the ladder launches of its CCSD solve."""
+    from ecw_cc_torch.ops import ccsd_t
+
+    eris, op, (info, sym), _ = built
+    cc = {}
+    (t1, t2, _), fwd, _ = count_launches(
+        ladder_mm, lambda: ccsd_t.solve_ccsd(eris, vvvv_op=op,
+                                             sect=(info, sym), log=cc))
+    with torch.no_grad():
+        d_ms, e_d = timed_ms(lambda: ccsd_t.energy_t(eris, t1, t2))
+        s_ms, e_s = timed_ms(lambda: ccsd_t.energy_t_sect(
+            eris, t1, t2, info, sym=sym))
+        b_ms, e_b = timed_ms(lambda: ccsd_t.energy_t_sect(
+            eris, t1, t2, info, sym=sym, slab_dtype="bfloat16"))
+    rel_s = abs(e_s - e_d) / abs(e_d)
+    rel_b = abs(e_b - e_s) / abs(e_s)
+    phase(10, f"energy_t_{tag}_f32", dense_ms=d_ms, sect_ms=s_ms,
+          bf16_ms=b_ms, sym=sym, ccsd=cc, E_T_dense=e_d, E_T_sect=e_s,
+          E_T_bf16=e_b, sect_rel_err=rel_s, bf16_rel_err=rel_b)
+    if rel_s > 5e-4 or rel_b > 5e-3:
+        raise AssertionError(f"(T) at {tag}: sectored off by {rel_s}, "
+                             f"bf16 by {rel_b}")
+    if fwd != (2 if sym else 3) * cc["iterations"]:
+        raise AssertionError(f"(T) row's CCSD solve launched {fwd} times in "
+                             f"{cc['iterations']} iterations")
+    return fwd
+
+
+def run_ccs(ecw32, ecw64c, ecwc):
+    """Phase 10 (e)."""
+    kw = dict(conv_thres=CONV_THRES, maxiter=80)
+    e64 = fresh_targets(ecw64c)
+    e64.Build_GS_exp("mat", "CCSD", field=FIELD)
+    ec = fresh_targets(ecwc)          # the CPU solve on the card's target
+    ec.exp_data, ec.HF_prop = e64.exp_data, e64.HF_prop
+    ec.Ek_exp_GS, ec.Eexp_GS = e64.Ek_exp_GS, e64.Eexp_GS
+    e32 = fresh_targets(ecw32)
+    e32.Build_GS_exp("mat", "CCSD", field=FIELD)
+    rows = {}
+    for name, ecw in (("cuda_f64", e64), ("cpu_f64", ec), ("cuda_f32", e32)):
+        t0 = time.perf_counter()
+        res = ecw.CCS_GS(LAMBDAS, **kw)
+        rows[name] = dict(
+            iterations=[s["iterations"] for s in ecw.solve_log],
+            converged=all(s["status"] == 1 for s in ecw.solve_log),
+            Ep=[float(e) for e in ecw.Ep_lamb],
+            Delta=[float(d) for d in ecw.Delta_lamb],
+            seconds=time.perf_counter() - t0,
+            rdm1_finite=bool(np.all(np.isfinite(res[4]))))
+    d64 = max(abs(a - b) for a, b in zip(rows["cuda_f64"]["Ep"],
+                                         rows["cpu_f64"]["Ep"]))
+    d32 = max(abs(a - b) for a, b in zip(rows["cuda_f32"]["Ep"],
+                                         rows["cpu_f64"]["Ep"]))
+    phase(10, "ccs_gs_on_ccsd_target", **rows, dEp_cuda_f64=d64,
+          dEp_cuda_f32=d32, target_f64=e64.target_log,
+          target_f32=e32.target_log, Eexp_f64=e64.Eexp_GS,
+          Eexp_f32=e32.Eexp_GS)
+    if not all(r["converged"] and r["rdm1_finite"] for r in rows.values()):
+        raise AssertionError(f"a CCS_GS sweep did not converge: {rows}")
+    if (rows["cuda_f64"]["iterations"] != rows["cpu_f64"]["iterations"]
+            or d64 > 1e-10):
+        raise AssertionError(f"CCS_GS f64 card differs from the CPU: {rows}")
+    if d32 > 1e-5:
+        raise AssertionError(f"CCS_GS f32 differs from f64 by {d32} Ha")
+    if not rows["cuda_f64"]["Delta"][-1] < rows["cuda_f64"]["Delta"][0]:
+        raise AssertionError("CCS_GS: Delta did not fall with lambda")
+
+
+def run_ccs_steps():
+    """Phase 10 (e), the other CCS solves: Newton on the exact Jacobian
+    (torch.func.jacfwd) and the L1 proximal-gradient solve (warm-started
+    from the SCF solve's checkpoint: from zero amplitudes its projection
+    keeps them zero) at lambda = 0.25, C2H2/6-31G with an HF target in a
+    field: f64 on the card against the CPU (equal iterations, Ep and
+    rdm1), Newton against the SCF solve, and f32 Newton on the card
+    against f64."""
+    import tempfile
+
+    e64, ec, e32 = (build_ecw(*a, basis=SMALL_BASIS) for a in (
+        ("cuda", torch.float64), ("cpu", torch.float64),
+        ("cuda", torch.float32)))
+    solves = {
+        "scf": dict(method="scf", conv_thres=1e-9, maxiter=200),
+        "newton": dict(method="newton", conv_thres=1e-9, maxiter=30),
+        "L1_grad": dict(method="L1_grad", alpha=1e-4, beta=0.5,
+                        conv_thres=1e-7, maxiter=60, resume=True)}
+    rows, res = {}, {}
+    for name, ecw in (("cuda_f64", e64), ("cpu_f64", ec)):
+        with tempfile.TemporaryDirectory() as ck:
+            for key, kw in solves.items():
+                if key != "newton":
+                    kw = dict(kw, checkpoint_dir=ck)
+                t0 = time.perf_counter()
+                r = res[name, key] = ecw.CCS_GS([0.25], **kw)
+                rows[f"{key}_{name}"] = dict(
+                    text=r[0], iterations=len(r[1]), Ep=float(r[1][-1]),
+                    Delta=float(r[2][-1][0]),
+                    nonzero_ts=int(np.count_nonzero(r[5][0])),
+                    seconds=time.perf_counter() - t0)
+    r32 = e32.CCS_GS([0.25], method="newton", conv_thres=1e-5, maxiter=30)
+    rows["newton_cuda_f32"] = dict(text=r32[0], iterations=len(r32[1]),
+                                   Ep=float(r32[1][-1]))
+    diffs = {}
+    for key in solves:
+        a, b = res["cuda_f64", key], res["cpu_f64", key]
+        if len(a[1]) != len(b[1]):
+            raise AssertionError(f"CCS {key}: card and CPU took "
+                                 f"{len(a[1])} and {len(b[1])} iterations")
+        diffs[key] = dict(dEp=float(np.abs(a[1] - b[1]).max()),
+                          drdm1=float(np.abs(a[4] - b[4]).max()))
+    newton, scf = res["cuda_f64", "newton"], res["cuda_f64", "scf"]
+    d_ns = abs(float(newton[1][-1] - scf[1][-1]))
+    d32 = abs(float(r32[1][-1] - newton[1][-1]))
+    phase(10, "ccs_newton_and_l1_grad", basis=SMALL_BASIS, **rows,
+          card_vs_cpu=diffs, dEp_newton_vs_scf=d_ns, dEp_newton_f32=d32)
+    if max(max(d.values()) for d in diffs.values()) > 1e-10:
+        raise AssertionError(f"CCS Newton / L1_grad: card differs from the "
+                             f"CPU: {diffs}")
+    if not all("Convergence reached" in res["cuda_f64", k][0]
+               for k in ("scf", "newton")) or d_ns > 1e-6:
+        raise AssertionError(f"CCS Newton against SCF: {rows}, {d_ns}")
+    l1 = res["cuda_f64", "L1_grad"]
+    if (not np.all(np.isfinite(l1[4])) or not np.count_nonzero(l1[5][0])
+            or d32 > 1e-5):
+        raise AssertionError(f"CCS L1_grad / f32 Newton: {rows}, {d32}")
+
+
+def run_phase10(ladder_mm, ladder_mm_ref, ecw32, ecw64c, ecwc, tz):
+    """Phase 10; returns ({path: launches}, backward launches among them,
+    {(dtype, shape): gradient error})."""
+    launches, _, back = run_target_sweep(ladder_mm, ecw32)
+    steps = (
+        lambda: run_target_stages(
+            ladder_mm, "ccpvdz", ecw32.mol, ecw32.mf,
+            ("sorted", "alternating", "alternating", "sorted")),
+        lambda: run_target_parity(ladder_mm, ecw32),
+        lambda: run_target_stages(ladder_mm, "ccpvtz", *tz,
+                                  ("sorted", "alternating"), t_row=True))
+    for step in steps:
+        out, b = step()
+        launches.update(out)
+        back += b
+    grads = check_kernel_gradient(ladder_mm, ladder_mm_ref)
+    run_ccs(ecw32, ecw64c, ecwc)
+    run_ccs_steps()
+    return launches, back, grads
+
+
 def kernel_kind(name):
     """The §5 breakdown's class of a kernel, from its name."""
     low = name.lower()
@@ -814,11 +1269,13 @@ def route_sweeps(ladder_mm, cells=ROUTE_CELLS, reps=ROUTE_REPS,
     return rows
 
 
-def kernel_report(launches, checks, times):
+def kernel_report(launches, checks, times, backward, grads):
     """The kernel line: the headline numbers are f32 at the main path's
     cc-pVTZ shape (392x13041x13041, the stacked packed GEMM); every timed
     shape is under by_dtype.  launches: {path: ladder launches in its
-    run}."""
+    run}; backward: the launches among them that a backward made (the
+    response densities of phase 10); grads: {(dtype, shape): error of the
+    kernel's gradient against the plain version's}."""
     by_dtype = {}
     for dtype in DTYPES:
         by_dtype[str(dtype).split(".")[-1]] = {tag(shape): {
@@ -840,6 +1297,10 @@ def kernel_report(launches, checks, times):
         "replaces": "ecw_cc_tpu/ops/ladder.py:54",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
+        "backward_launches": backward,
+        "gradient_max_abs_err": {
+            f"{str(d).split('.')[-1]} {tag(sh)}": e
+            for (d, sh), e in grads.items()},
         "max_abs_err": max(checks[(torch.float32, s)][0]
                            for s in TIMED_SHAPES[torch.float32]),
         "ms": times[main]["ms"], "plain_ms": times[main]["plain_ms"],
@@ -897,6 +1358,8 @@ def main(argv):
         print(smi)
         return 0
 
+    targets_only = "--targets" in argv
+
     # 2. build
     with timed(2, seconds):
         t0 = time.perf_counter()
@@ -906,6 +1369,25 @@ def main(argv):
               ptxas=[ln.strip() for ln in lib.log.splitlines()
                      if re.search(r"registers|spill|entry function", ln)],
               sass=check_sass(lib.path))
+
+    if targets_only:
+        # phase 10 alone, on its own ECWs (and cc-pVTZ SCF)
+        from ecw_cc_torch.models.molecule import Molecule
+        from ecw_cc_torch.models.scf import GHF, RHF
+
+        with timed(10, seconds):
+            mol_tz = Molecule(MOLECULE, BASIS_TZ, charge=0, spin=0)
+            mf_tz = RHF(mol_tz, conv_tol=1e-11)
+            mf_tz.kernel()
+            launches_10, back_10, _ = run_phase10(
+                ladder_mm, ladder_mm_ref, build_ecw("cuda", torch.float32),
+                build_ecw("cuda", torch.float64),
+                build_ecw("cpu", torch.float64), (mol_tz, GHF(mf_tz)))
+        phase(0, "seconds", total=time.perf_counter() - t_start,
+              by_phase=seconds, launches=launches_10,
+              backward_launches=back_10)
+        print(smi)
+        return 0
 
     # 3. kernel vs plain
     with timed(3, seconds):
@@ -996,9 +1478,15 @@ def main(argv):
     with timed(9, seconds):
         launches_9 = {"c2h2_ccpvtz_f32_sectored": run_sorted_tz(
             ladder_mm, ecw_tz, ref_tz)}
+        tz = (ecw_tz.mol, ecw_tz.mf)
         del ecw_tz
         launches_9.update(run_spin_mixing(ladder_mm, ecw32))
         launches_9.update(run_dense(ladder_mm, ecw32, ref32, ecw64c, ecwc))
+
+    # 10. correlated targets and the CCS ground state
+    with timed(10, seconds):
+        launches_10, back_10, grads = run_phase10(
+            ladder_mm, ladder_mm_ref, ecw32, ecw64c, ecwc, tz)
         del ecw32, ecw64c, ecwc
 
     # 8. neither JAX nor the JAX package
@@ -1014,8 +1502,9 @@ def main(argv):
     print(json.dumps(kernel_report(
         {"c2h2_ccpvdz_f32_packed_sweep": launches,
          "c2h2_ccpvdz_f64_packed": launches_64,
-         "c2h2_ccpvtz_f32_packed": launches_tz, **launches_9},
-        checks, times)))
+         "c2h2_ccpvtz_f32_packed": launches_tz, **launches_9,
+         **launches_10},
+        checks, times, back_10, grads)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

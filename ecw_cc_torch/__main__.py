@@ -1,0 +1,85 @@
+"""Headless experiment runner: `python -m ecw_cc_torch spec.json` (port of
+ecw_cc_tpu/__main__.py).
+
+One JSON spec per experiment, so that sweeps run unattended with the
+results table on stdout.
+
+Spec format (all keys but molecule/basis optional):
+
+{
+  "molecule": "h2o",            // catalog name or raw geometry string
+  "basis": "6-31g",
+  "out_dir": "results",         // cube files / plots / output.txt
+  "dtype": "float32",           // precision of ERIs, targets and solves
+  "device": "cuda",             // "cuda" (the default) or "cpu"
+  "config": {"soup_sector": true},           // config.set_config fields
+  "target": {"prop": "mat", "posthf": "HF",  // Build_GS_exp args
+             "field": [0.05, 0.01, 0.0]},
+  "run": {
+    "solver": "CCSD_GS",        // CCS_GS | CCSD_GS
+    "Larray": [0.0, 0.7, 8],    // np.linspace(start, stop, n); or a list
+    ...                         // remaining keys passed to the solver
+  }
+}
+
+Excited-state targets ("es_targets") and the CCS_ES solver are not ported
+yet (ROADMAP A.11).
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import numpy as np
+
+
+def _larray(spec):
+    arr = spec.get("Larray", [0.5, 0.5, 1])
+    if len(arr) == 3 and isinstance(arr[2], int) and arr[2] > 0:
+        return np.linspace(arr[0], arr[1], arr[2])
+    return np.asarray(arr, dtype=float)
+
+
+def run_spec(spec):
+    """Execute one experiment spec; returns the solver results."""
+    from ecw_cc_torch import ECW, set_config
+
+    if spec.get("config"):
+        set_config(**spec["config"])
+    if spec.get("es_targets"):
+        raise NotImplementedError(
+            "es_targets are not ported yet (ROADMAP A.11)")
+    run = dict(spec.get("run", {"solver": "CCSD_GS"}))
+    solver = run.pop("solver", "CCSD_GS")
+    if solver == "CCS_ES":
+        raise NotImplementedError(
+            "the CCS_ES solver is not ported yet (ROADMAP A.11)")
+    if solver not in ("CCS_GS", "CCSD_GS"):
+        raise ValueError(f"unknown solver {solver!r} "
+                         "(use CCS_GS or CCSD_GS)")
+
+    ecw = ECW(spec["molecule"], spec["basis"], out_dir=spec.get("out_dir"),
+              device=spec.get("device", "cuda"), dtype=spec.get("dtype"))
+    ecw.Build_GS_exp(**spec.get("target", {"prop": "mat", "posthf": "HF"}))
+    L = _larray(run)
+    run.pop("Larray", None)
+    results = getattr(ecw, solver)(L, **run)
+    ecw.print_results()
+    return results
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 1:
+        print(__doc__)
+        print("usage: python -m ecw_cc_torch spec.json", file=sys.stderr)
+        return 2
+    with open(argv[0]) as f:
+        spec = json.load(f)
+    run_spec(spec)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,8 +4,14 @@ and its plain PyTorch version.
 `ladder_mm` launches `csrc/ladder_mm.cu` for CUDA tensors and raises on
 anything the kernel does not take; it never falls back.  Only for CPU
 tensors does it compute the plain `ladder_mm_ref`.  `ladder_mm.launches`
-counts kernel launches, so a run can show that its main path went through
-the kernel.
+counts kernel launches, forward and backward, so a run can show that its
+main path went through the kernel; `ladder_mm.backward_launches` counts
+the backward ones among them.
+
+The launch is a `torch.autograd.Function`: the gradient for `a` is
+dA = dC @ b, one more launch of the same kernel: on `b` itself where the
+call site declares it symmetric (every ladder operand is), else on a
+transposed copy of it.
 
 `plan` is pure Python: it picks the tile width and the split of K across
 the blocks of a thread block cluster that fill the card at the solver's
@@ -121,10 +127,9 @@ def _check(a, b):
         raise ValueError("ladder_mm: dimension exceeds int32")
 
 
-def ladder_mm(a, b):
-    """C = a @ b.T through the CUDA kernel (CPU tensors: the plain version)."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return ladder_mm_ref(a, b)
+def _launch(a, b, backward=False):
+    """One launch of the kernel on checked CUDA operands: C = a @ b.T.
+    backward: the launch computes a gradient (counted as such)."""
     _check(a, b)
     M, K = a.shape
     N = b.shape[0]
@@ -139,7 +144,69 @@ def ladder_mm(a, b):
     if err != 0:
         raise RuntimeError(f"ladder_mm kernel launch failed: cudaError {err}")
     ladder_mm.launches += 1
+    ladder_mm.backward_launches += bool(backward)
     return c
 
 
-ladder_mm.launches = 0
+class _LadderMM(torch.autograd.Function):
+    """The launch with its gradient for `a`.  forward and setup_context are
+    separate so that the function also runs under torch.func transforms,
+    which hand forward the plain tensors behind their wrappers (the launch
+    reads data_ptr()).  backward: this launch is itself part of a backward
+    pass."""
+
+    @staticmethod
+    def forward(a, b, symmetric, backward):
+        return _launch(a, b, backward)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, b, symmetric, _ = inputs
+        ctx.save_for_backward(b)
+        ctx.symmetric = symmetric
+
+    @staticmethod
+    def backward(ctx, dc):
+        (b,) = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            raise RuntimeError(_NO_B_GRAD)
+        # dA = dC @ B, an NN product, as the kernel's own NT product.  A
+        # symmetric operand (its K leading rows; further rows are zero
+        # padding) serves as it is: dC[:, :K] @ B[:K] = (dC[:, :K] @
+        # B.T)[:, :K].  Any other is transposed first: dC @ B = dC @ (B.T).T
+        K = b.shape[1]
+        if ctx.symmetric:
+            da = _LadderMM.apply(dc[:, :K].contiguous(), b, True, True)
+            da = da[:, :K] if b.shape[0] != K else da
+        else:
+            da = _LadderMM.apply(dc.contiguous(), b.T.contiguous(), False,
+                                 True)
+        return da, None, None, None
+
+
+_NO_B_GRAD = ("ladder_mm has no gradient for its second operand (an ERI "
+              "block): detach it")
+
+
+def ladder_mm(a, b, symmetric=False):
+    """C = a @ b.T through the CUDA kernel (CPU tensors: the plain version,
+    with its native autograd).
+
+    The launch carries the gradient for `a`, dA = dC @ b, itself a launch
+    of the kernel.  symmetric=True is the caller's word that b[:K, :K] is a
+    symmetric matrix (K = b.shape[1]; rows past K, if any, are zero
+    padding), as every ladder operand is by <ab||ef> = <ef||ab>: then the
+    backward reads `b` as it is, else a transposed copy of it.  `b` takes no
+    gradient: one that requires it raises."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return ladder_mm_ref(a, b)
+    if b.requires_grad:
+        raise RuntimeError(_NO_B_GRAD)
+    if symmetric and b.dim() == 2 and b.shape[0] < b.shape[1]:
+        raise ValueError(f"ladder_mm: a {tuple(b.shape)} operand cannot be "
+                         "symmetric in its leading rows")
+    return _LadderMM.apply(a, b, bool(symmetric), False)
+
+
+ladder_mm.launches = 0             # every launch of the kernel
+ladder_mm.backward_launches = 0    # those of them made by a backward

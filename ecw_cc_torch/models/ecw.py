@@ -18,8 +18,9 @@ faster at every nvir measured, 16 to 162 (`chip_smoke.py --routes`,
 PERF.md), so ECW does not take the sorted route; it stays reachable
 through build_eris_device(sort_spin=True) and Solver_CCSD(mo_perm=...).
 
-Then it builds ground-state targets and runs the warm-started ECW-CCSD
-lambda sweep.
+Then it builds ground-state targets (HF, CCSD or CCSD(T), solved on the
+same device at the same precision) and runs the warm-started ECW-CCSD or
+ECW-CCS lambda sweep.
 """
 
 from __future__ import annotations
@@ -35,10 +36,11 @@ from ecw_cc_torch.models import gamma_exp
 from ecw_cc_torch.models.eris import build_eris, build_eris_device
 from ecw_cc_torch.models.molecule import Molecule
 from ecw_cc_torch.models.scf import GHF, RHF
+from ecw_cc_torch.ops.ccs import Gccs, ccs_gradient
 from ecw_cc_torch.ops.ccsd import GCC
 from ecw_cc_torch.ops.ladder import resolve_mode
 from ecw_cc_torch.ops.vexp import Exp
-from ecw_cc_torch.solvers.gs import Solver_CCSD
+from ecw_cc_torch.solvers.gs import Solver_CCS, Solver_CCSD
 from ecw_cc_torch.utils import checkpoint, convert, output, props
 
 format_float = "{:10.5e}"
@@ -58,6 +60,7 @@ class ECW:
         'x_half_s' and 'device_s' of the device transform."""
         self.device = check_device(device)
         self.dtype = torch_dtype(dtype)
+        self.myccs = None
         self.myccsd = None
         if U_format:
             raise NotImplementedError("UHF reference implies different orbspin")
@@ -146,7 +149,7 @@ class ECW:
         self.Ep_lamb = []
         self.vmax_lamb = []
         self.Delta_Ek = []
-        self.solve_log = []   # Solver_CCSD.last_solve of each lambda
+        self.solve_log = []   # the solver's last_solve of each lambda
 
     # ------------------------------------------------------------------
     # Target construction (reference Main.py:267-398)
@@ -163,7 +166,8 @@ class ECW:
             print("WARNING: rdm1 comparison requires the same geometry")
             max_def = None
 
-        gexp = gamma_exp.Gexp(self.mol, posthf, basis=basis)
+        gexp = gamma_exp.Gexp(self.mol, posthf, basis=basis,
+                              device=self.device, dtype=self.dtype)
         if max_def is not None:
             gexp.deform(max_def)
         if field is not None:
@@ -171,6 +175,7 @@ class ECW:
                 raise SyntaxError("external field must be a list [vx, vy, vz]")
             gexp.Vext(field)
         gexp.build()
+        self.target_log = gexp.log   # stages of a correlated target build
         if para_factor is not None:
             gexp.underfit(para_factor)
         self.Eexp_GS = gexp.Eexp
@@ -340,8 +345,109 @@ class ECW:
         # the public API returns NumPy amplitudes (one fetch, at the end)
         return tuple(Result[:5]) + ([_host(a) for a in Result[5]],)
 
-    def CCS_GS(self, *args, **kwargs):
-        raise NotImplementedError("CCS_GS is not ported yet (ROADMAP A.9)")
+    def CCS_GS(self, Larray, alpha=None, method="scf", diis="",
+               nbr_cube_file=2, tl1ini=0, print_ite_info=False, beta=None,
+               diis_max=15, conv="tl", conv_thres=1e-5, maxiter=80,
+               tablefmt="rst", HF_prop=False, target_rdm1_GS=None,
+               checkpoint_dir=None, resume=False):
+        """GS-ECW-CCS lambda sweep (warm-started, sequential).  Reference
+        Main.py:490-661.  method: 'scf', 'newton', 'descend' or 'L1_grad'
+        (the last needs alpha and the step beta)."""
+        self.diis = diis + f" diis_max={diis_max}"
+        if method == "L1_grad" and beta is None:
+            raise ValueError("beta (gradient step) required for L1_grad")
+        if len(self.exp_data) > 1:
+            self.exp_data = [self.exp_data[0]]
+            print("Warning: ES data found but GS solver used; only GS data "
+                  "kept")
+        self.method = method
+        if target_rdm1_GS is None:
+            target_rdm1_GS = self.target_rdm1_GS
+        self.Delta_rdm1 = []
+
+        Ek_HF_GS = self.Ek_HF_GS if HF_prop else None
+        hf_prop = self.HF_prop if HF_prop else False
+        VXexp = Exp(Larray[0], self.exp_data, self.mol, self.mo_coeff,
+                    Ek_exp_GS=self.Ek_exp_GS, HF_prop=hf_prop,
+                    Ek_HF_GS=Ek_HF_GS)
+        tsini, lsini = self._tl_init(tl1ini)
+        ts, ls = tsini.copy(), lsini.copy()
+        idx_L_print = np.round(np.linspace(0, len(Larray) - 1,
+                                           nbr_cube_file)).astype(int)
+        # the ERIs are always in the alternating layout the CCS kernels take
+        if self.myccs is None:
+            self.myccs = Gccs(self.eris)
+        mygrad = (ccs_gradient(self.eris)
+                  if method in ("newton", "descend") else None)
+        Solve = Solver_CCS(self.myccs, VXexp, conv=conv,
+                           conv_thres=conv_thres, tsini=tsini, lsini=lsini,
+                           diis=diis, maxdiis=diis_max, maxiter=maxiter,
+                           CCS_grad=mygrad)
+        Result = None
+        Ep = Delta = vmax = None
+        self.init_plot_var(Larray)
+        print()
+        print("#######################################################")
+        print(f"#  Results using {method} for CCS-GS calculation ")
+        print("#######################################################")
+        print()
+        for idx_L, L in enumerate(Larray):
+            print("LAMBDA= ", L)
+            if resume and checkpoint_dir is not None:
+                saved = checkpoint.load_amplitudes(checkpoint_dir, L)
+                if saved is not None:
+                    ts, ls = saved["ts"], saved["ls"]
+            if method == "newton":
+                Result = Solve.Gradient(L, ts=ts, ls=ls)
+            elif method == "descend":
+                Result = Solve.Gradient(L, method=method, ts=ts, ls=ls,
+                                        beta=beta)
+            elif method == "scf":
+                Result = Solve.SCF(L, ts=ts, ls=ls, alpha=alpha)
+                self.solve_log.append(Solve.last_solve)
+            elif method == "L1_grad":
+                Result = Solve.L1_grad(L, alpha, beta, ts=ts, ls=ls)
+            else:
+                raise ValueError("method not recognized")
+            ts, ls = Result[5]
+            if checkpoint_dir is not None:
+                checkpoint.save_amplitudes(checkpoint_dir, L,
+                                           {"ts": ts, "ls": ls},
+                                           meta={"Ep": float(Result[1][-1])})
+            if self.out_dir is not None and idx_L in idx_L_print:
+                fout = os.path.join(self.out_dir, f"L{L:.2f}")
+                output.cube_rdm1(Result[4], self.mo_coeff, self.mol, fout)
+            if print_ite_info:
+                output.print_iteration_table(Result, conv, tablefmt)
+            print(Result[0])
+            Ep = Result[1][-1]
+            Delta = Result[2][-1][0]
+            vmax = Result[2][-1][1]
+            print("Delta = ", Delta)
+            print()
+            if target_rdm1_GS is not None and self.cal_rdm1_Delta:
+                diff = np.subtract(target_rdm1_GS, Result[4])
+                self.Delta_rdm1.append(
+                    np.sum(np.abs(diff)) / np.sum(np.abs(
+                        target_rdm1_GS - np.diag(self.mo_occ))))
+            self.Delta_lamb.append(Delta)
+            self.Ep_lamb.append(Ep)
+            self.vmax_lamb.append(vmax)
+            if VXexp.Delta_Ek_GS is not None:
+                self.Delta_Ek.append(VXexp.Delta_Ek_GS)
+
+        print("FINAL RESULTS")
+        print("Ep   = " + format_float.format(Ep + self.EHF))
+        print("Delta   = " + format_float.format(Delta))
+        if VXexp.Delta_Ek_GS is not None:
+            print("Delta Ek  = " + format_float.format(VXexp.Delta_Ek_GS))
+        print()
+        print("EHF    = " + format_float.format(self.EHF))
+        print("Eexp   = ", self.Eexp_GS)
+        print()
+        if self.out_dir is not None:
+            self.print_results()
+        return Result
 
     def CCS_ES(self, *args, **kwargs):
         raise NotImplementedError("CCS_ES is not ported yet (ROADMAP A.11)")

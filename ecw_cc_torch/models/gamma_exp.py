@@ -1,24 +1,176 @@
 """Simulated ground-state target data (port of ecw_cc_tpu/models/gamma_exp.py
-Gexp; reference gamma_exp.py:104-275).
+Gexp and its solvers; reference gamma_exp.py:104-275).
 
-Only HF targets are ported: the rdm1 of an RHF calculation, optionally
-with a static external field, a random geometry deformation and
-under-fitting.  CCSD and CCSD(T) targets need the plain CCSD, Lambda and
-(T) solvers (ROADMAP A.10) and raise.
+Gexp builds the target rdm1 of an HF, CCSD or CCSD(T) calculation,
+optionally with a static external field, a random geometry deformation and
+under-fitting.  The correlated targets run plain GCCSD (ops/ccsd_t.
+solve_ccsd) and then either the textbook Lambda equations (solve_lambda)
+and the CCSD rdm1, or the (T) energy and the CCSD(T) response density
+(ops/ccsd_t.ccsd_t_rdm1_response), on `device` in `dtype`.
+
+The excited-state half of the JAX module (ESexp, ROADMAP A.11/A.12) is not
+ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ecw_cc_torch.config import check_device, torch_dtype
+from ecw_cc_torch.models.eris import build_eris, build_eris_device
 from ecw_cc_torch.models.molecule import Molecule
-from ecw_cc_torch.models.scf import RHF
+from ecw_cc_torch.models.scf import GHF, RHF
+from ecw_cc_torch.ops import ccsd as ccsd_ops
+from ecw_cc_torch.ops import ccsd_t
+from ecw_cc_torch.ops.ladder import ensure_sorted_vvvv_op, spin_sort_perm
+from ecw_cc_torch.ops.spinsect import sector_info
+from ecw_cc_torch.utils import convert
+from ecw_cc_torch.utils.metrics import StageClock
+
+
+def _l_step(eris, vvvv_op, t1, t2, l1, l2, sect=None):
+    if sect is not None:
+        from ecw_cc_torch.ops.ccsd_sect import lupdate_sect
+
+        l1n, l2n = lupdate_sect(eris, t1, t2, l1, l2, eris.fock, sect[0],
+                                energy_term="off", vvvv_op=vvvv_op,
+                                sym=sect[1])
+    else:
+        l1n, l2n = ccsd_ops.lupdate(eris, t1, t2, l1, l2, None,
+                                    energy_term="off", vvvv_op=vvvv_op)
+    return l1n, l2n, torch.linalg.norm(l1n) + torch.linalg.norm(l2n)
+
+
+def solve_lambda(eris, t1, t2, conv_tol=None, max_cycle=200, vvvv_op=None,
+                 sect=None, log=None):
+    """GS Lambda amplitudes (textbook equations, energy_term='off'): plain
+    Jacobi iterations from l = t, converged when the norm |l1| + |l2| moves
+    by less than conv_tol; one scalar read per iteration.
+
+    sect: optional (SectorInfo, sym): sector-blocked kernels (sorted
+    layout).  conv_tol: None is 1e-10 at f64 (the JAX package's value) and
+    1e-6 at f32.  log: a dict that receives 'iterations' and 'converged'."""
+    conv_tol = ccsd_t._default_tol(conv_tol, t1.dtype, 1e-10, 1e-6)
+    if sect is not None:
+        vvvv_op = ensure_sorted_vvvv_op(vvvv_op, eris, sect[0])
+    l1, l2 = t1, t2
+    l_old = None
+    converged = False
+    k = 0
+    with torch.no_grad():
+        for k in range(1, max_cycle + 1):
+            l1, l2, nrm = _l_step(eris, vvvv_op, t1, t2, l1, l2, sect=sect)
+            nrm = float(nrm)
+            if l_old is not None and abs(nrm - l_old) < conv_tol:
+                converged = True
+                break
+            l_old = nrm
+    if log is not None:
+        log.update(iterations=k, converged=converged)
+    return l1, l2
+
+
+def _build_eris_auto(mol, ghf, dtype, device):
+    """(eris, vvvv_op) in the alternating layout: at f32 the device build
+    with pack-on-build, so that the dense (v,v,v,v) block is never
+    materialized; at f64 (the parity mode) the exact host build, dense,
+    vvvv_op=None."""
+    if dtype == torch.float32:
+        return build_eris_device(mol, ghf, dtype=dtype, device=device,
+                                 pack_ladder=True)
+    return build_eris(mol, ghf).to_device(dtype=dtype, device=device), None
+
+
+def _build_eris_sorted(mol, ghf, dtype, device):
+    """(eris, vvvv_op, sect, unperm) for CCSD / CCSD(T) target builds.
+
+    At f32 the device build runs in the spin-SORTED layout (pack-on-build
+    SectoredVVVV ladder), so the t/lambda solves, the o^3 v^4 (T) loops and
+    the response-density adjoint all go through the sector-blocked kernels
+    (ops/ccsd_sect.py, ops/ccsd_t.energy_t_sect), under the closed-shell
+    mirror gate where it passes.  The CC equations are orbital-order
+    covariant, so everything runs sorted and only the final density is
+    permuted back (unperm).  f64 keeps the dense host build and the dense
+    kernels as the oracle path."""
+    if dtype != torch.float32:
+        eris, _ = _build_eris_auto(mol, ghf, dtype, device)
+        return eris, None, None, None
+    eris, vvvv_op = build_eris_device(mol, ghf, dtype=dtype, device=device,
+                                      pack_ladder=True, sort_spin=True)
+    perm = spin_sort_perm(np.asarray(ghf.orbspin), ghf.nocc)
+    info = sector_info(np.asarray(ghf.orbspin)[perm], ghf.nocc)
+    sym = ccsd_t.eris_spin_restricted(eris, info, vvvv_op=vvvv_op)
+    return eris, vvvv_op, (info, sym), np.argsort(perm)
+
+
+def _gamma(t1, t2, l1, l2, sect=None):
+    """The CCSD rdm1, through the sectored intermediates on the sorted
+    layout."""
+    if sect is not None:
+        from ecw_cc_torch.ops.ccsd_sect import gamma_inter_sect
+
+        inter = gamma_inter_sect(t1, t2, l1, l2, sect[0], sym=sect[1])
+        return ccsd_ops.gamma_CCSD(t1, t2, l1, l2, inter=inter)
+    return ccsd_ops.gamma_CCSD(t1, t2, l1, l2)
+
+
+def _run_gccsd_rdm1(built, conv_tol=None, max_cycle=200, log=None):
+    """Plain GCCSD + Lambda on the (eris, vvvv_op, sect, unperm) of a
+    build: (e_corr, rdm1_mo_G as NumPy in the alternating MO order)."""
+    eris, vvvv_op, sect, unperm = built
+    stage = StageClock(eris.fock.device, log)
+    t1, t2, e_cc = ccsd_t.solve_ccsd(eris, conv_tol=conv_tol,
+                                     max_cycle=max_cycle, vvvv_op=vvvv_op,
+                                     sect=sect, log=stage.sub("ccsd"))
+    stage.done("ccsd_s")
+    l1, l2 = solve_lambda(eris, t1, t2, conv_tol, max_cycle, vvvv_op=vvvv_op,
+                          sect=sect, log=stage.sub("lambda"))
+    stage.done("lambda_s")
+    with torch.no_grad():
+        rdm1_mo = _gamma(t1, t2, l1, l2, sect=sect).cpu().numpy()
+    if unperm is not None:
+        rdm1_mo = rdm1_mo[np.ix_(unperm, unperm)]
+    return e_cc, rdm1_mo.astype(np.float64)
+
+
+def _run_gccsd_t_rdm1(built, log=None):
+    """Plain GCCSD, the (T) energy and the CCSD(T) response density on the
+    (eris, vvvv_op, sect, unperm) of a build: (e_cc, e_t, rdm1_mo_G as
+    NumPy in the alternating MO order, symmetrized).  log receives the
+    iterations and the seconds of each stage."""
+    eris, vvvv_op, sect, unperm = built
+    stage = StageClock(eris.fock.device, log)
+    t1, t2, e_cc = ccsd_t.solve_ccsd(eris, vvvv_op=vvvv_op, sect=sect,
+                                     log=stage.sub("ccsd"))
+    stage.done("ccsd_s")
+    with torch.no_grad():
+        e_t = float(ccsd_t.energy_t(eris, t1, t2, sect=sect))
+    stage.done("energy_t_s")
+    rdm1_mo = ccsd_t.ccsd_t_rdm1_response(
+        eris, t1, t2, vvvv_op=vvvv_op, sect=sect,
+        log=stage.sub("adjoint")).cpu().numpy().astype(np.float64)
+    stage.done("adjoint_s")
+    if unperm is not None:
+        # back to the alternating-spin MO order of ghf.mo_coeff
+        rdm1_mo = rdm1_mo[np.ix_(unperm, unperm)]
+    # symmetrize (the response density of a real functional)
+    return e_cc, e_t, 0.5 * (rdm1_mo + rdm1_mo.T)
 
 
 class Gexp:
-    """GS target rdm1 generator (HF method)."""
+    """GS target rdm1 generator.  Reference gamma_exp.py:104-275.
 
-    def __init__(self, mol: Molecule, method, basis=None):
+    device, dtype: where and at what precision a correlated target is
+    solved (None = config.dtype); an HF target is host work.  After a
+    correlated build, `self.log` holds the iterations and the seconds of
+    each stage."""
+
+    def __init__(self, mol: Molecule, method, basis=None, *, device="cuda",
+                 dtype=None):
+        self.device = device
+        self.dtype = torch_dtype(dtype)
+        self.log = {}
         self.mol_def = mol.with_basis(basis) if basis is not None else mol.copy()
         self.mf_def = RHF(self.mol_def)
         self.mo_coeff_def = None
@@ -27,6 +179,8 @@ class Gexp:
         self.gamma_ao = None  # AO basis, R format
         self.method = method
         self.EHF_def = 0.0
+        self.ECCSD_def = 0.0
+        self.ECCSD_t_def = 0.0
         self.Eexp = 0.0
 
     def deform(self, def_max, rng=None):
@@ -49,14 +203,16 @@ class Gexp:
                          mol.intor("r", origin=np.zeros(3))))
         self.mf_def.set_hcore(h)
 
+    def _store_mo_g(self, rdm1_mo_g, ghf):
+        """MO G -> AO G -> AO R."""
+        rdm1_ao_g = convert.mo_to_ao(rdm1_mo_g, ghf.mo_coeff)
+        self.gamma_ao = convert.convert_g_to_ru_rdm1(rdm1_ao_g)[0]
+
     def build(self):
-        """HF target calculation; reference gamma_exp.py:193-227."""
-        if self.method != "HF":
-            norm = self.method.upper().replace("(", "").replace(")", "")
-            if norm in ("CCSD", "CCSDT"):
-                raise NotImplementedError(
-                    f"{self.method} targets are not ported yet "
-                    "(ROADMAP A.10); use 'HF'")
+        """HF, CCSD or CCSD(T) target calculation.  Reference
+        gamma_exp.py:193-255."""
+        method = self.method.upper().replace("(", "").replace(")", "")
+        if method not in ("HF", "CCSD", "CCSDT"):
             raise ValueError("method not recognized (use 'HF', 'CCSD' or "
                              "'CCSD(T)')")
         self.mf_def.conv_tol = 1e-11
@@ -66,7 +222,29 @@ class Gexp:
         self.nvir = int(np.sum(self.mf_def.mo_occ == 0))
         self.EHF_def = self.mf_def.e_tot
         self.Eexp = self.EHF_def
-        self.gamma_ao = self.mf_def.make_rdm1()
+        if method == "HF":
+            self.gamma_ao = self.mf_def.make_rdm1()
+            return
+
+        ghf = GHF(self.mf_def)
+        self.log = log = {}
+        dev = check_device(self.device)
+        stage = StageClock(dev, log)
+        built = _build_eris_sorted(self.mol_def, ghf, self.dtype, dev)
+        stage.done("eris_s")
+        log["sym"] = bool(built[2][1]) if built[2] is not None else False
+        if method == "CCSD":
+            e_corr, rdm1_mo_g = _run_gccsd_rdm1(built, log=log)
+            self.ECCSD_def = e_corr
+            self.Eexp = self.EHF_def + e_corr
+            self._store_mo_g(rdm1_mo_g, ghf)
+            return
+
+        e_cc, et, rdm1_mo_g = _run_gccsd_t_rdm1(built, log=log)
+        self.ECCSD_def = e_cc
+        self.ECCSD_t_def = e_cc + et
+        self.Eexp = self.EHF_def + e_cc + et
+        self._store_mo_g(rdm1_mo_g, ghf)
 
     def underfit(self, para_factor, rng=None):
         """Randomly zero elements of gamma_ao to simulate under-fitting;

@@ -17,7 +17,11 @@ one of three routes:
 Every one of these products is the NT GEMM C = A @ B.T of the hand-written
 Hopper kernel (kernels/ladder_mm.py).  The lambda ladder
 0.5 * einsum('ijcd,cdab->ijab', l2, vvvv) is the same product by the
-pair-swap symmetry <ab||cd> = <cd||ab>.  The O(o^4 v^2) and O(o^2 v^3)
+pair-swap symmetry <ab||cd> = <cd||ab>.  The same symmetry makes every
+operand here a symmetric matrix, which each call site tells the kernel
+(symmetric=True): a gradient through a ladder, as the CCSD(T) response
+density takes, is then one more launch of the kernel per product
+(dA = dC @ B = dC @ B.T).  The O(o^4 v^2) and O(o^2 v^3)
 corrections of `ladder_contract` stay torch.einsum, as they were XLA
 einsums outside any Pallas kernel in the JAX package.
 
@@ -86,7 +90,7 @@ def pack_vvvv(vvvv):
 
 def _packed_mm(xc, packed, p):
     """(M, p) packed rows times the packed operand, through the kernel."""
-    yc = ladder_mm(xc, packed.wc)
+    yc = ladder_mm(xc, packed.wc, symmetric=True)
     return yc[:, :p] if packed.wc.shape[0] != p else yc
 
 
@@ -162,7 +166,7 @@ def _sector_inputs(x, ma):
 
 def _sector_mm(xs, w, ncols):
     """One sector GEMM xs @ w.T through the Hopper kernel."""
-    y = ladder_mm(xs.contiguous(), w)
+    y = ladder_mm(xs.contiguous(), w, symmetric=True)
     return y[:, :ncols] if w.shape[0] != ncols else y
 
 
@@ -309,7 +313,7 @@ def dense_ladder(x, vvvv):
     # raises where the strides do not allow one, and the kernel on a
     # non-contiguous operand
     y = ladder_mm(x.reshape(o * o2, v * v).contiguous(),
-                  vvvv.view(v * v, v * v))
+                  vvvv.view(v * v, v * v), symmetric=True)
     return y.reshape(o, o2, v, v)
 
 

@@ -43,6 +43,13 @@ class SectorInfo(NamedTuple):
         return self.va + self.vb
 
 
+def sector_info(orbspin_sorted, nocc) -> SectorInfo:
+    """Sector sizes from the 0/1 spin labels of the sorted MO order."""
+    s = np.asarray(orbspin_sorted)
+    return SectorInfo(int(np.sum(s[:nocc] == 0)), int(np.sum(s[:nocc] == 1)),
+                      int(np.sum(s[nocc:] == 0)), int(np.sum(s[nocc:] == 1)))
+
+
 def _slices(info):
     return {
         ("o", 0): slice(0, info.oa), ("o", 1): slice(info.oa, info.nocc),
@@ -158,6 +165,23 @@ class SpinBlocked:
 def wrap(arr, kinds, info, sym=False):
     """SpinBlocked view of a primitive (balanced-halves) sorted tensor."""
     return SpinBlocked.from_dense(arr, kinds, info, sym=sym)
+
+
+def mirror_dense(arr, kinds, info):
+    """The global alpha<->beta mirror M of a dense sorted-layout tensor
+    (equal sector sizes): swaps the alpha and beta slabs along every axis.
+    M is an involution; a tensor is closed-shell mirror-symmetric iff
+    M(arr) == arr."""
+    if info.oa != info.ob or info.va != info.vb:
+        raise ValueError(f"mirror_dense needs equal alpha/beta sector sizes "
+                         f"(got {info})")
+    po = torch.cat([torch.arange(info.oa, info.nocc),
+                    torch.arange(0, info.oa)]).to(arr.device)
+    pv = torch.cat([torch.arange(info.va, info.nvir),
+                    torch.arange(0, info.va)]).to(arr.device)
+    for ax, k in enumerate(kinds):
+        arr = arr.index_select(ax, po if k == "o" else pv)
+    return arr
 
 
 def sliced_support(kinds_full, fixed):

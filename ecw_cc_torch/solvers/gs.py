@@ -1,7 +1,13 @@
-"""Ground-state ECW-CCSD solver (port of ecw_cc_tpu/solvers/gs.py
-Solver_CCSD, device route; reference Solver_GS.py:521-742).
+"""Ground-state ECW-CCS and ECW-CCSD solvers (port of
+ecw_cc_tpu/solvers/gs.py, device routes; reference Solver_GS.py).
 
-The routes of the JAX loop (gs.py:681-1067), chosen per solver:
+Solver_CCS (reference Solver_GS.py:22-514) iterates the o*v-sized t1 and
+lambda1 equations: `SCF` is the device loop, `Gradient` the Newton /
+steepest-descent solve on the exact Jacobian, `L1_grad` the proximal
+L1 solve.
+
+Solver_CCSD (reference Solver_GS.py:521-742) takes one of the routes of the
+JAX loop (gs.py:681-1067), chosen per solver:
 
   - sectored: ERIs in the spin-SORTED layout (mo_perm given), and every
     Vexp target / potential spin-block-diagonal (the structure gate) with
@@ -28,10 +34,11 @@ amplitudes and rdm1s are in the reference (alternating) spin convention:
 on the sorted layout they are sorted once on entry and unsorted once on
 exit.
 
-Every GS property is a device property, so the JAX package's host loop
-(_scf_host) has no counterpart.  Routes that are not ported raise
-NotImplementedError naming their ROADMAP item: reduced precision and
-refine (A.8), and SCF_batch (A.13).
+Every GS property is a device property, so the JAX package's host loops
+(_scf_host, and with it Solver_CCS.SCF(store_ite=True)) have no
+counterpart.  Routes that are not ported raise NotImplementedError naming
+their ROADMAP item: reduced precision and refine (A.8), and SCF_batch
+(A.13).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from ecw_cc_torch.config import get_config
+from ecw_cc_torch.ops import ccs as ccs_ops
 from ecw_cc_torch.ops import ccsd as ccsd_ops
 from ecw_cc_torch.ops import ccsd_sect
 from ecw_cc_torch.ops import diis as diis_ops
@@ -53,6 +61,7 @@ from ecw_cc_torch.ops.ladder import (PackedVVVV, SectoredVVVV,
                                      ensure_sorted_vvvv_op, make_vvvv_op,
                                      stacked_packed_contract,
                                      stacked_sectored_contract)
+from ecw_cc_torch.ops.l1reg import subdiff
 from ecw_cc_torch.ops.vexp import make_gs_vexp_device
 from ecw_cc_torch.utils.metrics import IterationMetrics
 
@@ -91,10 +100,12 @@ def _record_metrics(solver_obj, name, L, Ep_it, Delta_it, conv_it):
     return m
 
 
-def _conv_text(status, L, n_ite, alpha=None):
+def _conv_text(status, L, n_ite, alpha=None, ccsd=False):
     if status == CONVERGED:
-        return (f"Convergence reached for lambda= {L} and alpha={alpha}, "
-                f"after {n_ite} iteration")
+        if ccsd:
+            return (f"Convergence reached for lambda= {L} and alpha={alpha}, "
+                    f"after {n_ite} iteration")
+        return f"Convergence reached for lambda= {L}, after {n_ite} iteration"
     if status == MAXITER:
         return "Max iteration reached"
     return f"Diverges for lambda = {L} after {n_ite} iterations"
@@ -102,6 +113,226 @@ def _conv_text(status, L, n_ite, alpha=None):
 
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _to_tensor(a, dtype, device):
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+class Solver_CCS:
+    """Reference API: Solver_GS.Solver_CCS (Solver_GS.py:22-239).
+
+    mycc: ops.ccs.Gccs over torch ERIs in the alternating layout (the
+    device and dtype of the solve are those of mycc.eris); CCS_grad: an
+    ops.ccs.ccs_gradient for `Gradient`."""
+
+    def __init__(self, mycc, VX_exp, conv="tl", conv_thres=1e-6, tsini=None,
+                 lsini=None, diis="", maxiter=40, maxdiis=15, CCS_grad=None,
+                 mindiis=2):
+        if conv not in ("Ep", "l", "tl"):
+            raise ValueError("Accepted convergence parameter is Ep, l or tl")
+        # the CCS kernels take the alternating MO layout (no mo_perm here);
+        # a spin-sorted handle would scramble them silently
+        warn_if_sorted_layout(mycc.eris, "Solver_CCS")
+        self.nocc, self.nvir = mycc.nocc, mycc.nvir
+        self.mycc = mycc
+        self.myVexp = VX_exp
+        self.Grad = CCS_grad
+        self.diis = diis
+        self.maxdiis = maxdiis
+        self.mindiis = mindiis
+        self.maxiter = maxiter
+        self.conv_thres = conv_thres
+        self.conv = conv
+        self.fock = mycc.fock
+        self.device, self.dtype = self.fock.device, self.fock.dtype
+        self.tsini = self._amp(tsini)
+        self.lsini = self._amp(lsini)
+
+    def _amp(self, a):
+        if a is None:
+            return torch.zeros((self.nocc, self.nvir), dtype=self.dtype,
+                               device=self.device)
+        return _to_tensor(a, self.dtype, self.device)
+
+    def _conv_vec(self, ts, ls, fsp):
+        if self.conv == "tl":
+            return (ts + ls).reshape(-1)
+        if self.conv == "l":
+            return ls.reshape(-1)
+        return self.mycc.energy_ccs(ts, fsp).reshape(1)
+
+    def SCF(self, L, ts=None, ls=None, diis="", alpha=None, store_ite=False):
+        """SCF+DIIS solve at constraint weight L (reference
+        Solver_GS.py:101-239): a Python loop whose state stays on the
+        device, one scalar read per iteration.  Returns the reference
+        6-tuple (conv_text, Ep_it, Delta_it, conv_it, rdm1, (ts, ls)) as
+        NumPy arrays."""
+        if store_ite:
+            raise NotImplementedError(
+                "store_ite=True ran the JAX package's host loop (_scf_host), "
+                "which is deliberately not ported (ROADMAP 'Do not port')")
+        ts = self.tsini if ts is None else self._amp(ts)
+        ls = self.lsini if ls is None else self._amp(ls)
+        diis = diis or self.diis
+        eris = self.mycc.eris
+        nocc, nvir = self.nocc, self.nvir
+        n1, dim = nocc * nvir, nocc + nvir
+        dev, dt, maxiter = self.device, self.dtype, self.maxiter
+        vexp_fn = make_gs_vexp_device(self.myVexp, dtype=dt, device=dev)
+        Lw = self.myVexp.L_check(L)[0]
+        with torch.no_grad():
+            rdm1 = ccs_ops.gamma_CCS(ts, ls)
+            dstate = (diis_ops.diis_init(2 * n1 if diis == "tl" else dim * dim,
+                                         self.maxdiis, dtype=dt, device=dev)
+                      if diis else None)
+            conv = torch.zeros_like(self._conv_vec(ts, ls, eris.fock))
+            hist = torch.zeros((4, maxiter + 2), dtype=dt, device=dev)
+            Dconv, Dconv_v = torch.ones((), dtype=dt, device=dev), 1.0
+            ite = k = 0
+            status = RUNNING
+            while Dconv_v > self.conv_thres and status == RUNNING:
+                conv_old = conv
+                V, Delta, vmax = vexp_fn(rdm1, Lw)
+                fsp = eris.fock - V
+                T1i = ccs_ops.T1inter(eris, ts, fsp)
+                ts = (ccs_ops.tsupdate(eris, ts, T1i) if alpha is None
+                      else ccs_ops.tsupdate_L1(eris, ts, T1i, alpha))
+                L1i = ccs_ops.L1inter(eris, ts, fsp)
+                ls = (ccs_ops.lsupdate(eris, ts, ls, L1i) if alpha is None
+                      else ccs_ops.lsupdate_L1(eris, ls, L1i, alpha))
+                if diis == "tl":
+                    dstate, vec = diis_ops.diis_update(
+                        dstate, torch.cat([ls.reshape(-1), ts.reshape(-1)]),
+                        self.mindiis)
+                    ls = vec[:n1].reshape(nocc, nvir)
+                    ts = vec[n1:].reshape(nocc, nvir)
+                rdm1 = ccs_ops.gamma_CCS(ts, ls)
+                if diis == "rdm1":
+                    dstate, vec = diis_ops.diis_update(
+                        dstate, rdm1.reshape(-1), self.mindiis)
+                    rdm1 = vec.reshape(dim, dim)
+                Ep = ccs_ops.energy_ccs(eris, ts, fsp)
+                conv = self._conv_vec(ts, ls, fsp)
+                if ite > 0:
+                    Dconv = torch.linalg.norm(conv - conv_old)
+                    Dconv_v = float(Dconv)       # the one read per iteration
+                hist[:, k] = torch.stack([Ep, Delta, vmax, Dconv])
+                if ite >= maxiter:
+                    status = MAXITER
+                elif Dconv_v > 10.0:
+                    status = DIVERGED
+                else:
+                    ite += 1
+                k += 1
+        if status == RUNNING:
+            status = CONVERGED
+        Ep_h, Delta_h, vmax_h, conv_h = hist[:, :k].cpu().numpy()
+        rdm1 = rdm1.cpu().numpy()
+        Delta_it = np.stack([Delta_h, vmax_h], axis=1)
+        # keep the host Vexp state consistent for later property queries
+        self.myVexp.Vexp_update(rdm1, rdm1, (0, 0), L=L)
+        self.last_solve = {"L": L, "iterations": k, "status": status}
+        _record_metrics(self, "CCS_device", L, Ep_h, Delta_it, conv_h)
+        return (_conv_text(status, L, ite), Ep_h, Delta_it, conv_h, rdm1,
+                (ts.cpu().numpy(), ls.cpu().numpy()))
+
+    # -- gradient-based variants (reference Solver_GS.py:245-514) --------
+    def _step_loop(self, L, ts, ls, step, diverged, scalar_conv=False):
+        """The loop that Gradient and L1_grad share, its state on the
+        device as in SCF: Vexp at the current rdm1, one `step(ts, ls,
+        fsp)`, the energy and the convergence measure, read once per
+        iteration.  scalar_conv: converge on the change of |conv|
+        (L1_grad) instead of |conv - conv_old|."""
+        mycc = self.mycc
+        fock = self.fock
+        vexp_fn = make_gs_vexp_device(self.myVexp, dtype=self.dtype,
+                                      device=self.device)
+        Lw = self.myVexp.L_check(L)[0]
+        rdm1 = mycc.gamma(ts, ls)
+        conv = 0.0
+        Dconv = 1.0
+        ite = 0
+        hist, conv_ite = [], []
+        while Dconv > self.conv_thres:
+            conv_old = conv
+            with torch.no_grad():
+                V, Delta, vmax = vexp_fn(rdm1, Lw)
+            fsp = fock - V
+            ts, ls = step(ts, ls, fsp)
+            rdm1 = mycc.gamma(ts, ls)
+            hist.append(torch.stack([mycc.energy_ccs(ts, fsp), Delta, vmax]))
+            convv = self._conv_vec(ts, ls, fsp)
+            if scalar_conv:
+                conv = float(torch.linalg.norm(convv))
+                conv_ite.append(conv)
+                if ite > 0:
+                    Dconv = abs(conv - conv_old)
+            else:
+                conv = convv
+                if ite > 0:
+                    Dconv = float(torch.linalg.norm(conv - conv_old))
+                conv_ite.append(Dconv)
+            if ite >= self.maxiter:
+                text = "Max iteration reached"
+                break
+            if Dconv > diverged:
+                text = f"Diverges for lambda = {L} after {ite} iterations"
+                break
+            ite += 1
+        else:
+            text = _conv_text(CONVERGED, L, ite)
+        hist = torch.stack(hist).cpu().numpy()
+        rdm1 = rdm1.cpu().numpy()
+        # keep the host Vexp state consistent for later property queries
+        self.myVexp.Vexp_update(rdm1, rdm1, (0, 0), L=L)
+        return (text, hist[:, 0], hist[:, 1:], np.asarray(conv_ite), rdm1,
+                (ts.cpu().numpy(), ls.cpu().numpy()))
+
+    def Gradient(self, L, method="newton", ts=None, ls=None, diis="", beta=0.1,
+                 store_ite=False):
+        """Newton / steepest-descent solve via the CCS Jacobian (reference
+        Solver_GS.Gradient)."""
+        if self.Grad is None:
+            raise ValueError("a ccs_gradient object is required for Gradient")
+        if method == "newton":
+            step = lambda t, l, fsp: self.Grad.Newton(t, l, fsp, L)
+        elif method == "descend":
+            step = lambda t, l, fsp: self.Grad.Gradient_Descent(beta, t, l,
+                                                                fsp, L)
+        else:
+            raise ValueError("method must be 'newton' or 'descend'")
+        ts = self.tsini if ts is None else self._amp(ts)
+        ls = self.lsini if ls is None else self._amp(ls)
+        return self._step_loop(L, ts, ls, step, diverged=10.0)
+
+    def L1_grad(self, L, alpha, chi, ts=None, ls=None, diis=""):
+        """Ivanov-style L1 proximal-gradient solve (reference
+        Solver_GS.L1_grad :375-514)."""
+        mycc = self.mycc
+        nocc = self.nocc
+        d = torch.diagonal(self.fock)
+        eia = -d[:nocc, None] + d[None, nocc:]
+        thres = self.conv_thres
+
+        def step(ts, ls, fsp):
+            dWT = subdiff(mycc.T1eq(ts, fsp), ts, alpha)
+            dWL = subdiff(mycc.L1eq(ts, ls, fsp), ls, alpha)
+            # proximal step with hard P_0 projection (reference :452-469)
+            Xj_t = ts - chi * dWT / eia
+            ts_new = torch.where(Xj_t * ts > thres, Xj_t,
+                                 torch.zeros_like(ts))
+            Xj_l = ls - chi * dWL / eia
+            ls_new = torch.where(Xj_l * ls > thres, Xj_l,
+                                 torch.zeros_like(ls))
+            return ts_new, ls_new
+
+        ts = (self.tsini if ts is None else self._amp(ts)).clone()
+        ls = (self.lsini if ls is None else self._amp(ls)).clone()
+        return self._step_loop(L, ts, ls, step, diverged=2.0,
+                               scalar_conv=True)
 
 
 class Solver_CCSD:
@@ -161,10 +392,7 @@ class Solver_CCSD:
             # sector sizes of the sorted layout, from the standard
             # alternating [0,1,0,1,...] GHF orbspin the perm was built
             # from: alpha = even original indices
-            gv = nocc + pv
-            self._sinfo = spinsect.SectorInfo(
-                int(np.sum(po % 2 == 0)), int(np.sum(po % 2 == 1)),
-                int(np.sum(gv % 2 == 0)), int(np.sum(gv % 2 == 1)))
+            self._sinfo = spinsect.sector_info(self.mo_perm % 2, nocc)
 
         self.tsini = self._amp(tsini, (nocc, self.nvir))
         self.lsini = self._amp(lsini, (nocc, self.nvir))
@@ -186,10 +414,7 @@ class Solver_CCSD:
         if a is None:
             return torch.zeros(zeros_shape, dtype=self.dtype,
                                device=self.device)
-        if isinstance(a, torch.Tensor):
-            return a.to(device=self.device, dtype=self.dtype)
-        return torch.tensor(np.asarray(a), dtype=self.dtype,
-                            device=self.device)
+        return _to_tensor(a, self.dtype, self.device)
 
     # ------------------------------------------------------------------
     # structure gates (host-side, once per solver)
@@ -325,7 +550,7 @@ class Solver_CCSD:
         self.last_solve = {"L": L, "iterations": k, "status": status,
                            "route": route, "sym": sym,
                            "ms": (time.perf_counter() - t0) * 1e3}
-        text = _conv_text(status, L, ite, alpha=alpha)
+        text = _conv_text(status, L, ite, alpha=alpha, ccsd=True)
         Delta_it = np.stack([Delta_h[:k], vmax_h[:k]], axis=1)
         amps = [ts, ls, td, ld]
         if not keep_device:

@@ -147,7 +147,8 @@ def test_sorted_route_follows_gate_not_operand(problems, mode, per_iter):
                   **kw).SCF_device(0.05)
     calls = []
     real = tl.ladder_mm
-    tl.ladder_mm = lambda a, b: calls.append(a.shape) or real(a, b)
+    tl.ladder_mm = lambda a, b, **kw: (calls.append(a.shape)
+                                        or real(a, b, **kw))
     ecw_cc_torch.set_config(ladder_mode=mode)
     try:
         exp_t = TExp(0.05, [[["mat", p["targets"]["hf"]]]], mol=mol,

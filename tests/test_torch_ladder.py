@@ -285,3 +285,151 @@ def test_balanced_contract_rejects_bad_blocked_operands(sorted_system):
     with pytest.raises(ValueError, match="no blocks"):
         tl.balanced_stacked_sectored_contract(s["sect_t"], empty, None,
                                               info.oa, blocked_info=info)
+
+
+# ---------------------------------------------------------------------------
+# the gradient through the ladder (the CCSD(T) response density takes it)
+# ---------------------------------------------------------------------------
+
+def _sym_operand(n, seed, dtype=torch.float64, device="cpu", rows=0):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((n, n))
+    w = np.concatenate([w + w.T, np.zeros((rows, n))])
+    return torch.as_tensor(w, dtype=dtype, device=device).contiguous()
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_ladder_mm_gradcheck_cpu(symmetric):
+    """On CPU tensors ladder_mm is the plain version with its native
+    autograd, whatever the call site says of its operand."""
+    w = _sym_operand(6, 0)
+    a = torch.randn(4, 6, dtype=torch.float64, requires_grad=True)
+    fn = lambda x: ladder_mm(x, w, symmetric=symmetric)
+    assert torch.autograd.gradcheck(fn, (a,))
+    assert ladder_mm.launches == 0 or not torch.cuda.is_available()
+
+
+@pytest.mark.parametrize("case", ["square", "padded", "transposed"])
+def test_ladder_mm_function_gradient_with_a_stand_in_launch(monkeypatch, case):
+    """The autograd.Function around the launch, with the launch replaced by
+    a @ b.T (no kernel runs off the card): first and second derivatives by
+    gradcheck, the symmetric backward also on a zero-padded operand, the
+    backward on a transposed copy for an operand not declared symmetric
+    (here a rectangular one), and the same under torch.func.vjp, where
+    forward must see plain tensors.  Every backward is a launch, counted
+    where it is made."""
+    from ecw_cc_torch.kernels import ladder_mm as lmm
+
+    seen, made = [], []
+
+    def stand_in(a, b, backward=False):
+        seen.append(type(a) is torch.Tensor
+                    and not torch._C._functorch.is_functorch_wrapped_tensor(a))
+        made.append(backward)
+        return a @ b.T
+
+    monkeypatch.setattr(lmm, "_launch", stand_in)
+    w = _sym_operand(7, 1, rows=3 if case == "padded" else 0)
+    if case == "transposed":
+        w = torch.randn(5, 7, dtype=torch.float64)
+    sym = case != "transposed"
+    a = torch.randn(4, 7, dtype=torch.float64, requires_grad=True)
+    fn = lambda x: lmm._LadderMM.apply(x, w, sym, False)
+    assert torch.autograd.gradcheck(fn, (a,))
+    assert torch.autograd.gradgradcheck(fn, (a,))
+    out, vjp = torch.func.vjp(fn, a.detach())
+    g = torch.randn_like(out)
+    assert (vjp(g)[0] - g @ w).abs().max() < 1e-13
+    # a cotangent that is not contiguous, as autograd often hands one
+    gt, = torch.autograd.grad((fn(a) * g.T.contiguous().T).sum(), a)
+    assert (gt - g @ w).abs().max() < 1e-13
+    assert seen and all(seen)
+    # that one gradient: a forward launch, then a backward one
+    assert made[-2:] == [False, True]
+
+
+def test_ladder_mm_refuses_a_gradient_for_the_eri_operand():
+    """b is an ERI block: no gradient is defined for it, on any device the
+    kernel serves; a symmetric operand must have at least K rows."""
+    b = torch.empty((4, 3), device="meta", requires_grad=True)
+    a = torch.empty((2, 3), device="meta")
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ladder_mm(a, b)
+    with pytest.raises(ValueError, match="cannot be symmetric"):
+        ladder_mm(a, torch.empty((2, 3), device="meta"), symmetric=True)
+    assert ladder_mm.launches == 0 or torch.cuda.is_available()
+
+
+def _antisym(x):
+    return x - x.transpose(2, 3)
+
+
+@pytest.mark.parametrize("route", ["packed", "sectored", "dense",
+                                   "stacked_packed", "balanced"])
+def test_ladder_contract_gradcheck_wrt_x(sorted_system, route):
+    """torch.autograd.gradcheck of each ladder route with respect to x (x
+    kept antisymmetric by construction, as tau, t2 and l2 are)."""
+    s = sorted_system
+    info = s["info"]
+    o, v = 2, info.nvir
+    dense = _t(s["er_dense"].vvvv)
+    if route in ("packed", "stacked_packed"):
+        op = tl.pack_vvvv(dense)
+    else:
+        op = s["sect_t"]
+    x0 = torch.randn(o, o, v, v, dtype=torch.float64, requires_grad=True)
+
+    def fn(x):
+        x = _antisym(x)
+        if route == "packed":
+            return tl.packed_vvvv_contract(op, x)
+        if route == "sectored":
+            return tl.sectored_vvvv_contract(op, x)
+        if route == "dense":
+            return tl.dense_ladder(x, dense)
+        if route == "stacked_packed":
+            return sum(tl.stacked_packed_contract(op, x, 2.0 * x))
+        # balanced rows of a full-size operand
+        return tl.balanced_stacked_sectored_contract(op, x, None, info.oa)
+
+    if route == "balanced":
+        x0 = torch.randn(info.nocc, info.nocc, v, v, dtype=torch.float64,
+                         requires_grad=True)
+    assert torch.autograd.gradcheck(fn, (x0,), fast_mode=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(98, 961), (392, 1891), (37, 129)])
+def test_ladder_mm_gradient_matches_plain_on_card(shape, dtype):
+    """The kernel's gradient against the plain version's on the card, w
+    symmetric: through autograd (the backward is one more launch), through
+    torch.func.vjp, with a zero-padded operand, and with an operand that
+    is neither symmetric nor declared so (the backward then launches on a
+    transposed copy)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    M, N = shape
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    w = _sym_operand(N, 5, dtype, "cuda")
+    pad = _sym_operand(N, 5, dtype, "cuda", rows=16)
+    a = torch.randn(M, N, dtype=dtype, device="cuda")
+    g = torch.randn(M, N, dtype=dtype, device="cuda")
+    ar = a.clone().requires_grad_(True)
+    ref, = torch.autograd.grad((ladder_mm_ref(ar, w) * g).sum(), ar)
+    n0, b0 = ladder_mm.launches, ladder_mm.backward_launches
+    wn = torch.randn(N, N, dtype=dtype, device="cuda")
+    ar = a.clone().requires_grad_(True)
+    ref_n, = torch.autograd.grad((ladder_mm_ref(ar, wn) * g).sum(), ar)
+    grads = []
+    for op, sym, want in ((w, True, ref), (pad, True, ref),
+                          (wn, False, ref_n)):
+        ak = a.clone().requires_grad_(True)
+        out = ladder_mm(ak, op, symmetric=sym)[:, :N]
+        grads.append((torch.autograd.grad((out * g).sum(), ak)[0], want))
+    _, vjp = torch.func.vjp(lambda x: ladder_mm(x, w, symmetric=True), a)
+    grads.append((vjp(g)[0], ref))
+    assert ladder_mm.launches - n0 == 8          # 4 forward, 4 backward
+    assert ladder_mm.backward_launches - b0 == 4
+    for got, want in grads:
+        assert float((got - want).abs().max()) <= tol * float(want.abs().max())

@@ -3,7 +3,8 @@
   - in a fresh interpreter where `import jax` and `import ecw_cc_tpu` fail,
     import ecw_cc_torch, build its solver on H2/6-31G through the ECW
     entry point at f64 (host ERIs) and f32 (device ERI build, dense and
-    sectored routes), and run a solve on each;
+    sectored routes), and run a solve on each; build a CCSD(T) target,
+    run the CCS ground state on it, and the JSON runner;
   - no file of the port, and not chip_smoke.py, has an import statement
     naming jax or ecw_cc_tpu (read with `ast`, so lazy imports inside
     functions count too).
@@ -44,6 +45,18 @@ SCRIPT = textwrap.dedent("""
         res = ecw.CCSD_GS([0.5], diis="tl", conv_thres=thres)
         assert "Convergence reached" in res[0], res[0]
         assert ecw.solve_log[0]["route"] == route, ecw.solve_log
+    # a correlated target (CCSD, (T), the response density), the CCS ground
+    # state on it, and the JSON runner
+    for dt in (torch.float64, torch.float32):
+        e2 = ECW("H 0 0 0\\nH 0 0 1", "6-31g", device="cpu", dtype=dt)
+        e2.Build_GS_exp("mat", "CCSD(T)", field=[0.05, 0.01, 0.0])
+        assert e2.target_log["adjoint"]["converged"], e2.target_log
+        assert "Convergence reached" in e2.CCS_GS([0.5], maxiter=200)[0]
+    from ecw_cc_torch.__main__ import run_spec
+    out = run_spec({"molecule": "h2", "basis": "sto-3g", "device": "cpu",
+                    "target": {"prop": "mat", "posthf": "CCSD"},
+                    "run": {"solver": "CCS_GS", "Larray": [0.1]}})
+    assert "Convergence reached" in out[0], out[0]
     # the sorted, sectored route through the solver's own entry point
     from ecw_cc_torch.models.eris import build_eris_device
     from ecw_cc_torch.ops.ccsd import GCC
