@@ -14,6 +14,8 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --targets        # phases 1, 2 and 10 only: the
                                            # correlated targets and the CCS
                                            # ground state
+    python3 chip_smoke.py --es             # phases 1, 2 and 11 only: the
+                                           # excited states
 
 Phases, one output line each (and one "phase_seconds" line at the end of
 each); any failure raises and exits nonzero:
@@ -85,6 +87,9 @@ each); any failure raises and exits nonzero:
          98x961x961, 392x1891x1891 and a ragged shape, through autograd
          and through torch.func.vjp, with a zero-padded operand, and
          with an operand not declared symmetric (every backward a launch);
+         and through the f32 vvvv block as it is built on the card
+         (symmetric to roundoff only), declared symmetric, against the
+         transposed-copy route, to 1e-5 * max|dA|;
      (d) C2H2/cc-pVTZ f32 on phase 7's molecule: solve_ccsd, then the (T)
          energy dense, sector-blocked and with bf16 slabs (relative errors
          and ms), then the CCSD(T) response density, on the sorted
@@ -95,7 +100,42 @@ each); any failure raises and exits nonzero:
          within 1e-5 Ha of them; then Newton (the Jacobian by
          torch.func.jacfwd) and the L1 proximal-gradient solve at
          C2H2/6-31G, f64 on the card equal to the CPU;
-  8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported.
+ 11. excited states (the coupled ECW-CCS n-state solve; it launches no
+     hand-written kernel: CCS reads no vvvv block):
+     (a) ECW('h2o', '6-31++g**') with two transition-dipole targets ->
+         CCS_ES(0.1, method='device', diis='all', conv='rl', 1e-5,
+         maxdiis=20): f32 on the card must converge to 7.134 and 10.07 eV
+         (+-0.01); f64 on the card and on the CPU take equal iterations and
+         agree to 1e-9 Ha; f32 within 1e-5 Ha and +-2 iterations of f64
+         (printed beside the JAX package's 19, which this run reproduces
+         when its SCF orbitals carry the same signs);
+     (b) on the same system at f64 on the card: method='scf' equals
+         'device' in iterations and to 1e-9 Ha; method='diag' at lambda =
+         0, exact and with davidson=True, converges, and each of its
+         energies is an eigenvalue of the singles matrix at its amplitudes
+         to 1e-6 Ha;
+     (c) acetylene at cc-pVDZ and cc-pVTZ (nocc 14, nvir 62 / 162; trans-
+         bent by 20 degrees, which lifts the degeneracy of the linear
+         molecule's excited states), two valence states with the
+         transition dipoles of the two lowest bright TDHF roots as targets
+         (at cc-pVDZ the MOM delta-SCF targets are tried first and
+         printed): the sweep
+         lambda = 0, 0.05, 0.1 with L_loop=True, method='device', to 2e-6
+         in 'rl', at f32
+         and at f64 on ERIs built on the card from the same SCF: every
+         lambda converges, Ep per state within 1e-5 Ha, Delta falling from
+         lambda = 0 to 0.1 for each transition; set-up seconds, sweep ms,
+         ms per iteration of a 20-iteration chain, peak memory, and the
+         device operations per iteration with one and with two excited
+         states (torch.profiler), the second adding under 30%, and the
+         device-to-host copies per iteration: one, the convergence scalar;
+     (d) davidson_device on the R1 map of (c)'s cc-pVTZ system (n = o*v),
+         3 roots, f64 and f32 with the Ms = 0 projector, against
+         numpy.linalg.eig of the explicit matrix (1e-9 and 1e-5); the f32
+         run without a projector, printed; and an operator with a
+         structural null space (n = 2304), where f32 needs the projector;
+  8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported,
+     and the excited-state modules were.
 Before the last line it prints the kernel report as one JSON object and
 the card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -169,9 +209,14 @@ PEAK_FLOPS = 67e12          # H100 SXM: FP32 (CUDA cores) and FP64 tensor
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s
 
 
+def _json_value(x):
+    """NumPy arrays and scalars, and tensors, as JSON values."""
+    return x.tolist() if hasattr(x, "tolist") else float(x)
+
+
 def phase(n, name, **fields):
-    print(json.dumps({"phase": n, "name": name, **fields}, default=float),
-          flush=True)
+    print(json.dumps({"phase": n, "name": name, **fields},
+                     default=_json_value), flush=True)
 
 
 @contextlib.contextmanager
@@ -804,7 +849,51 @@ def run_target_parity(ladder_mm, ecw32):
     return {"c2h2_631g_f64_ccsd_t_target": fwd + back}, back
 
 
-def check_kernel_gradient(ladder_mm, ladder_mm_ref):
+def check_gradient_card_built(ladder_mm, ecw32):
+    """Phase 10 (c), the operand the solves really hand the kernel: the f32
+    vvvv block of C2H2/cc-pVDZ as build_eris_device leaves it on the card,
+    symmetric under the pair swap only to roundoff.  The gradient with
+    symmetric=True (the backward reads the block as it is) against the
+    transposed-copy route and the plain version, to 1e-5 * max|dA|."""
+    from ecw_cc_torch.models.eris import build_eris_device
+
+    er = build_eris_device(ecw32.mol, ecw32.mf, dtype=torch.float32,
+                           device="cuda")
+    v = er.nvir
+    w = er.vvvv.view(v * v, v * v)
+    M = DENSE_DZ[0]
+    rng = np.random.default_rng(200)
+    a = torch.as_tensor(rng.standard_normal((M, v * v)), dtype=torch.float32,
+                        device="cuda")
+    g = torch.as_tensor(rng.standard_normal((M, v * v)), dtype=torch.float32,
+                        device="cuda")
+    ladder_mm.launches = ladder_mm.backward_launches = 0
+    grads = []
+    for symmetric in (True, False):
+        x = a.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(
+            (ladder_mm(x, w, symmetric=symmetric) * g).sum(), x)[0])
+    launches = (ladder_mm.launches, ladder_mm.backward_launches)
+    x = a.clone().requires_grad_(True)
+    plain, = torch.autograd.grad(((x @ w.T) * g).sum(), x)
+    scale = float(plain.abs().max())
+    errs = {"as_it_is_vs_transposed": float((grads[0] - grads[1]).abs().max()),
+            "as_it_is_vs_plain": float((grads[0] - plain).abs().max()),
+            "transposed_vs_plain": float((grads[1] - plain).abs().max())}
+    asym = float((w - w.T).abs().max())
+    ok = max(errs.values()) <= 1e-5 * scale
+    phase(10, "kernel_gradient_card_built_vvvv", shape=(M, v * v, v * v),
+          pair_swap_asymmetry=asym, max_abs_operand=float(w.abs().max()),
+          max_abs_err=errs, max_abs_ref=scale, bound=1e-5 * scale, ok=ok,
+          launches=launches)
+    if not ok or launches != (4, 2):
+        raise AssertionError(f"ladder_mm gradient through the card-built "
+                             f"vvvv block: {errs} against 1e-5 * {scale}, "
+                             f"launches {launches}")
+    return max(errs.values())
+
+
+def check_kernel_gradient(ladder_mm, ladder_mm_ref, ecw32):
     """Phase 10 (c)."""
     out = {}
     for dtype in DTYPES:
@@ -855,6 +944,7 @@ def check_kernel_gradient(ladder_mm, ladder_mm_ref):
                                      f"{errs} against {TOL[dtype]} * {scale}, "
                                      f"launches {launches}")
             out[(dtype, shape)] = max(errs.values())
+    out[(torch.float32, DENSE_DZ)] = check_gradient_card_built(ladder_mm, ecw32)
     b = torch.ones((4, 4), device="cuda", requires_grad=True)
     try:
         ladder_mm(torch.ones((2, 4), device="cuda"), b)
@@ -1093,10 +1183,539 @@ def run_phase10(ladder_mm, ladder_mm_ref, ecw32, ecw64c, ecwc, tz):
         out, b = step()
         launches.update(out)
         back += b
-    grads = check_kernel_gradient(ladder_mm, ladder_mm_ref)
+    grads = check_kernel_gradient(ladder_mm, ladder_mm_ref, ecw32)
     run_ccs(ecw32, ecw64c, ecwc)
     run_ccs_steps()
     return launches, back, grads
+
+
+# Phase 11: excited states.  The anchor of (a) is H2O/6-31++G** with the
+# two transition dipoles below at lambda = 0.1, which the JAX package
+# converges in 19 iterations to 7.134 and 10.07 eV (Solver_ES's maxdiis 20).
+ES_MOLECULE, ES_BASIS = "h2o", "6-31++g**"
+ES_DIPS = ((0.523742 + 0.550251) / 2.0, (0.622534 + 0.649058) / 2.0)
+ES_ANCHOR_EV, ES_ANCHOR_ITERATIONS = (7.134, 10.07), 19
+ES_L, ES_SWEEP = 0.1, [0.0, 0.05, 0.1]
+# (c) runs trans-bent acetylene: the catalog's C2H2 with each H bent 20
+# degrees off the axis (same atoms, bond lengths, nocc 14, nvir 62 / 162).
+# Every excited state of the linear molecule's pi system is one of a
+# symmetry-degenerate pair, and the coupled solve follows a state by its
+# largest amplitude: on such a pair it does not reach 1e-5 at f32.
+ES_CH, ES_BEND = 1.063348, np.deg2rad(20.0)
+ES_ACETYLENE = "\n".join(
+    f"{sym} {x:.7f} 0.0 {z:.7f}" for sym, x, z in (
+        ("C", 0.0, 0.603401), ("C", 0.0, -0.603401),
+        ("H", ES_CH * np.sin(ES_BEND), 0.603401 + ES_CH * np.cos(ES_BEND)),
+        ("H", -ES_CH * np.sin(ES_BEND), -0.603401 - ES_CH * np.cos(ES_BEND))))
+ES_KW = dict(method="device", diis="all", conv="rl", conv_thres=1e-5,
+             maxiter=80, maxdiis=20, print_ite=False)
+ES_CHAIN_ITERS = 20
+# (c) converges further than (a)'s 1e-5: there the card's f32 lambda = 0
+# solve has stopped at its 16th iteration 9.5e-6 Ha from the f64 one
+ES_SWEEP_THRES = 2e-6
+ES_TDHF_ROOTS = 400
+ES_PROFILE_ITERS = (4, 12)   # two profiled chains; their difference is read
+EV = 27.2114
+
+
+def es_solve(ecw, L, **kw):
+    """(what ECW.CCS_ES returns, its host ms with the card synchronized);
+    the solver's tables are swallowed."""
+    import io
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = ecw.CCS_ES(L, **{**ES_KW, **kw})
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def es_iterations(text):
+    """The count in a solver's convergence text (None at the limit)."""
+    words = text.replace(",", " ").split()
+    return int(words[words.index("after") + 1]) if "after" in words else None
+
+
+def es_with_eris(ecw, eris):
+    """A shallow copy of a built ECW (same SCF, targets and guesses) whose
+    excited-state solve runs on other ERIs."""
+    out = copy.copy(ecw)
+    out.eris, out.vvvv_op, out.myccs, out.myccsd = eris, None, None, None
+    out.dtype = eris.fock.dtype
+    return out
+
+
+def es_device_solver(ecw, conv_thres=1e-5, maxiter=80):
+    """The device solver ECW.CCS_ES(method='device') builds, by hand, for
+    what the entry point does not offer: a solve warm-started from given
+    amplitudes (dic_amp_ini), as its own L_loop sweep warm-starts."""
+    import io
+
+    from ecw_cc_torch.ops.ccs import Gccs
+    from ecw_cc_torch.ops.vexp import Exp
+    from ecw_cc_torch.solvers.es import Solver_ES, SolverES_Device
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        vexp = Exp(0.0, ecw.exp_data, ecw.mol, ecw.mo_coeff)
+        solver = Solver_ES(Gccs(ecw.eris), vexp, rn_ini=ecw.r_ini,
+                           conv_var=ES_KW["conv"], conv_thres=conv_thres,
+                           maxiter=maxiter, diis=ES_KW["diis"],
+                           maxdiis=ES_KW["maxdiis"])
+    return SolverES_Device(solver)
+
+
+def es_sweep_amplitudes(ecw):
+    """The amplitudes at the end of the lambda sweep (each lambda warm-
+    started from the one before, as ECW.CCS_ES(L_loop=True) runs it)."""
+    dev, amp = es_device_solver(ecw, conv_thres=ES_SWEEP_THRES), None
+    for lam in ES_SWEEP:
+        text, amp = dev.SCF(lam, dic_amp_ini=amp)[:2]
+        if "Convergence reached" not in text:
+            raise AssertionError(f"warm-started solve at lambda = {lam}: "
+                                 f"{text}")
+    return amp
+
+
+def es_chain(ecw, amp, iterations):
+    """(iterations run, host ms) of a fixed chain of the device loop at
+    lambda = ES_L from the amplitudes amp (conv_thres 0)."""
+    dev = es_device_solver(ecw, conv_thres=0.0, maxiter=iterations - 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev.SCF(ES_L, dic_amp_ini=amp)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if dev.last_solve["iterations"] != iterations:
+        raise AssertionError(f"the ES chain stopped after "
+                             f"{dev.last_solve['iterations']} of "
+                             f"{iterations} iterations")
+    return iterations, ms
+
+
+def r1_matrix(eris, ts):
+    """The linear part of the R1 map at amplitudes ts as an (o*v, o*v)
+    matrix (what Solver_ES.SCF_diag diagonalizes), and its intermediates."""
+    from ecw_cc_torch.ops import ccs as ccs_ops
+
+    inter = ccs_ops.R1inter(eris, ts, None, None)
+    Fab, Fji, W, F = inter[:4]
+    nocc, nvir = ts.shape
+    eye_o = torch.eye(nocc, dtype=ts.dtype, device=ts.device)
+    eye_v = torch.eye(nvir, dtype=ts.dtype, device=ts.device)
+    A = (torch.einsum("ab,ij->iajb", Fab, eye_o)
+         - torch.einsum("ji,ab->iajb", Fji, eye_v)
+         + torch.einsum("akic->iakc", W)).reshape(nocc * nvir, nocc * nvir)
+    return A + F * torch.eye(nocc * nvir, dtype=ts.dtype,
+                             device=ts.device), inter
+
+
+def run_es_anchor():
+    """Phase 11 (a) and (b)."""
+    from ecw_cc_torch import ECW
+
+    ecws, outs, ms = {}, {}, {}
+    for name, device, dtype in (("cuda_f32", CARD, torch.float32),
+                                ("cuda_f64", CARD, torch.float64),
+                                ("cpu_f64", "cpu", torch.float64)):
+        ecw = ECW(ES_MOLECULE, ES_BASIS, device=device, dtype=dtype)
+        ecw.Build_ES_exp_input([[["trdip", (ES_DIPS[0], 0.0, 0.0)]],
+                                [["trdip", (0.0, 0.0, ES_DIPS[1])]]])
+        _, first = es_solve(ecw, ES_L)       # loads the card's kernels
+        outs[name], ms[name] = es_solve(ecw, ES_L)
+        ecws[name] = ecw
+        ms[name + "_first"] = first
+    its = {k: es_iterations(o[0]) for k, o in outs.items()}
+    ep = {k: np.asarray(o[3], dtype=np.float64) for k, o in outs.items()}
+    ev32 = ep["cuda_f32"][1:, 0] * EV
+    d_card_cpu = float(np.abs(ep["cuda_f64"] - ep["cpu_f64"]).max())
+    d_f32 = float(np.abs(ep["cuda_f32"] - ep["cuda_f64"]).max())
+    ecw = ecws["cuda_f32"]
+    phase(11, "es_anchor", molecule=ES_MOLECULE, basis=ES_BASIS,
+          nocc=ecw.nocc, nvir=ecw.nvir, EHF=ecw.EHF, L=ES_L, iterations=its,
+          reference_iterations=ES_ANCHOR_ITERATIONS,
+          E_eV_cuda_f32=ev32, E_eV_cuda_f64=ep["cuda_f64"][1:, 0] * EV,
+          E_eV_reference=ES_ANCHOR_EV, dEp_cuda_f64_vs_cpu=d_card_cpu,
+          dEp_cuda_f32_vs_f64=d_f32, ms=ms,
+          Delta_cuda_f32=np.asarray(outs["cuda_f32"][2]).tolist())
+    if not all("Convergence reached" in o[0] for o in outs.values()):
+        raise AssertionError(f"an anchor solve did not converge: "
+                             f"{[o[0] for o in outs.values()]}")
+    if np.abs(ev32 - np.asarray(ES_ANCHOR_EV)).max() > 0.01:
+        raise AssertionError(f"f32 anchor energies {ev32} eV")
+    # The count is held to this run's f64 solve, not to the reference's 19:
+    # conv='rl' sums r and l over the states, so with two states it depends
+    # on the arbitrary signs of the SCF's orbitals (19 or 23 iterations with
+    # the host integral engine built with or without FMA)
+    if abs(its["cuda_f32"] - its["cuda_f64"]) > 2:
+        raise AssertionError(f"f32 anchor took {its['cuda_f32']} iterations, "
+                             f"f64 {its['cuda_f64']}")
+    if its["cuda_f64"] != its["cpu_f64"] or d_card_cpu > 1e-9:
+        raise AssertionError(f"f64 card differs from CPU: {its}, "
+                             f"{d_card_cpu}")
+    if d_f32 > 1e-5:
+        raise AssertionError(f"f32 anchor differs from f64 by {d_f32} Ha")
+    rdm1 = np.asarray(outs["cuda_f32"][4])
+    if not np.all(np.isfinite(rdm1)) or rdm1.shape != (ecw.dim,) * 2:
+        raise AssertionError("ES rdm1 is not finite or has the wrong shape")
+
+    # (b) the three methods on the card at f64
+    ecw = ecws["cuda_f64"]
+    dev = outs["cuda_f64"]
+    scf, scf_ms = es_solve(ecw, ES_L, method="scf")
+    d_scf = float(np.abs(np.asarray(scf[3]) - np.asarray(dev[3])).max())
+    diag, worst = {}, {}
+    # at lambda = 0, where the maps are linear: with a transition target at
+    # lambda > 0 SCF_diag's matvec carries the affine r0 / Vexp terms along
+    # and its Davidson returns no eigenvalue of the singles matrix
+    for name, kw in (("exact", {}), ("davidson", {"davidson": True})):
+        out, t = es_solve(ecw, 0.0, method="diag", conv="tl", **kw)
+        ts = torch.as_tensor(out[1]["ts"], dtype=torch.float64,
+                             device=CARD)
+        w = np.linalg.eigvals(r1_matrix(ecw.eris, ts)[0].cpu().numpy()).real
+        e = np.asarray(out[3])[1:]
+        worst[name] = float(max(np.abs(w - x).min() for x in e.ravel()))
+        diag[name] = dict(text=out[0], ms=t, Er_eV=e[:, 0] * EV,
+                          El_eV=e[:, 1] * EV)
+    phase(11, "es_methods", scf=scf[0], device=dev[0], dEp_scf_vs_device=d_scf,
+          ms_scf=scf_ms, ms_device=ms["cuda_f64"],
+          ms_per_iteration_scf=scf_ms / (es_iterations(scf[0]) + 1),
+          ms_per_iteration_device=ms["cuda_f64"] / (its["cuda_f64"] + 1),
+          diag=diag, diag_distance_to_an_eigenvalue=worst)
+    if scf[0] != dev[0] or d_scf > 1e-9:
+        raise AssertionError(f"method='scf' differs from 'device': "
+                             f"{scf[0]} / {dev[0]}, {d_scf}")
+    for name, d in diag.items():
+        if "Convergence reached" not in d["text"] or worst[name] > 1e-6:
+            raise AssertionError(f"method='diag' ({name}): {d['text']}, "
+                                 f"{worst[name]} Ha from an eigenvalue")
+
+
+def es_mom_probe(ecw):
+    """The MOM delta-SCF targets of two valence states and a lambda = 0
+    solve from MOM's own guesses, printed: why (c) takes TDHF targets."""
+    import io
+
+    probe = copy.copy(ecw)
+    probe.exp_data, probe.HF_prop = [[]], [[]]
+    probe.Eexp_ES, probe.r_ini, probe.myccs = [], None, None
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        probe.Build_ES_exp_MOM((2, 0))
+    seconds = time.perf_counter() - t0
+    out, _ = es_solve(probe, 0.0, maxiter=20)
+    ep = np.asarray(out[3], dtype=np.float64)
+    phase(11, "es_mom_probe", seconds=seconds,
+          delta_scf_eV=np.asarray(probe.Eexp_ES[0]) * EV,
+          solve_from_mom_guesses=out[0], energies_finite=bool(
+              np.all(np.isfinite(ep))),
+          Delta=np.nan_to_num(np.asarray(out[2]), nan=-1.0).tolist())
+    return "Convergence reached" in out[0] and bool(np.all(np.isfinite(ep)))
+
+
+def es_tdhf_targets(ecw):
+    """('trdip' targets, unit guesses, info) of the two lowest bright TDHF
+    roots (|transition dipole| > 0.05 au): the target is the root's
+    |transition dipole| by component, the guess the unit vector at the
+    root's largest beta -> beta amplitude (the spin block the solver's
+    force_alpha keeps), a different position for each state."""
+    from ecw_cc_torch.models import tdscf
+    from ecw_cc_torch.utils import props
+
+    t0 = time.perf_counter()
+    es, X, Y = tdscf.tdhf(ecw.eris, ecw.mf.mo_energy, nroots=ES_TDHF_ROOTS)
+    tdhf_s = time.perf_counter() - t0
+    nocc, nvir, dim = ecw.nocc, ecw.nvir, ecw.dim
+    dip_int = ecw.mol.intor("r", origin=ecw.mol.charge_center())
+    targets, guesses, info, taken = [], [], [], set()
+    for k in range(len(es)):
+        t = np.zeros((dim, dim))
+        t[:nocc, nocc:] = X[k] + Y[k]
+        tdm = np.asarray(props.dipole(ecw.mol, t, g=True, aobasis=False,
+                                      mo_coeff=ecw.mf.mo_coeff,
+                                      dip_int=dip_int), dtype=np.float64)
+        if np.linalg.norm(tdm) < 0.05:
+            continue
+        w = np.abs(X[k] + Y[k])
+        w[0::2, :] = 0.0
+        w[:, 0::2] = 0.0
+        at = next(int(f) for f in np.argsort(-w.ravel()) if f not in taken)
+        taken.add(at)
+        g = np.zeros((nocc, nvir))
+        g[at // nvir, at % nvir] = 1.0
+        guesses.append(g)
+        val = tuple(float(abs(x)) if abs(x) > 1e-8 else 0.0 for x in tdm)
+        targets.append([["trdip", val]])
+        info.append(dict(root=k, eV=float(es[k] * EV), trdip=val,
+                         guess=(at // nvir, at % nvir)))
+        if len(targets) == 2:
+            break
+    if len(targets) < 2:
+        raise AssertionError(f"fewer than two bright roots among the "
+                             f"{len(es)} lowest TDHF roots")
+    return targets, guesses, dict(tdhf_seconds=tdhf_s, roots=info)
+
+
+def es_profile(ecw, amp):
+    """(device operations, device ms, device-to-host copies) per iteration
+    of the device ES loop at lambda = ES_L from the amplitudes amp: the
+    difference of two profiled fixed chains, so that a solve's set-up and
+    read-back cancel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    got = []
+    for n in ES_PROFILE_ITERS:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            es_chain(ecw, amp, n)
+        ops = us = reads = 0
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                ops += e.count
+                us += e.self_device_time_total
+                if "memcpy dtoh" in e.key.lower():
+                    reads += e.count
+        got.append((n, ops, us, reads))
+    (i1, k1, u1, r1), (i2, k2, u2, r2) = got
+    if k2 <= k1:
+        raise AssertionError(f"the profiler saw no device work: {got}")
+    return ((k2 - k1) / (i2 - i1), (u2 - u1) / 1e3 / (i2 - i1),
+            (r2 - r1) / (i2 - i1))
+
+
+def run_es_width(basis, mom_probe=False):
+    """Phase 11 (c) at one basis.  Returns (the f32 ECW, its f64 twin on
+    ERIs built on the card, the f64 amplitudes at the sweep's end)."""
+    import io
+
+    from ecw_cc_torch import ECW
+    from ecw_cc_torch.models.eris import build_eris_device
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ecw = ECW(ES_ACETYLENE, basis, device=CARD, dtype=torch.float32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    mom_usable = es_mom_probe(ecw) if mom_probe else None
+    targets, guesses, info = es_tdhf_targets(ecw)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ecw.Build_ES_exp_input(targets, rini_list=guesses)
+
+    def sweep(e):
+        kw = dict(L_loop=True, conv_thres=ES_SWEEP_THRES)
+        es_solve(e, np.asarray(ES_SWEEP), **kw)             # untimed
+        torch.cuda.reset_peak_memory_stats()
+        _, t = es_solve(e, np.asarray(ES_SWEEP), **kw)
+        return dict(ms=t, log=list(e.solve_log),
+                    Ep=np.asarray([x[0] for x in e.Ep_lamb], np.float64),
+                    El=np.asarray([x[1] for x in e.Ep_lamb], np.float64),
+                    Delta=np.asarray(e.Delta_lamb, np.float64),
+                    peak_bytes=torch.cuda.max_memory_allocated())
+
+    s32 = sweep(ecw)
+    er64, op64 = build_eris_device(ecw.mol, ecw.mf, dtype=torch.float64,
+                                   device=CARD, pack_ladder=True)
+    del op64
+    ecw64 = es_with_eris(ecw, er64)
+    s64 = sweep(ecw64)
+    d_ep = float(max(np.abs(s32["Ep"] - s64["Ep"]).max(),
+                     np.abs(s32["El"][:, 1:] - s64["El"][:, 1:]).max()))
+    its = {k: [x["iterations"] for x in s["log"]]
+           for k, s in (("f32", s32), ("f64", s64))}
+    ok = {k: all(x["status"] == 1 for x in s["log"])
+          for k, s in (("f32", s32), ("f64", s64))}
+    # Delta[k] = [Delta[0, 1:], Delta[1:, 0]] at lambda k
+    falls = bool(np.all(s32["Delta"][-1] < s32["Delta"][0])
+                 and np.all(s64["Delta"][-1] < s64["Delta"][0]))
+
+    # the loop's cost at lambda = ES_L, from the sweep's last amplitudes
+    amp, amp64 = es_sweep_amplitudes(ecw), es_sweep_amplitudes(ecw64)
+    es_chain(ecw, amp, ES_CHAIN_ITERS)                      # untimed
+    chain_its, chain_ms = es_chain(ecw, amp, ES_CHAIN_ITERS)
+    one = copy.copy(ecw)
+    one.exp_data, one.r_ini = ecw.exp_data[:2], ecw.r_ini[:1]
+    amp_one = {k: (v[:1] if k in ("rn", "ln", "r0n", "l0n") else v)
+               for k, v in amp.items()}
+    ops2, dev_ms2, reads2 = es_profile(ecw, amp)
+    ops1, dev_ms1, reads1 = es_profile(one, amp_one)
+    per_it = chain_ms / chain_its
+    phase(11, "es_sweep", molecule="c2h2, trans-bent 20 degrees",
+          basis=basis, nocc=ecw.nocc,
+          nvir=ecw.nvir, targets="tdhf_trdip", mom_targets_usable=mom_usable,
+          **info, setup_seconds=setup_s, setup=ecw.timings,
+          build_peak_bytes=build_peak, lambdas=ES_SWEEP,
+          conv_thres=ES_SWEEP_THRES, iterations=its,
+          converged=ok, sweep_ms_f32=s32["ms"], sweep_ms_f64=s64["ms"],
+          Ep_f32=s32["Ep"].tolist(), E_eV_f64=(s64["Ep"][:, 1:] * EV).tolist(),
+          dEp_f32_vs_f64=d_ep, Delta_f32=s32["Delta"].tolist(),
+          Delta_f64=s64["Delta"].tolist(), delta_falls=falls,
+          sweep_peak_bytes_f32=s32["peak_bytes"],
+          sweep_peak_bytes_f64=s64["peak_bytes"],
+          chain_iterations=chain_its, chain_ms=chain_ms,
+          ms_per_iteration=per_it,
+          device_ops_per_iteration={"one_state": ops1, "two_states": ops2},
+          second_state_adds=ops2 / ops1 - 1.0,
+          host_reads_per_iteration={"one_state": reads1, "two_states": reads2},
+          device_ms_per_iteration={"one_state": dev_ms1,
+                                   "two_states": dev_ms2},
+          busy_share=dev_ms2 / per_it)
+    if not all(ok.values()):
+        raise AssertionError(f"{basis}: an ES lambda did not converge: "
+                             f"{s32['log']} {s64['log']}")
+    if d_ep > 1e-5:
+        raise AssertionError(f"{basis}: f32 ES sweep differs from f64 by "
+                             f"{d_ep} Ha")
+    if not falls:
+        raise AssertionError(f"{basis}: Delta does not fall with lambda: "
+                             f"{s32['Delta']} {s64['Delta']}")
+    if max(reads1, reads2) > 1.0:
+        raise AssertionError(f"{basis}: the ES loop reads the device "
+                             f"{reads1} / {reads2} times per iteration with "
+                             "one / two states (one scalar is allowed)")
+    if ops2 > 1.3 * ops1:
+        raise AssertionError(f"{basis}: the second excited state adds "
+                             f"{ops2 / ops1 - 1:.0%} device operations per "
+                             "iteration (a loop over the states?)")
+    return ecw, ecw64, amp64
+
+
+def lowest_guesses(diag, n, keep=None):
+    """Unit vectors at the n lowest entries of diag (among `keep`)."""
+    d = diag.detach().double().cpu().numpy().copy()
+    if keep is not None:
+        d[~keep] = np.inf
+    out = []
+    for at in np.argsort(d)[:n]:
+        x = np.zeros(d.size)
+        x[at] = 1.0
+        out.append(x)
+    return out
+
+
+def run_es_davidson(ecw32, ecw64, amp64):
+    """Phase 11 (d): the R1 map at the t amplitudes of (c)'s sweep."""
+    from ecw_cc_torch.ops import ccs as ccs_ops
+    from ecw_cc_torch.utils.linalg import davidson_device
+
+    nocc, nvir = ecw64.nocc, ecw64.nvir
+    ts64 = torch.as_tensor(amp64["ts"], dtype=torch.float64, device=CARD)
+    A, _ = r1_matrix(ecw64.eris, ts64)
+    t0 = time.perf_counter()
+    w_all = np.sort(np.linalg.eig(A.cpu().numpy())[0].real)
+    eig_s = time.perf_counter() - t0
+    # spin-conserving (Ms = 0) singles: alpha -> alpha and beta -> beta
+    keep = np.zeros((nocc, nvir), dtype=bool)
+    keep[0::2, 0::2] = keep[1::2, 1::2] = True
+    mask = {dt: torch.as_tensor(keep.ravel(), device=CARD).to(dt)
+            for dt in DTYPES}
+    rows = {}
+    for name, ecw, dtype, project, tol, bound in (
+            ("f64", ecw64, torch.float64, True, 1e-10, 1e-9),
+            ("f32_projected", ecw32, torch.float32, True, 3e-5, 1e-5),
+            ("f32_unprojected", ecw32, torch.float32, False, 3e-5, None)):
+        ts = ts64.to(dtype)
+        inter = ccs_ops.R1inter(ecw.eris, ts, None, None)
+        Fab, Fji, W, F = inter[:4]
+        diag = (torch.diagonal(Fab)[None, :] - torch.diagonal(Fji)[:, None]
+                + torch.einsum("bjjb->jb", W) + F).reshape(-1)
+
+        def matvec(v, inter=inter):
+            return ccs_ops.R1eq(v.reshape(nocc, nvir), 0.0,
+                                inter).reshape(-1)
+
+        proj = (lambda v, m=mask[dtype]: v * m) if project else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conv, theta, xs = davidson_device(
+            matvec, lowest_guesses(diag, 3, keep.ravel()), diag, nroots=3,
+            tol=tol, max_cycle=100, max_space=24, project=proj, dtype=dtype,
+            device=CARD)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        dist = [float(np.abs(w_all - x).min()) for x in theta]
+        rows[name] = dict(converged=[bool(c) for c in conv],
+                          roots_eV=(theta * EV).tolist(),
+                          distance_to_an_eigenvalue=dist,
+                          lowest_minus_lowest_eigenvalue=float(
+                              theta.min() - w_all[0]), ms=ms)
+        # (the lowest root found need not be the matrix's lowest: unit
+        # guesses span only their own symmetry)
+        if bound is not None and not (all(conv) and max(dist) <= bound):
+            raise AssertionError(f"davidson_device ({name}) on the R1 map: "
+                                 f"{rows[name]} against {bound}")
+    phase(11, "es_davidson_r1", size=nocc * nvir, numpy_eig_seconds=eig_s,
+          lowest_eigenvalues_eV=(w_all[:4] * EV).tolist(), **rows,
+          spurious_root_without_projector=bool(
+              abs(rows["f32_unprojected"]["roots_eV"][0]) < 1e-2))
+
+    # X -> S X + X S on m x m matrices, applied to the antisymmetric part of
+    # X only: the symmetric matrices are a structural null space, and the
+    # roots in the antisymmetric ones are s_i + s_j (i < j), s the spectrum
+    # of S
+    m = 48
+    rng = np.random.default_rng(0)
+    e = np.sort(rng.random(m)) * 2 + 0.3
+    M = rng.standard_normal((m, m))
+    M = 0.05 * (M + M.T) / 2
+    s = np.linalg.eigvalsh(np.diag(e) + M)
+    roots = np.sort([s[i] + s[j] for i in range(m) for j in range(i)])[:3]
+    Dt = torch.as_tensor(e[:, None] + e[None, :], dtype=torch.float32,
+                         device=CARD)
+    Mt = torch.as_tensor(M, dtype=torch.float32, device=CARD)
+
+    def project(v):
+        X = v.reshape(m, m)
+        return (0.5 * (X - X.T)).reshape(-1)
+
+    def matvec(v):
+        X = project(v).reshape(m, m)
+        return (Dt * X + Mt @ X + X @ Mt).reshape(-1)
+
+    def guess(i, j):
+        x = np.zeros((m, m))
+        x[i, j], x[j, i] = 1.0, -1.0
+        return x.ravel() / np.sqrt(2)
+
+    x0 = [guess(0, 1), guess(0, 2), guess(1, 2)]
+    kw = dict(nroots=3, tol=1e-5, max_cycle=100, max_space=12,
+              dtype=torch.float32, device=CARD)
+    conv_p, w_p, _ = davidson_device(matvec, x0, Dt.reshape(-1),
+                                     project=project, **kw)
+    conv_n, w_n, _ = davidson_device(matvec, x0, Dt.reshape(-1), **kw)
+    err = float(np.abs(w_p - roots).max())
+    phase(11, "es_davidson_null_space", size=m * m, roots=roots.tolist(),
+          with_projector=w_p.tolist(), converged_with_projector=[
+              bool(c) for c in conv_p], max_abs_err_with_projector=err,
+          without_projector=w_n.tolist(),
+          spurious_root_without_projector=bool(abs(w_n[0]) < 1e-3))
+    if not all(conv_p) or err > 1e-5:
+        raise AssertionError(f"f32 davidson_device with its projector: "
+                             f"{w_p} against {roots}")
+
+
+ES_MODULES = ("ecw_cc_torch.solvers.es", "ecw_cc_torch.utils.linalg",
+              "ecw_cc_torch.models.tdscf")
+
+
+def run_phase11():
+    run_es_anchor()
+    run_es_width(BASIS, mom_probe=True)
+    torch.cuda.empty_cache()
+    run_es_davidson(*run_es_width(BASIS_TZ))
+
+
+def check_no_jax(es_ran):
+    """Phase 8."""
+    bad = sorted(m for m in sys.modules if m in ("jax", "ecw_cc_tpu")
+                 or m.startswith(("jax.", "jaxlib", "ecw_cc_tpu.")))
+    missing = [m for m in ES_MODULES if m not in sys.modules] if es_ran else []
+    if bad or missing:
+        raise AssertionError(f"imported: {bad}; not imported: {missing}")
+    phase(8, "no_jax", ok=True, checked_modules=sum(
+        m.startswith("ecw_cc_torch") for m in sys.modules))
 
 
 def kernel_kind(name):
@@ -1370,6 +1989,16 @@ def main(argv):
                      if re.search(r"registers|spill|entry function", ln)],
               sass=check_sass(lib.path))
 
+    if "--es" in argv:
+        with timed(11, seconds):
+            run_phase11()
+        with timed(8, seconds):
+            check_no_jax(True)
+        phase(0, "seconds", total=time.perf_counter() - t_start,
+              by_phase=seconds)
+        print(smi)
+        return 0
+
     if targets_only:
         # phase 10 alone, on its own ECWs (and cc-pVTZ SCF)
         from ecw_cc_torch.models.molecule import Molecule
@@ -1489,13 +2118,17 @@ def main(argv):
             ladder_mm, ladder_mm_ref, ecw32, ecw64c, ecwc, tz)
         del ecw32, ecw64c, ecwc
 
+    # 11. excited states
+    with timed(11, seconds):
+        ladder_mm.launches = 0
+        run_phase11()
+        if ladder_mm.launches:
+            raise AssertionError("the excited-state path launched ladder_mm "
+                                 f"{ladder_mm.launches} times")
+
     # 8. neither JAX nor the JAX package
     with timed(8, seconds):
-        bad = sorted(m for m in sys.modules if m in ("jax", "ecw_cc_tpu")
-                     or m.startswith(("jax.", "jaxlib", "ecw_cc_tpu.")))
-        if bad:
-            raise AssertionError(f"imported: {bad}")
-        phase(8, "no_jax", ok=True)
+        check_no_jax(True)
 
     phase(0, "seconds", total=time.perf_counter() - t_start,
           by_phase=seconds)

@@ -15,15 +15,17 @@ Spec format (all keys but molecule/basis optional):
   "config": {"soup_sector": true},           // config.set_config fields
   "target": {"prop": "mat", "posthf": "HF",  // Build_GS_exp args
              "field": [0.05, 0.01, 0.0]},
+  "es_targets": {"mom": [1, 0]} |
+                {"input": [[["trdip", [0.54, 0.0, 0.0]]]]},
   "run": {
-    "solver": "CCSD_GS",        // CCS_GS | CCSD_GS
+    "solver": "CCSD_GS",        // CCS_GS | CCSD_GS | CCS_ES
     "Larray": [0.0, 0.7, 8],    // np.linspace(start, stop, n); or a list
     ...                         // remaining keys passed to the solver
   }
 }
 
-Excited-state targets ("es_targets") and the CCS_ES solver are not ported
-yet (ROADMAP A.11).
+The JAX package's "es_targets": {"eom": ...} (EOM-EE-CCSD targets) is not
+ported yet (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -47,21 +49,32 @@ def run_spec(spec):
 
     if spec.get("config"):
         set_config(**spec["config"])
-    if spec.get("es_targets"):
-        raise NotImplementedError(
-            "es_targets are not ported yet (ROADMAP A.11)")
     run = dict(spec.get("run", {"solver": "CCSD_GS"}))
     solver = run.pop("solver", "CCSD_GS")
-    if solver == "CCS_ES":
-        raise NotImplementedError(
-            "the CCS_ES solver is not ported yet (ROADMAP A.11)")
-    if solver not in ("CCS_GS", "CCSD_GS"):
+    if solver not in ("CCS_GS", "CCSD_GS", "CCS_ES"):
         raise ValueError(f"unknown solver {solver!r} "
-                         "(use CCS_GS or CCSD_GS)")
+                         "(use CCS_GS, CCSD_GS or CCS_ES)")
+    es = spec.get("es_targets")
+    if es and not ("mom" in es or "eom" in es or "input" in es):
+        raise ValueError(f"unknown es_targets spec: {es}")
 
     ecw = ECW(spec["molecule"], spec["basis"], out_dir=spec.get("out_dir"),
               device=spec.get("device", "cuda"), dtype=spec.get("dtype"))
     ecw.Build_GS_exp(**spec.get("target", {"prop": "mat", "posthf": "HF"}))
+    if es:
+        if "mom" in es:
+            ecw.Build_ES_exp_MOM(tuple(es["mom"]))
+        elif "eom" in es:
+            ecw.Build_ES_exp_EOM(int(es["eom"]),
+                                 prop=es.get("eom_prop", "trmat"))
+        else:
+            ecw.Build_ES_exp_input(es["input"])
+
+    if solver == "CCS_ES":
+        L = run.pop("L", run.pop("Larray", [0.1])[0])
+        results = ecw.CCS_ES(L, **run)
+        ecw.print_results_ES()
+        return results
     L = _larray(run)
     run.pop("Larray", None)
     results = getattr(ecw, solver)(L, **run)

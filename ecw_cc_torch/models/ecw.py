@@ -20,7 +20,8 @@ through build_eris_device(sort_spin=True) and Solver_CCSD(mo_perm=...).
 
 Then it builds ground-state targets (HF, CCSD or CCSD(T), solved on the
 same device at the same precision) and runs the warm-started ECW-CCSD or
-ECW-CCS lambda sweep.
+ECW-CCS lambda sweep; or excited-state targets (MOM delta-SCF, or given
+property values) and the coupled multi-state ECW-CCS solve (CCS_ES).
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ from ecw_cc_torch.ops.ccs import Gccs, ccs_gradient
 from ecw_cc_torch.ops.ccsd import GCC
 from ecw_cc_torch.ops.ladder import resolve_mode
 from ecw_cc_torch.ops.vexp import Exp
+from ecw_cc_torch.solvers.es import Solver_ES, SolverES_Device
 from ecw_cc_torch.solvers.gs import Solver_CCS, Solver_CCSD
-from ecw_cc_torch.utils import checkpoint, convert, output, props
+from ecw_cc_torch.utils import checkpoint, convert, linalg, output, props
 
 format_float = "{:10.5e}"
 
@@ -121,9 +123,12 @@ class ECW:
         self.target_rdm1_GS = None
         self.cal_rdm1_Delta = False
         self.exp_data = [[]]
+        self.r_ini = None
         self.Ek_exp_GS = None
+        self.nbr_ES = 0
         self.Delta_rdm1 = None
         self.Eexp_GS = None
+        self.Eexp_ES = []
         self.method = "scf"
         self.diis = ""
         self.Larray = []
@@ -223,9 +228,64 @@ class ECW:
                                 gexp.gamma_ao)
         print("*** GS data stored ***")
 
+    def Build_ES_exp_MOM(self, nbr_of_es=(1, 0), field=None):
+        """ES targets from MOM delta-SCF. Reference Main.py:400-435."""
+        es_exp = gamma_exp.ESexp(self.mol, Vext=field, nbr_of_states=nbr_of_es)
+        es_exp.MOM()
+        if self.Eexp_GS is None:
+            self.Eexp_GS = es_exp.Eexp_GS
+        self.Eexp_ES.append(es_exp.DE_exp)
+        if self.r_ini is None:
+            self.r_ini = []
+        for (kind, tr), rini in zip(es_exp.gamma_tr_ao, es_exp.ini_r):
+            tr_mo = convert.ao_to_mo(tr, self.mo_coeff)
+            self.exp_data.append([["trmat", [tr_mo, tr_mo]]])
+            self.r_ini.append(convert.convert_r_to_g_amp(rini))
+        print("*** ES data stored ***")
+
+    def Build_ES_exp_EOM(self, nbr_of_es=1, prop="trmat"):
+        """ES targets from EOM-EE-CCSD: not ported yet."""
+        raise NotImplementedError(
+            "Build_ES_exp_EOM needs the EOM-EE-CCSD solver, which is not "
+            "ported yet (ROADMAP A.12); use Build_ES_exp_MOM or "
+            "Build_ES_exp_input")
+
+    def Build_ES_exp_input(self, es_prop, rini_list=None, val_core=None,
+                           rini_koop_idx=None):
+        """ES targets from given property values. Reference Main.py:437-488."""
+        if val_core is None:
+            val_core = [len(es_prop), 0]
+        elif sum(val_core) != len(es_prop):
+            raise ValueError("val_core must sum to the number of given states")
+        if rini_koop_idx is not None and sum(val_core) != len(rini_koop_idx):
+            raise ValueError("number of Koopman indices must equal the states")
+        for es in es_prop:
+            self.exp_data.append(es)
+            self.HF_prop.append([None for _ in es])
+        if not self.HF_prop[0]:
+            self.HF_prop[0].append(None)
+        if self.myccs is None:
+            self.myccs = Gccs(self._eris_alt())
+        if rini_list is None:
+            r1, de = linalg.koopman_init_guess(np.diag(self.fock), self.mo_occ,
+                                               val_core, koop_idx=rini_koop_idx)
+            self.r_ini = r1
+        else:
+            if len(rini_list) != len(es_prop):
+                raise ValueError("number of initial r vectors inconsistent "
+                                 "with the given ES data")
+            self.r_ini = rini_list
+        print("*** ES data stored ***")
+
     # ------------------------------------------------------------------
-    # Solvers (reference Main.py:663-816)
+    # Solvers (reference Main.py:490-950)
     # ------------------------------------------------------------------
+
+    def _eris_alt(self):
+        """The eris in the reference (alternating) MO layout, which the CCS
+        and ES solvers take.  ECW builds no other layout, so this is
+        self.eris; the JAX ECW derives it from its spin-sorted build."""
+        return self.eris
 
     def _tl_init(self, tl1ini):
         nocc, nvir = self.nocc, self.nvir
@@ -374,10 +434,9 @@ class ECW:
         ts, ls = tsini.copy(), lsini.copy()
         idx_L_print = np.round(np.linspace(0, len(Larray) - 1,
                                            nbr_cube_file)).astype(int)
-        # the ERIs are always in the alternating layout the CCS kernels take
         if self.myccs is None:
-            self.myccs = Gccs(self.eris)
-        mygrad = (ccs_gradient(self.eris)
+            self.myccs = Gccs(self._eris_alt())
+        mygrad = (ccs_gradient(self._eris_alt())
                   if method in ("newton", "descend") else None)
         Solve = Solver_CCS(self.myccs, VXexp, conv=conv,
                            conv_thres=conv_thres, tsini=tsini, lsini=lsini,
@@ -449,8 +508,101 @@ class ECW:
             self.print_results()
         return Result
 
-    def CCS_ES(self, *args, **kwargs):
-        raise NotImplementedError("CCS_ES is not ported yet (ROADMAP A.11)")
+    def CCS_ES(self, L, method="scf", conv="rl", exp_data=None,
+               conv_thres=1e-5, maxiter=40, diis="", L_loop=False,
+               nbr_cube_file=0, target_rdm1_GS=None, print_ite=True,
+               maxdiis=15, mindiis=2, davidson=False):
+        """Coupled multi-state ES solve. Reference Main.py:818-950.
+
+        method: 'scf'    - the host-orchestrated coupled SCF (reference
+                           Solver_ES.SCF),
+                'device' - the whole iteration on the device
+                           (SolverES_Device: rdm1s, Vexp refresh, coupled
+                           t/lambda and the r/l updates of all states at
+                           once, DIIS; one scalar read per iteration),
+                'diag'   - the diagonalization variant (reference branch
+                           Main.py:892-894; davidson=True for the
+                           matrix-free solver).
+        With L_loop=True, L is a 1D array of weights, each solve
+        warm-started from the one before, and the sweep is kept for
+        print_results_ES / plot_results_ES; nothing is returned."""
+        if exp_data is None:
+            exp_data = self.exp_data
+            if len(exp_data) == 1:
+                raise NotImplementedError(
+                    "no excited-state data found; use the GS solver instead")
+        self.nbr_ES = len(exp_data) - 1
+        if target_rdm1_GS is None:
+            target_rdm1_GS = self.target_rdm1_GS
+        if self.r_ini is None:
+            print("Initial amplitudes will be taken from Koopman's guess")
+        if self.myccs is None:
+            self.myccs = Gccs(self._eris_alt())
+
+        if L_loop:
+            if isinstance(L, float):
+                raise ValueError("with L_loop=True, L must be a 1D array")
+            Vexp = Exp(L[0], exp_data, self.mol, self.mo_coeff,
+                       Ek_exp_GS=self.Ek_exp_GS)
+        else:
+            Vexp = Exp(L, exp_data, self.mol, self.mo_coeff,
+                       Ek_exp_GS=self.Ek_exp_GS)
+            L = Vexp.L_check(L)
+
+        Solver = Solver_ES(self.myccs, Vexp, conv_var=conv,
+                           conv_thres=conv_thres, maxiter=maxiter, diis=diis,
+                           maxdiis=maxdiis, mindiis=mindiis,
+                           rn_ini=self.r_ini)
+        if method == "scf":
+            used = Solver
+            solve = lambda L_, amp=None: Solver.SCF(
+                L_, dic_amp_ini=amp, print_ite=print_ite)
+        elif method == "device":
+            used = SolverES_Device(Solver)
+            solve = lambda L_, amp=None: used.SCF(L_, dic_amp_ini=amp,
+                                                  diis=diis)
+        elif method == "diag":
+            used = None
+            solve = lambda L_, amp=None: Solver.SCF_diag(
+                L_, dic_amp_ini=amp, print_ite=print_ite, davidson=davidson)
+        else:
+            raise SyntaxError("method must be 'scf', 'device' or 'diag'")
+        self.solve_log = []
+        print()
+        print("########################################")
+        print("#  Results using SCF for ES calculation ")
+        print("########################################")
+        print()
+        if not L_loop:
+            Conv_text, dic_amp, Delta, Ep, rdm1_GS = solve(L)
+            self.solve_log.append(getattr(used, "last_solve", None))
+            if target_rdm1_GS is not None:
+                diff = np.subtract(target_rdm1_GS, rdm1_GS)
+                self.Delta_rdm1 = (np.sum(np.abs(diff)) / np.sum(np.abs(
+                    target_rdm1_GS - np.diag(self.mo_occ))))
+            print(Conv_text)
+            return Conv_text, dic_amp, Delta, Ep, rdm1_GS
+
+        dic_amp = None
+        self.init_plot_var(L)
+        self.Delta_rdm1 = [] if target_rdm1_GS is not None else None
+        for lamb in L:
+            print("LAMBDA= ", lamb)
+            Conv_text, dic_amp, Delta, Ep, rdm1_GS = solve(lamb, dic_amp)
+            self.solve_log.append(getattr(used, "last_solve", None))
+            if self.out_dir is not None:
+                fout = os.path.join(self.out_dir, f"L{lamb:.2f}")
+                output.cube_rdm1(rdm1_GS, self.mo_coeff, self.mol, fout)
+            self.Delta_lamb.append([Delta[0, 1:], Delta[1:, 0]])
+            self.Ep_lamb.append([np.ravel(Ep[:, 0]), np.ravel(Ep[:, 1])])
+            if target_rdm1_GS is not None:
+                diff = np.subtract(target_rdm1_GS, rdm1_GS)
+                self.Delta_rdm1.append(
+                    np.sum(np.abs(diff)) / np.sum(np.abs(
+                        target_rdm1_GS - np.diag(self.mo_occ))))
+            print(Conv_text)
+            print("Delta = \n", Delta)
+            print()
 
     # ------------------------------------------------------------------
     # Output (reference Main.py:956-1179)
@@ -459,5 +611,11 @@ class ECW:
     def print_results(self, out_dir=None):
         return output.print_results_gs(self, out_dir)
 
+    def print_results_ES(self, out_dir=None):
+        return output.print_results_es(self, out_dir)
+
     def plot_results(self):
         return output.plot_results_gs(self)
+
+    def plot_results_ES(self):
+        return output.plot_results_es(self)

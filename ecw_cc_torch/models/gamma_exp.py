@@ -1,5 +1,5 @@
-"""Simulated ground-state target data (port of ecw_cc_tpu/models/gamma_exp.py
-Gexp and its solvers; reference gamma_exp.py:104-275).
+"""Simulated target ("experimental") data (port of
+ecw_cc_tpu/models/gamma_exp.py; reference gamma_exp.py:104-488).
 
 Gexp builds the target rdm1 of an HF, CCSD or CCSD(T) calculation,
 optionally with a static external field, a random geometry deformation and
@@ -8,8 +8,10 @@ solve_ccsd) and then either the textbook Lambda equations (solve_lambda)
 and the CCSD rdm1, or the (T) energy and the CCSD(T) response density
 (ops/ccsd_t.ccsd_t_rdm1_response), on `device` in `dtype`.
 
-The excited-state half of the JAX module (ESexp, ROADMAP A.11/A.12) is not
-ported.
+ESexp builds excited-state targets by the MOM (delta-SCF) approach with
+SVD-biorthogonalized Slater transition density matrices: host NumPy, a copy
+of the JAX module's.  Its EOM-EE-CCSD targets wait for the EOM port
+(ROADMAP A.12) and raise.
 """
 
 from __future__ import annotations
@@ -20,12 +22,12 @@ import torch
 from ecw_cc_torch.config import check_device, torch_dtype
 from ecw_cc_torch.models.eris import build_eris, build_eris_device
 from ecw_cc_torch.models.molecule import Molecule
-from ecw_cc_torch.models.scf import GHF, RHF
+from ecw_cc_torch.models.scf import GHF, RHF, UHF
 from ecw_cc_torch.ops import ccsd as ccsd_ops
 from ecw_cc_torch.ops import ccsd_t
 from ecw_cc_torch.ops.ladder import ensure_sorted_vvvv_op, spin_sort_perm
 from ecw_cc_torch.ops.spinsect import sector_info
-from ecw_cc_torch.utils import convert
+from ecw_cc_torch.utils import convert, linalg
 from ecw_cc_torch.utils.metrics import StageClock
 
 
@@ -69,6 +71,34 @@ def solve_lambda(eris, t1, t2, conv_tol=None, max_cycle=200, vvvv_op=None,
     if log is not None:
         log.update(iterations=k, converged=converged)
     return l1, l2
+
+
+def _spin_label(r1):
+    """singlet/triplet/spin-flip label of an EE R1 block (alternating
+    spin layout): the Ms=0 singlet combination is symmetric in
+    alpha<->beta, the triplet antisymmetric."""
+    r1 = np.asarray(r1)
+    raa = r1[0::2, 0::2]
+    rbb = r1[1::2, 1::2]
+    off = np.linalg.norm(r1[0::2, 1::2]) + np.linalg.norm(r1[1::2, 0::2])
+    if off > 0.5 * max(np.linalg.norm(r1), 1e-300):
+        return "spin-flip"
+    s = np.linalg.norm(raa + rbb)
+    t = np.linalg.norm(raa - rbb)
+    if max(s, t) < 1e-8:
+        return "n/a"
+    return "singlet" if s > t else "triplet"
+
+
+def _swap_ov_vo(g, nocc):
+    """Det-space <p+ q> layout -> the reference tr_rdm1 index convention
+    (ov/vo blocks transposed; oo/vv unchanged).  Verified: the reference
+    formula's pure-L part equals the swapped determinant-space matrix
+    exactly (tests/test_eom.py)."""
+    out = g.copy()
+    out[:nocc, nocc:] = g[nocc:, :nocc].T
+    out[nocc:, :nocc] = g[:nocc, nocc:].T
+    return out
 
 
 def _build_eris_auto(mol, ghf, dtype, device):
@@ -256,3 +286,76 @@ class Gexp:
         flat = self.gamma_ao.ravel().copy()
         flat[idx] = 0.0
         self.gamma_ao = flat.reshape(dim, dim)
+
+
+class ESexp:
+    """ES targets via MOM (delta-SCF). Reference gamma_exp.py:282-488."""
+
+    def __init__(self, mol: Molecule, Vext=None, nbr_of_states=(1, 0)):
+        self.mol = mol
+        self.mf = RHF(mol)
+        self.nbr_of_states = nbr_of_states
+        self.gamma_ao = []     # [('val'|'core', rdm1_ao_G), ...]
+        self.gamma_tr_ao = []  # [('val'|'core', tdm_ao), ...]
+        if Vext is not None:
+            h = (mol.intor("kin") + mol.intor("nuc")
+                 + np.einsum("x,xij->ij", np.asarray(Vext, float),
+                             mol.intor("r", origin=np.zeros(3))))
+            self.mf.set_hcore(h)
+        self.mf.kernel()
+        self.mo_coeff = self.mf.mo_coeff
+        self.nocc = int(np.sum(self.mf.mo_occ > 0))
+        self.nvir = int(np.sum(self.mf.mo_occ == 0))
+        self.Eexp_GS = self.mf.e_tot
+        self.DE_exp = []
+        self.ini_r = [np.zeros((self.nocc, self.nvir))
+                      for _ in range(sum(nbr_of_states))]
+
+    def MOM(self):
+        """Delta-SCF (MOM) for valence and core excited states; builds the
+        G-format ES rdm1s and biorthogonal Slater transition densities.
+        Reference gamma_exp.py:332-462."""
+        mol = self.mol
+        nao = self.nocc + self.nvir
+        homo = mol.nelectron // 2 - 1
+        lumo = homo + 1
+        mo_coeff_u = np.stack([self.mo_coeff, self.mo_coeff])
+
+        def run_state(occ_a_from, occ_a_to, state_kind, istate):
+            moc = np.zeros((2, nao))
+            moc[0, : mol.nelec[0]] = 1.0
+            moc[1, : mol.nelec[1]] = 1.0
+            moc[0, occ_a_from] = 0.0
+            moc[0, occ_a_to] = 1.0
+            self.ini_r[istate][occ_a_from, occ_a_to - self.nocc] = 1.0
+
+            es_mf = UHF(mol)
+            if self.mf._hcore_override is not None:
+                es_mf.set_hcore(self.mf._hcore_override)
+            dma = (mo_coeff_u[0] * moc[0]) @ mo_coeff_u[0].T
+            dmb = (mo_coeff_u[1] * moc[1]) @ mo_coeff_u[1].T
+            es_mf.set_mom(mo_coeff_u, moc)
+            es_mf.kernel(dm0=(dma, dmb))
+            self.DE_exp.append(es_mf.e_tot - self.Eexp_GS)
+
+            uhf_ao = es_mf.make_rdm1()
+            ghf_ao = convert.convert_u_to_g_rdm1(uhf_ao)
+            self.gamma_ao.append([state_kind, ghf_ao])
+
+            mo_g = convert.convert_r_to_g_coeff(self.mo_coeff)
+            es_mo_g = convert.convert_u_to_g_coeff(es_mf.mo_coeff)
+            moc_g = convert.convert_u_to_g_moc(moc)
+            TcL, TcR = linalg.ortho_SVD(mol, es_mo_g, mo_g)
+            tdm = linalg.tdm_slater(TcL, TcR, moc_g)
+            self.gamma_tr_ao.append([state_kind, tdm])
+
+        for v in range(self.nbr_of_states[0]):
+            run_state(homo, lumo + v, "val", v)
+        for c in range(self.nbr_of_states[1]):
+            run_state(0, lumo + c, "core", self.nbr_of_states[0] + c)
+
+    def EOM(self, nbr_ES, tol=None):
+        """EOM-EE-CCSD excited-state targets: not ported yet."""
+        raise NotImplementedError(
+            "ESexp.EOM needs the EOM-EE-CCSD solver, which is not ported "
+            "yet (ROADMAP A.12); use MOM() or give the target values")

@@ -531,9 +531,6 @@ class Solver_CCSD:
         amplitudes as NumPy arrays (device tensors with keep_device=True)."""
         if refine:
             raise _not_ported("refine=True (f64 polish)", "A.8")
-        if get_config().iter_precision != "highest":
-            raise _not_ported(f"iter_precision="
-                              f"{get_config().iter_precision!r}", "A.8")
         route = self.route()
         sym = (route == "sectored" and get_config().soup_sym
                and self._spin_restricted())

@@ -3,7 +3,8 @@
 All accept rdm1 in AO or MO basis, R or G format, exactly like the reference.
 
 Copy of ecw_cc_tpu/utils/props.py (the PyTorch port imports
-nothing of the JAX package); only the imports differ.
+nothing of the JAX package); the imports differ, and `_to_ao_r` takes two
+matrix products where the original takes a three-operand einsum.
 """
 
 from __future__ import annotations
@@ -18,7 +19,10 @@ def _to_ao_r(mol, rdm1, g, aobasis, mo_coeff):
     if not aobasis:
         if mo_coeff is None:
             raise ValueError("mo_coeff must be given if rdm is not in AO basis")
-        rdm1 = np.einsum("pi,ij,qj->pq", mo_coeff, rdm1, np.conj(mo_coeff))
+        # C gamma C^H as two matrix products (the three-operand einsum of the
+        # JAX copy runs unfactored, O(n^4))
+        mo_coeff = np.asarray(mo_coeff)
+        rdm1 = (mo_coeff @ rdm1) @ np.conj(mo_coeff).T
     if g:
         rdm1 = convert.convert_g_to_ru_rdm1(rdm1)[0]
     return rdm1

@@ -153,7 +153,8 @@ def test_gccs_wraps_the_gs_functions(kernel_inputs):
     assert torch.equal(cc.lsupdate(ts, ls, cc.L1inter(ts, fsp)),
                        tccs.lsupdate(k["er_t"], ts, ls,
                                      tccs.L1inter(k["er_t"], ts, fsp)))
-    assert not hasattr(cc, "R1inter")       # the ES half waits for A.11
+    # the ES half is there as well (tests/test_torch_es_eqs.py)
+    assert hasattr(cc, "R1inter") and hasattr(cc, "es_L1inter")
 
 
 # ---------------------------------------------------------------------------
@@ -445,11 +446,14 @@ def test_cli_runner_names_what_is_not_ported(tmp_path, capsys):
     from ecw_cc_torch.__main__ import main
 
     spec = _spec(tmp_path, "CCS_ES")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        run_spec(spec)
+    with pytest.raises(NotImplementedError, match="GS solver"):
+        run_spec(spec)                      # CCS_ES without ES targets
     spec = _spec(tmp_path, "CCS_GS")
-    spec["es_targets"] = {"mom": [1, 0]}
-    with pytest.raises(NotImplementedError, match="A.11"):
+    spec["es_targets"] = {"eom": 1}
+    with pytest.raises(NotImplementedError, match="A.12"):
+        run_spec(spec)
+    spec["es_targets"] = {"fci": 1}
+    with pytest.raises(ValueError, match="unknown es_targets"):
         run_spec(spec)
     spec = _spec(tmp_path, "FCI")
     with pytest.raises(ValueError, match="unknown solver"):

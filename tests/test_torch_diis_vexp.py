@@ -94,16 +94,65 @@ def test_gs_vexp_device_matches_jax(h2o_631g, names, hf_prop):
     rdm1_alt = rdm1[np.ix_(np.argsort(perm), np.argsort(perm))]
     hj = ej.Vexp_update(rdm1_alt, rdm1_alt, (0, 0), L=0.3)
     ht = et.Vexp_update(rdm1_alt, rdm1_alt, (0, 0), L=0.3)
-    np.testing.assert_allclose(ht, hj, rtol=1e-13)
+    # (1e-12, as for the device update above: the port's props._to_ao_r
+    # takes two matrix products where the JAX copy takes a three-operand
+    # einsum, which moves the property values in the 13th digit)
+    np.testing.assert_allclose(ht, hj, rtol=1e-12)
     np.testing.assert_allclose(et.Vexp[0, 0], ej.Vexp[0, 0], rtol=0,
-                               atol=1e-13)
+                               atol=1e-12)
+
+
+def test_to_ao_r_is_two_products(h2o_631g):
+    """utils/props._to_ao_r: C gamma C^H as two matrix products equals the
+    JAX copy's three-operand einsum, for a real and a complex coefficient
+    matrix, and the properties built on it agree."""
+    from ecw_cc_tpu.utils import props as jprops
+    from ecw_cc_torch.utils import props as tprops
+
+    mol, ghf, _, _ = h2o_631g
+    C = np.asarray(ghf.mo_coeff)
+    dim = C.shape[1]
+    rng = np.random.default_rng(4)
+    rdm1 = rng.standard_normal((dim, dim)) * 0.1 + np.diag(
+        np.asarray(ghf.mo_occ, np.float64))
+    for coeff in (C, C + 0.1j * rng.standard_normal(C.shape)):
+        ref = np.einsum("pi,ij,qj->pq", coeff, rdm1, np.conj(coeff))
+        for g in (False, True):
+            out = tprops._to_ao_r(mol, rdm1, g, False, coeff)
+            want = jprops._to_ao_r(mol, rdm1, g, False, coeff)
+            assert np.abs(out - want).max() < 1e-12
+        assert np.abs(tprops._to_ao_r(mol, rdm1, False, False, coeff)
+                      - ref).max() < 1e-12
+    for name in ("Ekin", "v1e", "dipole"):
+        a = getattr(tprops, name)(mol, rdm1, aobasis=False, mo_coeff=C)
+        b = getattr(jprops, name)(mol, rdm1, aobasis=False, mo_coeff=C)
+        assert np.abs(np.asarray(a) - np.asarray(b)).max() < 1e-12 * max(
+            1.0, np.abs(np.asarray(b)).max())
+    with pytest.raises(ValueError, match="mo_coeff"):
+        tprops._to_ao_r(mol, rdm1, True, False, None)
+
+
+def test_set_config_refuses_unported_precision_modes():
+    """Only iter_precision='highest' is ported: every other name is refused
+    when it is set, naming the ROADMAP item, so that no solver can be
+    handed a mode it would ignore."""
+    import ecw_cc_torch
+
+    for name in ("high", "default", "bf16", "hybrid", "tf32", ""):
+        with pytest.raises(NotImplementedError, match="A.8"):
+            ecw_cc_torch.set_config(iter_precision=name)
+        assert ecw_cc_torch.get_config().iter_precision == "highest"
+    ecw_cc_torch.set_config(iter_precision="highest")
 
 
 def test_exp_rejects_excited_state_targets(h2o_631g):
+    """The GS device update takes GS properties only; the ES kinds go
+    through make_es_vexp_device (tests/test_torch_es_vexp.py)."""
     mol, ghf, _, _ = h2o_631g
     target = np.diag(np.asarray(ghf.mo_occ, np.float64))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tvexp.Exp(0.1, [[["mat", target]], [["trdip", (0.5, 0, 0)]]], mol,
-                  ghf.mo_coeff)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tvexp.Exp(0.1, [[["DEk", 0.3]]], mol, ghf.mo_coeff)
+    exp = tvexp.Exp(0.1, [[["mat", target]], [["trdip", (0.5, 0, 0)]]], mol,
+                    ghf.mo_coeff)
+    assert exp.nbr_states == 2 and exp.prop_names[1] == ["trdip"]
+    gs_dek = tvexp.Exp(0.1, [[["DEk", 0.3]]], mol, ghf.mo_coeff)
+    with pytest.raises(NotImplementedError, match="DEk"):
+        tvexp.make_gs_vexp_device(gs_dek, **F64)

@@ -4,7 +4,8 @@
     import ecw_cc_torch, build its solver on H2/6-31G through the ECW
     entry point at f64 (host ERIs) and f32 (device ERI build, dense and
     sectored routes), and run a solve on each; build a CCSD(T) target,
-    run the CCS ground state on it, and the JSON runner;
+    run the CCS ground state on it, the JSON runner, and a coupled
+    excited-state solve (host loop, device loop, Davidson);
   - no file of the port, and not chip_smoke.py, has an import statement
     naming jax or ecw_cc_tpu (read with `ast`, so lazy imports inside
     functions count too).
@@ -57,6 +58,22 @@ SCRIPT = textwrap.dedent("""
                     "target": {"prop": "mat", "posthf": "CCSD"},
                     "run": {"solver": "CCS_GS", "Larray": [0.1]}})
     assert "Convergence reached" in out[0], out[0]
+    # excited states: the three routes of CCS_ES, and MOM targets
+    e3 = ECW("h2o", "sto-3g", device="cpu", dtype=torch.float64)
+    e3.Build_ES_exp_input([[["trdip", (0.5, 0.0, 0.0)]]])
+    es = {}
+    for method in ("scf", "device"):
+        es[method] = e3.CCS_ES(0.1, method=method, diis="all", conv="rl",
+                               print_ite=False)
+        assert "Convergence reached" in es[method][0], es[method][0]
+    assert es["scf"][0] == es["device"][0]
+    assert abs(es["scf"][3] - es["device"][3]).max() < 1e-9
+    out = e3.CCS_ES(0.1, method="diag", conv="tl", davidson=True,
+                    print_ite=False)
+    assert "Convergence reached" in out[0], out[0]
+    e4 = ECW("H 0 0 0\\nH 0 0 1", "6-31g", device="cpu", dtype=torch.float64)
+    e4.Build_ES_exp_MOM((1, 0))
+    assert e4.exp_data[1][0][0] == "trmat"
     # the sorted, sectored route through the solver's own entry point
     from ecw_cc_torch.models.eris import build_eris_device
     from ecw_cc_torch.ops.ccsd import GCC

@@ -133,12 +133,10 @@ def test_unported_routes_raise(sorted_problem):
         solver.SCF(0.05, refine=True)
     with pytest.raises(NotImplementedError, match="A.13"):
         solver.SCF_batch([0.05, 0.1])
-    ecw_cc_torch.set_config(iter_precision="high")
-    try:
-        with pytest.raises(NotImplementedError, match="A.8"):
-            solver.SCF(0.05)
-    finally:
-        ecw_cc_torch.set_config(iter_precision="highest")
+    # a precision mode that is not ported cannot be set at all
+    with pytest.raises(NotImplementedError, match="A.8"):
+        ecw_cc_torch.set_config(iter_precision="high")
+    assert ecw_cc_torch.get_config().iter_precision == "highest"
     ecw_cc_torch.set_config(soup_sector=False)
     try:
         assert solver.route() == "dense_sorted"

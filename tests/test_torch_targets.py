@@ -164,3 +164,33 @@ def test_ecw_passes_its_device_and_dtype_to_the_target():
     ecw.Build_GS_exp("mat", "CCSD")
     assert ecw.target_log["sym"] is True      # the f32 sorted build ran
     assert abs(np.trace(ecw.exp_data[0][0][1]) - 2.0) < 1e-5
+
+
+def test_f32_stopping_tolerances_hold_the_target():
+    """At f32 the target's solves stop at looser tolerances than the JAX
+    package's 1e-10 of every dtype (solve_ccsd 1e-7, solve_lambda 1e-6, the
+    (T) adjoint 1e-5; arguments conv_tol= / tol=): the CCSD(T) target of
+    H2O/6-31G then agrees with its f64 twin within 1e-5 Ha and 1e-4 in
+    gamma_ao, and every stage stops before its iteration limit."""
+    import inspect
+
+    from ecw_cc_torch.ops import ccsd_t
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        g = tg.Gexp(Molecule("h2o", "6-31g"), "CCSD(T)", device="cpu",
+                    dtype=dtype)
+        g.Vext(FIELD)
+        g.build()
+        out[dtype] = g
+        assert g.log["ccsd"]["converged"] and g.log["adjoint"]["converged"]
+    g64, g32 = out[torch.float64], out[torch.float32]
+    assert abs(g64.Eexp - g32.Eexp) < 1e-5
+    assert np.abs(g64.gamma_ao - g32.gamma_ao).max() < 1e-4
+    # the looser tolerance is what stops f32 earlier, and it can be given
+    assert g32.log["ccsd"]["iterations"] <= g64.log["ccsd"]["iterations"]
+    assert g32.log["adjoint"]["iterations"] <= g64.log["adjoint"]["iterations"]
+    assert "conv_tol" in inspect.signature(ccsd_t.solve_ccsd).parameters
+    assert "conv_tol" in inspect.signature(tg.solve_lambda).parameters
+    assert "tol" in inspect.signature(
+        ccsd_t.ccsd_t_rdm1_response).parameters
