@@ -11,26 +11,38 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --routes         # phase 1 and the timed f32 lambda
                                            # sweep on each route, nvir 16 to
                                            # 162
+    python3 chip_smoke.py --chain          # phase 1 and the timed f32
+                                           # 'highest' chain, cc-pVDZ and
+                                           # cc-pVTZ (copied into an older
+                                           # checkout, it times that one)
     python3 chip_smoke.py --targets        # phases 1, 2 and 10 only: the
                                            # correlated targets and the CCS
                                            # ground state
     python3 chip_smoke.py --es             # phases 1, 2 and 11 only: the
                                            # excited states
+    python3 chip_smoke.py --precision      # phases 1, 2 and 12 only: the
+                                           # CCSD solve's precision modes
 
 Phases, one output line each (and one "phase_seconds" line at the end of
 each); any failure raises and exits nonzero:
   1. device: the card's name and power limit (nvidia-smi), TF32 off;
-  2. build: the hand-written kernels compiled from ecw_cc_torch/csrc, with
-     ptxas's registers and spills per kernel, and the SASS check that the
-     f64 ladder_mm runs DMMA and the f32 one no HMMA;
+  2. build: the hand-written kernels compiled from ecw_cc_torch/csrc (one
+     nvcc per source, started together), with ptxas's registers and spills
+     per kernel, and the SASS check per kernel function: the f64 ladder_mm
+     runs DMMA, the f32 one no HMMA, the TF32 and BF16 variants HMMA;
   3. kernel vs plain: ladder_mm against ladder_mm_ref (a @ b.T) in f32 and
      f64 at the solver's sector-GEMM shapes of C2H2/cc-pVDZ and cc-pVTZ,
      at the GEMMs of the dense, packed and stacked-sector routes (phase
-     9) and of the target builds (phase 10), ragged shapes and shapes at
-     the edges of the split-K plan
+     9), of the target builds (phase 10) and (f64 only) of phase 12's
+     polish at cc-pVTZ, ragged shapes and shapes at the edges of the
+     split-K plan
      (printed per shape, with its plan); two launches bitwise equal; one
      launch captured in a CUDA graph and replayed twice, equal to the
-     eager result; then both timed at the solver's shapes;
+     eager result; then both timed at the solver's shapes; the same for
+     the TF32 and BF16 variants against their plain versions (TF32 to
+     1e-5 max|C|; BF16 to 2^-8 max|C| plus the f32 accumulation bound, on
+     the plain version's f32 sum before its rounding), timed beside their
+     plain versions and the library call (cuBLAS with TF32 on, on bf16);
   4. main path, f32: ECW('c2h2', 'cc-pvdz') (ERIs transformed on the card,
      alternating layout, a PackedVVVV at nvir 62) -> HF target with a
      field -> CCSD_GS over lambda = 0, 0.25, 0.5 (diis 'tl', conv_thres
@@ -128,12 +140,33 @@ each); any failure raises and exits nonzero:
          ms per iteration of a 20-iteration chain, peak memory, and the
          device operations per iteration with one and with two excited
          states (torch.profiler), the second adding under 30%, and the
-         device-to-host copies per iteration: one, the convergence scalar;
+         synchronizing calls per iteration, named by their Python line:
+         one, the read of the convergence scalar (the profiler's
+         device-to-host copies per iteration printed beside it);
      (d) davidson_device on the R1 map of (c)'s cc-pVTZ system (n = o*v),
          3 roots, f64 and f32 with the Ms = 0 projector, against
          numpy.linalg.eig of the explicit matrix (1e-9 and 1e-5); the f32
          run without a projector, printed; and an operator with a
          structural null space (n = 2304), where f32 needs the projector;
+  12. the precision modes of the CCSD solve (config.iter_precision):
+     (a) C2H2/cc-pVDZ, the f32 ECW.CCSD_GS sweep over lambda = 0, 0.25,
+         0.5 on the packed route under 'highest', 'high', 'default',
+         'bf16', 'hybrid' (fast leg 'high', and 'bf16'), and with
+         refine=True after 'highest', 'high' and 'bf16' (the polish on
+         ECW.eris_f64, built on the card; no host ERIs), each against the
+         f64 sweep on those ERIs (converged to 1e-9): iterations,
+         ms per iteration, solve ms, |dEp|, the legs of each solve, and
+         the ladder launches by variant, which must equal one per
+         iteration in its mode's variant ('highest' f32, 'high' and
+         'default' TF32, 'bf16' BF16) plus 2 f64 per polish iteration; a
+         30-iteration chain per mode gives its ms per iteration and the
+         Dconv at which it stalls, and raw 'default' and 'bf16' run at
+         three times that (1e-6 at least) and do not fail on it; 'highest',
+         'high' and both hybrids must converge to 1e-6, refine after
+         'highest' and 'high' must be within 1e-8 Ha of f64 and each
+         hybrid within 1e-5;
+     (b) C2H2/cc-pVTZ at lambda = 0.25 (phase 7's ECW): 'bf16' with and
+         without refine, and both hybrids, the same way;
   8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported,
      and the excited-state modules were.
 Before the last line it prints the kernel report as one JSON object and
@@ -163,6 +196,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -174,6 +208,8 @@ LAMBDAS = [0.0, 0.25, 0.5]
 CONV_THRES = 1e-6
 CHAIN_ITERS = 40
 CHAIN_ITERS_TZ = 19          # maxiter 19: a 20-iteration chain
+CHAIN_REPS = 5               # --chain: timed runs of each chain
+CHAIN_OPS_ITERS = (4, 12)    # --chain: two profiled chains, differenced
 PROFILE_ITERS = 10
 DTYPES = (torch.float32, torch.float64)
 MAIN_SHAPES = [(98, 465, 465), (98, 961, 961)]          # (M, N, K), pVDZ
@@ -184,9 +220,14 @@ DENSE_DZ, PACKED_DZ, PACKED_TZ = ((196, 3844, 3844), (392, 1891, 1891),
                                   (392, 13041, 13041))
 ROUTE_SHAPES = [DENSE_DZ, PACKED_DZ, PACKED_TZ, (392, 465, 465),
                 (392, 961, 961)]
+# phase 12's f64 polish (refine=True): the dense ladder, twice an
+# iteration, at cc-pVTZ (at cc-pVDZ it is DENSE_DZ)
+POLISH_TZ = (196, 26244, 26244)
+F64_SHAPES = [POLISH_TZ]     # checked and timed in f64 only
 TIMED_SHAPES = {torch.float32: MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES,
                 torch.float64: MAIN_SHAPES + TZ_SHAPES + [DENSE_DZ,
-                                                          PACKED_TZ]}
+                                                          PACKED_TZ]
+                + F64_SHAPES}
 # phase 10's target builds (C2H2, 196 occupied pairs, one ladder at a time):
 # the packed GEMM at cc-pVDZ and cc-pVTZ, the dense one at 6-31G (nvir 30)
 TARGET_SHAPES = [(196, 1891, 1891), (196, 13041, 13041), (196, 900, 900)]
@@ -205,8 +246,14 @@ HOST_CALLS = 200
 SLEEP_CYCLES = 20_000_000   # ~11 ms at 1.8 GHz: longer than any enqueue run
 L2_BYTES = 50 * 2 ** 20
 COLD_B_BYTES = 8 * 2 ** 20  # a B this large is timed cold (cycled copies)
-PEAK_FLOPS = 67e12          # H100 SXM: FP32 (CUDA cores) and FP64 tensor
+DEVICE_RNG_ELEMENTS = 10 ** 8   # operands this large are drawn on the card
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s
+# dense peak FLOP/s of each kernel variant on an H100 SXM (NVIDIA's data
+# sheet): FP32 on the CUDA cores and FP64 on the tensor cores 67 T, TF32
+# 494 T, BF16 989 T; and the bytes of one element
+VARIANT_PEAK = {"f32": 67e12, "f64": 67e12, "tf32": 494e12, "bf16": 989e12}
+VARIANT_BYTES = {"f32": 4, "f64": 8, "tf32": 4, "bf16": 2}
+TC_VARIANTS = ("tf32", "bf16")       # the tensor-core variants (phase 3, 12)
 
 
 def _json_value(x):
@@ -230,11 +277,13 @@ def timed(n, seconds):
 
 def bound(shape, dtype):
     """(ms, 'operations' or 'bytes'): the least time the card could take
-    for C = A @ B.T at `shape`, one pass over A, B and C."""
+    for C = A @ B.T at `shape`, one pass over A, B and C, for a torch
+    dtype (its full-precision variant) or a variant name."""
+    v = dtype if isinstance(dtype, str) else {
+        torch.float32: "f32", torch.float64: "f64"}[dtype]
     M, N, K = shape
-    size = torch.finfo(dtype).bits // 8
-    t_ops = 2 * M * N * K / PEAK_FLOPS
-    t_bytes = (M * K + N * K + M * N) * size / PEAK_BYTES
+    t_ops = 2 * M * N * K / VARIANT_PEAK[v]
+    t_bytes = (M * K + N * K + M * N) * VARIANT_BYTES[v] / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -249,6 +298,11 @@ def nvidia_smi():
 
 def operands(shape, dtype, seed):
     M, N, K = shape
+    if (M + N) * K > DEVICE_RNG_ELEMENTS:
+        # drawn on the card: the host takes seconds for a 5 GB operand
+        g = torch.Generator("cuda").manual_seed(seed)
+        return tuple(torch.randn(n, K, generator=g, device="cuda",
+                                 dtype=dtype) for n in (M, N))
     rng = np.random.default_rng(seed)
     a = torch.as_tensor(rng.standard_normal((M, K)), dtype=dtype).cuda()
     b = torch.as_tensor(rng.standard_normal((N, K)), dtype=dtype).cuda()
@@ -276,20 +330,30 @@ def sass_counts(path):
     return counts
 
 
+# each kernel variant's functions in the SASS, by mangled template name
+SASS_NAMES = {"f32": "ladder_mm_ntIf", "f64": "ladder_mm_ntId",
+              "tf32": "ladder_mm_tcIf", "bf16": "ladder_mm_tcI13__nv_bfloat16"}
+
+
 def check_sass(path):
-    """Every f64 ladder_mm instance runs DMMA; no f32 one touches the
-    tensor cores (no TF32, no HMMA)."""
+    """Per kernel function: every f64 ladder_mm instance runs DMMA; no f32
+    one touches the tensor cores (no TF32, no HMMA); the TF32 and BF16
+    variants run HMMA."""
     counts = sass_counts(path)
-    f32 = {n: dict(c) for n, c in counts.items() if "ladder_mm_ntIf" in n}
-    f64 = {n: dict(c) for n, c in counts.items() if "ladder_mm_ntId" in n}
-    if not f32 or not f64:
+    by = {v: {n: dict(c) for n, c in counts.items() if key in n}
+          for v, key in SASS_NAMES.items()}
+    if not all(by.values()):
         raise AssertionError(f"ladder_mm kernels not found in SASS: "
                              f"{sorted(counts)}")
-    if not all(c.get("DMMA", 0) for c in f64.values()):
-        raise AssertionError(f"an f64 ladder_mm runs no DMMA: {f64}")
-    if any(c.get("HMMA", 0) or c.get("DMMA", 0) for c in f32.values()):
-        raise AssertionError(f"an f32 ladder_mm uses tensor cores: {f32}")
-    return {"float32": list(f32.values()), "float64": list(f64.values())}
+    if not all(c.get("DMMA", 0) for c in by["f64"].values()):
+        raise AssertionError(f"an f64 ladder_mm runs no DMMA: {by['f64']}")
+    if any(c.get("HMMA", 0) or c.get("DMMA", 0) for c in by["f32"].values()):
+        raise AssertionError(f"an f32 ladder_mm uses tensor cores: "
+                             f"{by['f32']}")
+    for v in TC_VARIANTS:
+        if not all(c.get("HMMA", 0) for c in by[v].values()):
+            raise AssertionError(f"a {v} ladder_mm runs no HMMA: {by[v]}")
+    return {v: list(c.values()) for v, c in by.items()}
 
 
 def plan_fields(p):
@@ -305,7 +369,9 @@ def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm):
     for dtype in DTYPES:
         for i, shape in enumerate(MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
                                   + TARGET_SHAPES + RAGGED_SHAPES
-                                  + EDGE_SHAPES):
+                                  + EDGE_SHAPES
+                                  + (F64_SHAPES if dtype == torch.float64
+                                     else [])):
             a, b = operands(shape, dtype, seed=i)
             c = ladder_mm(a, b)
             torch.cuda.synchronize()
@@ -430,6 +496,149 @@ def time_kernel(ladder_mm, ladder_mm_ref):
     return times
 
 
+def variant_operands(lmm, shape, var, seed):
+    """(a, b, precision) on the card for a tensor-core variant; a bf16 B is
+    held as the solver holds its per-solve bf16 copy (rows padded to 16
+    bytes), A as the solver packs it (contiguous)."""
+    dtype = torch.bfloat16 if var == "bf16" else torch.float32
+    a, b = operands(shape, dtype, seed)
+    if var == "bf16":
+        b = lmm.bf16_rows(b)
+    return a, b, ("tf32" if var == "tf32" else None)
+
+
+def variant_error(lmm, a, b, c, var):
+    """(max |C - plain|, max |plain|, bound).  TF32: against the plain
+    version (the same rounded operands, f32 sums in another order) to
+    1e-5 max|C|.  BF16: against the plain version's f32 sum before its one
+    rounding to bf16, to 2^-8 max|C| (the rounding) plus the f32
+    accumulation bound K 2^-24 max(|A| |B|^T)."""
+    from ecw_cc_torch.config import matmul_precision
+
+    with matmul_precision("highest"):
+        if var == "tf32":
+            ref = lmm.ladder_mm_plain(a, b, "tf32")
+            scale = float(ref.abs().max()) if ref.numel() else 0.0
+            tol = 1e-5 * scale
+        else:
+            af, bf = a.float(), b.float()
+            ref = af @ bf.T
+            scale = float(ref.abs().max()) if ref.numel() else 0.0
+            acc = float((af.abs() @ bf.abs().T).max()) if ref.numel() else 0
+            tol = 2 ** -8 * scale + a.shape[1] * 2 ** -24 * acc
+    err = float((c.float() - ref).abs().max()) if ref.numel() else 0.0
+    return err, scale, tol
+
+
+def check_variants(lmm, n_sm):
+    """Phase 3 for the TF32 and BF16 variants: each against its plain
+    version at every shape of the f32 check; two launches bitwise equal
+    and a CUDA-graph replay at the solver's shapes.  Returns
+    {(variant, shape): (max_abs_err, plan)}."""
+    out = {}
+    for var in TC_VARIANTS:
+        for i, shape in enumerate(MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
+                                  + TARGET_SHAPES + RAGGED_SHAPES
+                                  + EDGE_SHAPES):
+            a, b, prec = variant_operands(lmm, shape, var, seed=i)
+            c = lmm.ladder_mm(a, b, precision=prec)
+            torch.cuda.synchronize()
+            err, scale, tol = variant_error(lmm, a, b, c, var)
+            ok = bool(torch.isfinite(c).all()) and err <= tol
+            p = lmm.device_plan(*shape, var, a.device)
+            phase(3, "variant_vs_plain", variant=var, shape=shape,
+                  dtype=str(c.dtype), max_abs_err=err, max_abs_ref=scale,
+                  bound=tol, ok=ok, waves=p.blocks / n_sm, **plan_fields(p))
+            if not ok:
+                raise AssertionError(f"ladder_mm {var} disagrees at {shape}: "
+                                     f"{err} > {tol}")
+            out[(var, shape)] = (err, p)
+        for shape in MAIN_SHAPES + ROUTE_SHAPES:
+            a, b, prec = variant_operands(lmm, shape, var, seed=11)
+            c1 = lmm.ladder_mm(a, b, precision=prec)
+            c2 = lmm.ladder_mm(a, b, precision=prec)
+            s = torch.cuda.Stream()
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                lmm.ladder_mm(a, b, precision=prec)
+            s.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=s):
+                cg = lmm.ladder_mm(a, b, precision=prec)
+            replays = []
+            for _ in range(2):
+                cg.fill_(float("nan"))
+                g.replay()
+                torch.cuda.synchronize()
+                replays.append(bool(torch.equal(cg, c1)))
+            bitwise = bool(torch.equal(c1, c2))
+            phase(3, "variant_deterministic", variant=var, shape=shape,
+                  bitwise=bitwise, graph_replays_equal=replays)
+            if not (bitwise and all(replays)):
+                raise AssertionError(f"ladder_mm {var} is not deterministic "
+                                     f"at {shape}: {bitwise}, {replays}")
+    return out
+
+
+def library_call(var):
+    """One PyTorch call computing the variant's product (the yardstick;
+    the port never calls it): cuBLAS with TF32 on (float32 matmul
+    precision 'high'), or on bf16 tensors."""
+    def tf32(a, b):
+        torch.set_float32_matmul_precision("high")
+        try:
+            return a @ b.T
+        finally:
+            torch.set_float32_matmul_precision("highest")
+
+    return tf32 if var == "tf32" else (lambda a, b: torch.matmul(a, b.T))
+
+
+def time_variants(lmm):
+    """{(variant, shape): times} for the TF32 and BF16 kernels, their plain
+    versions and the library call at the solver's shapes (the kernel
+    table's), by time_kernel's method, in turns."""
+    times = {}
+    for var in TC_VARIANTS:
+        lib = library_call(var)
+        for shape in MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES:
+            a, b, prec = variant_operands(lmm, shape, var, seed=0)
+            b_bytes = b.shape[0] * b.stride(0) * b.element_size()
+            n_copies = (-(-2 * L2_BYTES // b_bytes)
+                        if b_bytes >= COLD_B_BYTES else 1)
+            ops = [(a, b)] + [(a.clone(), b.clone() if var != "bf16" else
+                               lmm.bf16_rows(b.clone()))
+                              for _ in range(n_copies - 1)]
+            turn = [0]
+
+            def args():
+                turn[0] += 1
+                return ops[turn[0] % n_copies]
+
+            fns = {"ms": lambda: lmm.ladder_mm(*args(), precision=prec),
+                   "plain_ms": lambda: lmm.ladder_mm_plain(*args(), prec),
+                   "library_ms": lambda: lib(*args())}
+            for _ in range(5):
+                for fn in fns.values():
+                    fn()
+            torch.cuda.synchronize()
+            runs = {k: [] for k in fns}
+            order = list(fns)
+            for i in range(TIMING_RUNS):   # in turns, the order reversed
+                for k in (order if i % 2 == 0 else order[::-1]):
+                    runs[k].append(device_run_ms(fns[k], TIMING_LAUNCHES))
+            bound_ms, bound_by = bound(shape, var)
+            t = {k: statistics.median(v) for k, v in runs.items()}
+            t.update(bound_ms=bound_ms, bound_by=bound_by,
+                     operand_copies=n_copies,
+                     host_us=host_us(fns["ms"], HOST_CALLS),
+                     runs_ms={k: v for k, v in runs.items()})
+            times[(var, shape)] = t
+            phase(3, "variant_time", variant=var, shape=shape,
+                  runs=TIMING_RUNS, launches_per_run=TIMING_LAUNCHES, **t)
+    return times
+
+
 def build_ecw(device, dtype, basis=BASIS):
     from ecw_cc_torch import ECW
 
@@ -441,6 +650,52 @@ def build_ecw(device, dtype, basis=BASIS):
 def solve(ecw, lambdas, **kw):
     res = ecw.CCSD_GS(lambdas, diis=kw.pop("diis", "tl"), conv="tl", **kw)
     return res, ecw.solve_log
+
+
+def chain_ops(ecw, diis):
+    """Device operations per iteration of --chain's chain: the difference
+    of two profiled chains (CHAIN_OPS_ITERS), so that a solve's set-up and
+    read-back cancel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    got = []
+    for n in CHAIN_OPS_ITERS:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            solve(ecw, [0.25], diis=diis, conv_thres=0.0, maxiter=n - 1)
+        got.append(sum(e.count for e in prof.key_averages()
+                       if str(e.device_type).endswith("CUDA")))
+    return (got[1] - got[0]) / (CHAIN_OPS_ITERS[1] - CHAIN_OPS_ITERS[0])
+
+
+def chain_times():
+    """--chain: ms per iteration of the f32 main-path chain under the
+    default precision (ECW's packed route, lambda = 0.25, conv_thres 0),
+    without DIIS and with the sweep's 'tl' DIIS, at C2H2/cc-pVDZ and
+    cc-pVTZ: one untimed run, then CHAIN_REPS timed, on the wall clock and
+    in the process's CPU time (which other load on the host moves less),
+    and the device operations per iteration (chain_ops).  It calls only ECW and
+    CCSD_GS, so a copy of this script times an older checkout the same
+    way."""
+    for basis, iters in ((BASIS, CHAIN_ITERS), (BASIS_TZ, CHAIN_ITERS_TZ)):
+        ecw = build_ecw("cuda", torch.float32, basis=basis)
+        for diis in ("", "tl"):
+            runs, cpu = [], []
+            for _ in range(CHAIN_REPS + 1):
+                c0 = time.process_time()
+                _, log = solve(ecw, [0.25], diis=diis, conv_thres=0.0,
+                               maxiter=iters)
+                its = log[-1]["iterations"]
+                runs.append(log[-1]["ms"] / its)
+                cpu.append((time.process_time() - c0) * 1e3 / its)
+            phase("chain", "chain_f32", basis=basis, diis=diis,
+                  route=log[-1]["route"], iterations=its,
+                  ms_per_iteration=statistics.median(runs[1:]),
+                  ms_per_iteration_runs=runs[1:], untimed_run=runs[0],
+                  cpu_ms_per_iteration=statistics.median(cpu[1:]),
+                  cpu_ms_per_iteration_runs=cpu[1:],
+                  device_ops_per_iteration=chain_ops(ecw, diis))
+        del ecw
+        torch.cuda.empty_cache()
 
 
 def with_eris(ecw, eris, vvvv_op, mo_perm):
@@ -1457,17 +1712,26 @@ def es_tdhf_targets(ecw):
 
 
 def es_profile(ecw, amp):
-    """(device operations, device ms, device-to-host copies) per iteration
-    of the device ES loop at lambda = ES_L from the amplitudes amp: the
-    difference of two profiled fixed chains, so that a solve's set-up and
-    read-back cancel."""
+    """(device operations, device ms, device-to-host copies, {source:
+    synchronizing calls}) per iteration of the device ES loop at lambda =
+    ES_L from the amplitudes amp: the difference of two profiled fixed
+    chains, so that a solve's set-up and read-back cancel.  The sources
+    are the Python lines that made a synchronizing CUDA call (a read to
+    the host among them), as torch.cuda.set_sync_debug_mode('warn')
+    reports them in the same windows."""
     from torch.profiler import ProfilerActivity, profile
 
     got = []
     for n in ES_PROFILE_ITERS:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            es_chain(ecw, amp, n)
+        with warnings.catch_warnings(record=True) as caught, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                es_chain(ecw, amp, n)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
         ops = us = reads = 0
         for e in prof.key_averages():
             if str(e.device_type).endswith("CUDA"):
@@ -1475,12 +1739,18 @@ def es_profile(ecw, amp):
                 us += e.self_device_time_total
                 if "memcpy dtoh" in e.key.lower():
                     reads += e.count
-        got.append((n, ops, us, reads))
-    (i1, k1, u1, r1), (i2, k2, u2, r2) = got
+        src = collections.Counter(
+            re.sub(r"^.*?(ecw_cc_torch/|torch/|chip_smoke)", r"\1",
+                   w.filename) + f":{w.lineno}"
+            for w in caught if "synchroniz" in str(w.message).lower())
+        got.append((n, ops, us, reads, src))
+    (i1, k1, u1, r1, s1), (i2, k2, u2, r2, s2) = got
     if k2 <= k1:
         raise AssertionError(f"the profiler saw no device work: {got}")
+    per_src = {k: (s2[k] - s1[k]) / (i2 - i1) for k in s1.keys() | s2.keys()
+               if s2[k] != s1[k]}
     return ((k2 - k1) / (i2 - i1), (u2 - u1) / 1e3 / (i2 - i1),
-            (r2 - r1) / (i2 - i1))
+            (r2 - r1) / (i2 - i1), per_src)
 
 
 def run_es_width(basis, mom_probe=False):
@@ -1539,8 +1809,15 @@ def run_es_width(basis, mom_probe=False):
     one.exp_data, one.r_ini = ecw.exp_data[:2], ecw.r_ini[:1]
     amp_one = {k: (v[:1] if k in ("rn", "ln", "r0n", "l0n") else v)
                for k, v in amp.items()}
-    ops2, dev_ms2, reads2 = es_profile(ecw, amp)
-    ops1, dev_ms1, reads1 = es_profile(one, amp_one)
+    ops2, dev_ms2, reads2, src2 = es_profile(ecw, amp)
+    ops1, dev_ms1, reads1, src1 = es_profile(one, amp_one)
+    # the check: the package's synchronizing calls per iteration, exact
+    # per line.  The profiler's copies per iteration are printed beside
+    # them: a window's count can differ by a copy that no iteration made
+    # (1.25 and 0.875 were read where the lines showed one read)
+    syncs1, syncs2 = ({k: v for k, v in src.items()
+                       if k.startswith("ecw_cc_torch/")}
+                      for src in (src1, src2))
     per_it = chain_ms / chain_its
     phase(11, "es_sweep", molecule="c2h2, trans-bent 20 degrees",
           basis=basis, nocc=ecw.nocc,
@@ -1559,6 +1836,7 @@ def run_es_width(basis, mom_probe=False):
           device_ops_per_iteration={"one_state": ops1, "two_states": ops2},
           second_state_adds=ops2 / ops1 - 1.0,
           host_reads_per_iteration={"one_state": reads1, "two_states": reads2},
+          syncs_by_source={"one_state": src1, "two_states": src2},
           device_ms_per_iteration={"one_state": dev_ms1,
                                    "two_states": dev_ms2},
           busy_share=dev_ms2 / per_it)
@@ -1571,10 +1849,12 @@ def run_es_width(basis, mom_probe=False):
     if not falls:
         raise AssertionError(f"{basis}: Delta does not fall with lambda: "
                              f"{s32['Delta']} {s64['Delta']}")
-    if max(reads1, reads2) > 1.0:
-        raise AssertionError(f"{basis}: the ES loop reads the device "
-                             f"{reads1} / {reads2} times per iteration with "
-                             "one / two states (one scalar is allowed)")
+    if sum(syncs1.values()) != 1.0 or sum(syncs2.values()) != 1.0:
+        raise AssertionError(f"{basis}: the ES loop synchronizes with the "
+                             f"host {syncs1} / {syncs2} times per iteration "
+                             "with one / two states (one scalar read is "
+                             f"allowed); device-to-host copies {reads1} / "
+                             f"{reads2}")
     if ops2 > 1.3 * ops1:
         raise AssertionError(f"{basis}: the second excited state adds "
                              f"{ops2 / ops1 - 1:.0%} device operations per "
@@ -1716,6 +1996,193 @@ def check_no_jax(es_ran):
         raise AssertionError(f"imported: {bad}; not imported: {missing}")
     phase(8, "no_jax", ok=True, checked_modules=sum(
         m.startswith("ecw_cc_torch") for m in sys.modules))
+
+
+# Phase 12: the CCSD solve's precision modes.  Each mode runs the f32
+# ECW.CCSD_GS sweep on the packed route (one ladder launch per iteration,
+# in the variant of the iteration's mode); 'default' and 'bf16' may stall
+# above 1e-6 (a coarser fixed point, ecw_cc_tpu/config.py:53-54), so a
+# 30-iteration chain first finds the Dconv at which each mode stalls and
+# those two run at 3 times it (1e-6 at least).
+PREC_MODES = (("highest", "high"), ("high", "high"), ("default", "high"),
+              ("bf16", "high"), ("hybrid", "high"), ("hybrid", "bf16"))
+PREC_REFINE = ("highest", "high", "bf16")      # sweeps rerun with refine
+PREC_RAW = ("default", "bf16")
+PREC_CHAIN, PREC_MAXITER, PREC_F64_THRES = 30, 40, 1e-9
+PREC_L_TZ = [0.25]
+LEG_VARIANT = {"highest": "f32", "high": "tf32", "default": "tf32",
+               "bf16": "bf16"}
+ROUTE_LAUNCHES = {"packed": 1, "dense": 2}   # ladder launches per iteration
+POLISH_LAUNCHES = 2      # f64 ladder launches per polish iteration
+
+
+def mode_name(mode, fast):
+    return f"hybrid({fast})" if mode == "hybrid" else mode
+
+
+@contextlib.contextmanager
+def iter_precision(mode, fast="high"):
+    from ecw_cc_torch import set_config
+
+    set_config(iter_precision=mode, hybrid_fast=fast)
+    try:
+        yield
+    finally:
+        set_config(iter_precision="highest", hybrid_fast="high")
+
+
+def reset_counts(ladder_mm, variants):
+    ladder_mm.launches = ladder_mm.backward_launches = 0
+    ladder_mm.launches_by_variant = dict.fromkeys(variants, 0)
+
+
+def precision_chain(ecw, mode, basis):
+    """Dconv's floor and ms per iteration of a PREC_CHAIN-iteration chain
+    (diis 'tl', conv_thres 0) at lambda = 0.25 under `mode`."""
+    with iter_precision(mode):
+        res, log = solve(ecw, [0.25], conv_thres=0.0,
+                         maxiter=PREC_CHAIN - 1)
+    floor = float(np.min(res[3][1:]))
+    row = dict(mode=mode, basis=basis, iterations=log[0]["iterations"],
+               ms_per_iteration=log[0]["ms"] / log[0]["iterations"],
+               floor=floor)
+    phase(12, "precision_chain", **row)
+    return row
+
+
+def precision_sweep(ecw, lmm, mode, fast, lambdas, thres, refine, ref_ep,
+                    basis):
+    """One f32 ECW.CCSD_GS sweep under `mode` (refine: with the f64
+    polish), its launches by variant against what its legs predict, and
+    |dEp| per lambda against the f64 reference `ref_ep`."""
+    reset_counts(lmm.ladder_mm, lmm.VARIANTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with iter_precision(mode, fast):
+        res = ecw.CCSD_GS(lambdas, diis="tl", conv="tl", conv_thres=thres,
+                          maxiter=PREC_MAXITER, refine=refine)
+    torch.cuda.synchronize()
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(lmm.ladder_mm.launches_by_variant)
+    log = list(ecw.solve_log)
+    want = dict.fromkeys(lmm.VARIANTS, 0)
+    for s in log:
+        for leg_mode, n, _ in s["legs"]:
+            want[LEG_VARIANT[leg_mode]] += ROUTE_LAUNCHES[s["route"]] * n
+    want["f64"] += POLISH_LAUNCHES * sum(s.get("refine_iterations", 0)
+                                         for s in log)
+    ep = [float(ecw.EHF - e) for e in ecw.Ep_lamb]
+    row = dict(mode=mode_name(mode, fast), basis=basis, refine=refine,
+               conv_thres=thres, L=list(lambdas),
+               iterations=[s["iterations"] for s in log],
+               converged=[s["status"] == 1 for s in log],
+               legs=[s["legs"] for s in log],
+               ms=[s["ms"] for s in log],
+               routes=[s["route"] for s in log],
+               refine_ms=[s.get("refine_ms") for s in log],
+               refine_iterations=[s.get("refine_iterations") for s in log],
+               ms_per_iteration=[s["ms"] / s["iterations"] for s in log],
+               sweep_ms=sweep_ms, Ep=ep,
+               dEp=[abs(a - b) for a, b in zip(ep, ref_ep)],
+               launches=counts, expected_launches=want,
+               rdm1_finite=bool(np.all(np.isfinite(res[4]))),
+               amplitude_dtype=str(np.asarray(res[5][0]).dtype))
+    phase(12, "precision_sweep", **row)
+    if counts != want:
+        raise AssertionError(f"{row['mode']} (refine={refine}) launched "
+                             f"{counts}, its legs predict {want}")
+    if not row["rdm1_finite"]:
+        raise AssertionError(f"{row['mode']}: rdm1 is not finite")
+    return row
+
+
+def f64_reference(ecw, lambdas):
+    """(Ep per lambda, iterations): the f64 sweep on the same molecule, SCF
+    and target, on the f64 ERIs that refine polishes on (ECW.eris_f64,
+    built on the card; solved on their PackedVVVV), converged to
+    PREC_F64_THRES."""
+    from ecw_cc_torch.ops.ladder import pack_vvvv
+
+    er64 = ecw.eris_f64
+    ecw64 = with_eris(ecw, er64, pack_vvvv(er64.vvvv), None)
+    _, log = solve(ecw64, lambdas, conv_thres=PREC_F64_THRES, maxiter=60)
+    ep = [float(ecw64.EHF - e) for e in ecw64.Ep_lamb]
+    if not all(s["status"] == 1 for s in log):
+        raise AssertionError(f"the f64 reference sweep did not converge: "
+                             f"{log}")
+    return ep, [s["iterations"] for s in log]
+
+
+def run_phase12(lmm, ecw_tz=None):
+    """Phase 12 (alone with --precision): every precision mode on the f32
+    sweep at C2H2/cc-pVDZ, refine after 'highest', 'high' and 'bf16', and
+    'bf16' + refine and both hybrids at cc-pVTZ (lambda = 0.25).  The
+    refine polishes on ECW.eris_f64, the f64 ERIs the ECW transforms on the
+    card at first use; the f64 reference sweep runs on the same ERIs.
+    Returns ({path: launches}, {variant: launches})."""
+    from ecw_cc_torch import get_config
+
+    launches, by_variant = {}, dict.fromkeys(lmm.VARIANTS, 0)
+    tests = [(BASIS, None, LAMBDAS, PREC_MODES, PREC_REFINE),
+             (BASIS_TZ, ecw_tz, PREC_L_TZ,
+              (("bf16", "high"), ("hybrid", "high"), ("hybrid", "bf16")),
+              ("bf16",))]
+    for basis, ecw, lambdas, modes, refine_after in tests:
+        t0 = time.perf_counter()
+        ecw = ecw if ecw is not None else build_ecw("cuda", torch.float32,
+                                                    basis=basis)
+        t1 = time.perf_counter()
+        ecw.eris_f64     # the refine's f64 ERIs, built once here
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ref_ep, ref_its = f64_reference(ecw, lambdas)
+        phase(12, "set_up", basis=basis, ecw_s=t1 - t0, eris_f64_s=t2 - t1,
+              f64_reference_s=time.perf_counter() - t2, Ep_f64=ref_ep,
+              iterations_f64=ref_its,
+              host_eris_built=ecw._eris_host is not None)
+        # 'highest' always, for the ms per iteration the others save
+        floors = {m: precision_chain(ecw, m, basis)["floor"]
+                  for m in sorted({m for m, _ in modes} - {"hybrid"}
+                                  | {"highest"}, key=list(LEG_VARIANT).index)}
+        rows = {}
+        for mode, fast in modes:
+            thres = (max(CONV_THRES, 3 * floors[mode]) if mode in PREC_RAW
+                     else CONV_THRES)
+            for refine in (False, True) if mode in refine_after else (False,):
+                key = (mode_name(mode, fast), refine)
+                rows[key] = row = precision_sweep(
+                    ecw, lmm, mode, fast, lambdas, thres, refine, ref_ep,
+                    basis)
+                tag_ = (f"c2h2_{basis.replace('-', '')}_f32_"
+                        f"{key[0]}{'_refine' if refine else ''}")
+                launches[tag_] = sum(row["launches"].values())
+                for v, n in row["launches"].items():
+                    by_variant[v] += n
+        for (name, refine), row in rows.items():
+            converged = all(row["converged"])
+            if name in ("highest", "high", "hybrid(high)", "hybrid(bf16)"):
+                if not converged:
+                    raise AssertionError(f"{basis} {name} did not converge "
+                                         f"to {CONV_THRES}: {row}")
+            gap = max(row["dEp"])
+            if refine and name in ("highest", "high") and gap > 1e-8:
+                raise AssertionError(f"{basis} {name} + refine is {gap} Ha "
+                                     "from f64 (limit 1e-8)")
+            if name.startswith("hybrid") and gap > 1e-5:
+                raise AssertionError(f"{basis} {name} is {gap} Ha from f64 "
+                                     "(limit 1e-5)")
+        if ecw._eris_host is not None:
+            raise AssertionError(f"{basis}: refine built the host ERIs")
+        phase(12, "precision_summary", basis=basis, floors=floors, rows=[
+            {"mode": n, "refine": r, "iterations": row["iterations"],
+             "converged": row["converged"], "max_dEp": max(row["dEp"]),
+             "ms_per_iteration": row["ms_per_iteration"],
+             "launches": {v: c for v, c in row["launches"].items() if c}}
+            for (n, r), row in rows.items()])
+        assert get_config().iter_precision == "highest"
+        del ecw
+        torch.cuda.empty_cache()
+    return launches, by_variant
 
 
 def kernel_kind(name):
@@ -1888,13 +2355,17 @@ def route_sweeps(ladder_mm, cells=ROUTE_CELLS, reps=ROUTE_REPS,
     return rows
 
 
-def kernel_report(launches, checks, times, backward, grads):
-    """The kernel line: the headline numbers are f32 at the main path's
-    cc-pVTZ shape (392x13041x13041, the stacked packed GEMM); every timed
-    shape is under by_dtype.  launches: {path: ladder launches in its
-    run}; backward: the launches among them that a backward made (the
-    response densities of phase 10); grads: {(dtype, shape): error of the
-    kernel's gradient against the plain version's}."""
+def kernel_report(launches, checks, times, backward, grads, variants):
+    """The kernel line: one entry per variant of the ladder kernel.  f32
+    and f64 (csrc/ladder_mm.cu): the headline numbers at the main path's
+    cc-pVTZ shape (392x13041x13041, the stacked packed GEMM), every timed
+    shape under by_dtype; launches: {path: ladder launches in its run},
+    split by the dtype in the path's name; backward: the launches among
+    them that a backward made (phase 10's response densities); grads:
+    {(dtype, shape): error of the kernel's gradient against the plain
+    version's}.  variants: (checks, times) of the TF32 and BF16 kernels
+    (csrc/ladder_mm_tc.cu, phase 3) and {variant: launches} of phase 12,
+    whose f32 and f64 launches join those entries."""
     by_dtype = {}
     for dtype in DTYPES:
         by_dtype[str(dtype).split(".")[-1]] = {tag(shape): {
@@ -1909,26 +2380,52 @@ def kernel_report(launches, checks, times, backward, grads):
             "blocks": checks[(dtype, shape)][1].blocks,
             "split_k": checks[(dtype, shape)][1].split}
             for shape in TIMED_SHAPES[dtype]}
-    main = (torch.float32, PACKED_TZ)
-    return {"kernels": [{
-        "name": "ladder_mm", "route": "cuda",
-        "source": "ecw_cc_torch/csrc/ladder_mm.cu",
-        "replaces": "ecw_cc_tpu/ops/ladder.py:54",
-        "launches": sum(launches.values()),
-        "launches_by_path": launches,
-        "backward_launches": backward,
-        "gradient_max_abs_err": {
-            f"{str(d).split('.')[-1]} {tag(sh)}": e
-            for (d, sh), e in grads.items()},
-        "max_abs_err": max(checks[(torch.float32, s)][0]
-                           for s in TIMED_SHAPES[torch.float32]),
-        "ms": times[main]["ms"], "plain_ms": times[main]["plain_ms"],
-        "bound_ms": times[main]["bound_ms"],
-        "bound_by": times[main]["bound_by"],
-        "library_ms": times[main]["plain_ms"],
-        "shape": tag(main[1]), "dtype": "float32",
-        "blocks": checks[main][1].blocks, "split_k": checks[main][1].split,
-        "deterministic": True, "by_dtype": by_dtype}]}
+    v_checks, v_times, v_launches = variants
+    entries = []
+    for dtype, v in ((torch.float32, "f32"), (torch.float64, "f64")):
+        main = (dtype, PACKED_TZ)
+        paths = {k: n for k, n in launches.items()
+                 if ("f64" in k) == (v == "f64")}
+        paths["phase12_precision_modes"] = v_launches[v]
+        entries.append({
+            "name": f"ladder_mm_{v}", "route": "cuda",
+            "source": "ecw_cc_torch/csrc/ladder_mm.cu",
+            "replaces": "ecw_cc_tpu/ops/ladder.py:54",
+            "launches": sum(paths.values()),
+            "launches_by_path": paths,
+            "max_abs_err": max(checks[(dtype, s)][0]
+                               for s in TIMED_SHAPES[dtype]),
+            "ms": times[main]["ms"], "plain_ms": times[main]["plain_ms"],
+            "bound_ms": times[main]["bound_ms"],
+            "bound_by": times[main]["bound_by"],
+            "library_ms": times[main]["plain_ms"],
+            "shape": tag(main[1]), "dtype": str(dtype).split(".")[-1],
+            "blocks": checks[main][1].blocks,
+            "split_k": checks[main][1].split, "deterministic": True})
+    entries[0].update(backward_launches=backward, gradient_max_abs_err={
+        f"{str(d).split('.')[-1]} {tag(sh)}": e
+        for (d, sh), e in grads.items()}, by_dtype=by_dtype)
+    for v in TC_VARIANTS:
+        t = v_times[(v, PACKED_TZ)]
+        entries.append({
+            "name": f"ladder_mm_{v}", "route": "cuda",
+            "source": "ecw_cc_torch/csrc/ladder_mm_tc.cu",
+            "replaces": "ecw_cc_tpu/ops/ladder.py:54",
+            "launches": v_launches[v],
+            "max_abs_err": max(v_checks[(v, s)][0]
+                               for s in MAIN_SHAPES + TZ_SHAPES
+                               + ROUTE_SHAPES),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": tag(PACKED_TZ),
+            "blocks": v_checks[(v, PACKED_TZ)][1].blocks,
+            "split_k": v_checks[(v, PACKED_TZ)][1].split,
+            "deterministic": True,
+            "by_shape": {tag(s): {k: v_times[(v, s)][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "host_us")} | {"max_abs_err": v_checks[(v, s)][0]}
+                for s in MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES}})
+    return {"kernels": entries}
 
 
 def main(argv):
@@ -1969,6 +2466,10 @@ def main(argv):
         route_sweeps(ladder_mm)
         print(smi)
         return 0
+    if "--chain" in argv:
+        chain_times()
+        print(smi)
+        return 0
     if "--profile" in argv:
         for route in ("sectored", "packed"):
             for basis in (BASIS, BASIS_TZ):
@@ -1988,6 +2489,20 @@ def main(argv):
               ptxas=[ln.strip() for ln in lib.log.splitlines()
                      if re.search(r"registers|spill|entry function", ln)],
               sass=check_sass(lib.path))
+
+    if "--precision" in argv:
+        with timed(12, seconds):
+            launches_12, by_variant_12 = run_phase12(lmm)
+        with timed(8, seconds):
+            check_no_jax(False)
+        phase(0, "seconds", total=time.perf_counter() - t_start,
+              by_phase=seconds, launches=launches_12,
+              launches_by_variant=by_variant_12)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if "--es" in argv:
         with timed(11, seconds):
@@ -2024,6 +2539,8 @@ def main(argv):
                               n_sm)
         check_deterministic(ladder_mm)
         times = time_kernel(ladder_mm, ladder_mm_ref)
+        v_checks = check_variants(lmm, n_sm)
+        v_times = time_variants(lmm)
 
     # 4. main path, f32 (ERIs transformed on the card)
     with timed(4, seconds):
@@ -2108,7 +2625,6 @@ def main(argv):
         launches_9 = {"c2h2_ccpvtz_f32_sectored": run_sorted_tz(
             ladder_mm, ecw_tz, ref_tz)}
         tz = (ecw_tz.mol, ecw_tz.mf)
-        del ecw_tz
         launches_9.update(run_spin_mixing(ladder_mm, ecw32))
         launches_9.update(run_dense(ladder_mm, ecw32, ref32, ecw64c, ecwc))
 
@@ -2126,6 +2642,11 @@ def main(argv):
             raise AssertionError("the excited-state path launched ladder_mm "
                                  f"{ladder_mm.launches} times")
 
+    # 12. the precision modes (phase 7's cc-pVTZ ECW, kept for it)
+    with timed(12, seconds):
+        launches_12, by_variant_12 = run_phase12(lmm, ecw_tz)
+        del ecw_tz
+
     # 8. neither JAX nor the JAX package
     with timed(8, seconds):
         check_no_jax(True)
@@ -2137,7 +2658,8 @@ def main(argv):
          "c2h2_ccpvdz_f64_packed": launches_64,
          "c2h2_ccpvtz_f32_packed": launches_tz, **launches_9,
          **launches_10},
-        checks, times, back_10, grads)))
+        checks, times, back_10, grads,
+        (v_checks, v_times, by_variant_12))))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

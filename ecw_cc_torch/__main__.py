@@ -12,7 +12,8 @@ Spec format (all keys but molecule/basis optional):
   "out_dir": "results",         // cube files / plots / output.txt
   "dtype": "float32",           // precision of ERIs, targets and solves
   "device": "cuda",             // "cuda" (the default) or "cpu"
-  "config": {"soup_sector": true},           // config.set_config fields
+  "config": {"iter_precision": "hybrid",     // config.set_config fields
+             "hybrid_fast": "bf16"},
   "target": {"prop": "mat", "posthf": "HF",  // Build_GS_exp args
              "field": [0.05, 0.01, 0.0]},
   "es_targets": {"mom": [1, 0]} |
@@ -20,6 +21,7 @@ Spec format (all keys but molecule/basis optional):
   "run": {
     "solver": "CCSD_GS",        // CCS_GS | CCSD_GS | CCS_ES
     "Larray": [0.0, 0.7, 8],    // np.linspace(start, stop, n); or a list
+    "refine": true,             // CCSD_GS: an f64 polish after each solve
     ...                         // remaining keys passed to the solver
   }
 }

@@ -1,6 +1,7 @@
 """Build the port's CUDA sources into one shared library at first use.
 
-`nvcc` compiles every `ecw_cc_torch/csrc/*.cu` for Hopper (`sm_90a`) into a
+`nvcc` compiles every `ecw_cc_torch/csrc/*.cu` for Hopper (`sm_90a`), one
+process per source, all started together, and links the objects into a
 shared library with a plain C interface, which `ctypes` loads.  The output
 lives in `ecw_cc_torch/_build/` (listed in `.gitignore`) under a name keyed
 on a hash of the sources and flags, so an edited source is rebuilt and a
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -32,9 +33,14 @@ _INT = ctypes.c_int
 # ladder_mm: device, a, b, c, M, N, K, bm, bn, bk, split, stream
 _LADDER_MM = [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
               _INT, _PTR]
+# the tensor-core variants also take the operands' row strides:
+# device, a, b, c, M, N, K, lda, ldb, bm, bn, bk, split, stream
+_LADDER_MM_LD = _LADDER_MM[:7] + [_INT, _INT] + _LADDER_MM[7:]
 _SIGNATURES = {
     "ecw_ladder_mm_f32": _LADDER_MM,
     "ecw_ladder_mm_f64": _LADDER_MM,
+    "ecw_ladder_mm_tf32": _LADDER_MM_LD,
+    "ecw_ladder_mm_bf16": _LADDER_MM_LD,
 }
 
 
@@ -78,14 +84,27 @@ def library() -> Library:
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        cu = [s for s in srcs if s.endswith(".cu")]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+        cu = [s for s in srcs if s.endswith(".cu")]
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(cu, objs)]
+        log = "".join(p.communicate()[0] for p in procs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed (exits "
+                               f"{[p.returncode for p in procs]}):\n{log}")
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        log += proc.stdout + proc.stderr
+        for o in objs:
+            os.remove(o)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):"
+                               f"\n{log}")
         os.replace(tmp, path)
     cdll = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():

@@ -105,6 +105,7 @@ class ECW:
         # available lazily.
         self._int_thresh = int_thresh
         self._eris_host = None
+        self._eris_f64 = None
         self.vvvv_op = None
         self.mo_perm = None          # the alternating layout: no permutation
         if self.dtype == torch.float32:
@@ -147,6 +148,19 @@ class ECW:
             self._eris_host = build_eris(self.mol, self.mf,
                                          int_thresh=self._int_thresh)
         return self._eris_host
+
+    @property
+    def eris_f64(self):
+        """f64 ERIs in the alternating layout with the dense vvvv, on the
+        ECW's device: the operands of refine=True's polish.  The ECW's own at
+        f64; at f32 transformed on the device once, at first use
+        (build_eris_device), and never through the host ERIs."""
+        if self.dtype == torch.float64:
+            return self.eris
+        if self._eris_f64 is None:
+            self._eris_f64 = build_eris_device(
+                self.mol, self.mf, dtype=torch.float64, device=self.device)
+        return self._eris_f64
 
     def init_plot_var(self, Larray):
         self.Larray = Larray
@@ -311,14 +325,14 @@ class ECW:
                 checkpoint_dir=None, resume=False, mode="sweep",
                 refine=False):
         """GS-ECW-CCSD lambda sweep (warm-started, sequential).  Reference
-        Main.py:663-816.  mode='parallel' (ROADMAP A.13) and refine=True
-        (ROADMAP A.8) are not ported yet."""
+        Main.py:663-816.  refine=True follows each solve with f64 polish
+        iterations on eris_f64 (built on the device at f32, at first use),
+        for f64 parity of the returned energies, amplitudes and rdm1 (JAX
+        models/ecw.py:441-504).  mode='parallel' (ROADMAP A.13) is not
+        ported yet."""
         if mode != "sweep":
             raise NotImplementedError(
                 f"mode={mode!r} is not ported yet (ROADMAP A.13)")
-        if refine:
-            raise NotImplementedError(
-                "refine=True is not ported yet (ROADMAP A.8)")
         self.diis = diis + f" diis_max={diis_max}"
         if len(self.exp_data) > 1:
             print("Warning: ES data found but GS solver used; only GS data "
@@ -341,7 +355,8 @@ class ECW:
         Solve = Solver_CCSD(self.myccsd, VXexp, conv=conv,
                             conv_thres=conv_thres, tsini=tsini, lsini=lsini,
                             diis=diis, maxdiis=diis_max, maxiter=maxiter,
-                            vvvv_op=self.vvvv_op, mo_perm=self.mo_perm)
+                            vvvv_op=self.vvvv_op, mo_perm=self.mo_perm,
+                            eris_host=self.eris_f64 if refine else None)
         td = ld = None
         Result = None
         Ep = Delta = vmax = None
@@ -360,7 +375,7 @@ class ECW:
                     td, ld = saved["td"], saved["ld"]
             # amplitudes stay on the device across the warm-started sweep
             Result = Solve.SCF(L, ts=ts, ls=ls, td=td, ld=ld, alpha=alpha,
-                               keep_device=True)
+                               keep_device=True, refine=refine)
             ts, ls, td, ld = Result[5]
             self.solve_log.append(Solve.last_solve)
             if checkpoint_dir is not None:

@@ -1,21 +1,25 @@
 """Native (C++) integral engine loader.
 
 Compiles mdint.cpp to ecw_cc_torch/_build/libmdint-<hash>.so on first use
-(g++ -O3; the directory is git-ignored) and exposes
+(g++ -O3 -march=native; the directory is git-ignored) and exposes
 `compute_eri(basis_set) -> (nao,nao,nao,nao)` via ctypes.  Falls back to the
 NumPy engine transparently if no C++ toolchain is available
 (models/integrals.py checks `available()`).
 
 Copy of ecw_cc_tpu/native/__init__.py (the PyTorch port imports
-nothing of the JAX package); only the imports and the build
-directory differ.
+nothing of the JAX package); the imports, the build directory and the
+binary's name differ: it is keyed on the compile command and the host as
+well as the source, so a binary built on another machine (another
+-march=native) is never loaded here.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
@@ -31,20 +35,39 @@ _build_error = None
 NATIVE_LMAX = 4
 
 
+_CMD = ("g++", "-O3", "-march=native", "-fPIC", "-shared")
+
+
+@functools.cache
+def _host():
+    """The machine and its CPU's feature flags: what -march=native reads."""
+    flags = ""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            flags = next((line for line in fh if line.startswith("flags")),
+                         "")
+    except OSError:
+        pass
+    return f"{platform.machine()}|{' '.join(sorted(flags.split()))}"
+
+
 def _lib_path():
-    """Binary name keyed on the source CONTENT hash (not mtimes): a stale
-    binary from a different source or a different machine (-march=native!)
-    is never loaded — a fresh clone rebuilds on first use."""
+    """Binary name keyed on the source content (not mtimes), the compile
+    command and the host: a binary from another source, other flags or
+    another machine (-march=native) is never loaded; a fresh clone or a
+    new machine rebuilds on first use."""
+    h = hashlib.sha256()
     with open(_SRC, "rb") as f:
-        h = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(_BUILD_DIR, f"libmdint-{h}.so")
+        h.update(f.read())
+    h.update(" ".join(_CMD).encode())
+    h.update(_host().encode())
+    return os.path.join(_BUILD_DIR, f"libmdint-{h.hexdigest()[:12]}.so")
 
 
 def _build(lib_path):
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-march=native", "-fPIC", "-shared", _SRC, "-o", tmp]
-    subprocess.run(cmd, check=True, capture_output=True)
+    subprocess.run([*_CMD, _SRC, "-o", tmp], check=True, capture_output=True)
     os.replace(tmp, lib_path)
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ecw_cc_torch.ops import promote
 from ecw_cc_torch.ops.l1reg import subdiff
 from ecw_cc_torch.ops.ladder import apply_vvvv_op, dense_ladder, ladder_contract
 
@@ -246,9 +247,10 @@ def tupdate(eris, t1, t2, fsp=None, alpha=None, equation=False,
         Fvv = Fvv - torch.diag(diag_vv)
         Foo = Foo - torch.diag(diag_oo)
 
-    # T1
-    t1new = (einsum("ie,ae->ia", t1, Fvv)
-             - einsum("ma,mi->ia", t1, Foo)
+    # T1 (Fvv, Foo and the Ftmp below carry fock's dtype: under 'bf16'
+    # their products with the bf16 amplitudes promote, ops/promote.py)
+    t1new = (promote.einsum("ie,ae->ia", t1, Fvv)
+             - promote.einsum("ma,mi->ia", t1, Foo)
              + einsum("imae,me->ia", t2, Fov)
              - einsum("nf,naif->ia", t1, eris.ovov)
              - 0.5 * einsum("imef,maef->ia", t2, eris.ovvv)
@@ -257,10 +259,10 @@ def tupdate(eris, t1, t2, fsp=None, alpha=None, equation=False,
 
     # T2
     Ftmp = Fvv - 0.5 * einsum("mb,me->be", t1, Fov)
-    tmp = einsum("ijae,be->ijab", t2, Ftmp)
+    tmp = promote.einsum("ijae,be->ijab", t2, Ftmp)
     t2new = tmp - tmp.permute(0, 1, 3, 2)
     Ftmp = Foo + 0.5 * einsum("je,me->mj", t1, Fov)
-    tmp = einsum("imab,mj->ijab", t2, Ftmp)
+    tmp = promote.einsum("imab,mj->ijab", t2, Ftmp)
     t2new = t2new - (tmp - tmp.permute(1, 0, 2, 3))
     t2new = t2new + eris.oovv
     t2new = t2new + 0.5 * einsum("mnab,mnij->ijab", tau, Woooo)
@@ -401,20 +403,20 @@ def lupdate(eris, t1, t2, l1, l2, fsp=None, alpha=None, equation=False,
     tmp = tmp - tmp.permute(1, 0, 2, 3)
     l2new = l2new + tmp - tmp.permute(0, 1, 3, 2)
     tmp = einsum("ka,ijkb->ijab", l1, eris.ooov)
-    tmp = tmp + einsum("ijca,cb->ijab", l2, v1)
+    tmp = tmp + promote.einsum("ijca,cb->ijab", l2, v1)
     tmp1vv = mba + einsum("ka,kb->ba", l1, t1)
     tmp = tmp + einsum("ca,ijcb->ijab", tmp1vv, oovv)
     l2new = l2new - (tmp - tmp.permute(0, 1, 3, 2))
     tmp = einsum("ic,jcba->jiba", l1, eris.ovvv)
-    tmp = tmp + einsum("kiab,jk->ijab", l2, v2)
+    tmp = tmp + promote.einsum("kiab,jk->ijab", l2, v2)
     tmp1oo = mij + einsum("ic,kc->ik", l1, t1)
     tmp = tmp - einsum("ik,kjab->ijab", tmp1oo, oovv)
     l2new = l2new + (tmp - tmp.permute(1, 0, 2, 3))
 
     l1new = (fov
              + einsum("jb,ibaj->ia", l1, eris.ovvo)
-             + einsum("ib,ba->ia", l1, v1)
-             - einsum("ja,ij->ia", l1, v2)
+             + promote.einsum("ib,ba->ia", l1, v1)
+             - promote.einsum("ja,ij->ia", l1, v2)
              - einsum("kjca,icjk->ia", l2, imds["wovoo"])
              + einsum("ijab,jb->ia", m3, t1)
              + einsum("jiba,bj->ia", l2, imds["w3"]))

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ecw_cc_torch.ops import promote
 from ecw_cc_torch.ops.ccsd import _eia
 from ecw_cc_torch.ops.l1reg import subdiff
 from ecw_cc_torch.ops.ladder import (SectoredVVVV, apply_vvvv_op,
@@ -115,8 +116,8 @@ def tupdate_sect(eris, t1, t2, fsp, info, alpha=None, vvvv_op=None,
     Foo_d = Foo if keep_diag else Foo - torch.diag(diag_oo)
 
     # --- T1 ---
-    t1new = (einsum("ie,ae->ia", t1, Fvv_d)
-             - einsum("ma,mi->ia", t1, Foo_d)
+    t1new = (promote.einsum("ie,ae->ia", t1, Fvv_d)
+             - promote.einsum("ma,mi->ia", t1, Foo_d)
              + _S("imae,me->ia", t2b, wrap(Fov, "ov", info, sym=sym)).dense()
              - _S("nf,naif->ia", t1b, sb["ovov"]).dense()
              - 0.5 * _S("imef,maef->ia", t2b, sb["ovvv"]).dense()
@@ -275,8 +276,8 @@ def lupdate_sect(eris, t1, t2, l1, l2, fsp, info, alpha=None,
     # ---- Lambda1 (wvvvo folded in) ----
     l1new = (fov
              + _S("jb,ibaj->ia", l1b, sb["ovvo"]).dense()
-             + einsum("ib,ba->ia", l1, v1d)
-             - einsum("ja,ij->ia", l1, v2d)
+             + promote.einsum("ib,ba->ia", l1, v1d)
+             - promote.einsum("ja,ij->ia", l1, v2d)
              - _S("kjca,icjk->ia", l2b, wovoo).dense()
              + _S("ijab,jb->ia", m3b, t1b).dense()
              + _S("jiba,bj->ia", l2b, wrap(w3, "vo", info, sym=sym)).dense())

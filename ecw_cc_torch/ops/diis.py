@@ -71,7 +71,9 @@ def diis_update(state: DIISState, x, min_space=2):
         Bfull[space, :nvec] = -1.0
         Bfull[:nvec, space] = -1.0
         rhs = torch.zeros(space + 1, dtype=B.dtype, device=B.device)
-        rhs[space] = -1.0
+        # a slice: assigning a Python number to one element of a CUDA
+        # tensor copies it from the host and synchronizes the stream
+        rhs[space:] = -1.0
         sol, info = torch.linalg.solve_ex(Bfull, rhs)
         x_ext = sol[:nvec] @ xs[:nvec]
         ok = (info == 0) & torch.isfinite(x_ext).all()

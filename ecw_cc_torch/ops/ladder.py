@@ -38,8 +38,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ecw_cc_torch.config import get_config
-from ecw_cc_torch.kernels.ladder_mm import ladder_mm
+from ecw_cc_torch.config import active_precision, get_config
+from ecw_cc_torch.kernels.ladder_mm import bf16_rows, ladder_mm
 
 einsum = torch.einsum
 
@@ -65,6 +65,23 @@ def _pack_pairs(x2, v):
     return x2.index_select(1, _pair_index(v, x2.device))
 
 
+def _precision(x):
+    """The kernel precision of a ladder product on x: 'tf32' for float32
+    operands under the reduced iter_precision modes (config.
+    matmul_precision), else None (bfloat16 operands select the BF16
+    variant by their dtype)."""
+    if x.dtype == torch.float32 and active_precision() != "highest":
+        return "tf32"
+    return None
+
+
+def _cast(w, dtype):
+    """An operand block in `dtype`; bfloat16 blocks get rows padded for the
+    BF16 kernel's 16-byte copies (kernels.ladder_mm.bf16_rows), so no
+    launch copies them again."""
+    return bf16_rows(w) if dtype == torch.bfloat16 else w.to(dtype)
+
+
 def _unpack_pairs(yc, v):
     """(M, p) -> (M, v*v): inverse of _pack_pairs, zeros at f <= e (one
     scatter)."""
@@ -79,6 +96,11 @@ class PackedVVVV(NamedTuple):
     symmetric (pair-swap symmetry); its row axis may be zero-padded."""
     wc: torch.Tensor   # (p, p), p = nvir*(nvir-1)//2
 
+    def to(self, dtype):
+        """This operand in `dtype`: cast once per solve, as the JAX loop's
+        jax.tree.map(astype) (gs.py:932-933)."""
+        return PackedVVVV(wc=_cast(self.wc, dtype))
+
 
 def pack_vvvv(vvvv):
     """The PackedVVVV of a dense <ab||ef> block (JAX ladder.py:233)."""
@@ -90,7 +112,7 @@ def pack_vvvv(vvvv):
 
 def _packed_mm(xc, packed, p):
     """(M, p) packed rows times the packed operand, through the kernel."""
-    yc = ladder_mm(xc, packed.wc, symmetric=True)
+    yc = ladder_mm(xc, packed.wc, symmetric=True, precision=_precision(xc))
     return yc[:, :p] if packed.wc.shape[0] != p else yc
 
 
@@ -127,6 +149,10 @@ class SectoredVVVV(NamedTuple):
     wc_aa: torch.Tensor   # (paa, paa), paa = ma(ma-1)/2
     wc_bb: torch.Tensor   # (pbb, pbb)
     w_ab: torch.Tensor    # (ma*mb, ma*mb)
+
+    def to(self, dtype):
+        """This operand in `dtype`: cast once per solve (gs.py:932-933)."""
+        return SectoredVVVV(*(_cast(w, dtype) for w in self))
 
 
 def _sector_dims(sect, nvir):
@@ -166,7 +192,8 @@ def _sector_inputs(x, ma):
 
 def _sector_mm(xs, w, ncols):
     """One sector GEMM xs @ w.T through the Hopper kernel."""
-    y = ladder_mm(xs.contiguous(), w, symmetric=True)
+    xs = xs.contiguous()
+    y = ladder_mm(xs, w, symmetric=True, precision=_precision(xs))
     return y[:, :ncols] if w.shape[0] != ncols else y
 
 
@@ -312,8 +339,9 @@ def dense_ladder(x, vvvv):
     # a view of vvvv as it lies, never a copy of its 60 MB-3 GB: view
     # raises where the strides do not allow one, and the kernel on a
     # non-contiguous operand
-    y = ladder_mm(x.reshape(o * o2, v * v).contiguous(),
-                  vvvv.view(v * v, v * v), symmetric=True)
+    x2 = x.reshape(o * o2, v * v).contiguous()
+    y = ladder_mm(x2, vvvv.view(v * v, v * v), symmetric=True,
+                  precision=_precision(x2))
     return y.reshape(o, o2, v, v)
 
 

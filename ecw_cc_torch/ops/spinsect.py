@@ -26,6 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ecw_cc_torch.ops import promote
+
 
 class SectorInfo(NamedTuple):
     """Alpha/beta block sizes of the sorted layout (alpha first)."""
@@ -223,6 +225,11 @@ def sector_einsum(spec, *operands, info=None):
             if kind_of.setdefault(letter, kind) != kind:
                 raise ValueError(f"{spec}: index {letter} is both o and v")
     letters = sorted(kind_of)
+    # operands of mixed dtypes (a bf16 amplitude beside an f32 fock-shifted
+    # block under 'bf16') promote, as in the JAX package
+    dtypes = {next(iter(op.blocks.values())).dtype for op in operands
+              if op.blocks}
+    einsum = promote.einsum if len(dtypes) > 1 else torch.einsum
 
     out_blocks = {}
     for combo in itertools.product((0, 1), repeat=len(letters)):
@@ -237,7 +244,7 @@ def sector_einsum(spec, *operands, info=None):
                 break
             subs.append(val)
         else:
-            val = torch.einsum(spec, *subs)
+            val = einsum(spec, *subs)
             out_blocks[okey] = (out_blocks[okey] + val if okey in out_blocks
                                 else val)
     if sym and not out:

@@ -34,10 +34,19 @@ amplitudes and rdm1s are in the reference (alternating) spin convention:
 on the sorted layout they are sorted once on entry and unsorted once on
 exit.
 
+Precision (config.iter_precision, JAX gs.py:732-1038): each leg of the
+loop runs under config.matmul_precision of its mode; under 'bf16' the
+t/lambda updates read bf16 copies of the ERI blocks, the ladder operand
+(and, on the sectored route, their blocked views), built once per SCF
+call, and bf16 amplitudes, while rdm1, Vexp, the energy, DIIS and the
+convergence test stay in the loop's dtype; 'hybrid' runs a leg at
+config.hybrid_fast, then a 'highest' leg with a fresh DIIS ring.
+SCF(refine=True) follows the solve with polish_f64, f64 iterations on the
+amplitudes' own device.
+
 Every GS property is a device property, so the JAX package's host loops
 (_scf_host, and with it Solver_CCS.SCF(store_ite=True)) have no
-counterpart.  Routes that are not ported raise NotImplementedError naming
-their ROADMAP item: reduced precision and refine (A.8), and SCF_batch
+counterpart.  SCF_batch raises NotImplementedError naming its ROADMAP item
 (A.13).
 """
 
@@ -49,13 +58,13 @@ import time
 import numpy as np
 import torch
 
-from ecw_cc_torch.config import get_config
+from ecw_cc_torch.config import get_config, matmul_precision
 from ecw_cc_torch.ops import ccs as ccs_ops
 from ecw_cc_torch.ops import ccsd as ccsd_ops
 from ecw_cc_torch.ops import ccsd_sect
 from ecw_cc_torch.ops import diis as diis_ops
 from ecw_cc_torch.ops import spinsect
-from ecw_cc_torch.models.eris import warn_if_sorted_layout
+from ecw_cc_torch.models.eris import GEris, warn_if_sorted_layout
 from ecw_cc_torch.ops.ladder import (PackedVVVV, SectoredVVVV,
                                      balanced_stacked_sectored_contract,
                                      ensure_sorted_vvvv_op, make_vvvv_op,
@@ -343,12 +352,15 @@ class Solver_CCSD:
     PackedVVVV), or None to derive it from eris.vvvv per
     config.ladder_mode at each solve; mo_perm: the MO permutation
     (new_from_old) the ERIs were spin-sorted with, or None for ERIs in the
-    reference alternating layout."""
+    reference alternating layout; eris_host: the f64 ERIs that
+    SCF(refine=True) polishes on, a GEris of tensors in the alternating
+    layout with the dense vvvv (ECW.eris_f64: build_eris_device(dtype=
+    float64), or ErisHost.to_device), moved to the solve's device once."""
 
     def __init__(self, mycc, VX_exp, conv="tl", conv_thres=1e-6, tsini=None,
                  lsini=None, tdini=None, ldini=None, diis="", maxiter=40,
                  maxdiis=None, mindiis=None, energy_term="ref", vvvv_op=None,
-                 mo_perm=None):
+                 mo_perm=None, eris_host=None):
         if conv not in ("Ep", "l", "tl"):
             raise ValueError("Accepted convergence parameter is Ep, l or tl")
         if diis not in ("", "tl", "rdm1"):
@@ -363,6 +375,11 @@ class Solver_CCSD:
                     "layout: pass the mo_perm its ERIs were sorted with")
         self.mycc = mycc
         self.myVexp = VX_exp
+        if eris_host is not None and not isinstance(eris_host, GEris):
+            raise TypeError("eris_host: a GEris of tensors with the dense "
+                            "vvvv (ECW.eris_f64), not "
+                            f"{type(eris_host).__name__}")
+        self.eris_host = eris_host   # enables refine=True (f64 polish)
         # an operand given here is used as it is; else _get_vvvv_op builds
         # it from eris.vvvv, anew when config.ladder_mode changes
         self._vvvv_op = vvvv_op
@@ -525,12 +542,20 @@ class Solver_CCSD:
     # the solve
     # ------------------------------------------------------------------
     def SCF(self, L, ts=None, ls=None, td=None, ld=None, alpha=None, diis="",
-            keep_device=False, refine=False):
+            keep_device=False, refine=False, refine_iter=6):
         """Solve at constraint weight L.  Returns the reference 6-tuple
         (conv_text, Ep_it, Delta_it, conv_it, rdm1, [ts, ls, td, ld]),
-        amplitudes as NumPy arrays (device tensors with keep_device=True)."""
-        if refine:
-            raise _not_ported("refine=True (f64 polish)", "A.8")
+        amplitudes as NumPy arrays (device tensors with keep_device=True).
+
+        refine=True follows the solve with at least `refine_iter` f64
+        polish iterations (polish_f64) on the amplitudes' device, recovering
+        f64 parity from an f32 or reduced-precision solve (JAX
+        gs.py:1070-1130); it needs eris_host at construction.  The returned
+        amplitudes and rdm1 are then f64, and the histories gain the
+        polish's energy."""
+        if refine and self.eris_host is None:
+            raise ValueError("refine=True requires eris_host at "
+                             "Solver_CCSD construction")
         route = self.route()
         sym = (route == "sectored" and get_config().soup_sym
                and self._spin_restricted())
@@ -542,20 +567,57 @@ class Solver_CCSD:
             out = self._solve(L, *amps0, alpha=alpha, diis=diis or self.diis,
                               sectored=route == "sectored", sym=sym)
         (ts, ls, td, ld, rdm1, ite, k, status, Ep_h, Delta_h, vmax_h,
-         conv_h) = out
+         conv_h, legs) = out
         # wall time to solution: _solve ends in a device->host copy
         self.last_solve = {"L": L, "iterations": k, "status": status,
                            "route": route, "sym": sym,
+                           "precision": get_config().iter_precision,
+                           "legs": legs,
                            "ms": (time.perf_counter() - t0) * 1e3}
         text = _conv_text(status, L, ite, alpha=alpha, ccsd=True)
         Delta_it = np.stack([Delta_h[:k], vmax_h[:k]], axis=1)
         amps = [ts, ls, td, ld]
+        if refine:
+            t1 = time.perf_counter()
+            amps, Ep64, rdm1, n_pol = polish_f64(
+                self._polish_eris(), self.myVexp, L, amps,
+                n_iter=refine_iter, alpha=alpha,
+                energy_term=self.energy_term)
+            self.last_solve["refine_ms"] = (time.perf_counter() - t1) * 1e3
+            self.last_solve["refine_iterations"] = n_pol
+            Ep_h = np.concatenate([Ep_h[:k], [Ep64]])
+            conv_h = np.concatenate([conv_h[:k], [conv_h[k - 1]]])
+            Delta_it = np.concatenate([Delta_it, Delta_it[-1:]], axis=0)
+            k += 1
         if not keep_device:
             amps = [a.cpu().numpy() for a in amps]
         self.myVexp.Vexp_update(rdm1, rdm1, (0, 0), L=L)
         _record_metrics(self, "CCSD_device", L, Ep_h[:k], Delta_it,
                         conv_h[:k])
         return (text, Ep_h[:k], Delta_it, conv_h[:k], rdm1, amps)
+
+    def _polish_eris(self):
+        """eris_host as f64 tensors on the solve's device, moved once per
+        solver (JAX uploads them per polish)."""
+        if getattr(self, "_eris64", None) is None:
+            er = self.eris_host
+            self._eris64 = er._replace(
+                **{f: getattr(er, f).to(self.device, torch.float64)
+                   for f in er._fields})
+        return self._eris64
+
+    def _bf16_operands(self, eris, vv, sectored, sym):
+        """The 'bf16' mode's update operands, built once per SCF call (JAX
+        gs.py:922-936): every ERI block but fock and the ladder operand in
+        bf16, and on the sectored route their blocked views; fock stays in
+        the loop's dtype, so the denominators divide there."""
+        bf = torch.bfloat16
+        eris_bf = eris._replace(**{f: getattr(eris, f).to(bf)
+                                   for f in eris._fields if f != "fock"})
+        vv_bf = None if vv is None else vv.to(bf)
+        sb_bf = (ccsd_sect.wrap_eris(eris_bf, self._sinfo, sym=sym)
+                 if sectored else None)
+        return eris_bf, vv_bf, sb_bf
 
     def SCF_batch(self, Larray, alpha=None, diis=""):
         raise _not_ported("SCF_batch (all lambdas in one batched solve)",
@@ -604,93 +666,146 @@ class Solver_CCSD:
             td, ld = _perm4(td, po, pv), _perm4(ld, po, pv)
         eris_sb = ccsd_sect.wrap_eris(eris, info, sym=sym) if sectored else None
 
+        # the legs of the solve: (precision mode, Dconv it runs down to)
+        prec = get_config().iter_precision
+        if prec == "hybrid":
+            legs = [(get_config().hybrid_fast,
+                     max(thres, get_config().hybrid_switch)),
+                    ("highest", thres)]
+        else:
+            legs = [(prec, thres)]
+        upd_bf = (self._bf16_operands(eris, vv, sectored, sym)
+                  if any(mode == "bf16" for mode, _ in legs) else None)
+
         nvec = (2 * n_ov + 2 * n_4) if diis == "tl" else dim * dim
-        dstate = (diis_ops.diis_init(nvec, self.maxdiis, dtype=dt, device=dev)
-                  if diis else None)
+
+        def fresh_diis():
+            return (diis_ops.diis_init(nvec, self.maxdiis, dtype=dt,
+                                       device=dev) if diis else None)
+
+        dstate = fresh_diis()
         conv = torch.zeros_like(conv_vec(ts, ls, td, ld, eris.fock))
         hist = torch.zeros((4, maxiter + 2), dtype=dt, device=dev)
         Dconv, Dconv_v = torch.ones((), dtype=dt, device=dev), 1.0
         ite = k = 0
         status = RUNNING
         rdm1 = torch.zeros((dim, dim), dtype=dt, device=dev)
-        while Dconv_v > thres and status == RUNNING:
-            conv_old = conv
-            rdm1 = ccsd_ops.gamma_CCSD(
-                ts, td, ls, ld,
-                inter=(ccsd_sect.gamma_inter_sect(ts, td, ls, ld, info,
-                                                  sym=sym)
-                       if sectored else None))
-            if diis == "rdm1":
-                dstate, vec = diis_ops.diis_update(dstate, rdm1.reshape(-1),
-                                                   self.mindiis)
-                rdm1 = vec.reshape(dim, dim)
-            V, Delta, vmax = vexp_fn(rdm1, Lw)
-            fsp = eris.fock - V
-            Ep = ccsd_ops.energy(eris, ts, td, fsp)
-            # both vvvv ladders read only pre-update amplitudes (tau on the
-            # t side, l2 on the lambda side): one stacked GEMM per operand
-            # block, so each block is read once per iteration
-            ladder_t = ladder_l = tau_pre = None
-            if isinstance(vv, PackedVVVV):
-                ladder_t, ladder_l = stacked_packed_contract(
-                    vv, ccsd_ops.make_tau(td, ts, ts), ld)
-            elif isinstance(vv, SectoredVVVV):
-                if sectored:
-                    # balanced rows (mirror skip when sym); the blocked tau
-                    # is shared with tupdate_sect
-                    tau_pre = ccsd_sect._tau_b(
-                        spinsect.wrap(td, "oovv", info, sym=sym),
-                        spinsect.wrap(ts, "ov", info, sym=sym))
-                    ladder_t, ladder_l = balanced_stacked_sectored_contract(
-                        vv, tau_pre, ld, info.oa, sym=sym, blocked_info=info)
-                else:
-                    ladder_t, ladder_l = stacked_sectored_contract(
-                        vv, ccsd_ops.make_tau(td, ts, ts), ld)
-            if sectored:
-                ts, td = ccsd_sect.tupdate_sect(
-                    eris, ts, td, fsp, info, alpha=alpha, vvvv_op=vv,
-                    ladder_pre=ladder_t, eris_sb=eris_sb, sym=sym,
-                    tau_pre=tau_pre)
-                ls, ld = ccsd_sect.lupdate_sect(
-                    eris, ts, td, ls, ld, fsp, info, alpha=alpha,
-                    energy_term=self.energy_term, vvvv_op=vv,
-                    ladder_pre=ladder_l, eris_sb=eris_sb, sym=sym)
-            else:
-                ts, td = ccsd_ops.tupdate(eris, ts, td, fsp=fsp, alpha=alpha,
-                                          vvvv_op=vv, ladder_pre=ladder_t)
-                ls, ld = ccsd_ops.lupdate(eris, ts, td, ls, ld, fsp=fsp,
-                                          alpha=alpha,
-                                          energy_term=self.energy_term,
-                                          vvvv_op=vv, ladder_pre=ladder_l)
-            vec = None
-            if diis == "tl":
-                dstate, vec = diis_ops.diis_update(
-                    dstate, torch.cat([p_ov(ls), p_ov(ts), p_4(ld), p_4(td)]),
-                    self.mindiis)
-                ls = u_ov(vec[:n_ov])
-                ts = u_ov(vec[n_ov:2 * n_ov])
-                ld = u_4(vec[2 * n_ov:2 * n_ov + n_4])
-                td = u_4(vec[2 * n_ov + n_4:])
-            if vec is not None and conv_kind == "tl":
-                # the DIIS vector already holds the components conv_vec
-                # would gather
-                conv = torch.cat([
-                    vec[:n_ov].abs() + vec[n_ov:2 * n_ov].abs(),
-                    vec[2 * n_ov:2 * n_ov + n_4].abs()
-                    + vec[2 * n_ov + n_4:].abs()])
-            else:
-                conv = conv_vec(ts, ls, td, ld, fsp)
-            if ite > 0:
-                Dconv = torch.linalg.norm(conv - conv_old)
-                Dconv_v = float(Dconv)       # the one read per iteration
-            hist[:, k] = torch.stack([Ep, Delta, vmax, Dconv])
-            if ite >= maxiter:
-                status = MAXITER
-            elif Dconv_v > 1.0:
-                status = DIVERGED
-            else:
-                ite += 1
-            k += 1
+        leg_log = []
+        for leg, (mode, stop) in enumerate(legs):
+            if leg:
+                # the 'highest' leg of 'hybrid' (JAX gs.py:1019-1035): a
+                # fresh DIIS ring (extrapolating over the fast leg's noisy
+                # differences poisons the subspace), and Dconv lifted above
+                # thres so that at least one full-precision iteration runs
+                dstate = fresh_diis()
+                Dconv_v = max(Dconv_v, 1.5 * thres)
+                Dconv = torch.full((), Dconv_v, dtype=dt, device=dev)
+            # the bf16 leg's update operands; rdm1, Vexp, the energy, DIIS
+            # and the convergence test stay in dt
+            er_u, vv_u, sb_u = ((eris, vv, eris_sb) if mode != "bf16"
+                                else upd_bf)
+            cast = ((lambda x: x) if mode != "bf16"
+                    else (lambda x: x.to(torch.bfloat16)))
+            # the fast leg of 'hybrid' also ends when Dconv stalls: 3
+            # iterations without a new best below 0.95 * best
+            stall_on = len(legs) > 1 and leg == 0
+            dmin, stall, k0 = float("inf"), 0, k
+            with matmul_precision(mode):
+                while Dconv_v > stop and status == RUNNING and stall < 3:
+                    conv_old = conv
+                    rdm1 = ccsd_ops.gamma_CCSD(
+                        ts, td, ls, ld,
+                        inter=(ccsd_sect.gamma_inter_sect(ts, td, ls, ld,
+                                                          info, sym=sym)
+                               if sectored else None))
+                    if diis == "rdm1":
+                        dstate, vec = diis_ops.diis_update(
+                            dstate, rdm1.reshape(-1), self.mindiis)
+                        rdm1 = vec.reshape(dim, dim)
+                    V, Delta, vmax = vexp_fn(rdm1, Lw)
+                    fsp = eris.fock - V
+                    Ep = ccsd_ops.energy(eris, ts, td, fsp)
+                    ts_u, td_u, ls_u, ld_u, fsp_u = (
+                        cast(x) for x in (ts, td, ls, ld, fsp))
+                    # both vvvv ladders read only pre-update amplitudes
+                    # (tau on the t side, l2 on the lambda side): one
+                    # stacked GEMM per operand block, so each block is read
+                    # once per iteration
+                    ladder_t = ladder_l = tau_pre = None
+                    if isinstance(vv_u, PackedVVVV):
+                        ladder_t, ladder_l = stacked_packed_contract(
+                            vv_u, ccsd_ops.make_tau(td_u, ts_u, ts_u), ld_u)
+                    elif isinstance(vv_u, SectoredVVVV):
+                        if sectored:
+                            # balanced rows (mirror skip when sym); the
+                            # blocked tau is shared with tupdate_sect
+                            tau_pre = ccsd_sect._tau_b(
+                                spinsect.wrap(td_u, "oovv", info, sym=sym),
+                                spinsect.wrap(ts_u, "ov", info, sym=sym))
+                            ladder_t, ladder_l = (
+                                balanced_stacked_sectored_contract(
+                                    vv_u, tau_pre, ld_u, info.oa, sym=sym,
+                                    blocked_info=info))
+                        else:
+                            ladder_t, ladder_l = stacked_sectored_contract(
+                                vv_u, ccsd_ops.make_tau(td_u, ts_u, ts_u),
+                                ld_u)
+                    if sectored:
+                        ts, td = ccsd_sect.tupdate_sect(
+                            er_u, ts_u, td_u, fsp_u, info, alpha=alpha,
+                            vvvv_op=vv_u, ladder_pre=ladder_t, eris_sb=sb_u,
+                            sym=sym, tau_pre=tau_pre)
+                        ls, ld = ccsd_sect.lupdate_sect(
+                            er_u, cast(ts), cast(td), ls_u, ld_u, fsp_u, info,
+                            alpha=alpha, energy_term=self.energy_term,
+                            vvvv_op=vv_u, ladder_pre=ladder_l, eris_sb=sb_u,
+                            sym=sym)
+                    else:
+                        ts, td = ccsd_ops.tupdate(
+                            er_u, ts_u, td_u, fsp=fsp_u, alpha=alpha,
+                            vvvv_op=vv_u, ladder_pre=ladder_t)
+                        # the f32 denominators promoted ts/td back: the
+                        # lambda update reads them in bf16 again
+                        ls, ld = ccsd_ops.lupdate(
+                            er_u, cast(ts), cast(td), ls_u, ld_u, fsp=fsp_u,
+                            alpha=alpha, energy_term=self.energy_term,
+                            vvvv_op=vv_u, ladder_pre=ladder_l)
+                    ts, td, ls, ld = (x.to(dt) for x in (ts, td, ls, ld))
+                    vec = None
+                    if diis == "tl":
+                        dstate, vec = diis_ops.diis_update(
+                            dstate,
+                            torch.cat([p_ov(ls), p_ov(ts), p_4(ld), p_4(td)]),
+                            self.mindiis)
+                        ls = u_ov(vec[:n_ov])
+                        ts = u_ov(vec[n_ov:2 * n_ov])
+                        ld = u_4(vec[2 * n_ov:2 * n_ov + n_4])
+                        td = u_4(vec[2 * n_ov + n_4:])
+                    if vec is not None and conv_kind == "tl":
+                        # the DIIS vector already holds the components
+                        # conv_vec would gather
+                        conv = torch.cat([
+                            vec[:n_ov].abs() + vec[n_ov:2 * n_ov].abs(),
+                            vec[2 * n_ov:2 * n_ov + n_4].abs()
+                            + vec[2 * n_ov + n_4:].abs()])
+                    else:
+                        conv = conv_vec(ts, ls, td, ld, fsp)
+                    if ite > 0:
+                        Dconv = torch.linalg.norm(conv - conv_old)
+                        Dconv_v = float(Dconv)   # the one read per iteration
+                    hist[:, k] = torch.stack([Ep, Delta, vmax, Dconv])
+                    if ite >= maxiter:
+                        status = MAXITER
+                    elif Dconv_v > 1.0:
+                        status = DIVERGED
+                    else:
+                        ite += 1
+                    k += 1
+                    if stall_on and ite > 1:
+                        # (the first iteration's Dconv is a placeholder)
+                        stall = 0 if Dconv_v < 0.95 * dmin else stall + 1
+                        dmin = min(dmin, Dconv_v)
+            leg_log.append((mode, k - k0, Dconv_v))
         if status == RUNNING:
             status = CONVERGED
         if self.mo_perm is not None:
@@ -701,4 +816,49 @@ class Solver_CCSD:
             rdm1 = rdm1[ip][:, ip]
         hist_np = hist.cpu().numpy()
         return (ts, ls, td, ld, rdm1.cpu().numpy(), ite, k, status,
-                hist_np[0], hist_np[1], hist_np[2], hist_np[3])
+                hist_np[0], hist_np[1], hist_np[2], hist_np[3], leg_log)
+
+
+# ---------------------------------------------------------------------------
+# Mixed precision: a reduced-precision solve, then an f64 polish
+# ---------------------------------------------------------------------------
+
+POLISH_TOL = 1e-10      # Ha: the polish stops once Ep moves less than this
+POLISH_MAX = 5          # ... or after this many times refine_iter iterations
+
+
+def polish_f64(eris64, VXexp, L, amps, n_iter=6, alpha=None,
+               energy_term="ref"):
+    """Refine converged ECW-CCSD amplitudes with f64 iterations (JAX
+    gs.py:1183-1233): the dense ops/ccsd.py updates, the ladder the f64
+    kernel's dense GEMM, and the host Vexp refreshed from each rdm1.  The
+    JAX package runs it on the CPU because the TPU has no f64; here it
+    runs on the device of `eris64` (f64 tensors in the alternating layout,
+    ECW.eris_f64), the card's FP64 tensor cores included.
+
+    The JAX package runs `n_iter` iterations.  Here those are the least:
+    the polish goes on until Ep moves by less than POLISH_TOL between two
+    iterations, at most POLISH_MAX * n_iter.  The iteration halves the
+    error each time, and a TF32 solve's fixed point lies 1e-5 Ha from the
+    f64 one where the TPU's three-pass 'high' stayed near 1e-6: six
+    iterations left 2.9e-7 Ha (measured on an H100, C2H2/cc-pVDZ).
+
+    amps: (ts, ls, td, ld) of the solve (tensors or arrays).  Returns
+    ([ts, ls, td, ld] as f64 tensors, the last iteration's Ep, the final
+    rdm1 as an f64 NumPy array, the iterations run)."""
+    dev, f64 = eris64.fock.device, torch.float64
+    ts, ls, td, ld = (_to_tensor(a, f64, dev) for a in amps)
+    Ep = None
+    with torch.no_grad(), matmul_precision("highest"):
+        for it in range(1, POLISH_MAX * n_iter + 1):
+            rdm1 = ccsd_ops.gamma_CCSD(ts, td, ls, ld).cpu().numpy()
+            VXexp.Vexp_update(rdm1, rdm1, (0, 0), L=L)
+            fsp = eris64.fock - _to_tensor(VXexp.Vexp[0, 0], f64, dev)
+            Ep, Ep_old = float(ccsd_ops.energy(eris64, ts, td, fsp)), Ep
+            ts, td = ccsd_ops.tupdate(eris64, ts, td, fsp=fsp, alpha=alpha)
+            ls, ld = ccsd_ops.lupdate(eris64, ts, td, ls, ld, fsp=fsp,
+                                      alpha=alpha, energy_term=energy_term)
+            if it >= n_iter and abs(Ep - Ep_old) < POLISH_TOL:
+                break
+        rdm1 = ccsd_ops.gamma_CCSD(ts, td, ls, ld).cpu().numpy()
+    return [ts, ls, td, ld], Ep, rdm1, it

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from conftest import random_g_amp
+from gauge import jax_gauge
 from ecw_cc_tpu import ECW as JaxECW
 from ecw_cc_tpu.ops import ccs as jccs
 from ecw_cc_tpu.ops.vexp import Exp as JaxExp
@@ -166,7 +167,8 @@ def h2_pair():
     """The H2/6-31G ECW objects of both packages with the same HF target."""
     ref = JaxECW("h2", "6-31g")
     ref.Build_GS_exp("mat", "HF", field=[0.03, 0.0, 0.0])
-    ecw = ECW("h2", "6-31g", **F64)
+    with jax_gauge(ref):
+        ecw = ECW("h2", "6-31g", **F64)
     ecw.Build_GS_exp("mat", "HF", field=[0.03, 0.0, 0.0])
     return ref, ecw
 
@@ -284,7 +286,8 @@ def test_gradient_descent_decreases_residual(h2_pair):
 def h2o_pair():
     ref = JaxECW("h2o", "6-31g")
     ref.Build_GS_exp("mat", "HF", field=FIELD)
-    ecw = ECW("h2o", "6-31g", **F64)
+    with jax_gauge(ref):
+        ecw = ECW("h2o", "6-31g", **F64)
     ecw.Build_GS_exp("mat", "HF", field=FIELD)
     return ref, ecw
 

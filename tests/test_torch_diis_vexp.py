@@ -133,16 +133,26 @@ def test_to_ao_r_is_two_products(h2o_631g):
 
 
 def test_set_config_refuses_unported_precision_modes():
-    """Only iter_precision='highest' is ported: every other name is refused
-    when it is set, naming the ROADMAP item, so that no solver can be
-    handed a mode it would ignore."""
+    """iter_precision takes the JAX package's five names (and hybrid_fast
+    its three); any other name is refused when it is set, so that no
+    solver can be handed a mode it would ignore."""
     import ecw_cc_torch
 
-    for name in ("high", "default", "bf16", "hybrid", "tf32", ""):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            ecw_cc_torch.set_config(iter_precision=name)
-        assert ecw_cc_torch.get_config().iter_precision == "highest"
-    ecw_cc_torch.set_config(iter_precision="highest")
+    for name in ("highest", "high", "default", "bf16", "hybrid"):
+        ecw_cc_torch.set_config(iter_precision=name)
+        assert ecw_cc_torch.get_config().iter_precision == name
+    for name in ("high", "default", "bf16"):
+        ecw_cc_torch.set_config(hybrid_fast=name)
+        assert ecw_cc_torch.get_config().hybrid_fast == name
+    ecw_cc_torch.set_config(iter_precision="highest", hybrid_fast="high")
+    for field, name in (("iter_precision", "tf32"), ("iter_precision", ""),
+                        ("iter_precision", "medium"),
+                        ("hybrid_fast", "highest"),
+                        ("hybrid_fast", "hybrid")):
+        with pytest.raises(ValueError, match=field):
+            ecw_cc_torch.set_config(**{field: name})
+    assert ecw_cc_torch.get_config().iter_precision == "highest"
+    assert ecw_cc_torch.get_config().hybrid_fast == "high"
 
 
 def test_exp_rejects_excited_state_targets(h2o_631g):

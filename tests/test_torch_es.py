@@ -23,6 +23,7 @@ from ecw_cc_torch.solvers.es import (Solver_ES, SolverES_Device,
                                      amp_from_numpy, amp_to_numpy)
 from ecw_cc_torch.utils import linalg as ulinalg
 from ecw_cc_torch.utils import props
+from gauge import jax_gauge
 
 torch.set_num_threads(1)
 
@@ -40,7 +41,8 @@ def _fresh(es_prop):
 def _pair(es_prop, molecule="h2o", basis="6-31g"):
     ref = JaxECW(molecule, basis)
     ref.Build_ES_exp_input(_fresh(es_prop))
-    ecw = ECW(molecule, basis, **F64)
+    with jax_gauge(ref):
+        ecw = ECW(molecule, basis, **F64)
     ecw.Build_ES_exp_input(_fresh(es_prop))
     return ref, ecw
 
@@ -203,10 +205,25 @@ def test_amp_dictionary_round_trip():
     assert torch.equal(again["ln"].double().float(), again["ln"])
 
 
-def test_scf_diag_exact_matches_jax(anchor_pair):
+def _eig_in_one_gauge(eig):
+    """np.linalg.eig with each eigenvector's sign fixed (its entry of
+    largest modulus positive).  Both packages' SCF_diag follow the root
+    whose vector numpy returns, sign and all, and the transition Vexp sees
+    that sign; numpy's own choice flips with the last bits of the matrix
+    (H2O's symmetry leaves exact zeros for its Householder pivots)."""
+    def fixed(a):
+        w, v = eig(a)
+        idx = np.argmax(np.abs(v), axis=0)
+        s = np.sign(v[idx, np.arange(v.shape[1])].real)
+        return w, v * np.where(s == 0, 1.0, s)
+    return fixed
+
+
+def test_scf_diag_exact_matches_jax(anchor_pair, monkeypatch):
     ref, ecw = anchor_pair
     kw = dict(method="diag", conv="tl", conv_thres=1e-5, maxiter=80,
               print_ite=False)
+    monkeypatch.setattr(np.linalg, "eig", _eig_in_one_gauge(np.linalg.eig))
     out_j = ref.CCS_ES(0.15, **kw)
     out_t = ecw.CCS_ES(0.15, **kw)
     assert out_t[0] == out_j[0] and "Convergence reached" in out_t[0]
@@ -217,11 +234,20 @@ def test_scf_diag_exact_matches_jax(anchor_pair):
 def test_mom_es_targets():
     """MOM delta-SCF ES target generation (reference gamma_exp.ESexp), on
     H2 as the JAX package tests it and on H2O, where no orbital shell is
-    degenerate: the same targets as the JAX package's."""
+    degenerate: the same targets as the JAX package's.  The transition
+    density is the reference's biorthogonalisation of two complete orbital
+    sets (utilities.py:658-695): every singular value is 1, so which
+    rotation it picks, and the density with it, is fixed only by identical
+    inputs.  The port's MOM therefore runs on the JAX package's AO
+    integrals here (the engines agree to 1e-12, tests/test_torch_host.py),
+    and its ECW in the JAX ECW's orbital gauge."""
     for molecule, basis in (("h2", "6-31g"), ("h2o", "sto-3g")):
         ref = JaxECW(molecule, basis)
         ref.Build_ES_exp_MOM(nbr_of_es=(1, 0))
-        ecw = ECW(molecule, basis, **F64)
+        with jax_gauge(ref):
+            ecw = ECW(molecule, basis, **F64)
+        for kind in ("ovlp", "kin", "nuc", "int2e"):
+            ecw.mol._cache[(kind, None)] = ref.mol.intor(kind)
         ecw.Build_ES_exp_MOM(nbr_of_es=(1, 0))
         assert len(ecw.exp_data) == 2
         assert ecw.exp_data[1][0][0] == "trmat"

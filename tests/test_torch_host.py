@@ -3,6 +3,7 @@ against the JAX package's originals it copies, f64 on H2O/6-31G: the same
 inputs through both give the same numbers to 1e-12."""
 
 import os
+import platform
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from ecw_cc_torch.models.molecule import Molecule
 from ecw_cc_torch.models.scf import GHF, RHF, UHF
 from ecw_cc_torch.utils import checkpoint, convert, props
 from ecw_cc_torch.utils.metrics import IterationMetrics
+from gauge import flip, ghf_signs
 
 torch.set_num_threads(1)
 
@@ -59,6 +61,21 @@ def test_native_engine_builds_outside_the_source_tree():
     assert os.path.dirname(path) != os.path.dirname(native._SRC)
 
 
+def test_native_binary_is_keyed_on_host_and_command(monkeypatch):
+    """A binary built on another machine, or with other flags, has another
+    name, so it is never loaded here (-march=native differs per host)."""
+    from ecw_cc_torch import native
+
+    here = native._lib_path()
+    assert native._host().startswith(platform.machine())
+    monkeypatch.setattr(native, "_host", lambda: "x86_64|avx512f fma sse2")
+    assert native._lib_path() != here
+    monkeypatch.undo()
+    assert native._lib_path() == here
+    monkeypatch.setattr(native, "_CMD", native._CMD + ("-ffp-contract=off",))
+    assert native._lib_path() != here
+
+
 @pytest.mark.parametrize("which", ["rhf", "ghf"])
 def test_scf_matches_jax(pair, which):
     a, b = pair["t"][which], pair["j"][which]
@@ -84,12 +101,16 @@ def test_uhf_matches_jax(pair):
 
 
 def test_eris_host_matches_jax(pair):
+    """The MO blocks compared in one orbital gauge (tests/gauge.py)."""
     a = teris.build_eris(pair["t"]["mol"], pair["t"]["ghf"])
     b = j_build_eris(pair["j"]["mol"], pair["j"]["ghf"])
     assert (a.nocc, a.nvir) == (b.nocc, b.nvir)
+    d = ghf_signs(pair["t"]["ghf"], pair["j"]["ghf"], pair["t"]["mol"])
     for f in teris.GEris._fields:
-        np.testing.assert_allclose(getattr(a, f), getattr(b, f), rtol=0,
-                                   atol=TOL, err_msg=f)
+        kinds = "nn" if f == "fock" else f
+        np.testing.assert_allclose(flip(getattr(a, f), d, kinds, a.nocc),
+                                   getattr(b, f), rtol=0, atol=TOL,
+                                   err_msg=f)
     dev = a.to_device(torch.float64, device="cpu")
     assert isinstance(dev, teris.GEris)
     assert torch.equal(dev.vvvv, torch.from_numpy(a.vvvv))

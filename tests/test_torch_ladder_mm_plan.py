@@ -9,6 +9,8 @@ import torch
 from ecw_cc_torch.kernels import ladder_mm as lmm
 
 DTYPES = [torch.float32, torch.float64]
+# every kernel variant: f32, f64, and the tensor-core TF32 and BF16 ones
+VARIANTS = DTYPES + ["tf32", torch.bfloat16]
 MAIN = [(98, 465, 465), (98, 961, 961)]
 # C2H2 (nocc 14) on the dense, packed and stacked-sectored routes: the dense
 # ladder at cc-pVDZ (nvir 62), the stacked packed GEMM at cc-pVDZ and
@@ -22,7 +24,7 @@ SHAPES = MAIN + ROUTES + [(1, 1, 1), (1, 961, 961), (129, 465, 465), (98, 465, 1
 N_SM = 132   # NVIDIA H100 SXM
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", VARIANTS)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plan_k_ranges_tile_k(shape, dtype):
     M, N, K = shape
@@ -45,10 +47,10 @@ def test_plan_fills_the_card_at_the_solver_shapes(shape, dtype):
     assert p.m_tiles == 1                   # B streams from memory once
     assert p.blocks >= N_SM
     assert 1 < p.split <= lmm.MAX_SPLIT     # one cluster per output tile
-    assert p.bn in lmm.WIDTHS[dtype]
+    assert p.bn in lmm.WIDTHS[lmm.variant(dtype)]
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", VARIANTS)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plan_partials_are_split_tiles_tile(shape, dtype):
     """A split tile leaves one partial tile per block in its cluster."""
@@ -61,7 +63,7 @@ def test_plan_partials_are_split_tiles_tile(shape, dtype):
     assert p.split in (1, 2, 4, 8, 16)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", VARIANTS)
 @pytest.mark.parametrize("shape", ROUTES)
 def test_plan_at_the_route_shapes(shape, dtype):
     """Two or four 112-row tiles; at least one wave of blocks, split only

@@ -12,6 +12,9 @@ import torch
 
 from ecw_cc_tpu.__main__ import run_spec as jax_run_spec
 from ecw_cc_torch.__main__ import run_spec
+from ecw_cc_tpu.models.molecule import Molecule as JMolecule
+from ecw_cc_tpu.models.scf import RHF as JRHF
+from gauge import jax_gauge
 
 torch.set_num_threads(1)
 
@@ -48,8 +51,12 @@ def test_module_runs_a_ccs_es_spec(tmp_path):
 
 def test_run_spec_ccs_es_matches_jax_runner(tmp_path):
     """The same spec through both runners: a GS 'mat' target beside the
-    transition dipole, device loop."""
-    out_t = run_spec(_spec(tmp_path / "t", method="device"))
+    transition dipole, device loop.  The port's ECW takes the orbital
+    signs of the JAX package's SCF (tests/gauge.py)."""
+    jrhf = JRHF(JMolecule("h2o", "6-31g"), conv_tol=1e-11)
+    jrhf.kernel()
+    with jax_gauge(jrhf):
+        out_t = run_spec(_spec(tmp_path / "t", method="device"))
     spec = _spec(tmp_path / "j", method="device")
     del spec["device"]
     out_j = jax_run_spec(spec)

@@ -3,9 +3,10 @@
   - in a fresh interpreter where `import jax` and `import ecw_cc_tpu` fail,
     import ecw_cc_torch, build its solver on H2/6-31G through the ECW
     entry point at f64 (host ERIs) and f32 (device ERI build, dense and
-    sectored routes), and run a solve on each; build a CCSD(T) target,
-    run the CCS ground state on it, the JSON runner, and a coupled
-    excited-state solve (host loop, device loop, Davidson);
+    sectored routes), and run a solve on each, and a 'hybrid' bf16 solve
+    with refine=True; build a CCSD(T) target, run the CCS ground state on
+    it, the JSON runner, and a coupled excited-state solve (host loop,
+    device loop, Davidson);
   - no file of the port, and not chip_smoke.py, has an import statement
     naming jax or ecw_cc_tpu (read with `ast`, so lazy imports inside
     functions count too).
@@ -46,6 +47,15 @@ SCRIPT = textwrap.dedent("""
         res = ecw.CCSD_GS([0.5], diis="tl", conv_thres=thres)
         assert "Convergence reached" in res[0], res[0]
         assert ecw.solve_log[0]["route"] == route, ecw.solve_log
+    # the precision modes: a 'hybrid' solve with a bf16 fast leg, and an f32
+    # solve polished in f64 (refine)
+    ecw_cc_torch.set_config(ladder_mode="auto", iter_precision="hybrid",
+                            hybrid_fast="bf16")
+    hyb = ecw.CCSD_GS([0.5], diis="tl", conv_thres=1e-6, refine=True)
+    assert "Convergence reached" in hyb[0], hyb[0]
+    assert [m for m, _, _ in ecw.solve_log[0]["legs"]] == ["bf16", "highest"]
+    assert hyb[5][0].dtype.name == "float64"
+    ecw_cc_torch.set_config(iter_precision="highest")
     # a correlated target (CCSD, (T), the response density), the CCS ground
     # state on it, and the JSON runner
     for dt in (torch.float64, torch.float32):

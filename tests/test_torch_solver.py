@@ -20,6 +20,7 @@ from ecw_cc_tpu.ops.ccsd import GCC as JGCC
 from ecw_cc_tpu.ops.vexp import Exp as JExp
 from ecw_cc_tpu.solvers.gs import Solver_CCSD as JSolver
 from ecw_cc_torch.models.eris import from_numpy
+from gauge import jax_gauge
 from ecw_cc_torch.ops.ccsd import GCC as TGCC
 from ecw_cc_torch.ops.vexp import Exp as TExp
 from ecw_cc_torch.solvers.gs import Solver_CCSD as TSolver
@@ -95,11 +96,12 @@ def test_ecw_ccsd_gs_matches_jax(h2o_631g):
     L = 0.5): the port's driver against the JAX driver."""
     from ecw_cc_tpu import ECW as JECW
 
-    out_ecw = ecw_cc_torch.ECW("h2o", "6-31g", device="cpu",
-                               dtype=torch.float64)
-    out_ecw.Build_GS_exp("mat", "HF", field=[0.05, 0.01, 0.0])
     ref_ecw = JECW("h2o", "6-31g")
     ref_ecw.Build_GS_exp("mat", "HF", field=[0.05, 0.01, 0.0])
+    with jax_gauge(ref_ecw):
+        out_ecw = ecw_cc_torch.ECW("h2o", "6-31g", device="cpu",
+                                   dtype=torch.float64)
+    out_ecw.Build_GS_exp("mat", "HF", field=[0.05, 0.01, 0.0])
     assert abs(out_ecw.EHF - (-75.98395)) < 1e-4
     out = out_ecw.CCSD_GS([0.5], diis="tl")
     ref = ref_ecw.CCSD_GS([0.5], diis="tl")
@@ -116,8 +118,8 @@ def test_unported_routes_raise(sorted_problem):
     """The routes of ROADMAP A.2 are ported: the alternating layout
     (guarded by the sorted-layout warning), a solver with no ladder operand
     (derived from eris.vvvv, which a pack-on-build placeholder refuses) and
-    the dense route on the sorted layout.  Reduced precision and refine
-    (A.8) and SCF_batch (A.13) still raise, naming their item."""
+    the dense route on the sorted layout.  SCF_batch (A.13) still raises,
+    naming its item; refine=True without eris_host raises as in JAX."""
     p = sorted_problem
     exp = TExp(0.05, [[["mat", p["target"]]]], mol=p["mol"],
                mo_coeff=p["ghf"].mo_coeff)
@@ -129,13 +131,13 @@ def test_unported_routes_raise(sorted_problem):
         no_op.SCF(0.05)
     solver = _torch_solver(p)
     assert solver.route() == "sectored"
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(ValueError, match="eris_host"):
         solver.SCF(0.05, refine=True)
     with pytest.raises(NotImplementedError, match="A.13"):
         solver.SCF_batch([0.05, 0.1])
-    # a precision mode that is not ported cannot be set at all
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ecw_cc_torch.set_config(iter_precision="high")
+    # a precision mode that does not exist cannot be set at all
+    with pytest.raises(ValueError, match="iter_precision"):
+        ecw_cc_torch.set_config(iter_precision="tf32")
     assert ecw_cc_torch.get_config().iter_precision == "highest"
     ecw_cc_torch.set_config(soup_sector=False)
     try:

@@ -12,6 +12,7 @@ from ecw_cc_tpu import ECW as JaxECW
 from ecw_cc_tpu.models.gamma_exp import Gexp as JaxGexp
 from ecw_cc_tpu.models.molecule import Molecule as JaxMolecule
 from ecw_cc_torch import ECW
+from gauge import jax_gauge
 from ecw_cc_torch.models import gamma_exp as tg
 from ecw_cc_torch.models.molecule import Molecule
 from ecw_cc_torch.models.scf import GHF, RHF
@@ -145,7 +146,8 @@ def test_ecw_sweep_on_correlated_target_matches_jax(posthf):
     ref = JaxECW("h2o", "sto-3g")
     ref.Build_GS_exp("mat", posthf, field=FIELD)
     r_ref = ref.CCSD_GS([0.0, 0.3], diis="tl", conv_thres=1e-8)
-    ecw = ECW("h2o", "sto-3g", device="cpu", dtype=torch.float64)
+    with jax_gauge(ref):
+        ecw = ECW("h2o", "sto-3g", device="cpu", dtype=torch.float64)
     ecw.Build_GS_exp("mat", posthf, field=FIELD)
     res = ecw.CCSD_GS([0.0, 0.3], diis="tl", conv_thres=1e-8)
     assert abs(ecw.Eexp_GS - ref.Eexp_GS) < 1e-9
