@@ -5,6 +5,8 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --kernel-times   # phase 1 and the kernel timing only
+                                           # (f32, f64, and the TF32 and BF16
+                                           # variants after their check)
     python3 chip_smoke.py --profile        # phase 1 and a profiler trace of
                                            # the f32 chain, cc-pVDZ and cc-pVTZ,
                                            # sectored and packed routes
@@ -29,7 +31,8 @@ each); any failure raises and exits nonzero:
   2. build: the hand-written kernels compiled from ecw_cc_torch/csrc (one
      nvcc per source, started together), with ptxas's registers and spills
      per kernel, and the SASS check per kernel function: the f64 ladder_mm
-     runs DMMA, the f32 one no HMMA, the TF32 and BF16 variants HMMA;
+     runs DMMA, the f32 one no HMMA or HGMMA, the TF32 and BF16 variants
+     HGMMA (wgmma) and UTMALDG (TMA loads);
   3. kernel vs plain: ladder_mm against ladder_mm_ref (a @ b.T) in f32 and
      f64 at the solver's sector-GEMM shapes of C2H2/cc-pVDZ and cc-pVTZ,
      at the GEMMs of the dense, packed and stacked-sector routes (phase
@@ -41,7 +44,10 @@ each); any failure raises and exits nonzero:
      eager result; then both timed at the solver's shapes; the same for
      the TF32 and BF16 variants against their plain versions (TF32 to
      1e-5 max|C|; BF16 to 2^-8 max|C| plus the f32 accumulation bound, on
-     the plain version's f32 sum before its rounding), timed beside their
+     the plain version's f32 sum before its rounding), also at the edges
+     of their 128 x 128 tile and of K (TC_EDGE_SHAPES), B held as the
+     solver holds it (tf32_rows, bf16_rows), and a raw TF32 B that the
+     kernel rounds itself equal to its tf32_rows copy; timed beside their
      plain versions and the library call (cuBLAS with TF32 on, on bf16);
   4. main path, f32: ECW('c2h2', 'cc-pvdz') (ERIs transformed on the card,
      alternating layout, a PackedVVVV at nvir 62) -> HF target with a
@@ -166,7 +172,9 @@ each); any failure raises and exits nonzero:
          'highest' and 'high' must be within 1e-8 Ha of f64 and each
          hybrid within 1e-5;
      (b) C2H2/cc-pVTZ at lambda = 0.25 (phase 7's ECW): 'bf16' with and
-         without refine, and both hybrids, the same way;
+         without refine, and both hybrids, the same way, and the chains of
+         'highest', 'high' and 'bf16' (ms per iteration; every chain's
+         launches exactly one per iteration in its mode's variant);
   8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported,
      and the excited-state modules were.
 Before the last line it prints the kernel report as one JSON object and
@@ -238,6 +246,16 @@ RAGGED_SHAPES = [(1, 1, 1), (37, 513, 129), (100, 130, 1001)]
 EDGE_SHAPES = [(98, 465, 240), (98, 465, 241), (98, 465, 256), (98, 465, 257),
                (98, 961, 959), (98, 961, 960), (98, 465, 15), (98, 465, 17),
                (1, 961, 961), (129, 465, 465), (129, 961, 961)]
+# The tensor-core variants' 128 x 128 tile: one row tile and one past it
+# (64, 65, 128, 129), the four-tile cluster (392), K 1-3 past a multiple of
+# 8 (457-459) and of 4 (461-463, 1889), K across the 256-deep accumulator
+# runs (255-257) and within one chunk (31, 33)
+TC_EDGE_SHAPES = [(64, 465, 465), (65, 465, 465), (128, 961, 961),
+                  (129, 961, 961), (392, 961, 961 - 4), (98, 465, 457),
+                  (98, 465, 458), (98, 465, 459), (98, 465, 461),
+                  (98, 465, 462), (98, 465, 463), (392, 1891, 1889),
+                  (98, 465, 255), (98, 465, 256), (98, 465, 257),
+                  (98, 465, 31), (98, 465, 33)]
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}       # x max|C_ref|
 ERI_TOL = {torch.float64: 1e-10, torch.float32: 3e-6}   # max abs vs host f64
 TIMING_RUNS = 10
@@ -314,7 +332,8 @@ def tag(shape):
 
 
 def sass_counts(path):
-    """{kernel name: Counter of DMMA/HMMA/FFMA} from cuobjdump -sass."""
+    """{kernel name: Counter of DMMA/HMMA/HGMMA/UTMALDG/FFMA} from
+    cuobjdump -sass."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", path], capture_output=True,
                          text=True, timeout=300, check=True).stdout
@@ -325,7 +344,8 @@ def sass_counts(path):
             fn = m.group(1)
             counts[fn] = collections.Counter()
         elif fn is not None:
-            for op in re.findall(r"\b(DMMA|HMMA|FFMA)\b", line):
+            for op in re.findall(r"\b(DMMA|HMMA|HGMMA|UTMALDG|FFMA)\b",
+                                 line):
                 counts[fn][op] += 1
     return counts
 
@@ -337,8 +357,8 @@ SASS_NAMES = {"f32": "ladder_mm_ntIf", "f64": "ladder_mm_ntId",
 
 def check_sass(path):
     """Per kernel function: every f64 ladder_mm instance runs DMMA; no f32
-    one touches the tensor cores (no TF32, no HMMA); the TF32 and BF16
-    variants run HMMA."""
+    one touches the tensor cores (no TF32, no HMMA or HGMMA); the TF32 and
+    BF16 variants run wgmma (HGMMA) on operands loaded by TMA (UTMALDG)."""
     counts = sass_counts(path)
     by = {v: {n: dict(c) for n, c in counts.items() if key in n}
           for v, key in SASS_NAMES.items()}
@@ -347,18 +367,22 @@ def check_sass(path):
                              f"{sorted(counts)}")
     if not all(c.get("DMMA", 0) for c in by["f64"].values()):
         raise AssertionError(f"an f64 ladder_mm runs no DMMA: {by['f64']}")
-    if any(c.get("HMMA", 0) or c.get("DMMA", 0) for c in by["f32"].values()):
+    if any(c.get("HMMA", 0) or c.get("DMMA", 0) or c.get("HGMMA", 0)
+           for c in by["f32"].values()):
         raise AssertionError(f"an f32 ladder_mm uses tensor cores: "
                              f"{by['f32']}")
     for v in TC_VARIANTS:
-        if not all(c.get("HMMA", 0) for c in by[v].values()):
-            raise AssertionError(f"a {v} ladder_mm runs no HMMA: {by[v]}")
+        if not all(c.get("HGMMA", 0) and c.get("UTMALDG", 0)
+                   for c in by[v].values()):
+            raise AssertionError(f"a {v} ladder_mm runs no HGMMA or no "
+                                 f"UTMALDG: {by[v]}")
     return {v: list(c.values()) for v, c in by.items()}
 
 
 def plan_fields(p):
     return {"tile": [p.bm, p.bn, p.bk], "tiles": [p.m_tiles, p.n_tiles],
-            "split_k": p.split, "blocks": p.blocks}
+            "split_k": p.split, "cluster_m": getattr(p, "cluster_m", 1),
+            "blocks": p.blocks}
 
 
 def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm):
@@ -497,14 +521,22 @@ def time_kernel(ladder_mm, ladder_mm_ref):
 
 
 def variant_operands(lmm, shape, var, seed):
-    """(a, b, precision) on the card for a tensor-core variant; a bf16 B is
-    held as the solver holds its per-solve bf16 copy (rows padded to 16
-    bytes), A as the solver packs it (contiguous)."""
+    """(a, b, precision) on the card for a tensor-core variant; B is held
+    as the solver holds its per-solve copy (bf16_rows, tf32_rows: rows
+    padded to 16 bytes, TF32 values rounded), A contiguous as it comes,
+    so its per-call preparation is part of the timed call."""
     dtype = torch.bfloat16 if var == "bf16" else torch.float32
     a, b = operands(shape, dtype, seed)
-    if var == "bf16":
-        b = lmm.bf16_rows(b)
+    b = variant_rows(lmm, var)(b)
     return a, b, ("tf32" if var == "tf32" else None)
+
+
+def variant_rows(lmm, var):
+    """The per-solve copy of a variant's B (an older checkout without
+    tf32_rows holds a TF32 B as it is)."""
+    if var == "bf16":
+        return lmm.bf16_rows
+    return getattr(lmm, "tf32_rows", lambda b: b)
 
 
 def variant_error(lmm, a, b, c, var):
@@ -539,7 +571,7 @@ def check_variants(lmm, n_sm):
     for var in TC_VARIANTS:
         for i, shape in enumerate(MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
                                   + TARGET_SHAPES + RAGGED_SHAPES
-                                  + EDGE_SHAPES):
+                                  + EDGE_SHAPES + TC_EDGE_SHAPES):
             a, b, prec = variant_operands(lmm, shape, var, seed=i)
             c = lmm.ladder_mm(a, b, precision=prec)
             torch.cuda.synchronize()
@@ -552,6 +584,18 @@ def check_variants(lmm, n_sm):
             if not ok:
                 raise AssertionError(f"ladder_mm {var} disagrees at {shape}: "
                                      f"{err} > {tol}")
+            if (var == "tf32" and i < len(MAIN_SHAPES + TZ_SHAPES)
+                    and hasattr(lmm, "tf32_rows")):
+                # a raw B in 16-byte rows (rounded by the kernel, as the
+                # dense route's vvvv view is) gives the bits of its
+                # tf32_rows copy
+                b_raw = operands(shape, torch.float32, seed=i)[1]
+                raw = lmm.ladder_mm(a, lmm._padded(b_raw, torch.float32, 4),
+                                    precision=prec)
+                if not torch.equal(raw, c):
+                    raise AssertionError(f"tf32 at {shape}: the kernel's "
+                                         "rounding of B differs from "
+                                         "tf32_rows")
             out[(var, shape)] = (err, p)
         for shape in MAIN_SHAPES + ROUTE_SHAPES:
             a, b, prec = variant_operands(lmm, shape, var, seed=11)
@@ -606,8 +650,8 @@ def time_variants(lmm):
             b_bytes = b.shape[0] * b.stride(0) * b.element_size()
             n_copies = (-(-2 * L2_BYTES // b_bytes)
                         if b_bytes >= COLD_B_BYTES else 1)
-            ops = [(a, b)] + [(a.clone(), b.clone() if var != "bf16" else
-                               lmm.bf16_rows(b.clone()))
+            rows = variant_rows(lmm, var)
+            ops = [(a, b)] + [(a.clone(), rows(b.clone()))
                               for _ in range(n_copies - 1)]
             turn = [0]
 
@@ -2036,17 +2080,25 @@ def reset_counts(ladder_mm, variants):
     ladder_mm.launches_by_variant = dict.fromkeys(variants, 0)
 
 
-def precision_chain(ecw, mode, basis):
-    """Dconv's floor and ms per iteration of a PREC_CHAIN-iteration chain
-    (diis 'tl', conv_thres 0) at lambda = 0.25 under `mode`."""
+def precision_chain(ecw, lmm, mode, basis):
+    """Dconv's floor, ms per iteration and ladder launches by variant of a
+    PREC_CHAIN-iteration chain (diis 'tl', conv_thres 0) at lambda = 0.25
+    under `mode`; each iteration must launch its mode's variant."""
+    reset_counts(lmm.ladder_mm, lmm.VARIANTS)
     with iter_precision(mode):
         res, log = solve(ecw, [0.25], conv_thres=0.0,
                          maxiter=PREC_CHAIN - 1)
     floor = float(np.min(res[3][1:]))
-    row = dict(mode=mode, basis=basis, iterations=log[0]["iterations"],
-               ms_per_iteration=log[0]["ms"] / log[0]["iterations"],
-               floor=floor)
+    n = log[0]["iterations"]
+    counts = {v: c for v, c in lmm.ladder_mm.launches_by_variant.items() if c}
+    row = dict(mode=mode, basis=basis, iterations=n,
+               ms_per_iteration=log[0]["ms"] / n, floor=floor,
+               route=log[0]["route"], launches=counts)
     phase(12, "precision_chain", **row)
+    want = {LEG_VARIANT[mode]: ROUTE_LAUNCHES[log[0]["route"]] * n}
+    if counts != want:
+        raise AssertionError(f"{basis} {mode} chain launched {counts}, "
+                             f"expected {want}")
     return row
 
 
@@ -2123,11 +2175,11 @@ def run_phase12(lmm, ecw_tz=None):
     from ecw_cc_torch import get_config
 
     launches, by_variant = {}, dict.fromkeys(lmm.VARIANTS, 0)
-    tests = [(BASIS, None, LAMBDAS, PREC_MODES, PREC_REFINE),
+    tests = [(BASIS, None, LAMBDAS, PREC_MODES, PREC_REFINE, ()),
              (BASIS_TZ, ecw_tz, PREC_L_TZ,
               (("bf16", "high"), ("hybrid", "high"), ("hybrid", "bf16")),
-              ("bf16",))]
-    for basis, ecw, lambdas, modes, refine_after in tests:
+              ("bf16",), ("high",))]
+    for basis, ecw, lambdas, modes, refine_after, chains in tests:
         t0 = time.perf_counter()
         ecw = ecw if ecw is not None else build_ecw("cuda", torch.float32,
                                                     basis=basis)
@@ -2140,10 +2192,13 @@ def run_phase12(lmm, ecw_tz=None):
               f64_reference_s=time.perf_counter() - t2, Ep_f64=ref_ep,
               iterations_f64=ref_its,
               host_eris_built=ecw._eris_host is not None)
-        # 'highest' always, for the ms per iteration the others save
-        floors = {m: precision_chain(ecw, m, basis)["floor"]
+        # 'highest' always, for the ms per iteration the others save;
+        # `chains`: modes timed by a chain only (cc-pVTZ 'high': what the
+        # TF32 kernel does to an iteration on the card-bound route)
+        floors = {m: precision_chain(ecw, lmm, m, basis)["floor"]
                   for m in sorted({m for m, _ in modes} - {"hybrid"}
-                                  | {"highest"}, key=list(LEG_VARIANT).index)}
+                                  | {"highest"} | set(chains),
+                                  key=list(LEG_VARIANT).index)}
         rows = {}
         for mode, fast in modes:
             thres = (max(CONV_THRES, 3 * floors[mode]) if mode in PREC_RAW
@@ -2455,11 +2510,14 @@ def main(argv):
 
     if "--kernel-times" in argv:
         # Timing only, through whatever ecw_cc_torch is importable: the
-        # same method can time an older checkout's kernel.
+        # same method can time an older checkout's kernel.  The TF32 and
+        # BF16 variants are checked against their plain versions first.
         times = time_kernel(ladder_mm, ladder_mm_ref)
+        check_variants(lmm, n_sm)
+        v_times = time_variants(lmm)
         print(json.dumps({"kernel_times": {
             f"{str(d).split('.')[-1]} {tag(s)}": t
-            for (d, s), t in times.items()}}))
+            for (d, s), t in list(times.items()) + list(v_times.items())}}))
         print(smi)
         return 0
     if "--routes" in argv:

@@ -33,9 +33,10 @@ _INT = ctypes.c_int
 # ladder_mm: device, a, b, c, M, N, K, bm, bn, bk, split, stream
 _LADDER_MM = [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
               _INT, _PTR]
-# the tensor-core variants also take the operands' row strides:
-# device, a, b, c, M, N, K, lda, ldb, bm, bn, bk, split, stream
-_LADDER_MM_LD = _LADDER_MM[:7] + [_INT, _INT] + _LADDER_MM[7:]
+# the tensor-core variants also take the operands' row strides, the
+# blocks of an M group and whether B still needs its TF32 rounding:
+# device, a, b, c, M, N, K, lda, ldb, bm, bn, bk, cm, split, round_b, stream
+_LADDER_MM_LD = [_INT, _PTR, _PTR, _PTR] + [_INT] * 11 + [_PTR]
 _SIGNATURES = {
     "ecw_ladder_mm_f32": _LADDER_MM,
     "ecw_ladder_mm_f64": _LADDER_MM,

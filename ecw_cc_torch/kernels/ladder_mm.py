@@ -5,8 +5,8 @@ Four variants, named by `variant(dtype, precision)`:
   'f32'  float32, full precision on the CUDA cores (csrc/ladder_mm.cu);
   'f64'  float64 on the FP64 tensor cores (csrc/ladder_mm.cu);
   'tf32' float32 operands rounded to TF32 (cvt.rna), f32 accumulation and
-         output, on the tensor cores (csrc/ladder_mm_tc.cu): the solver's
-         'high' and 'default' modes;
+         output, on the tensor cores (csrc/ladder_mm_tc.cu, TMA and wgmma):
+         the solver's 'high' and 'default' modes;
   'bf16' bfloat16 operands, f32 accumulation, the sum rounded once to a
          bfloat16 output (csrc/ladder_mm_tc.cu): the solver's 'bf16' mode.
 
@@ -26,13 +26,21 @@ product raises: no path differentiates through a reduced-precision solve.
 
 `plan` is pure Python: it picks the tile width and the split of K across
 the blocks of a thread block cluster that fill the card at the solver's
-skinny shapes (M = 98).  The wrapper hands the plan to the kernel, which
-checks the tile against its own.
+skinny shapes (M = 98), and for the tensor-core variants the cluster of
+row tiles that share each B tile.  The wrapper hands the plan to the
+kernel, which checks the tile against its own.
+
+The tensor-core variants load their operands by TMA, which needs row
+strides of whole 16 bytes: `tf32_rows` and `bf16_rows` make such copies
+(the solver makes its ladder operand's once per solve), and the wrapper
+copies an operand that lacks them.  A TF32 B made by `tf32_rows` is
+already rounded; any other B is rounded by the kernel as it arrives.
 """
 
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -47,15 +55,18 @@ REDUCED = ("tf32", "bf16")
 _DTYPE_VARIANT = {torch.float32: "f32", torch.float64: "f64",
                   torch.bfloat16: "bf16"}
 _INT_MAX = 2 ** 31 - 1
-# The kernels' tiles (kBM, kBK, kMaxSplit and the BN instances of
-# csrc/ladder_mm.cu and csrc/ladder_mm_tc.cu): f32 is built 64 and 32
-# columns wide, f64 32, the tensor-core variants 64.
+# The f32/f64 kernels' tiles (kBM, kBK, kMaxSplit and the BN instances of
+# csrc/ladder_mm.cu): f32 is built 64 and 32 columns wide, f64 32.
 BM, BK = 112, 16
-WIDTHS = {"f32": (64, 32), "f64": (32,), "tf32": (64,),
-          "bf16": (64,)}   # widest first
+WIDTHS = {"f32": (64, 32), "f64": (32,)}   # widest first
 MAX_SPLIT = 16            # blocks per cluster
-# row strides of the bf16 operands: multiples of 8 elements (16 bytes)
-BF16_ROW_ALIGN = 8
+# The tensor-core variants' tile (csrc/ladder_mm_tc.cu kBM, kBN and one
+# 128-byte row of K per chunk) and their largest cluster (kMaxCluster):
+# cluster_m row tiles times split K ranges
+TC_TILE = {"tf32": (128, 128, 32), "bf16": (128, 128, 64)}
+TC_MAX_CLUSTER = 8
+# row strides the TMA loads take: multiples of 16 bytes
+TF32_ROW_ALIGN, BF16_ROW_ALIGN = 4, 8
 
 
 def variant(dtype, precision=None):
@@ -85,6 +96,8 @@ class Plan(NamedTuple):
     k_ranges: tuple           # ((k0, k1), ...) of each split, in split order
     partials: int             # elements of partial tiles summed across each
                               # cluster: split * tiles * bm * bn (0 if split 1)
+    cluster_m: int = 1        # row tiles per cluster that share each B tile
+                              # by TMA multicast (tensor-core variants)
 
     @property
     def tiles(self):
@@ -117,6 +130,8 @@ def plan(M, N, K, dtype, n_sm):
     if min(M, N) < 1 or K < 0 or n_sm < 1:
         raise ValueError(f"ladder_mm cannot plan M={M}, N={N}, K={K} on "
                          f"{n_sm} SMs")
+    if v in TC_TILE:
+        return _plan_tc(M, N, K, v, n_sm)
     m_tiles, chunks = _cdiv(M, BM), _cdiv(K, BK)
     splits = [s for s in (1, 2, 4, 8, 16) if s <= max(1, min(chunks, MAX_SPLIT))]
     for bn in WIDTHS[v]:
@@ -129,6 +144,30 @@ def plan(M, N, K, dtype, n_sm):
     partials = split * tiles * BM * bn if split > 1 else 0
     return Plan(BM, bn, BK, m_tiles, tiles // m_tiles, split, k_ranges,
                 partials)
+
+
+def _plan_tc(M, N, K, v, n_sm):
+    """The tensor-core variants' plan: 128 x 128 tiles, K in chunks of one
+    128-byte row.  The row tiles of one N tile form a cluster (cluster_m
+    of them, the largest power of two <= TC_MAX_CLUSTER that divides the
+    row tiles: all of them at every M <= 1024 whose tile count is a power
+    of two, as M = 98, 196, 392), and each B tile is multicast to all of
+    them, so B streams from device memory once per launch.  The split of K
+    then follows the rule of `plan` within the cluster's room: the
+    smallest power of two with cluster_m * split <= TC_MAX_CLUSTER, at
+    most the chunk count, that gives a full wave, or the largest
+    there is."""
+    bm, bn, bk = TC_TILE[v]
+    m_tiles, n_tiles, chunks = _cdiv(M, bm), _cdiv(N, bn), _cdiv(K, bk)
+    cm = next(c for c in (8, 4, 2, 1) if m_tiles % c == 0)
+    splits = [s for s in (1, 2, 4, 8)
+              if cm * s <= TC_MAX_CLUSTER and s <= max(1, chunks)]
+    tiles = m_tiles * n_tiles
+    split = next((s for s in splits if tiles * s >= n_sm), splits[-1])
+    bounds = [s * chunks // split * bk for s in range(split)] + [K]
+    k_ranges = tuple((bounds[s], min(bounds[s + 1], K)) for s in range(split))
+    partials = split * tiles * bm * bn if split > 1 else 0
+    return Plan(bm, bn, bk, m_tiles, n_tiles, split, k_ranges, partials, cm)
 
 
 @functools.cache
@@ -196,21 +235,53 @@ def _check(a, b, v):
         raise ValueError("ladder_mm: dimension exceeds int32")
 
 
-def bf16_rows(x):
-    """x (2-D) as bfloat16 with a row stride the BF16 kernel's 16-byte
-    copies take: x itself where it has one, else a copy (cast on the way)
-    into rows padded to a multiple of BF16_ROW_ALIGN elements, returned as
-    a view of its first x.shape[1] columns."""
-    if x.dtype == torch.bfloat16 and (x.numel() == 0 or (
-            x.stride(1) == 1 and x.stride(0) % BF16_ROW_ALIGN == 0
-            and x.data_ptr() % 16 == 0)):
-        return x
+def _has_rows(x, align):
+    """x's rows are contiguous, 16-byte aligned and 16 bytes apart."""
+    return x.numel() == 0 or (x.stride(-1) == 1 and x.stride(0) % align == 0
+                              and x.data_ptr() % 16 == 0)
+
+
+def _padded(x, dtype, align, values=None):
+    """A copy of x in `dtype` into zero-filled rows padded to a multiple
+    of `align` elements (`values`: what to write instead of x), as a view
+    of its first x.shape[1] columns."""
     k = x.shape[1]
-    kp = -(-k // BF16_ROW_ALIGN) * BF16_ROW_ALIGN
-    out = torch.zeros((x.shape[0], kp), dtype=torch.bfloat16,
+    out = torch.zeros((x.shape[0], _cdiv(k, align) * align), dtype=dtype,
                       device=x.device)
-    out[:, :k] = x
+    out[:, :k] = x if values is None else values
     return out[:, :k]
+
+
+def bf16_rows(x):
+    """x (2-D) as bfloat16 with a row stride the BF16 kernel's TMA loads
+    take: x itself where it has one, else a copy (cast on the way) into
+    rows padded to a multiple of BF16_ROW_ALIGN elements, returned as a
+    view of its first x.shape[1] columns."""
+    if x.dtype == torch.bfloat16 and _has_rows(x, BF16_ROW_ALIGN):
+        return x
+    return _padded(x, torch.bfloat16, BF16_ROW_ALIGN)
+
+
+def tf32_rows(x):
+    """x (2-D, float32) rounded to TF32 (`round_tf32`) into zero-filled
+    rows padded to a multiple of TF32_ROW_ALIGN floats (16 bytes), returned
+    as a view of its first x.shape[1] columns: the TF32 kernel's B as the
+    solver holds it, made once per solve, which the kernel reads without
+    rounding it again (`is_tf32_rows`)."""
+    out = _padded(x, torch.float32, TF32_ROW_ALIGN,
+                  values=round_tf32(x.float()))
+    key = id(out)
+    _TF32_ROWS[key] = weakref.ref(out, lambda _: _TF32_ROWS.pop(key, None))
+    return out
+
+
+_TF32_ROWS = {}   # id -> weak reference of each view tf32_rows returned
+
+
+def is_tf32_rows(x):
+    """x is a view that `tf32_rows` returned (rounded, 16-byte rows)."""
+    ref = _TF32_ROWS.get(id(x))
+    return ref is not None and ref() is x
 
 
 def _launch(a, b, backward=False, precision=None):
@@ -218,8 +289,6 @@ def _launch(a, b, backward=False, precision=None):
     backward: the launch computes a gradient (counted as such)."""
     v = variant(a.dtype, precision)
     _check(a, b, v)
-    if v == "bf16":
-        a, b = bf16_rows(a), bf16_rows(b)
     M, K = a.shape
     N = b.shape[0]
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
@@ -228,10 +297,16 @@ def _launch(a, b, backward=False, precision=None):
     p = device_plan(M, N, K, v, a.device)
     fn = getattr(build.library().cdll, _FUNCS[v])
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    # row strides of the tensor-core variants (no row is read at K = 0)
-    lds = ((a.stride(0), b.stride(0)) if K else (0, 0)) if v in REDUCED else ()
+    if v in REDUCED:
+        a, b, round_b = _tc_operands(a, b, v)
+        # row strides (no row is read at K = 0), the plan's M group and
+        # split, and whether the kernel rounds B
+        args = ((a.stride(0), b.stride(0)) if K else (0, 0)) + (
+            p.bm, p.bn, p.bk, p.cluster_m, p.split, round_b)
+    else:
+        args = (p.bm, p.bn, p.bk, p.split)
     err = fn(a.device.index, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-             M, N, K, *lds, p.bm, p.bn, p.bk, p.split, stream)
+             M, N, K, *args, stream)
     if err != 0:
         raise RuntimeError(f"ladder_mm {v} kernel launch failed: "
                            f"cudaError {err}")
@@ -239,6 +314,23 @@ def _launch(a, b, backward=False, precision=None):
     ladder_mm.backward_launches += bool(backward)
     ladder_mm.launches_by_variant[v] += 1
     return c
+
+
+def _tc_operands(a, b, v):
+    """(a, b, round_b) for a tensor-core launch: operands with 16-byte rows
+    (a copy only of one that lacks them) and round_b = 1 where the TF32
+    kernel must round B itself: a B with such rows that `tf32_rows` did
+    not make (the dense route's view of the whole vvvv block, which no
+    call copies).  A is always rounded by the kernel."""
+    if v == "bf16":
+        return bf16_rows(a), bf16_rows(b), 0
+    if not _has_rows(a, TF32_ROW_ALIGN):
+        a = _padded(a, torch.float32, TF32_ROW_ALIGN)
+    if is_tf32_rows(b):
+        return a, b, 0
+    if _has_rows(b, TF32_ROW_ALIGN):
+        return a, b, 1
+    return a, tf32_rows(b), 0
 
 
 class _LadderMM(torch.autograd.Function):

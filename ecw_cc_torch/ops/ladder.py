@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from ecw_cc_torch.config import active_precision, get_config
-from ecw_cc_torch.kernels.ladder_mm import bf16_rows, ladder_mm
+from ecw_cc_torch.kernels.ladder_mm import (BF16_ROW_ALIGN, TF32_ROW_ALIGN,
+                                            bf16_rows, ladder_mm, tf32_rows)
 
 einsum = torch.einsum
 
@@ -50,19 +51,30 @@ PACKED_MIN_NVIR = 48
 _PAIR_IDX = {}
 
 
-def _pair_index(v, device):
-    """Flat column indices e*v + f with e < f, in row-major pair order."""
-    key = (v, str(device))
+def _pair_index(v, device, align=1):
+    """Flat column indices e*v + f with e < f, in row-major pair order,
+    padded to a multiple of `align` entries (repeating the first)."""
+    key = (v, str(device), align)
     idx = _PAIR_IDX.get(key)
     if idx is None:
         r, c = torch.triu_indices(v, v, offset=1, device=device)
-        idx = _PAIR_IDX[key] = r * v + c
+        idx = r * v + c
+        pad = -idx.numel() % align
+        if pad and idx.numel():
+            idx = torch.cat([idx, idx[:1].expand(pad)])
+        _PAIR_IDX[key] = idx
     return idx
 
 
-def _pack_pairs(x2, v):
-    """(M, v*v) -> (M, p): keep the columns (e*v+f) with e<f (one gather)."""
-    return x2.index_select(1, _pair_index(v, x2.device))
+def _pack_pairs(x2, v, align=1):
+    """(M, v*v) -> (M, p): keep the columns (e*v+f) with e<f (one gather).
+    align > 1: the gather writes rows of a multiple of `align` elements
+    (the pad repeats a column; no kernel reads it) and this returns the
+    view of their first p columns, a ladder product's A as the
+    tensor-core kernels' TMA loads take it, so no launch copies it."""
+    p = v * (v - 1) // 2
+    y = x2.index_select(1, _pair_index(v, x2.device, align))
+    return y if y.shape[1] == p else y[:, :p]
 
 
 def _precision(x):
@@ -75,10 +87,23 @@ def _precision(x):
     return None
 
 
+def _row_align(x):
+    """The row alignment (elements) of a ladder product's A on x: the
+    tensor-core kernels' 16 bytes (bfloat16, or float32 under the reduced
+    modes), else 1."""
+    if x.dtype == torch.bfloat16:
+        return BF16_ROW_ALIGN
+    return TF32_ROW_ALIGN if _precision(x) == "tf32" else 1
+
+
 def _cast(w, dtype):
-    """An operand block in `dtype`; bfloat16 blocks get rows padded for the
-    BF16 kernel's 16-byte copies (kernels.ladder_mm.bf16_rows), so no
-    launch copies them again."""
+    """An operand block in `dtype`, or 'tf32': the float32 block rounded to
+    TF32 once (kernels.ladder_mm.tf32_rows).  The bfloat16 and TF32 blocks
+    get rows padded for the tensor-core kernels' TMA loads
+    (kernels.ladder_mm.bf16_rows, tf32_rows), so no launch copies them
+    again."""
+    if dtype == "tf32":
+        return tf32_rows(w)
     return bf16_rows(w) if dtype == torch.bfloat16 else w.to(dtype)
 
 
@@ -97,8 +122,8 @@ class PackedVVVV(NamedTuple):
     wc: torch.Tensor   # (p, p), p = nvir*(nvir-1)//2
 
     def to(self, dtype):
-        """This operand in `dtype`: cast once per solve, as the JAX loop's
-        jax.tree.map(astype) (gs.py:932-933)."""
+        """This operand in `dtype` (or 'tf32', see _cast): cast once per
+        solve, as the JAX loop's jax.tree.map(astype) (gs.py:932-933)."""
         return PackedVVVV(wc=_cast(self.wc, dtype))
 
 
@@ -123,7 +148,8 @@ def packed_vvvv_contract(packed, x):
     symmetry)."""
     o, o2, v, _ = x.shape
     p = v * (v - 1) // 2
-    yc = _packed_mm(_pack_pairs(x.reshape(o * o2, v * v), v), packed, p)
+    yc = _packed_mm(_pack_pairs(x.reshape(o * o2, v * v), v, _row_align(x)),
+                    packed, p)
     z = _unpack_pairs(yc, v).reshape(o, o2, v, v)
     return z - z.transpose(2, 3)
 
@@ -135,8 +161,8 @@ def stacked_packed_contract(packed, x1, x2):
     x1), packed_vvvv_contract(packed, x2))."""
     o, _, v, _ = x1.shape
     p = v * (v - 1) // 2
-    xc = torch.cat([_pack_pairs(x1.reshape(o * o, v * v), v),
-                    _pack_pairs(x2.reshape(o * o, v * v), v)])
+    xc = _pack_pairs(torch.cat([x1.reshape(o * o, v * v),
+                                x2.reshape(o * o, v * v)]), v, _row_align(x1))
     z = _unpack_pairs(_packed_mm(xc, packed, p), v).reshape(2, o, o, v, v)
     z = z - z.transpose(-1, -2)
     return z[0], z[1]
@@ -151,7 +177,8 @@ class SectoredVVVV(NamedTuple):
     w_ab: torch.Tensor    # (ma*mb, ma*mb)
 
     def to(self, dtype):
-        """This operand in `dtype`: cast once per solve (gs.py:932-933)."""
+        """This operand in `dtype` (or 'tf32', see _cast): cast once per
+        solve (gs.py:932-933)."""
         return SectoredVVVV(*(_cast(w, dtype) for w in self))
 
 
@@ -184,8 +211,9 @@ def _sector_inputs(x, ma):
     o, o2, v, _ = x.shape
     mb = v - ma
     M = o * o2
-    x_aa = _pack_pairs(x[:, :, :ma, :ma].reshape(M, ma * ma), ma)
-    x_bb = _pack_pairs(x[:, :, ma:, ma:].reshape(M, mb * mb), mb)
+    align = _row_align(x)
+    x_aa = _pack_pairs(x[:, :, :ma, :ma].reshape(M, ma * ma), ma, align)
+    x_bb = _pack_pairs(x[:, :, ma:, ma:].reshape(M, mb * mb), mb, align)
     x_ab = x[:, :, :ma, ma:].reshape(M, ma * mb)
     return x_aa, x_bb, x_ab
 
@@ -391,29 +419,27 @@ def balanced_stacked_sectored_contract(sect, x1, x2, oa, sym=False,
     paa, pbb = ma * (ma - 1) // 2, mb * (mb - 1) // 2
 
     def rows(x):
+        """The row blocks aa, bb (None when sym) and ab of x, unpacked."""
         if hasattr(x, "blocks"):   # SpinBlocked operand (balanced support)
             _check_blocked(x, sym)
-            r_aa = _pack_pairs(
-                x.get((0, 0, 0, 0)).reshape(oa * oa, ma * ma), ma)
+            r_aa = x.get((0, 0, 0, 0)).reshape(oa * oa, ma * ma)
             r_ab = x.get((0, 1, 0, 1)).reshape(oa * ob, ma * mb)
-            if sym:
-                return r_aa, None, r_ab
-            r_bb = _pack_pairs(
-                x.get((1, 1, 1, 1)).reshape(ob * ob, mb * mb), mb)
+            r_bb = (None if sym else
+                    x.get((1, 1, 1, 1)).reshape(ob * ob, mb * mb))
             return r_aa, r_bb, r_ab
-        r_aa = _pack_pairs(x[:oa, :oa, :ma, :ma].reshape(oa * oa, ma * ma),
-                           ma)
+        r_aa = x[:oa, :oa, :ma, :ma].reshape(oa * oa, ma * ma)
         r_ab = x[:oa, oa:, :ma, ma:].reshape(oa * ob, ma * mb)
-        if sym:
-            return r_aa, None, r_ab
-        r_bb = _pack_pairs(x[oa:, oa:, ma:, ma:].reshape(ob * ob, mb * mb),
-                           mb)
+        r_bb = (None if sym else
+                x[oa:, oa:, ma:, ma:].reshape(ob * ob, mb * mb))
         return r_aa, r_bb, r_ab
 
     rls = [rows(x1)] if single else [rows(x1), rows(x2)]
 
     def cat(i):
-        return rls[0][i] if single else torch.cat([rls[0][i], rls[1][i]])
+        """Sector i's GEMM rows, stacked, the pair sectors packed to their
+        a<b columns (into TMA-ready rows where the product needs them)."""
+        r = rls[0][i] if single else torch.cat([rls[0][i], rls[1][i]])
+        return r if i == 2 else _pack_pairs(r, (ma, mb)[i], _row_align(r))
 
     y_aa = _sector_mm(cat(0), sect.wc_aa, paa)
     y_bb = y_aa if sym else _sector_mm(cat(1), sect.wc_bb, pbb)

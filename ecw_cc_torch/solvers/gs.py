@@ -74,6 +74,9 @@ from ecw_cc_torch.ops.l1reg import subdiff
 from ecw_cc_torch.ops.vexp import make_gs_vexp_device
 from ecw_cc_torch.utils.metrics import IterationMetrics
 
+# the iter_precision modes whose float32 ladder products run TF32
+TF32_MODES = ("high", "default")
+
 # status codes of a solve (as in the JAX solver)
 RUNNING, CONVERGED, MAXITER, DIVERGED = 0, 1, 2, 3
 
@@ -676,6 +679,11 @@ class Solver_CCSD:
             legs = [(prec, thres)]
         upd_bf = (self._bf16_operands(eris, vv, sectored, sym)
                   if any(mode == "bf16" for mode, _ in legs) else None)
+        # the TF32 modes' ladder operand, rounded into TMA-ready rows once
+        # per SCF call (the dense route's vvvv view is rounded by the
+        # kernel instead: it is never copied)
+        vv_tf = (vv.to("tf32") if vv is not None and dt == torch.float32
+                 and any(m in TF32_MODES for m, _ in legs) else vv)
 
         nvec = (2 * n_ov + 2 * n_4) if diis == "tl" else dim * dim
 
@@ -702,8 +710,9 @@ class Solver_CCSD:
                 Dconv = torch.full((), Dconv_v, dtype=dt, device=dev)
             # the bf16 leg's update operands; rdm1, Vexp, the energy, DIIS
             # and the convergence test stay in dt
-            er_u, vv_u, sb_u = ((eris, vv, eris_sb) if mode != "bf16"
-                                else upd_bf)
+            er_u, vv_u, sb_u = (
+                upd_bf if mode == "bf16" else
+                (eris, vv_tf if mode in TF32_MODES else vv, eris_sb))
             cast = ((lambda x: x) if mode != "bf16"
                     else (lambda x: x.to(torch.bfloat16)))
             # the fast leg of 'hybrid' also ends when Dconv stalls: 3

@@ -66,10 +66,25 @@ def test_plan_partials_are_split_tiles_tile(shape, dtype):
 @pytest.mark.parametrize("dtype", VARIANTS)
 @pytest.mark.parametrize("shape", ROUTES)
 def test_plan_at_the_route_shapes(shape, dtype):
-    """Two or four 112-row tiles; at least one wave of blocks, split only
-    where the tiles alone do not fill the card."""
+    """f32 and f64: two or four 112-row tiles; at least one wave of blocks,
+    split only where the tiles alone do not fill the card.  TF32 and
+    BF16: every 128-row tile of an N tile in one cluster, which takes each
+    B tile by one multicast, so B streams from device memory once per
+    launch; the split within the cluster's room."""
     M, N, K = shape
     p = lmm.plan(M, N, K, dtype, N_SM)
+    v = lmm._as_variant(dtype)
+    if v in lmm.REDUCED:
+        assert (p.bm, p.bn, p.bk) == lmm.TC_TILE[v]
+        assert p.m_tiles == -(-M // p.bm) in (2, 4)
+        assert p.cluster_m == p.m_tiles          # B from memory once
+        assert p.cluster_m * p.split <= lmm.TC_MAX_CLUSTER
+        assert (p.blocks >= N_SM
+                or p.cluster_m * p.split == lmm.TC_MAX_CLUSTER)
+        assert p.split == 1 or p.tiles * (p.split // 2) < N_SM
+        if shape == (392, 13041, 13041):
+            assert (p.tiles, p.split, p.blocks) == (408, 1, 408)
+        return
     assert p.m_tiles == -(-M // lmm.BM) in (2, 4)
     assert p.blocks >= N_SM
     assert p.split == 1 or p.tiles * (p.split // 2) < N_SM
@@ -77,6 +92,37 @@ def test_plan_at_the_route_shapes(shape, dtype):
         assert (p.tiles, p.split) == (122, 2)
     if dtype == torch.float32 and shape == (392, 13041, 13041):
         assert (p.tiles, p.split) == (816, 1)
+
+
+# (M, N, K) -> (m_tiles, cluster_m, split) of the tensor-core plan
+TC_PLANS = {(98, 465, 465): (1, 1, 8), (98, 3240, 3240): (1, 1, 8),
+            (98, 6561, 6561): (1, 1, 4), (196, 3844, 3844): (2, 2, 4),
+            (392, 1891, 1891): (4, 4, 2), (64, 961, 961): (1, 1, 8),
+            (65, 961, 961): (1, 1, 8), (129, 961, 961): (2, 2, 4),
+            (384, 961, 961): (3, 1, 8), (768, 961, 961): (6, 2, 4),
+            (4096, 4096, 64): (32, 8, 1), (98, 465, 31): (1, 1, 1),
+            (98, 465, 33): (1, 1, 2), (1, 1, 0): (1, 1, 1)}
+
+
+@pytest.mark.parametrize("var", ["tf32", torch.bfloat16])
+@pytest.mark.parametrize("shape", list(TC_PLANS))
+def test_plan_tensor_core_tile_and_cluster(shape, var):
+    """The tensor-core tile: 128 x 128, one 128-byte row of K per chunk;
+    the largest power-of-two cluster of row tiles that divides them (at
+    most 8), then the smallest split that fills the card within the
+    cluster's room of 8 blocks and the chunk count."""
+    M, N, K = shape
+    v = lmm._as_variant(var)
+    p = lmm.plan(M, N, K, var, N_SM)
+    assert (p.bm, p.bn, p.bk) == (128, 128, 32 if v == "tf32" else 64)
+    m_tiles, cm, split = TC_PLANS[shape]
+    if v == "bf16" and shape == (98, 465, 33):
+        split = 1                                # one 64-wide chunk
+    assert (p.m_tiles, p.cluster_m, p.split) == (m_tiles, cm, split)
+    assert p.m_tiles % p.cluster_m == 0
+    assert p.n_tiles == -(-N // 128)
+    assert p.blocks == p.m_tiles * p.n_tiles * p.split
+    assert lmm.plan(M, N, K, torch.float32, N_SM).cluster_m == 1
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (1, 5, 7), (7, 1, 5),

@@ -218,6 +218,99 @@ def test_bf16_rows_and_operand_casts(system):
     assert packed.to(torch.float32).wc.dtype == torch.float32
 
 
+def test_tf32_rows_is_a_padded_rounded_view():
+    """tf32_rows: round_tf32's values in zero-filled rows of a multiple of
+    4 floats (16 bytes), as a view of the first K columns that the wrapper
+    knows as rounded; rounding is idempotent, so the TF32 plain version
+    gives the same bits on it."""
+    rng = np.random.default_rng(8)
+    for n, k in ((7, 13), (5, 16), (3, 1), (4, 3)):
+        x = torch.tensor(rng.standard_normal((n, k)), dtype=torch.float32)
+        r = lmm.tf32_rows(x)
+        assert r.shape == x.shape and r.stride() == (-(-k // 4) * 4, 1)
+        assert r.data_ptr() % 16 == 0 and r.dtype == torch.float32
+        assert torch.equal(r, lmm.round_tf32(x))
+        assert not r._base[:, k:].any()
+        assert lmm.is_tf32_rows(r) and not lmm.is_tf32_rows(x)
+        assert not lmm.is_tf32_rows(r[:, :k])     # another view
+    a = torch.tensor(rng.standard_normal((37, 129)), dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal((51, 129)), dtype=torch.float32)
+    assert torch.equal(lmm.ladder_mm_plain(a, lmm.tf32_rows(b), "tf32"),
+                       lmm.ladder_mm_plain(a, b, "tf32"))
+    assert torch.equal(lmm.ladder_mm(a, lmm.tf32_rows(b), precision="tf32"),
+                       lmm.ladder_mm(a, b, precision="tf32"))
+
+
+def test_tf32_operand_casts_and_padded_rows(system):
+    """The per-solve TF32 copies of the ladder operands ('tf32' in
+    PackedVVVV.to and SectoredVVVV.to) are tf32_rows of every block; under
+    a TF32 mode the packed route's A rows are gathered into 16-byte rows
+    (no launch copies them), and the product is unchanged."""
+    sect = system["sect_t"]
+    s32 = sect.to(torch.float32).to("tf32")
+    for w, wt in zip(sect, s32):
+        assert lmm.is_tf32_rows(wt)
+        assert torch.equal(wt, lmm.round_tf32(w.float()))
+    packed = tl.pack_vvvv(system["eris_t"].vvvv.float())
+    pt = packed.to("tf32")
+    assert lmm.is_tf32_rows(pt.wc) and pt.wc.stride(0) % 4 == 0
+    rng = np.random.default_rng(9)
+    v = system["eris_t"].vvvv.shape[0]
+    x = torch.tensor(rng.standard_normal((3, 5, v, v)), dtype=torch.float32)
+    x = x - x.transpose(2, 3)
+    with config.matmul_precision("high"):
+        assert tl._row_align(x) == lmm.TF32_ROW_ALIGN
+        xc = tl._pack_pairs(x.reshape(15, v * v), v, tl._row_align(x))
+        assert xc.stride(0) % 4 == 0 and xc.shape == (15, v * (v - 1) // 2)
+        assert torch.equal(xc, tl._pack_pairs(x.reshape(15, v * v), v))
+        assert torch.equal(tl.packed_vvvv_contract(pt, x),
+                           tl.packed_vvvv_contract(packed, x))
+    assert tl._row_align(x) == 1
+    assert tl._row_align(x.bfloat16()) == lmm.BF16_ROW_ALIGN
+
+
+def test_high_solve_with_the_per_solve_operand_matches_without(system,
+                                                               monkeypatch):
+    """An f32 'high' solve on the sectored route reads the per-solve TF32
+    operand (tf32_rows) in its ladder products, and gives the same Ep and
+    iterations as the same solve that hands the raw f32 operand to every
+    product (rounded there instead)."""
+    from ecw_cc_torch.models.eris import from_numpy as fn
+
+    er32, sect32 = fn(system["er_s"], system["sect"], dtype=torch.float32,
+                      device="cpu")
+
+    def solver():
+        def exp():
+            return TExp(L, [[["mat", system["target"]]]], mol=system["mol"],
+                        mo_coeff=system["ghf"].mo_coeff)
+        return tgs.Solver_CCSD(TGCC(er32), exp(), vvvv_op=sect32,
+                               mo_perm=system["perm"], conv="tl",
+                               conv_thres=1e-6, diis="tl", maxiter=60)
+
+    seen = []
+    real = lmm.ladder_mm
+
+    def spy(a, b, *args, **kw):
+        seen.append(lmm.is_tf32_rows(b))
+        return real(a, b, *args, **kw)
+
+    monkeypatch.setattr(tl, "ladder_mm", spy)
+    ecw_cc_torch.set_config(iter_precision="high")
+    s1 = solver()
+    out1 = s1.SCF(L)
+    assert seen and all(seen)
+    monkeypatch.setattr(tgs, "TF32_MODES", ())
+    seen.clear()
+    s2 = solver()
+    out2 = s2.SCF(L)
+    assert seen and not any(seen)
+    assert s1.last_solve["route"] == "sectored"
+    assert "Convergence reached" in out1[0]
+    assert s1.last_solve["iterations"] == s2.last_solve["iterations"]
+    assert out1[1][-1] == out2[1][-1]
+
+
 def test_promoting_einsum_matches_jax_promotion():
     x = torch.randn(3, 4, dtype=torch.bfloat16)
     y = torch.randn(4, 5, dtype=torch.float32)
@@ -430,7 +523,12 @@ CARD_SHAPES = [(392, 1891, 1891), (196, 3844, 3844), (392, 961, 961),
                (98, 465, 465), (98, 961, 961), (98, 465, 240),
                (98, 465, 241), (98, 465, 257), (98, 961, 959),
                (98, 465, 15), (1, 961, 961), (129, 465, 465), (37, 513, 129),
-               (100, 130, 1001)]
+               (100, 130, 1001),
+               # the 128 x 128 tile's edges: one and two row tiles, a
+               # cluster of four row tiles, K 1-3 past a multiple of 4 and 8
+               (64, 465, 465), (65, 465, 465), (128, 961, 961),
+               (392, 465, 465), (98, 961, 961 - 6), (98, 961, 961 - 4),
+               (98, 465, 463), (392, 1891, 1889)]
 
 
 @pytest.mark.gpu
