@@ -24,6 +24,9 @@ Run from the repository root on a machine with a CUDA card:
                                            # excited states
     python3 chip_smoke.py --precision      # phases 1, 2 and 12 only: the
                                            # CCSD solve's precision modes
+    python3 chip_smoke.py --eom            # phases 1, 2, phase 3's
+                                           # tangent check and 13 only:
+                                           # EOM-EE/IP/EA-CCSD
 
 Phases, one output line each (and one "phase_seconds" line at the end of
 each); any failure raises and exits nonzero:
@@ -49,6 +52,12 @@ each); any failure raises and exits nonzero:
      solver holds it (tf32_rows, bf16_rows), and a raw TF32 B that the
      kernel rounds itself equal to its tf32_rows copy; timed beside their
      plain versions and the library call (cuBLAS with TF32 on, on bf16);
+     phase 13's EOM shapes (196x1891x1891 and 14x1891x1891, the sorted
+     sigma's 196x465x465 and 196x961x961) checked and timed in f32 and
+     f64; and the kernel's tangent: torch.func.jvp of ladder_mm(a, w) in
+     a against that of a @ w.T at 196x1891x1891, 14x1891x1891 and a
+     ragged shape, f32 and f64, w symmetric and not, each one forward and
+     one tangent launch;
   4. main path, f32: ECW('c2h2', 'cc-pvdz') (ERIs transformed on the card,
      alternating layout, a PackedVVVV at nvir 62) -> HF target with a
      field -> CCSD_GS over lambda = 0, 0.25, 0.5 (diis 'tl', conv_thres
@@ -175,8 +184,35 @@ each); any failure raises and exits nonzero:
          without refine, and both hybrids, the same way, and the chains of
          'highest', 'high' and 'bf16' (ms per iteration; every chain's
          launches exactly one per iteration in its mode's variant);
+  13. EOM-CCSD (the sigmas by torch.func.jvp / vjp of the CCSD residual,
+     whose ladder launches the kernel forward, for the tangent and
+     backward):
+     (a) the JAX package's EOM bench rows, C2H2/cc-pVDZ f32 on ECW's ERIs
+         (alternating, a PackedVVVV), solve_ccsd(conv_tol=1e-8), then
+         eom_ccsd(nroots=1), eom_ccsd(nroots=2, left=True),
+         eom_ip_ccsd(nroots=2), eom_ea_ccsd(nroots=1), tol 1e-5: energies
+         within 0.005 eV of BENCH_r05's 5.51, 6.682, 11.315 and 4.493 eV;
+         the same solves at f64 on ERIs built on the card (tol 1e-7)
+         within 1e-5 Ha per root; <L_j|R_k> = delta_jk to 1e-5 (1e-4 off
+         the diagonal); per solve the Davidson cycles and matvecs, the
+         ladder launches (forward, tangent, backward) exactly as the
+         matvecs predict (one product per matvec on this route, none for
+         IP), peak memory, and the warm solve ms (median of 3);
+     (b) the same four solves at f64 at C2H2/6-31G (the dense ladder, the
+         kernel at 196x900x900), card against CPU: roots to 1e-9 Ha, equal
+         cycles and matvecs, the card's launches as predicted;
+     (c) ECW(trans-bent acetylene, cc-pVDZ).Build_ES_exp_EOM(2, 'trdip')
+         at f32 (the sorted sectored ESexp.EOM: three products per
+         matvec) and at f64 on the card: launches as the iteration and
+         matvec counts predict, Tr(gamma_es) = N to 1e-5, the f32 roots
+         and oscillator strengths within 1e-5 Ha and 1e-4 of f64; then
+         CCS_ES over lambda = 0, 0.05, 0.1 (method='device', L_loop=True)
+         on the f32 states, with their 'trdip' targets (printed: the two
+         roots are triplets, whose transition dipoles vanish) and with
+         their transition densities ('trmat'), where every lambda must
+         converge;
   8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported,
-     and the excited-state modules were.
+     and the excited-state and EOM modules were.
 Before the last line it prints the kernel report as one JSON object and
 the card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -232,10 +268,18 @@ ROUTE_SHAPES = [DENSE_DZ, PACKED_DZ, PACKED_TZ, (392, 465, 465),
 # iteration, at cc-pVTZ (at cc-pVDZ it is DENSE_DZ)
 POLISH_TZ = (196, 26244, 26244)
 F64_SHAPES = [POLISH_TZ]     # checked and timed in f64 only
-TIMED_SHAPES = {torch.float32: MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES,
+# phase 13's EOM sigmas at C2H2/cc-pVDZ (nocc 14): the EE ladder on the
+# packed route (every occupied pair: 196 rows; forward, tangent and
+# backward) and the EA ladder (one row per occupied orbital: 14); on the
+# sorted layout the sectored EE sigma's three products per matvec, every
+# occupied pair (alpha-alpha and beta-beta 465, alpha-beta 961)
+EOM_SHAPES = [(196, 1891, 1891), (14, 1891, 1891), (196, 465, 465),
+              (196, 961, 961)]
+TIMED_SHAPES = {torch.float32: MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
+                + EOM_SHAPES,
                 torch.float64: MAIN_SHAPES + TZ_SHAPES + [DENSE_DZ,
                                                           PACKED_TZ]
-                + F64_SHAPES}
+                + F64_SHAPES + EOM_SHAPES}
 # phase 10's target builds (C2H2, 196 occupied pairs, one ladder at a time):
 # the packed GEMM at cc-pVDZ and cc-pVTZ, the dense one at 6-31G (nvir 30)
 TARGET_SHAPES = [(196, 1891, 1891), (196, 13041, 13041), (196, 900, 900)]
@@ -391,11 +435,11 @@ def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm):
     Returns {(dtype, shape): (max_abs_err, plan)}."""
     out = {}
     for dtype in DTYPES:
-        for i, shape in enumerate(MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
-                                  + TARGET_SHAPES + RAGGED_SHAPES
-                                  + EDGE_SHAPES
-                                  + (F64_SHAPES if dtype == torch.float64
-                                     else [])):
+        for i, shape in enumerate(dict.fromkeys(
+                MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES + TARGET_SHAPES
+                + RAGGED_SHAPES + EDGE_SHAPES
+                + (F64_SHAPES if dtype == torch.float64 else [])
+                + EOM_SHAPES)):
             a, b = operands(shape, dtype, seed=i)
             c = ladder_mm(a, b)
             torch.cuda.synchronize()
@@ -416,6 +460,54 @@ def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm):
                 raise AssertionError(f"plan at {shape} {dtype} launches "
                                      f"{p.blocks} blocks on {n_sm} SMs")
             out[(dtype, shape)] = (err, p)
+    return out
+
+
+# phase 3's tangent check: the EE and EA sigma shapes of phase 13 and a
+# ragged one
+TANGENT_SHAPES = [(196, 1891, 1891), (14, 1891, 1891), (37, 129, 129)]
+
+
+def check_kernel_tangent(ladder_mm, ladder_mm_ref):
+    """torch.func.jvp of ladder_mm(a, w) in a against that of a @ w.T, f32
+    and f64, w symmetric (declared so) and not: the primal and the tangent
+    to TOL * max|C|, and each jvp exactly one forward and one tangent
+    launch.  Returns {(dtype, shape, symmetric): max abs error of the
+    tangent}."""
+    out = {}
+    for dtype in DTYPES:
+        for i, shape in enumerate(TANGENT_SHAPES):
+            M, N, K = shape
+            rng = np.random.default_rng(300 + i)
+            a, da = (torch.as_tensor(rng.standard_normal((M, K)),
+                                     dtype=dtype, device="cuda")
+                     for _ in range(2))
+            w = torch.as_tensor(rng.standard_normal((N, K)), dtype=dtype,
+                                device="cuda")
+            for symmetric, op in ((True, (w + w.T).contiguous()),
+                                  (False, w)):
+                c0, dc0 = torch.func.jvp(lambda x: ladder_mm_ref(x, op),
+                                         (a,), (da,))
+                (c, dc), n = count_all(ladder_mm, lambda: torch.func.jvp(
+                    lambda x: ladder_mm(x, op, symmetric=symmetric), (a,),
+                    (da,)))
+                torch.cuda.synchronize()
+                err = float((dc - dc0).abs().max())
+                err_c = float((c - c0).abs().max())
+                scale = float(dc0.abs().max())
+                ok = (err <= TOL[dtype] * scale
+                      and err_c <= TOL[dtype] * float(c0.abs().max())
+                      and tuple(n) == (1, 1, 0))
+                phase(3, "kernel_tangent", dtype=str(dtype), shape=shape,
+                      symmetric=symmetric, max_abs_err=err,
+                      max_abs_ref=scale, primal_max_abs_err=err_c,
+                      launches_fwd_tan_back=n, ok=ok)
+                if not ok:
+                    raise AssertionError(
+                        f"ladder_mm tangent at {shape} {dtype} symmetric="
+                        f"{symmetric}: {err} against {TOL[dtype]} * {scale}"
+                        f" (primal {err_c}), launches {n}")
+                out[(dtype, shape, symmetric)] = err
     return out
 
 
@@ -2031,11 +2123,12 @@ def run_phase11():
     run_es_davidson(*run_es_width(BASIS_TZ))
 
 
-def check_no_jax(es_ran):
+def check_no_jax(es_ran, eom_ran=False):
     """Phase 8."""
     bad = sorted(m for m in sys.modules if m in ("jax", "ecw_cc_tpu")
                  or m.startswith(("jax.", "jaxlib", "ecw_cc_tpu.")))
-    missing = [m for m in ES_MODULES if m not in sys.modules] if es_ran else []
+    want = (ES_MODULES if es_ran else ()) + (EOM_MODULES if eom_ran else ())
+    missing = [m for m in want if m not in sys.modules]
     if bad or missing:
         raise AssertionError(f"imported: {bad}; not imported: {missing}")
     phase(8, "no_jax", ok=True, checked_modules=sum(
@@ -2410,7 +2503,392 @@ def route_sweeps(ladder_mm, cells=ROUTE_CELLS, reps=ROUTE_REPS,
     return rows
 
 
-def kernel_report(launches, checks, times, backward, grads, variants):
+# Phase 13: EOM-CCSD.  (a) runs the JAX package's EOM bench rows
+# (bench.py:713-776) at their full width, C2H2/cc-pVDZ f32 on the ERIs ECW
+# builds (alternating layout, a PackedVVVV), and holds the energies to
+# BENCH_r05's (rounded there to 3 decimals, so +-0.005 eV): EE 5.51 eV
+# (one root) and 6.682 (the second of two with left vectors), IP 11.315,
+# EA 4.493.
+EOM_ANCHOR_EV = {"ee": (5.51,), "ee_left": (None, 6.682), "ip": (11.315,),
+                 "ea": (4.493,)}
+EOM_EV_TOL = 0.005
+EOM_TOL = {torch.float32: 1e-5, torch.float64: 1e-7}
+EOM_CCSD_TOL = 1e-8          # solve_ccsd(conv_tol=) of the bench rows
+EOM_REPS = 3                 # timed warm solves (median), after one counted
+EOM_SOLVES = ("ee", "ee_left", "ip", "ea")
+# ladder products per matvec of each route's EE sigma (right: forward and
+# tangent; left: forward and backward) and of the EA sigma on pack-on-build
+# ERIs; IP reads no vvvv
+EOM_PRODUCTS = {"packed": 1, "dense": 1, "sectored": 3}
+EOM_MODULES = ("ecw_cc_torch.ops.eom", "ecw_cc_torch.ops.eom_ipea",
+               "ecw_cc_torch.ops.wick")
+
+
+def eom_calls(eris, op, t1, t2, tol):
+    """The four solves of the bench rows, each as fn(log)."""
+    from ecw_cc_torch.ops import eom, eom_ipea
+
+    return {
+        "ee": lambda log: eom.eom_ccsd(eris, t1, t2, nroots=1, tol=tol,
+                                       vvvv_op=op, log=log),
+        "ee_left": lambda log: eom.eom_ccsd(eris, t1, t2, nroots=2, tol=tol,
+                                            left=True, vvvv_op=op, log=log),
+        "ip": lambda log: eom_ipea.eom_ip_ccsd(eris, t1, t2, nroots=2,
+                                               tol=tol, log=log),
+        "ea": lambda log: eom_ipea.eom_ea_ccsd(eris, t1, t2, nroots=1,
+                                               tol=tol, vvvv_op=op, log=log)}
+
+
+def eom_matvecs(log):
+    """(right, left) matvecs of an EOM solve's log, the left ones with
+    those of every per-root solve."""
+    left = log.get("left", [])
+    left = left if isinstance(left, list) else [left]
+    left = left + log.get("left_follow", [])
+    return log["right"]["matvecs"], sum(x["matvecs"] for x in left)
+
+
+def eom_cycles(log):
+    left = log.get("left", [])
+    left = left if isinstance(left, list) else [left]
+    return ([log["right"]["cycles"]]
+            + [x["cycles"] for x in left + log.get("left_follow", [])])
+
+
+def expected_eom_launches(name, log, products, ea_packed):
+    """(forward, tangent, backward) ladder launches of one solve: per right
+    matvec `products` forward and as many tangent ones (EE), per left
+    matvec forward and backward; the EA sigma as many forward per right
+    matvec on pack-on-build ERIs (`ea_packed`; with a dense vvvv its
+    ladder terms are einsums, as in the JAX package); IP none."""
+    right, left = eom_matvecs(log)
+    if name == "ip" or (name == "ea" and not ea_packed):
+        return 0, 0, 0
+    if name == "ea":
+        return products * right, 0, products * left
+    return products * (right + left), products * right, products * left
+
+
+def count_all(ladder_mm, fn):
+    """(result of fn(), (forward, tangent, backward) launches)."""
+    ladder_mm.launches = ladder_mm.backward_launches = 0
+    ladder_mm.tangent_launches = 0
+    out = fn()
+    tan, back = ladder_mm.tangent_launches, ladder_mm.backward_launches
+    return out, (ladder_mm.launches - tan - back, tan, back)
+
+
+def run_eom_solves(ladder_mm, tag_, eris, op, t1, t2, route, reps):
+    """The four solves on one set of ERIs: one counted run each (launches
+    held to expected_eom_launches, peak memory), then `reps` timed ones."""
+    dtype = t1.dtype
+    out = {}
+    for name, fn in eom_calls(eris, op, t1, t2, EOM_TOL[dtype]).items():
+        log = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res, launches = count_all(ladder_mm, lambda: fn(log))
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn({})
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        want = expected_eom_launches(name, log, EOM_PRODUCTS[route],
+                                     eris.vvvv.numel() == 0)
+        omegas = [float(w) for w in res[0]]
+        conv = [log["right"]["converged"]] + [
+            x["converged"] for x in ([log["left"]] if isinstance(
+                log.get("left"), dict) else log.get("left", []))]
+        phase(13, "eom_solve", path=tag_, solve=name, dtype=str(dtype),
+              route=route, omegas_Ha=omegas,
+              omegas_eV=[w * EV for w in omegas], cycles=eom_cycles(log),
+              matvecs=eom_matvecs(log), converged=conv,
+              launches_fwd_tan_back=launches, expected=want,
+              launches_per_matvec=want[0] / max(1, sum(eom_matvecs(log))),
+              cold_ms=cold_ms, warm_ms=statistics.median(runs) if runs
+              else None, warm_ms_runs=runs, peak_bytes_above_base=peak)
+        if tuple(launches) != tuple(want):
+            raise AssertionError(f"{tag_} {name}: ladder launches "
+                                 f"(forward, tangent, backward) {launches}, "
+                                 f"expected {want}")
+        if not all(all(c) for c in conv):
+            raise AssertionError(f"{tag_} {name}: a Davidson did not "
+                                 f"converge: {log}")
+        out[name] = dict(res=res, log=log, launches=launches,
+                         ms=statistics.median(runs) if runs else None)
+    return out
+
+
+def eom_overlaps(Rs, Ls):
+    """<L_j|R_k> = l1.r1 + 1/4 l2.r2 (the EE operator convention)."""
+    n = len(Rs)
+    return np.array([[float(torch.vdot(Ls[j][0].reshape(-1),
+                                       Rs[k][0].reshape(-1))
+                            + 0.25 * torch.vdot(Ls[j][1].reshape(-1),
+                                                Rs[k][1].reshape(-1)))
+                      for k in range(n)] for j in range(n)])
+
+
+def eom_matvec_ms(eris, op, t1, t2, reps=EOM_REPS * 3):
+    """Host ms (synchronized, median of `reps` after one untimed call) of
+    one right EE matvec (torch.func.jvp of the residual), one left one
+    (vjp), and the residual alone (the primal that the jvp evaluates
+    again in every right matvec, ROADMAP A.12)."""
+    from ecw_cc_torch.ops import eom
+
+    g = torch.Generator(t1.device).manual_seed(7)
+    r1 = torch.randn(t1.shape, generator=g, device=t1.device, dtype=t1.dtype)
+    r2 = eom._asym(torch.randn(t2.shape, generator=g, device=t1.device,
+                               dtype=t1.dtype))
+    sigma, sigma_left = eom.make_sigma(eris, t1, t2, vvvv_op=op)
+
+    def primal():
+        with torch.no_grad():
+            return eom._residual(eris, op, None, t1, t2, None)
+
+    out = {}
+    for name, fn in (("right_matvec", lambda: sigma(r1, r2)),
+                     ("left_matvec", lambda: sigma_left(r1, r2)),
+                     ("primal_residual", primal)):
+        fn()
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(runs)
+    return out
+
+
+def run_eom_bench(ladder_mm):
+    """Phase 13 (a).  Returns {path: (forward, tangent, backward)}."""
+    import io
+
+    from ecw_cc_torch import ECW
+    from ecw_cc_torch.models.eris import build_eris_device
+    from ecw_cc_torch.ops import ccsd_t
+    from ecw_cc_torch.ops.ladder import PackedVVVV
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ecw = ECW(MOLECULE, BASIS, device=CARD, dtype=torch.float32)
+    setup_s = time.perf_counter() - t0
+    if not isinstance(ecw.vvvv_op, PackedVVVV) or ecw.eris.vvvv.numel():
+        raise AssertionError("the f32 ECW did not build pack-on-build ERIs")
+    ccsd_log = {}
+    t0 = time.perf_counter()
+    t1, t2, e_cc = ccsd_t.solve_ccsd(ecw.eris, conv_tol=EOM_CCSD_TOL,
+                                     vvvv_op=ecw.vvvv_op, log=ccsd_log)
+    ccsd_s = time.perf_counter() - t0
+    r32 = run_eom_solves(ladder_mm, "c2h2_ccpvdz_f32_eom", ecw.eris,
+                         ecw.vvvv_op, t1, t2, "packed", EOM_REPS)
+    mv_ms = eom_matvec_ms(ecw.eris, ecw.vvvv_op, t1, t2)
+    er64, op64 = build_eris_device(ecw.mol, ecw.mf, dtype=torch.float64,
+                                   device=CARD, pack_ladder=True)
+    t1d, t2d, e_cc64 = ccsd_t.solve_ccsd(er64, vvvv_op=op64)
+    r64 = run_eom_solves(ladder_mm, "c2h2_ccpvdz_f64_eom", er64, op64, t1d,
+                         t2d, "packed", 0)
+    ev = {k: [w * EV for w in r32[k]["res"][0]] for k in EOM_SOLVES}
+    d_anchor = {k: [abs(e - a) for e, a in zip(ev[k], EOM_ANCHOR_EV[k])
+                    if a is not None] for k in EOM_SOLVES}
+    d64 = {k: max(abs(a - b) for a, b in zip(r32[k]["res"][0],
+                                             r64[k]["res"][0]))
+           for k in EOM_SOLVES}
+    _, Rs, Ls = r32["ee_left"]["res"]
+    O = eom_overlaps(Rs, Ls)
+    diag_err = float(np.abs(np.diag(O) - 1.0).max())
+    off = float(np.abs(O - np.diag(np.diag(O))).max())
+    phase(13, "eom_bench", molecule=MOLECULE, basis=BASIS, nocc=ecw.nocc,
+          nvir=ecw.nvir, setup_seconds=setup_s, ccsd=ccsd_log,
+          ccsd_seconds=ccsd_s, E_ccsd_f32=float(e_cc),
+          E_ccsd_f64=float(e_cc64), eV_f32=ev, anchors_eV=EOM_ANCHOR_EV,
+          d_anchor_eV=d_anchor, d_f32_vs_f64_Ha=d64, left_right_overlap=O,
+          biorthonormal_err=diag_err, off_diagonal_max=off,
+          warm_ms={k: r32[k]["ms"] for k in EOM_SOLVES}, matvec_ms=mv_ms)
+    if max(max(v) for v in d_anchor.values()) > EOM_EV_TOL:
+        raise AssertionError(f"EOM energies off BENCH_r05's anchors by "
+                             f"{d_anchor} eV")
+    if max(d64.values()) > 1e-5:
+        raise AssertionError(f"f32 EOM roots differ from f64 by {d64} Ha")
+    if diag_err > 1e-5 or off > 1e-4:
+        raise AssertionError(f"<L|R> is not biorthonormal: {O}")
+    return {"c2h2_ccpvdz_f32_eom": sum_launches(r32),
+            "c2h2_ccpvdz_f64_eom": sum_launches(r64)}
+
+
+def sum_launches(results):
+    return tuple(int(sum(r["launches"][i] for r in results.values()))
+                 for i in range(3))
+
+
+def run_eom_parity(ladder_mm):
+    """Phase 13 (b): C2H2/6-31G f64, the card against the CPU (dense
+    route: the kernel at 196 x 900 x 900)."""
+    import io
+
+    from ecw_cc_torch import ECW
+    from ecw_cc_torch.ops import ccsd_t
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            ecw = ECW(MOLECULE, SMALL_BASIS, device=dev, dtype=torch.float64)
+        t1, t2, _ = ccsd_t.solve_ccsd(ecw.eris)
+        out = {}
+        for name, fn in eom_calls(ecw.eris, None, t1, t2,
+                                  EOM_TOL[torch.float64]).items():
+            log = {}
+            t0 = time.perf_counter()
+            r, launches = count_all(ladder_mm, lambda: fn(log))
+            out[name] = dict(w=[float(x) for x in r[0]], log=log,
+                             launches=launches, cycles=eom_cycles(log),
+                             matvecs=eom_matvecs(log),
+                             s=time.perf_counter() - t0)
+        res[dev] = out
+    card, cpu = res["cuda"], res["cpu"]
+    dw = {k: max(abs(a - b) for a, b in zip(card[k]["w"], cpu[k]["w"]))
+          for k in EOM_SOLVES}
+    same = {k: card[k]["cycles"] == cpu[k]["cycles"]
+            and card[k]["matvecs"] == cpu[k]["matvecs"] for k in EOM_SOLVES}
+    want = {k: expected_eom_launches(k, card[k]["log"], EOM_PRODUCTS["dense"],
+                                     False) for k in EOM_SOLVES}
+    phase(13, "eom_card_vs_cpu", molecule=MOLECULE, basis=SMALL_BASIS,
+          dtype="float64", omegas_cpu={k: cpu[k]["w"] for k in EOM_SOLVES},
+          d_omega_Ha=dw, cycles={k: (card[k]["cycles"], cpu[k]["cycles"])
+                                 for k in EOM_SOLVES},
+          same_cycles=same, seconds={k: (card[k]["s"], cpu[k]["s"])
+                                     for k in EOM_SOLVES},
+          launches_card={k: card[k]["launches"] for k in EOM_SOLVES},
+          expected=want,
+          launches_cpu={k: cpu[k]["launches"] for k in EOM_SOLVES})
+    if max(dw.values()) > 1e-9 or not all(same.values()):
+        raise AssertionError(f"f64 EOM on the card differs from the CPU: "
+                             f"{dw}, cycles {same}")
+    if any(tuple(card[k]["launches"]) != tuple(want[k]) for k in EOM_SOLVES):
+        raise AssertionError(f"card launches {[card[k]['launches'] for k in EOM_SOLVES]}"
+                             f" against {want}")
+    if any(any(cpu[k]["launches"]) for k in EOM_SOLVES) and CARD == "cuda":
+        raise AssertionError("the CPU solves launched the kernel")
+    return {"c2h2_631g_f64_eom_card": tuple(
+        int(sum(card[k]["launches"][i] for k in EOM_SOLVES))
+        for i in range(3))}
+
+
+def eom_target(ladder_mm, dtype):
+    """ECW(trans-bent acetylene, cc-pVDZ).Build_ES_exp_EOM(2, 'trdip') on
+    the card: (ECW, set-up seconds, target seconds, launches)."""
+    import io
+
+    from ecw_cc_torch import ECW
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ecw = ECW(ES_ACETYLENE, BASIS, device=CARD, dtype=dtype)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, launches = count_all(
+            ladder_mm, lambda: ecw.Build_ES_exp_EOM(2, "trdip"))
+    return ecw, setup_s, time.perf_counter() - t0, launches
+
+
+def run_eom_targets(ladder_mm):
+    """Phase 13 (c)."""
+    out, launches = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        ecw, setup_s, target_s, n = eom_target(ladder_mm, dtype)
+        log = ecw.es_eom.log
+        right, left = eom_matvecs(log["eom"])
+        # f32: the sorted sectored build (sectored sigma, 2 products per
+        # CCSD and Lambda iteration under the mirror gate, 3 without); f64:
+        # the dense host build (the CCSD solve packs its operand at nvir
+        # 62, 1 product per iteration; Lambda and the sigma dense, 1)
+        route = "sectored" if dtype == torch.float32 else "dense"
+        k = EOM_PRODUCTS[route]
+        per_it = (2 if log["sym"] else 3) if route == "sectored" else 1
+        want = (k * (right + left) + per_it * (log["ccsd"]["iterations"]
+                                               + log["lambda"]["iterations"]),
+                k * right, k * left)
+        traces = [float(np.trace(g)) for g in ecw.es_eom.gamma_es_mo]
+        out[dtype] = dict(ecw=ecw, w=np.asarray(ecw.Eexp_ES[0]),
+                          f=np.asarray(ecw.f_osc_ES), traces=traces)
+        # "f32"/"f64" in the name: the kernel report files a path's
+        # launches under the entry of that dtype
+        name = ("c2h2_bent_ccpvdz_"
+                f"{'f64' if dtype == torch.float64 else 'f32'}_eom_target")
+        launches[name] = tuple(int(x) for x in n)
+        phase(13, "eom_target", path=name, route=route, sym=log["sym"],
+              setup_seconds=setup_s, target_seconds=target_s,
+              stages={k_: v for k_, v in log.items()
+                      if k_.endswith("_s")},
+              ccsd_iterations=log["ccsd"]["iterations"],
+              lambda_iterations=log["lambda"]["iterations"],
+              eom=log["eom"], omegas_eV=(out[dtype]["w"] * EV).tolist(),
+              f_osc=out[dtype]["f"].tolist(), spin=ecw.spin_ES,
+              trace_gamma_es=traces, launches_fwd_tan_back=n,
+              expected=want)
+        if tuple(n) != want:
+            raise AssertionError(f"{name}: ladder launches {n}, expected "
+                                 f"{want}")
+        nelec = ecw.mol.nelectron
+        if max(abs(t - nelec) for t in traces) > 1e-5:
+            raise AssertionError(f"{name}: Tr(gamma_es) = {traces}, not "
+                                 f"{nelec}")
+    o32, o64 = out[torch.float32], out[torch.float64]
+    dw = float(np.abs(o32["w"] - o64["w"]).max())
+    df = float(np.abs(o32["f"] - o64["f"]).max())
+    phase(13, "eom_target_compare", d_omega_f32_vs_f64_Ha=dw,
+          d_f_osc_f32_vs_f64=df)
+    if dw > 1e-5 or df > 1e-4:
+        raise AssertionError(f"f32 EOM targets differ from f64: roots "
+                             f"{dw} Ha, f_osc {df}")
+    # The sweep on the f32 targets.  The two lowest roots are triplets:
+    # their transition dipoles vanish, and on those 'trdip' targets the
+    # lambda = 0.1 solve does not converge (at f32 and f64, device and
+    # host loop alike), which is recorded; the check is the sweep on the
+    # same states' transition densities ('trmat', what
+    # Build_ES_exp_EOM(prop='trmat') stores)
+    ecw = o32["ecw"]
+    flows = {"trdip": ecw, "trmat": copy.copy(ecw)}
+    flows["trmat"].exp_data = [[]] + [[["trmat", list(tr)]]
+                                     for tr in ecw.es_eom.gamma_tr_mo]
+    result = {}
+    for prop, e in flows.items():
+        _, sweep_ms = es_solve(e, np.asarray(ES_SWEEP), L_loop=True)
+        its = [x["iterations"] for x in e.solve_log]
+        ok = [x["status"] == 1 and bool(np.all(np.isfinite(ep[0])))
+              for x, ep in zip(e.solve_log, e.Ep_lamb)]
+        result[prop] = ok
+        phase(13, "eom_target_sweep", prop=prop, lambdas=ES_SWEEP,
+              iterations=its, converged=ok, sweep_ms=sweep_ms,
+              Ep=[np.asarray(x[0], np.float64).tolist() for x in e.Ep_lamb])
+    ok = result["trmat"]
+    if len(ok) != len(ES_SWEEP) or not all(ok):
+        raise AssertionError(f"CCS_ES on the EOM 'trmat' targets: {ok}")
+    return launches
+
+
+def run_phase13(ladder_mm):
+    """Phase 13; returns {path: (forward, tangent, backward) launches}."""
+    launches = run_eom_bench(ladder_mm)
+    launches.update(run_eom_parity(ladder_mm))
+    launches.update(run_eom_targets(ladder_mm))
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_report(launches, checks, times, backward, grads, variants,
+                  eom_launches, tangents):
     """The kernel line: one entry per variant of the ladder kernel.  f32
     and f64 (csrc/ladder_mm.cu): the headline numbers at the main path's
     cc-pVTZ shape (392x13041x13041, the stacked packed GEMM), every timed
@@ -2420,7 +2898,10 @@ def kernel_report(launches, checks, times, backward, grads, variants):
     {(dtype, shape): error of the kernel's gradient against the plain
     version's}.  variants: (checks, times) of the TF32 and BF16 kernels
     (csrc/ladder_mm_tc.cu, phase 3) and {variant: launches} of phase 12,
-    whose f32 and f64 launches join those entries."""
+    whose f32 and f64 launches join those entries.  eom_launches: {path:
+    (forward, tangent, backward)} of phase 13, joining the f32 and f64
+    entries by the dtype in the path's name; tangents: {(dtype, shape,
+    symmetric): error of the kernel's tangent} (phase 3)."""
     by_dtype = {}
     for dtype in DTYPES:
         by_dtype[str(dtype).split(".")[-1]] = {tag(shape): {
@@ -2442,6 +2923,9 @@ def kernel_report(launches, checks, times, backward, grads, variants):
         paths = {k: n for k, n in launches.items()
                  if ("f64" in k) == (v == "f64")}
         paths["phase12_precision_modes"] = v_launches[v]
+        eom = {k: n for k, n in eom_launches.items()
+               if ("f64" in k) == (v == "f64")}
+        paths.update({k: sum(n) for k, n in eom.items()})
         entries.append({
             "name": f"ladder_mm_{v}", "route": "cuda",
             "source": "ecw_cc_torch/csrc/ladder_mm.cu",
@@ -2456,7 +2940,12 @@ def kernel_report(launches, checks, times, backward, grads, variants):
             "library_ms": times[main]["plain_ms"],
             "shape": tag(main[1]), "dtype": str(dtype).split(".")[-1],
             "blocks": checks[main][1].blocks,
-            "split_k": checks[main][1].split, "deterministic": True})
+            "split_k": checks[main][1].split, "deterministic": True,
+            "eom_launches_fwd_tan_back": eom,
+            "tangent_launches": sum(n[1] for n in eom.values()),
+            "tangent_max_abs_err": {
+                f"{tag(sh)} {'symmetric' if sym else 'general'}": e
+                for (d, sh, sym), e in tangents.items() if d == dtype}})
     entries[0].update(backward_launches=backward, gradient_max_abs_err={
         f"{str(d).split('.')[-1]} {tag(sh)}": e
         for (d, sh), e in grads.items()}, by_dtype=by_dtype)
@@ -2572,6 +3061,18 @@ def main(argv):
         print(smi)
         return 0
 
+    if "--eom" in argv:
+        with timed(3, seconds):
+            check_kernel_tangent(ladder_mm, ladder_mm_ref)
+        with timed(13, seconds):
+            launches_13 = run_phase13(ladder_mm)
+        with timed(8, seconds):
+            check_no_jax(False, eom_ran=True)
+        phase(0, "seconds", total=time.perf_counter() - t_start,
+              by_phase=seconds, launches_fwd_tan_back=launches_13)
+        print(smi)
+        return 0
+
     if targets_only:
         # phase 10 alone, on its own ECWs (and cc-pVTZ SCF)
         from ecw_cc_torch.models.molecule import Molecule
@@ -2596,6 +3097,7 @@ def main(argv):
         checks = check_kernel(ladder_mm, ladder_mm_ref, lmm.device_plan,
                               n_sm)
         check_deterministic(ladder_mm)
+        tangents = check_kernel_tangent(ladder_mm, ladder_mm_ref)
         times = time_kernel(ladder_mm, ladder_mm_ref)
         v_checks = check_variants(lmm, n_sm)
         v_times = time_variants(lmm)
@@ -2705,9 +3207,13 @@ def main(argv):
         launches_12, by_variant_12 = run_phase12(lmm, ecw_tz)
         del ecw_tz
 
+    # 13. EOM-CCSD
+    with timed(13, seconds):
+        launches_13 = run_phase13(ladder_mm)
+
     # 8. neither JAX nor the JAX package
     with timed(8, seconds):
-        check_no_jax(True)
+        check_no_jax(True, eom_ran=True)
 
     phase(0, "seconds", total=time.perf_counter() - t_start,
           by_phase=seconds)
@@ -2717,7 +3223,7 @@ def main(argv):
          "c2h2_ccpvtz_f32_packed": launches_tz, **launches_9,
          **launches_10},
         checks, times, back_10, grads,
-        (v_checks, v_times, by_variant_12))))
+        (v_checks, v_times, by_variant_12), launches_13, tangents)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,6 +17,7 @@ Spec format (all keys but molecule/basis optional):
   "target": {"prop": "mat", "posthf": "HF",  // Build_GS_exp args
              "field": [0.05, 0.01, 0.0]},
   "es_targets": {"mom": [1, 0]} |
+                {"eom": 2, "eom_prop": "trdip"} |   // EOM-EE-CCSD targets
                 {"input": [[["trdip", [0.54, 0.0, 0.0]]]]},
   "run": {
     "solver": "CCSD_GS",        // CCS_GS | CCSD_GS | CCS_ES
@@ -26,8 +27,7 @@ Spec format (all keys but molecule/basis optional):
   }
 }
 
-The JAX package's "es_targets": {"eom": ...} (EOM-EE-CCSD targets) is not
-ported yet (ROADMAP A.12).
+"eom_prop" is 'trmat' (the default), 'trdip' or 'mat' (ECW.Build_ES_exp_EOM).
 """
 
 from __future__ import annotations

@@ -13,16 +13,19 @@ Four variants, named by `variant(dtype, precision)`:
 `ladder_mm` launches the variant's kernel for CUDA tensors and raises on
 anything it does not take; it never falls back.  Only for CPU tensors does
 it compute the variant's plain version (`ladder_mm_plain`).
-`ladder_mm.launches` counts kernel launches, forward and backward, so a
-run can show that its main path went through the kernel;
-`ladder_mm.backward_launches` counts the backward ones among them and
+`ladder_mm.launches` counts kernel launches, forward, tangent and
+backward, so a run can show that its main path went through the kernel;
+`ladder_mm.backward_launches` and `ladder_mm.tangent_launches` count the
+backward and the tangent ones among them, and
 `ladder_mm.launches_by_variant` the launches of each variant.
 
 The full-precision launch is a `torch.autograd.Function`: the gradient
 for `a` is dA = dC @ b, one more launch of the same kernel: on `b` itself
 where the call site declares it symmetric (every ladder operand is), else
-on a transposed copy of it.  A backward pass through a reduced-precision
-product raises: no path differentiates through a reduced-precision solve.
+on a transposed copy of it.  Its tangent (forward mode, `torch.func.jvp`:
+the EOM-EE right sigma) is dC = dA @ b.T, one more launch on the same `b`.
+A backward or tangent pass through a reduced-precision product raises: no
+path differentiates through a reduced-precision solve.
 
 `plan` is pure Python: it picks the tile width and the split of K across
 the blocks of a thread block cluster that fill the card at the solver's
@@ -284,9 +287,10 @@ def is_tf32_rows(x):
     return ref is not None and ref() is x
 
 
-def _launch(a, b, backward=False, precision=None):
+def _launch(a, b, backward=False, precision=None, tangent=False):
     """One launch of the kernel on checked CUDA operands: C = a @ b.T.
-    backward: the launch computes a gradient (counted as such)."""
+    backward, tangent: the launch computes a gradient or a tangent
+    (counted as such)."""
     v = variant(a.dtype, precision)
     _check(a, b, v)
     M, K = a.shape
@@ -312,6 +316,7 @@ def _launch(a, b, backward=False, precision=None):
                            f"cudaError {err}")
     ladder_mm.launches += 1
     ladder_mm.backward_launches += bool(backward)
+    ladder_mm.tangent_launches += bool(tangent)
     ladder_mm.launches_by_variant[v] += 1
     return c
 
@@ -334,27 +339,47 @@ def _tc_operands(a, b, v):
 
 
 class _LadderMM(torch.autograd.Function):
-    """The launch with its gradient for `a`.  forward and setup_context are
-    separate so that the function also runs under torch.func transforms,
-    which hand forward the plain tensors behind their wrappers (the launch
-    reads data_ptr()).  backward: this launch is itself part of a backward
-    pass."""
+    """The launch with its gradient and its tangent for `a`.  forward and
+    setup_context are separate so that the function also runs under
+    torch.func transforms, which hand forward the plain tensors behind
+    their wrappers (the launch reads data_ptr()).  backward: False for a
+    forward product, True where this launch is part of a backward pass,
+    "tangent" where it computes a tangent."""
 
     @staticmethod
     def forward(a, b, symmetric, backward):
+        if backward == "tangent":
+            return _launch(a, b, tangent=True)
         return _launch(a, b, backward)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         _, b, symmetric, _ = inputs
         ctx.save_for_backward(b)
+        ctx.save_for_forward(b)
         ctx.symmetric = symmetric
+        ctx.set_materialize_grads(False)   # an absent tangent stays None
+
+    @staticmethod
+    def jvp(ctx, da, db, dsymmetric, dbackward):
+        # dC = dA @ B.T, one launch of the same product on the same B (its
+        # padding rows, if any, give the same zero columns as the
+        # forward's).  B takes no tangent: with materialize_grads off, db
+        # is None unless the caller gave B one.  Under torch.func the
+        # tangent arrives wrapped: the launch goes through apply, whose
+        # forward sees the plain tensor
+        if db is not None:
+            raise RuntimeError(_NO_B_GRAD)
+        (b,) = ctx.saved_tensors
+        return _LadderMM.apply(da.contiguous(), b, ctx.symmetric, "tangent")
 
     @staticmethod
     def backward(ctx, dc):
         (b,) = ctx.saved_tensors
         if ctx.needs_input_grad[1]:
             raise RuntimeError(_NO_B_GRAD)
+        if dc is None:
+            return None, None, None, None
         # dA = dC @ B, an NN product, as the kernel's own NT product.  A
         # symmetric operand (its K leading rows; further rows are zero
         # padding) serves as it is: dC[:, :K] @ B[:K] = (dC[:, :K] @
@@ -371,8 +396,8 @@ class _LadderMM(torch.autograd.Function):
 
 class _ReducedMM(torch.autograd.Function):
     """A reduced-precision product (the 'tf32' and 'bf16' variants): the
-    launch on CUDA tensors, the plain version on CPU ones, and no
-    gradient."""
+    launch on CUDA tensors, the plain version on CPU ones, and neither
+    gradient nor tangent."""
 
     @staticmethod
     def forward(a, b, precision):
@@ -386,15 +411,22 @@ class _ReducedMM(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dc):
-        raise RuntimeError(
-            f"ladder_mm: no gradient through a reduced-precision product "
-            f"(the {ctx.variant!r} variant): no path differentiates through "
-            "a reduced-precision solve; take the gradient at "
+        raise RuntimeError(_no_reduced_derivative("gradient", ctx.variant))
+
+    @staticmethod
+    def jvp(ctx, da, db, dprecision):
+        raise RuntimeError(_no_reduced_derivative("tangent", ctx.variant))
+
+
+def _no_reduced_derivative(what, v):
+    return (f"ladder_mm: no {what} through a reduced-precision product "
+            f"(the {v!r} variant): no path differentiates through a "
+            f"reduced-precision solve; take the {what} at "
             "iter_precision='highest'")
 
 
-_NO_B_GRAD = ("ladder_mm has no gradient for its second operand (an ERI "
-              "block): detach it")
+_NO_B_GRAD = ("ladder_mm has no gradient or tangent for its second operand "
+              "(an ERI block): detach it")
 
 
 def ladder_mm(a, b, symmetric=False, precision=None):
@@ -409,8 +441,9 @@ def ladder_mm(a, b, symmetric=False, precision=None):
     caller's word that b[:K, :K] is a symmetric matrix (K = b.shape[1];
     rows past K, if any, are zero padding), as every ladder operand is by
     <ab||ef> = <ef||ab>: then the backward reads `b` as it is, else a
-    transposed copy of it.  `b` takes no gradient: one that requires it
-    raises."""
+    transposed copy of it.  The tangent in `a` (torch.func.jvp or forward
+    mode) is dC = dA @ b.T, one more launch on `b` as it is.  `b` takes no
+    gradient and no tangent: one that carries either raises."""
     v = variant(a.dtype, precision)
     if b.requires_grad and (v in REDUCED or a.device.type != "cpu"
                             or b.device.type != "cpu"):
@@ -427,4 +460,5 @@ def ladder_mm(a, b, symmetric=False, precision=None):
 
 ladder_mm.launches = 0             # every launch of the kernel
 ladder_mm.backward_launches = 0    # those of them made by a backward
+ladder_mm.tangent_launches = 0     # those of them made by a tangent (jvp)
 ladder_mm.launches_by_variant = dict.fromkeys(VARIANTS, 0)

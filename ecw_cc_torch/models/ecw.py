@@ -258,11 +258,44 @@ class ECW:
         print("*** ES data stored ***")
 
     def Build_ES_exp_EOM(self, nbr_of_es=1, prop="trmat"):
-        """ES targets from EOM-EE-CCSD: not ported yet."""
-        raise NotImplementedError(
-            "Build_ES_exp_EOM needs the EOM-EE-CCSD solver, which is not "
-            "ported yet (ROADMAP A.12); use Build_ES_exp_MOM or "
-            "Build_ES_exp_input")
+        """ES targets from EOM-EE-CCSD, solved on this ECW's device in its
+        dtype (models/gamma_exp.ESexp.EOM; JAX ecw.py:237-275): the
+        excitation energies and, per state, the target `prop` names:
+        'trmat' the left and right transition rdm1 matrices;
+        'trdip' the transition dipole vector (the component-wise average of
+        the biorthogonal left and right moments); 'mat' the EOM
+        excited-state density (Tr = N, biorthogonal).  The oscillator
+        strengths go to self.f_osc_ES, the spin labels to self.spin_ES;
+        self.es_eom is the ESexp of the build (its densities, dipoles and
+        `log`: the seconds of each stage, the Davidson's cycles)."""
+        if prop not in ("trmat", "trdip", "mat"):
+            raise ValueError("prop must be 'trmat', 'trdip' or 'mat'")
+        es_exp = gamma_exp.ESexp(self.mol, device=self.device,
+                                 dtype=self.dtype)
+        es_exp.EOM(nbr_of_es)
+        self.es_eom = es_exp
+        self.Eexp_ES.append(es_exp.DE_exp)
+        if self.r_ini is None:
+            self.r_ini = []
+        self.f_osc_ES = [f for _, _, f in es_exp.trdip_exp]
+        for ((tr_l, tr_r), g_es, rini, (dl, dr, _)) in zip(
+                es_exp.gamma_tr_mo, es_exp.gamma_es_mo, es_exp.ini_r,
+                es_exp.trdip_exp):
+            if prop == "trmat":
+                self.exp_data.append([["trmat", [tr_l, tr_r]]])
+            elif prop == "mat":
+                self.exp_data.append([["mat", g_es]])
+            else:
+                self.exp_data.append([["trdip", tuple(0.5 * (dl + dr))]])
+            self.HF_prop.append([None])
+            self.r_ini.append(np.asarray(rini))
+        self.spin_ES = list(es_exp.spin_labels)
+        for k, (de, lab, f) in enumerate(zip(es_exp.DE_exp,
+                                             es_exp.spin_labels,
+                                             self.f_osc_ES)):
+            print(f"  EOM ES {k + 1}: {de * 27.2114:8.4f} eV  {lab:9s} "
+                  f"f = {f:.5f}")
+        print("*** EOM-CCSD ES data stored ***")
 
     def Build_ES_exp_input(self, es_prop, rini_list=None, val_core=None,
                            rini_koop_idx=None):

@@ -9,9 +9,10 @@ and the CCSD rdm1, or the (T) energy and the CCSD(T) response density
 (ops/ccsd_t.ccsd_t_rdm1_response), on `device` in `dtype`.
 
 ESexp builds excited-state targets by the MOM (delta-SCF) approach with
-SVD-biorthogonalized Slater transition density matrices: host NumPy, a copy
-of the JAX module's.  Its EOM-EE-CCSD targets wait for the EOM port
-(ROADMAP A.12) and raise.
+SVD-biorthogonalized Slater transition density matrices (host NumPy, a
+copy of the JAX module's), or from EOM-EE-CCSD (ESexp.EOM: plain CCSD +
+Lambda, the EOM roots by the autodiff sigma of ops/eom.py, and the Wick
+transition densities) on `device` in `dtype`.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from ecw_cc_torch.ops import ccsd as ccsd_ops
 from ecw_cc_torch.ops import ccsd_t
 from ecw_cc_torch.ops.ladder import ensure_sorted_vvvv_op, spin_sort_perm
 from ecw_cc_torch.ops.spinsect import sector_info
-from ecw_cc_torch.utils import convert, linalg
+from ecw_cc_torch.utils import convert, linalg, props
 from ecw_cc_torch.utils.metrics import StageClock
 
 
@@ -289,9 +290,19 @@ class Gexp:
 
 
 class ESexp:
-    """ES targets via MOM (delta-SCF). Reference gamma_exp.py:282-488."""
+    """ES targets via MOM (delta-SCF) or EOM-EE-CCSD.  Reference
+    gamma_exp.py:282-488.
 
-    def __init__(self, mol: Molecule, Vext=None, nbr_of_states=(1, 0)):
+    device, dtype: where and at what precision the EOM targets are solved
+    (None = config.dtype); MOM is host work.  After EOM(), `self.log`
+    holds the seconds of each stage and the Davidson's cycles and
+    matvecs."""
+
+    def __init__(self, mol: Molecule, Vext=None, nbr_of_states=(1, 0), *,
+                 device="cuda", dtype=None):
+        self.device = device
+        self.dtype = torch_dtype(dtype)
+        self.log = {}
         self.mol = mol
         self.mf = RHF(mol)
         self.nbr_of_states = nbr_of_states
@@ -355,7 +366,104 @@ class ESexp:
             run_state(0, lumo + c, "core", self.nbr_of_states[0] + c)
 
     def EOM(self, nbr_ES, tol=None):
-        """EOM-EE-CCSD excited-state targets: not ported yet."""
-        raise NotImplementedError(
-            "ESexp.EOM needs the EOM-EE-CCSD solver, which is not ported "
-            "yet (ROADMAP A.12); use MOM() or give the target values")
+        """EOM-EE-CCSD excited-state targets (JAX gamma_exp.py:339-435).
+
+        tol: the Davidson residual tolerance, by default 1e-5 at f32 (a
+        tighter one is out of f32's reach) and 1e-7 at f64.
+
+        Solves plain CCSD + Lambda on the ERIs of _build_eris_sorted (f32:
+        the spin-sorted sectored build; f64: the dense host build), then the
+        lowest nbr_ES roots with their left vectors (ops/eom.eom_ccsd), and
+        builds the MO-G transition rdm1s
+          (0,n): <Psi_0(t,Lambda)| ap+ aq |R_k>   (tr_rdm1_right)
+          (n,0): <L_k| ap+ aq |Psi_0(t)>          (tr_rdm1_left)
+        in the reference tr_rdm1 index convention, the excited-state
+        densities (Tr = N), spin labels and transition dipoles, all in the
+        alternating MO order.  Results: DE_exp (omegas), gamma_tr_mo
+        [(tr_l, tr_r), ...], gamma_es_mo, spin_labels, ini_r (R1 guesses
+        for the ES solver), trdip_exp [(d_0k, d_k0, f_osc), ...]."""
+        from ecw_cc_torch.ops import eom as eom_ops
+
+        if tol is None:
+            tol = 1e-5 if self.dtype == torch.float32 else 1e-7
+        ghf = GHF(self.mf)
+        self.log = log = {}
+        dev = check_device(self.device)
+        stage = StageClock(dev, log)
+        eris, vvvv_op, sect, unperm = _build_eris_sorted(self.mol, ghf,
+                                                         self.dtype, dev)
+        stage.done("eris_s")
+        log["sym"] = bool(sect[1]) if sect is not None else False
+        t1, t2, e_cc = ccsd_t.solve_ccsd(eris, vvvv_op=vvvv_op, sect=sect,
+                                         log=stage.sub("ccsd"))
+        stage.done("ccsd_s")
+        # GS Lambda (textbook equations; plain-CCSD target generation)
+        l1, l2 = solve_lambda(eris, t1, t2, vvvv_op=vvvv_op, sect=sect,
+                              log=stage.sub("lambda"))
+        stage.done("lambda_s")
+        omegas, Rs, Ls = eom_ops.eom_ccsd(eris, t1, t2, nroots=nbr_ES,
+                                          tol=tol, left=True,
+                                          vvvv_op=vvvv_op, sect=sect,
+                                          log=stage.sub("eom"))
+        stage.done("eom_s")
+        nocc = eris.nocc
+        if unperm is not None:
+            io, iv = unperm[:nocc], unperm[nocc:] - nocc
+        self.ECCSD = float(e_cc)
+        self.gamma_tr_mo = []
+        self.gamma_es_mo = []  # EOM excited-state densities (Tr = N)
+        self.spin_labels = []  # singlet/triplet/spin-flip per root
+        self.ini_r = []
+        self.trdip_exp = []   # [(d_0k, d_k0, oscillator strength), ...]
+        dip_int = self.mol.intor("r", origin=self.mol.charge_center())
+
+        def host(x):
+            return x.detach().cpu().numpy().astype(np.float64)
+
+        for k in range(nbr_ES):
+            r1, r2 = Rs[k]
+            lk1, lk2 = Ls[k]
+            with torch.no_grad():
+                r0 = eom_ops.eom_r0(eris, t1, t2, r1, r2, omegas[k])
+                # the Wick transition densities, stored in the reference
+                # index convention (ov/vo blocks transposed relative to
+                # <p+ q>), as the ES solver's gamma_tr kernels read them
+                tr_l = _swap_ov_vo(host(eom_ops.tr_rdm1_right(
+                    t1, t2, l1, l2, r1, r2, r0)), nocc)
+                tr_r = _swap_ov_vo(host(eom_ops.tr_rdm1_left(
+                    t1, t2, lk1, lk2)), nocc)
+                g_es = _swap_ov_vo(host(eom_ops.es_rdm1(
+                    t1, t2, lk1, lk2, r1, r2, r0)), nocc)
+            r1_out = host(r1)
+            if unperm is not None:
+                tr_l = tr_l[np.ix_(unperm, unperm)]
+                tr_r = tr_r[np.ix_(unperm, unperm)]
+                g_es = g_es[np.ix_(unperm, unperm)]
+                r1_out = r1_out[np.ix_(io, iv)]
+            # canonical phase in the ALTERNATING layout, so that the f32
+            # sorted and the f64 dense paths agree: first near-maximal r1
+            # component positive.  tr_l carries R's phase, tr_r L's (tied
+            # to R by <L|R> = 1): both flip together; g_es and the
+            # oscillator strengths do not depend on it
+            flat = r1_out.ravel()
+            aflat = np.abs(flat)
+            if aflat.max() > 0 and flat[int(np.argmax(
+                    aflat >= 0.999 * aflat.max()))] < 0:
+                r1_out = -r1_out
+                tr_l = -tr_l
+                tr_r = -tr_r
+            self.DE_exp.append(float(omegas[k]))
+            self.gamma_tr_mo.append((tr_l, tr_r))
+            self.gamma_es_mo.append(g_es)
+            self.ini_r.append(r1_out)
+            self.spin_labels.append(_spin_label(r1_out))
+            # the biorthogonal product d(0,k).d(k,0) equals |<0|mu|k>|^2
+            # in the FCI limit
+            dl = props.dipole(self.mol, tr_l, g=True, aobasis=False,
+                              mo_coeff=ghf.mo_coeff, dip_int=dip_int)
+            dr = props.dipole(self.mol, tr_r, g=True, aobasis=False,
+                              mo_coeff=ghf.mo_coeff, dip_int=dip_int)
+            f_osc = 2.0 / 3.0 * float(omegas[k]) * float(np.dot(dl, dr))
+            self.trdip_exp.append((np.real(dl), np.real(dr), f_osc))
+        stage.done("densities_s")
+        return omegas

@@ -138,8 +138,8 @@ def tr_rdm1_left(t1, t2, lk1, lk2):
     """Pure-L left transition rdm1 <0|L_k e^-T ap+.aq e^T|0> in the
     reference index convention (JAX ccsd.py:169): tr_rdm1 with bra
     (1 + L_k) minus its bare-reference piece, since an EOM-EE left vector
-    has l0 = 0.  No caller yet: the JAX EOM tests (ROADMAP A.12) hold
-    eom.tr_rdm1_left against it."""
+    has l0 = 0.  It equals the ov/vo-swapped ops/eom.tr_rdm1_left, which
+    the tests hold it against (tests/test_torch_eom.py)."""
     zero1 = torch.zeros_like(t1)
     zero2 = torch.zeros_like(t2)
     full = tr_rdm1(t1, t2, lk1, lk2, zero1, zero2, 1.0)

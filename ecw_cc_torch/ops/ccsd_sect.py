@@ -70,8 +70,14 @@ def gamma_inter_sect(t1, t2, l1, l2, info, sym=False):
 
 
 def tupdate_sect(eris, t1, t2, fsp, info, alpha=None, vvvv_op=None,
-                 ladder_pre=None, eris_sb=None, sym=False, tau_pre=None):
-    """Sector-blocked T1/T2 SCF update (twin of ops/ccsd.tupdate).
+                 ladder_pre=None, eris_sb=None, sym=False, equation=False,
+                 tau_pre=None):
+    """Sector-blocked T1/T2 SCF update (twin of ops/ccsd.tupdate; JAX
+    ccsd_sect.py:78-205).  equation=True returns the undivided residual
+    with the Fock diagonal kept, the form the EOM sigma differentiates
+    (ops/eom.py): then the ladder runs on all occupied row pairs
+    (sectored_vvvv_contract through apply_vvvv_op, three launches for a
+    SectoredVVVV), never the balanced-row blocked route.
 
     ladder_pre: the bare-vvvv ladder term, dense (o,o,v,v) or SpinBlocked;
     tau_pre: the blocked tau (_tau_b(t2b, t1b)) when the caller built it."""
@@ -111,7 +117,7 @@ def tupdate_sect(eris, t1, t2, fsp, info, alpha=None, vvvv_op=None,
     Woooo = (wrap(eris.oooo, "oooo", info, sym=sym) + tmp
              + tmp.transpose(0, 1, 3, 2).scale(-1.0))
 
-    keep_diag = alpha is not None
+    keep_diag = alpha is not None or equation
     Fvv_d = Fvv if keep_diag else Fvv - torch.diag(diag_vv)
     Foo_d = Foo if keep_diag else Foo - torch.diag(diag_oo)
 
@@ -150,7 +156,7 @@ def tupdate_sect(eris, t1, t2, fsp, info, alpha=None, vvvv_op=None,
 
     # bare-vvvv ladder L1
     if ladder_pre is None:
-        if isinstance(vvvv_op, SectoredVVVV):
+        if isinstance(vvvv_op, SectoredVVVV) and not equation:
             ladder_pre = balanced_stacked_sectored_contract(
                 vvvv_op, tau, None, info.oa, sym=sym, blocked_info=info)
         else:
@@ -158,7 +164,7 @@ def tupdate_sect(eris, t1, t2, fsp, info, alpha=None, vvvv_op=None,
     eia, eijab = _eia(diag_oo, diag_vv)
     if hasattr(ladder_pre, "blocks"):
         t2new = t2new + ladder_pre
-        if alpha is None:
+        if alpha is None and not equation:
             return t1new / eia, div_eijab(t2new, diag_oo, diag_vv).dense()
         t2new_d = t2new.dense()
     else:
@@ -166,7 +172,11 @@ def tupdate_sect(eris, t1, t2, fsp, info, alpha=None, vvvv_op=None,
 
     if alpha is not None:
         dW2 = subdiff(t2new_d, t2, alpha)
+        if equation:
+            return t1new, dW2
         return (t1new + t1 * eia) / eia, (dW2 + t2 * eijab) / eijab
+    if equation:
+        return t1new, t2new_d
     return t1new / eia, t2new_d / eijab
 
 

@@ -748,13 +748,13 @@ class SolverES_Device:
 
         if dic_amp_ini is None:
             amp = amp_from_numpy(s._ini_amp(), dev, dt)
-            # a cold start pins (o, v) of each state at the unit entry of
-            # its guess; a warm start follows the largest amplitude
-            ov = np.zeros(n_es, dtype=np.int64)
-            for i, r in enumerate(s.rn_ini):
-                w = np.argwhere(np.asarray(r) == 1)
-                ov[i] = w[0][0] * nvir + w[0][1] if len(w) else 0
-            ov = torch.tensor(ov, device=dev)
+            # a cold start pins (o, v) of each state at the largest entry
+            # of its guess, as Solver_ES.SCF does (the unit entry of a
+            # Koopman guess; a generated guess, such as an EOM R1, has no
+            # entry equal to 1, and pinning (0, 0) there divided by zero);
+            # a warm start follows the largest amplitude
+            ov = torch.tensor([int(np.argmax(np.abs(np.asarray(r))))
+                               for r in s.rn_ini], device=dev)
         else:
             amp = amp_from_numpy(dic_amp_ini, dev, dt)
             ov = None
@@ -821,7 +821,8 @@ class SolverES_Device:
                 Dconv_v = float(torch.linalg.norm(conv - conv_old))
             if ite >= maxiter:
                 status = MAXITER
-            elif Dconv_v > 10.0:
+            elif not Dconv_v <= 10.0:
+                # NaN included: it compares false with the threshold
                 status = DIVERGED
             else:
                 ite += 1

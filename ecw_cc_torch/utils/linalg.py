@@ -362,7 +362,8 @@ def davidson_nosym(matvec, x0, diag, nroots=1, tol=1e-8, max_cycle=80,
 
 def davidson_device(matvec, x0, diag, nroots=1, tol=1e-8, max_cycle=80,
                     max_space=20, follow=False, guesses=None, verbose=False,
-                    operands=None, project=None, *, dtype=None, device=None):
+                    operands=None, project=None, *, dtype=None, device=None,
+                    log=None):
     """davidson_nosym with the basis V and its images AV held as
     (max_space, n) tensors on the device for the whole solve.  Same
     algorithm and semantics as davidson_nosym (the analogue of
@@ -394,6 +395,8 @@ def davidson_device(matvec, x0, diag, nroots=1, tol=1e-8, max_cycle=80,
         tensor among `diag` and `x0`.  With NumPy inputs only, the device
         is the card unless `device='cpu'` is given, and the dtype
         config.dtype.
+    :param log: a dict that receives 'cycles' (eigenproblems solved),
+        'matvecs' (calls of `matvec`) and 'converged', or None.
     :return: (converged flags, eigenvalues as float64 NumPy, eigenvectors
         as tensors on the device)
     """
@@ -419,7 +422,12 @@ def davidson_device(matvec, x0, diag, nroots=1, tol=1e-8, max_cycle=80,
     x0 = [dev(v) for v in x0]
     if len(x0) > S:
         raise ValueError("more guesses than max_space")
-    mv = matvec if operands is None else (lambda v: matvec(v, operands))
+    calls = [0]
+
+    def mv(v):
+        calls[0] += 1
+        return matvec(v) if operands is None else matvec(v, operands)
+
     rows = torch.arange(S, device=device)
     tiny = torch.finfo(dtype).tiny
 
@@ -469,6 +477,7 @@ def davidson_device(matvec, x0, diag, nroots=1, tol=1e-8, max_cycle=80,
     conv = [False] * nroots
     theta = np.zeros(nroots)
     Xs = [None] * nroots
+    cycle = -1
     for cycle in range(max_cycle):
         H = V[:m] @ AV[:m].T
         w, y = torch.linalg.eig(H)
@@ -514,6 +523,9 @@ def davidson_device(matvec, x0, diag, nroots=1, tol=1e-8, max_cycle=80,
         m = add_block(V, AV, m, new_dirs)
         if m == m_before and not all(conv[:nroots]):
             break
+    if log is not None:
+        log.update(cycles=cycle + 1, matvecs=calls[0],
+                   converged=list(conv[:nroots]))
     return conv, theta[:nroots], [Xs[k] for k in range(nroots)]
 
 

@@ -451,10 +451,11 @@ def test_cli_runner_names_what_is_not_ported(tmp_path, capsys):
     spec = _spec(tmp_path, "CCS_ES")
     with pytest.raises(NotImplementedError, match="GS solver"):
         run_spec(spec)                      # CCS_ES without ES targets
-    spec = _spec(tmp_path, "CCS_GS")
-    spec["es_targets"] = {"eom": 1}
-    with pytest.raises(NotImplementedError, match="A.12"):
+    spec = _spec(tmp_path, "CCSD_GS")
+    spec["run"]["mode"] = "parallel"       # the batched sweep (A.13)
+    with pytest.raises(NotImplementedError, match="A.13"):
         run_spec(spec)
+    spec = _spec(tmp_path, "CCS_GS")
     spec["es_targets"] = {"fci": 1}
     with pytest.raises(ValueError, match="unknown es_targets"):
         run_spec(spec)

@@ -526,10 +526,21 @@ def test_es_solver_warns_on_sorted_layout(h2o_sto3g):
 
 
 def test_es_entry_points_that_wait_for_eom(sto3g_es):
-    with pytest.raises(NotImplementedError, match="A.12"):
-        sto3g_es.Build_ES_exp_EOM(1)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        gamma_exp.ESexp(sto3g_es.mol).EOM(1)
+    """The EOM entry points run (they raised before EOM was ported): on a
+    copy of the fixture's ECW with targets of its own, Build_ES_exp_EOM
+    adds one 'trmat' state; ESexp.EOM returns its omega."""
+    import copy
+
+    ecw = copy.copy(sto3g_es)
+    ecw.exp_data = [list(x) for x in sto3g_es.exp_data]
+    ecw.HF_prop = [list(x) for x in sto3g_es.HF_prop]
+    ecw.Eexp_ES, ecw.r_ini = [], list(sto3g_es.r_ini)
+    ecw.Build_ES_exp_EOM(1)
+    assert ecw.exp_data[-1][0][0] == "trmat" and len(ecw.r_ini) == 2
+    assert len(sto3g_es.exp_data) == 2 and len(sto3g_es.r_ini) == 1
+    w = gamma_exp.ESexp(sto3g_es.mol, device="cpu",
+                        dtype=torch.float64).EOM(1)
+    assert abs(w[0] - ecw.Eexp_ES[0][0]) < 1e-9
     assert gamma_exp._spin_label(sto3g_es.r_ini[0]) in ("singlet", "triplet")
     g = np.arange(16.0).reshape(4, 4)
     assert np.array_equal(gamma_exp._swap_ov_vo(gamma_exp._swap_ov_vo(g, 2),

@@ -79,3 +79,25 @@ def test_run_spec_mom_targets_and_sweep(tmp_path):
                    "print_ite": False}}
     out = run_spec(mom)
     assert out[2].shape == (2, 2)               # one 'trmat' state was built
+
+
+def test_run_spec_eom_targets(tmp_path):
+    """es_targets {"eom": 1, "eom_prop": "trdip"} reaches
+    Build_ES_exp_EOM on the CPU (H2O/STO-3G f64): one EOM-EE root as a
+    transition-dipole target, then the device CCS_ES loop converges to a
+    finite energy; the root equals the JAX runner's ECW's."""
+    from ecw_cc_tpu import ECW as JaxECW
+
+    spec = {"molecule": "h2o", "basis": "sto-3g", "device": "cpu",
+            "dtype": "float64", "out_dir": str(tmp_path),
+            "es_targets": {"eom": 1, "eom_prop": "trdip"},
+            "run": {"solver": "CCS_ES", "L": 0.05, "method": "device",
+                    "diis": "all", "conv": "rl", "maxiter": 80,
+                    "print_ite": False}}
+    out = run_spec(spec)
+    assert "Convergence reached" in out[0], out[0]
+    assert np.all(np.isfinite(out[3])) and out[3].shape == (2, 2)
+    j = JaxECW("h2o", "sto-3g")
+    j.Build_ES_exp_EOM(1, prop="trdip")
+    assert j.exp_data[1][0][0] == "trdip"
+    assert abs(j.Eexp_ES[0][0] - 0.3968253886860486) < 1e-9

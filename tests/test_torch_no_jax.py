@@ -5,8 +5,8 @@
     entry point at f64 (host ERIs) and f32 (device ERI build, dense and
     sectored routes), and run a solve on each, and a 'hybrid' bf16 solve
     with refine=True; build a CCSD(T) target, run the CCS ground state on
-    it, the JSON runner, and a coupled excited-state solve (host loop,
-    device loop, Davidson);
+    it, the JSON runner, a coupled excited-state solve (host loop,
+    device loop, Davidson), and EOM-EE targets and EOM-IP/EA roots;
   - no file of the port, and not chip_smoke.py, has an import statement
     naming jax or ecw_cc_tpu (read with `ast`, so lazy imports inside
     functions count too).
@@ -84,6 +84,16 @@ SCRIPT = textwrap.dedent("""
     e4 = ECW("H 0 0 0\\nH 0 0 1", "6-31g", device="cpu", dtype=torch.float64)
     e4.Build_ES_exp_MOM((1, 0))
     assert e4.exp_data[1][0][0] == "trmat"
+    # EOM: the EE targets through the entry point (CCSD, Lambda, the
+    # Davidson on the jvp/vjp sigmas, the Wick densities), then IP and EA
+    e5 = ECW("h2o", "sto-3g", device="cpu", dtype=torch.float64)
+    e5.Build_ES_exp_EOM(1, prop="trdip")
+    assert e5.es_eom.log["eom"]["left"]["converged"] == [True]
+    from ecw_cc_torch.ops import ccsd_t, eom_ipea
+    t1, t2, _ = ccsd_t.solve_ccsd(e5.eris)
+    w_ip, _ = eom_ipea.eom_ip_ccsd(e5.eris, t1, t2, nroots=1)
+    w_ea, _ = eom_ipea.eom_ea_ccsd(e5.eris, t1, t2, nroots=1)
+    assert 0.3 < w_ip[0] < 0.5 and w_ea[0] > 0
     # the sorted, sectored route through the solver's own entry point
     from ecw_cc_torch.models.eris import build_eris_device
     from ecw_cc_torch.ops.ccsd import GCC
