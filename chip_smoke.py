@@ -27,6 +27,9 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --eom            # phases 1, 2, phase 3's
                                            # tangent check and 13 only:
                                            # EOM-EE/IP/EA-CCSD
+    python3 chip_smoke.py --batch          # phases 1, 2, phase 3 at the
+                                           # batched shapes and 14 only:
+                                           # the batched lambda sweep
 
 Phases, one output line each (and one "phase_seconds" line at the end of
 each); any failure raises and exits nonzero:
@@ -45,6 +48,10 @@ each); any failure raises and exits nonzero:
      (printed per shape, with its plan); two launches bitwise equal; one
      launch captured in a CUDA graph and replayed twice, equal to the
      eager result; then both timed at the solver's shapes; the same for
+     phase 14's batched shapes (the lambda lanes stacked into M: 3 and 8
+     lanes of the packed GEMM, 3 of the sector GEMMs; BATCH_SHAPES) checked
+     and timed in f32, and the 3-lane packed shapes (BATCH_TC_SHAPES) in
+     the TF32 and BF16 variants;
      the TF32 and BF16 variants against their plain versions (TF32 to
      1e-5 max|C|; BF16 to 2^-8 max|C| plus the f32 accumulation bound, on
      the plain version's f32 sum before its rounding), also at the edges
@@ -125,8 +132,11 @@ each); any failure raises and exits nonzero:
      (e) ECW.CCS_GS over lambda = 0, 0.25, 0.5 against a CCSD target at
          cc-pVDZ: f64 on the card equal to the CPU (same target), and f32
          within 1e-5 Ha of them; then Newton (the Jacobian by
-         torch.func.jacfwd) and the L1 proximal-gradient solve at
-         C2H2/6-31G, f64 on the card equal to the CPU;
+         forward-mode AD, its columns a chunked vmap of torch.func.jvp)
+         and the L1 proximal-gradient solve at C2H2/6-31G, f64 on the
+         card equal to the CPU; and Newton at C2H2/cc-pVDZ f64 on the
+         card (1736 columns in chunks sized from free memory) within
+         1e-6 Ha of the SCF solve;
  11. excited states (the coupled ECW-CCS n-state solve; it launches no
      hand-written kernel: CCS reads no vvvv block):
      (a) ECW('h2o', '6-31++g**') with two transition-dipole targets ->
@@ -211,6 +221,32 @@ each); any failure raises and exits nonzero:
          roots are triplets, whose transition dipoles vanish) and with
          their transition densities ('trmat'), where every lambda must
          converge;
+  14. (run after 9) the batched lambda sweep, ECW.CCSD_GS(mode='parallel')
+     (Solver_CCSD.SCF_batch: every lambda a lane of one vmapped iteration
+     step, each ladder product one launch for all lanes, cold starts),
+     each lane held to a cold-start sequential solve at its lambda:
+     (a) C2H2/cc-pVDZ f32 on phase 4's ECW (packed route), lambda = 0,
+         0.25, 0.5 and then an 8-lane grid over [0, 0.5] (M = 3136): every
+         lane converged within 1e-5 Ha and +-1 iteration of its cold
+         start, exactly one ladder launch per batched iteration; the
+         batched sweep's ms, ms per batched iteration, per-lane
+         iterations and peak memory beside the warm-started and the
+         cold-start sequential sweeps;
+     (b) f64 at C2H2/6-31G: the batch on the card equal to the batch on
+         the CPU (1e-9 Ha, equal iterations per lane) and to the card's
+         cold-start sequential solves (1e-9 Ha, equal iterations);
+     (c) C2H2/cc-pVTZ f32 on phase 7's ECW, checked as (a), with solve
+         ms, ms per batched iteration, peak memory and the busy share of a
+         10-iteration batched chain (--profile's method);
+     (d) the sorted sectored route at cc-pVDZ batched with the mirror
+         symmetry (2 launches per batched iteration), then 'high' and
+         'hybrid' batched on the packed route, launching each leg's
+         variant once per batched iteration; every hybrid lane within
+         1e-5 Ha of its 'highest' cold start;
+     (e) synchronizing calls per iteration by Python line
+         (torch.cuda.set_sync_debug_mode('warn'), two chains differenced)
+         of a 3-lane batched chain and of the sequential CCSD chain:
+         exactly one each, the loop test of solvers/gs.py;
   8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported,
      and the excited-state and EOM modules were.
 Before the last line it prints the kernel report as one JSON object and
@@ -233,6 +269,7 @@ and FP64 on the tensor cores, H100 SXM) and one pass over A, B and C over
 import collections
 import contextlib
 import copy
+import inspect
 import json
 import re
 import shutil
@@ -275,8 +312,17 @@ F64_SHAPES = [POLISH_TZ]     # checked and timed in f64 only
 # occupied pair (alpha-alpha and beta-beta 465, alpha-beta 961)
 EOM_SHAPES = [(196, 1891, 1891), (14, 1891, 1891), (196, 465, 465),
               (196, 961, 961)]
+# phase 14's batched sweeps: the lambda lanes stacked into M of each
+# ladder product (3 lanes of the packed route at cc-pVDZ and cc-pVTZ, the
+# 8-lane cc-pVDZ grid, 3 lanes of the sectored route's mirror-symmetric
+# sector GEMMs at cc-pVDZ and cc-pVTZ and of the sorted dense route's
+# stacked sectors)
+BATCH_SHAPES = [(1176, 1891, 1891), (3136, 1891, 1891), (1176, 13041, 13041),
+                (294, 465, 465), (294, 961, 961), (294, 3240, 3240),
+                (294, 6561, 6561), (1176, 465, 465), (1176, 961, 961)]
+BATCH_TC_SHAPES = [(1176, 1891, 1891), (1176, 13041, 13041)]
 TIMED_SHAPES = {torch.float32: MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
-                + EOM_SHAPES,
+                + EOM_SHAPES + BATCH_SHAPES,
                 torch.float64: MAIN_SHAPES + TZ_SHAPES + [DENSE_DZ,
                                                           PACKED_TZ]
                 + F64_SHAPES + EOM_SHAPES}
@@ -429,16 +475,17 @@ def plan_fields(p):
             "blocks": p.blocks}
 
 
-def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm):
+def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm, only=None):
     """Kernel against plain at every shape; the cc-pVDZ shapes' plans fill
     the card (the cc-pVTZ ones run about 1.5 waves and are only printed).
-    Returns {(dtype, shape): (max_abs_err, plan)}."""
+    only: these f32 shapes alone.  Returns {(dtype, shape): (max_abs_err,
+    plan)}."""
     out = {}
-    for dtype in DTYPES:
-        for i, shape in enumerate(dict.fromkeys(
+    for dtype in DTYPES[:1] if only else DTYPES:
+        for i, shape in enumerate(only or dict.fromkeys(
                 MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES + TARGET_SHAPES
                 + RAGGED_SHAPES + EDGE_SHAPES
-                + (F64_SHAPES if dtype == torch.float64 else [])
+                + (F64_SHAPES if dtype == torch.float64 else BATCH_SHAPES)
                 + EOM_SHAPES)):
             a, b = operands(shape, dtype, seed=i)
             c = ladder_mm(a, b)
@@ -456,7 +503,8 @@ def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm):
                 raise AssertionError(f"ladder_mm disagrees at {shape} "
                                      f"{dtype}: {err} > {TOL[dtype]} * "
                                      f"{scale}")
-            if shape in MAIN_SHAPES + ROUTE_SHAPES and p.blocks < n_sm:
+            if (shape in MAIN_SHAPES + ROUTE_SHAPES + BATCH_SHAPES
+                    and p.blocks < n_sm):
                 raise AssertionError(f"plan at {shape} {dtype} launches "
                                      f"{p.blocks} blocks on {n_sm} SMs")
             out[(dtype, shape)] = (err, p)
@@ -565,13 +613,13 @@ def host_us(fn, n):
     return t / n * 1e6
 
 
-def time_kernel(ladder_mm, ladder_mm_ref):
-    """{(dtype, shape): times} for the kernel and a @ b.T at TIMED_SHAPES.
-    The plain version is one library call (cuBLAS), so its time is also
-    the report's library_ms."""
+def time_kernel(ladder_mm, ladder_mm_ref, only=None):
+    """{(dtype, shape): times} for the kernel and a @ b.T at TIMED_SHAPES
+    (only: these f32 shapes alone).  The plain version is one library call
+    (cuBLAS), so its time is also the report's library_ms."""
     times = {}
-    for dtype in DTYPES:
-        for shape in TIMED_SHAPES[dtype]:
+    for dtype in DTYPES[:1] if only else DTYPES:
+        for shape in only or TIMED_SHAPES[dtype]:
             a, b = operands(shape, dtype, seed=0)
             b_bytes = b.numel() * b.element_size()
             n_copies = (-(-2 * L2_BYTES // b_bytes)
@@ -654,16 +702,18 @@ def variant_error(lmm, a, b, c, var):
     return err, scale, tol
 
 
-def check_variants(lmm, n_sm):
+def check_variants(lmm, n_sm, only=None):
     """Phase 3 for the TF32 and BF16 variants: each against its plain
-    version at every shape of the f32 check; two launches bitwise equal
-    and a CUDA-graph replay at the solver's shapes.  Returns
-    {(variant, shape): (max_abs_err, plan)}."""
+    version at every shape of the f32 check (only: these shapes alone,
+    unchecked for determinism); two launches bitwise equal and a
+    CUDA-graph replay at the solver's shapes.  Returns {(variant, shape):
+    (max_abs_err, plan)}."""
     out = {}
     for var in TC_VARIANTS:
-        for i, shape in enumerate(MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
-                                  + TARGET_SHAPES + RAGGED_SHAPES
-                                  + EDGE_SHAPES + TC_EDGE_SHAPES):
+        for i, shape in enumerate(only or (
+                MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES + TARGET_SHAPES
+                + RAGGED_SHAPES + EDGE_SHAPES + TC_EDGE_SHAPES
+                + BATCH_TC_SHAPES)):
             a, b, prec = variant_operands(lmm, shape, var, seed=i)
             c = lmm.ladder_mm(a, b, precision=prec)
             torch.cuda.synchronize()
@@ -676,7 +726,8 @@ def check_variants(lmm, n_sm):
             if not ok:
                 raise AssertionError(f"ladder_mm {var} disagrees at {shape}: "
                                      f"{err} > {tol}")
-            if (var == "tf32" and i < len(MAIN_SHAPES + TZ_SHAPES)
+            if (var == "tf32" and not only
+                    and i < len(MAIN_SHAPES + TZ_SHAPES)
                     and hasattr(lmm, "tf32_rows")):
                 # a raw B in 16-byte rows (rounded by the kernel, as the
                 # dense route's vvvv view is) gives the bits of its
@@ -689,7 +740,7 @@ def check_variants(lmm, n_sm):
                                          "rounding of B differs from "
                                          "tf32_rows")
             out[(var, shape)] = (err, p)
-        for shape in MAIN_SHAPES + ROUTE_SHAPES:
+        for shape in [] if only else MAIN_SHAPES + ROUTE_SHAPES:
             a, b, prec = variant_operands(lmm, shape, var, seed=11)
             c1 = lmm.ladder_mm(a, b, precision=prec)
             c2 = lmm.ladder_mm(a, b, precision=prec)
@@ -730,14 +781,15 @@ def library_call(var):
     return tf32 if var == "tf32" else (lambda a, b: torch.matmul(a, b.T))
 
 
-def time_variants(lmm):
+def time_variants(lmm, only=None):
     """{(variant, shape): times} for the TF32 and BF16 kernels, their plain
     versions and the library call at the solver's shapes (the kernel
-    table's), by time_kernel's method, in turns."""
+    table's; only: these alone), by time_kernel's method, in turns."""
     times = {}
     for var in TC_VARIANTS:
         lib = library_call(var)
-        for shape in MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES:
+        for shape in only or (MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
+                              + BATCH_TC_SHAPES):
             a, b, prec = variant_operands(lmm, shape, var, seed=0)
             b_bytes = b.shape[0] * b.stride(0) * b.element_size()
             n_copies = (-(-2 * L2_BYTES // b_bytes)
@@ -1559,6 +1611,35 @@ def run_ccs_steps():
         raise AssertionError(f"CCS L1_grad / f32 Newton: {rows}, {d32}")
 
 
+def run_ccs_newton_dz(ecw64c):
+    """Phase 10 (e) at full width: Newton at C2H2/cc-pVDZ f64 on the card
+    (2ov = 1736 Jacobian columns, taken in chunks of the vmapped jvp as
+    free memory allows: all at once they would hold ~46 GB), against the
+    SCF solve at lambda = 0.25 with phase 4's HF target."""
+    from ecw_cc_torch.ops.ccs import jac_chunk
+
+    ecw = fresh_targets(ecw64c)
+    ecw.Build_GS_exp("mat", "HF", field=FIELD)
+    n = 2 * ecw.nocc * ecw.nvir
+    chunk = jac_chunk(ecw.nocc, ecw.nvir,
+                      torch.zeros(n, dtype=torch.float64, device=CARD))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    newton = ecw.CCS_GS([0.25], method="newton", conv_thres=1e-9, maxiter=30)
+    newton_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    scf = ecw.CCS_GS([0.25], method="scf", conv_thres=1e-9, maxiter=200)
+    d = abs(float(newton[1][-1] - scf[1][-1]))
+    phase(10, "ccs_newton_ccpvdz", basis=BASIS, columns=n, chunk=chunk,
+          text=newton[0], iterations=len(newton[1]), seconds=newton_s,
+          peak_bytes=peak, Ep=float(newton[1][-1]),
+          iterations_scf=len(scf[1]), dEp_newton_vs_scf=d)
+    if "Convergence reached" not in newton[0] or d > 1e-6:
+        raise AssertionError(f"CCS Newton at cc-pVDZ: {newton[0]}, |dEp| "
+                             f"against SCF {d}")
+
+
 def run_phase10(ladder_mm, ladder_mm_ref, ecw32, ecw64c, ecwc, tz):
     """Phase 10; returns ({path: launches}, backward launches among them,
     {(dtype, shape): gradient error})."""
@@ -1577,6 +1658,7 @@ def run_phase10(ladder_mm, ladder_mm_ref, ecw32, ecw64c, ecwc, tz):
     grads = check_kernel_gradient(ladder_mm, ladder_mm_ref, ecw32)
     run_ccs(ecw32, ecw64c, ecwc)
     run_ccs_steps()
+    run_ccs_newton_dz(ecw64c)
     return launches, back, grads
 
 
@@ -1876,9 +1958,8 @@ def es_profile(ecw, amp):
                 if "memcpy dtoh" in e.key.lower():
                     reads += e.count
         src = collections.Counter(
-            re.sub(r"^.*?(ecw_cc_torch/|torch/|chip_smoke)", r"\1",
-                   w.filename) + f":{w.lineno}"
-            for w in caught if "synchroniz" in str(w.message).lower())
+            sync_source(w) for w in caught
+            if "synchroniz" in str(w.message).lower())
         got.append((n, ops, us, reads, src))
     (i1, k1, u1, r1, s1), (i2, k2, u2, r2, s2) = got
     if k2 <= k1:
@@ -2346,32 +2427,45 @@ def kernel_kind(name):
     return "other"
 
 
-def profile_chain(basis, route, diis=""):
+def profile_chain(basis, route, diis="", lanes=None):
     """--profile: a torch.profiler trace of a fixed PROFILE_ITERS-iteration
     f32 chain at lambda = 0.25 (after a warm-up solve), beside the same
     chain run without the profiler, on the route's ERIs (route_eris:
     'sectored' or 'packed') of one ECW; with diis='tl' the
-    chain is instead the sweep's converged solve (DIIS, conv_thres 1e-6).
-    Prints kernels and launch calls per iteration, device ms per iteration
-    by kernel class, the ten costliest kernels and host operators, and the
-    busy share (device time over the unprofiled wall)."""
+    chain is instead the sweep's converged solve (DIIS, conv_thres 1e-6);
+    lanes: the chain batched over those lambdas (phase 14's), per batched
+    iteration.  Prints kernels and launch calls per iteration, device ms
+    per iteration by kernel class, the ten costliest kernels and host
+    operators, and the busy share (device time over the unprofiled
+    wall)."""
     from torch.profiler import ProfilerActivity, profile
 
     base = build_ecw("cuda", torch.float32, basis=basis)
     er, op, perm, _ = route_eris(base, route)
     ecw = with_eris(base, er, op, perm)
     del base
-    solve(ecw, [0.25], conv_thres=CONV_THRES)
     chain = (dict(diis=diis, conv_thres=CONV_THRES) if diis else
              dict(diis="", conv_thres=0.0, maxiter=PROFILE_ITERS - 1))
-    _, plain = solve(ecw, [0.25], **chain)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
+        """(iterations, the solve's ms) of one chain."""
+        if lanes:
+            b = batch_solve(ecw, lanes, **chain)
+            return b["iterations"], b["ms"]
         _, log = solve(ecw, [0.25], **chain)
+        return log[0]["iterations"], log[0]["ms"]
+
+    run()
+    plain = run()
+    # no shapes under vmap: with record_shapes the profiler held the
+    # batched chain's tensors until it ended (68 GB after 10 iterations of
+    # 2 lanes at cc-pVTZ, against a 2.5 GB peak without)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=not lanes) as prof:
+        t0 = time.perf_counter()
+        n, _ = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    n = log[0]["iterations"]
     by_kind, kernels, host_ops = collections.Counter(), [], []
     n_kernels = launch_calls = 0
     for e in prof.key_averages():
@@ -2384,10 +2478,17 @@ def profile_chain(basis, route, diis=""):
             kernels.append((us, e.count, e.key[:100]))
         else:
             host_ops.append((e.self_cpu_time_total, e.count, e.key[:100]))
+    # the operators (and their input shapes) whose own kernels took the
+    # most device time
+    ops = sorted(((e.self_device_time_total, e.count, e.key,
+                   str(e.input_shapes)[:160])
+                  for e in prof.key_averages(group_by_input_shape=True)
+                  if not str(e.device_type).endswith("CUDA")
+                  and e.self_device_time_total > 0), reverse=True)[:15]
     device_ms = sum(by_kind.values())
-    plain_ms = plain[0]["ms"] / plain[0]["iterations"]
-    phase("P", "profile", basis=basis, route=log[0]["route"], diis=diis,
-          iterations=n,
+    plain_ms = plain[1] / plain[0]
+    phase("P", "profile", basis=basis, route=route, diis=diis,
+          lanes=len(lanes) if lanes else 1, iterations=n,
           kernels_per_iteration=n_kernels / n,
           launch_calls_per_iteration=launch_calls / n,
           device_ms_per_iteration=device_ms,
@@ -2397,7 +2498,10 @@ def profile_chain(basis, route, diis=""):
           top_kernels=[{"name": k, "launches": c, "ms": us / 1e3}
                        for us, c, k in sorted(kernels, reverse=True)[:10]],
           top_host_ops=[{"name": k, "calls": c, "self_ms": us / 1e3}
-                        for us, c, k in sorted(host_ops, reverse=True)[:10]])
+                        for us, c, k in sorted(host_ops, reverse=True)[:10]],
+          top_ops_by_device_ms=[
+              {"name": k, "shapes": sh, "calls": c, "device_ms": us / 1e3}
+              for us, c, k, sh in ops])
 
 
 # --routes: (molecule, basis) from nvir 16 to 162, across the 'auto'
@@ -2887,8 +2991,289 @@ def run_phase13(ladder_mm):
     return launches
 
 
+# Phase 14: the batched lambda sweep (Solver_CCSD.SCF_batch through
+# ECW.CCSD_GS(mode='parallel')): every lambda a lane of one vmapped
+# iteration step, each ladder product one launch for all lanes, the lanes
+# cold-started, so each is held to a cold-start sequential solve at its
+# lambda (a CCSD_GS call per lambda), not to the warm-started sweep.
+BATCH_GRID = [float(x) for x in np.linspace(0.0, 0.5, 8)]
+BATCH_SYNC_ITERS = (4, 12)    # 14e: two chains, differenced
+SYNC_MARK = "the one read per iteration"    # solvers/gs.py's loop tests
+
+
+def batch_solve(ecw, lambdas, **kw):
+    """One ECW.CCSD_GS(mode='parallel') (diis 'tl', conv 'tl'), timed:
+    {Ep per lane, solve_log, wall ms, ladder launches, peak bytes, the
+    batched iterations (per leg, the slowest lane's), rdm1 finite}."""
+    from ecw_cc_torch.kernels.ladder_mm import ladder_mm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = ladder_mm.launches
+    t0 = time.perf_counter()
+    res = ecw.CCSD_GS(list(lambdas), diis=kw.pop("diis", "tl"), conv="tl",
+                      mode="parallel", **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    log = list(ecw.solve_log)
+    return dict(Ep=[float(ecw.EHF - e) for e in ecw.Ep_lamb], log=log,
+                ms=ms, launches=ladder_mm.launches - n0,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                iterations=sum(max(n) for _, n, _ in log[0]["legs"]),
+                rdm1_finite=bool(np.all(np.isfinite(res[4]))))
+
+
+def cold_starts(ecw, lambdas, **kw):
+    """A cold-start sequential solve per lambda (one CCSD_GS call each):
+    ([(Ep, iterations, status)], total ms)."""
+    rows = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for L in lambdas:
+        res, log = solve(ecw, [L], **kw)
+        rows.append((float(res[1][-1]), log[0]["iterations"],
+                     log[0]["status"]))
+    return rows, (time.perf_counter() - t0) * 1e3
+
+
+def check_lanes(name, b, cold, route, per_iter, tol=1e-5, dit=1):
+    """The batch `b` (batch_solve) on `route`, each lane converged within
+    tol and dit iterations of its cold start, and exactly per_iter ladder
+    launches per batched iteration.  Returns the lanes' fields."""
+    log = b["log"]
+    its = [s["iterations"] for s in log]
+    dEp = [abs(e - c[0]) for e, c in zip(b["Ep"], cold)]
+    fields = dict(lanes=len(log), route=log[0]["route"], sym=log[0]["sym"],
+                  iterations=its, iterations_cold=[c[1] for c in cold],
+                  batched_iterations=b["iterations"],
+                  ladder_launches=b["launches"], dEp_vs_cold=dEp,
+                  ms=b["ms"], ms_per_batched_iteration=b["ms"]
+                  / b["iterations"], peak_bytes=b["peak_bytes"])
+    if not all(s["status"] == 1 for s in log) or not b["rdm1_finite"]:
+        raise AssertionError(f"{name}: a lane did not converge: {fields}")
+    if {s["route"] for s in log} != {route}:
+        raise AssertionError(f"{name}: route {fields['route']}, not {route}")
+    if b["launches"] != per_iter * b["iterations"]:
+        raise AssertionError(f"{name}: {b['launches']} ladder launches in "
+                             f"{b['iterations']} batched iterations "
+                             f"(expected {per_iter} each, for all lanes)")
+    bad = [i for i, c in enumerate(cold)
+           if dEp[i] > tol or abs(its[i] - c[1]) > dit or c[2] != 1]
+    if bad:
+        raise AssertionError(f"{name}: lanes {bad} differ from their cold "
+                             f"starts: {fields}")
+    return fields
+
+
+def run_batch_dz(ecw32):
+    """Phase 14 (a): 3 lanes and the 8-lane grid at cc-pVDZ f32, beside
+    the warm-started sequential sweep and the cold-start one.  Returns
+    ({path: launches}, the 3 lanes' cold starts)."""
+    # one untimed solve of each kind first (a process's first solve loads
+    # its kernels)
+    solve(ecw32, [0.25], conv_thres=CONV_THRES)
+    batch_solve(ecw32, LAMBDAS[:2], conv_thres=CONV_THRES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, warm = solve(ecw32, LAMBDAS, conv_thres=CONV_THRES)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    row, launches, cold3 = {}, {}, None
+    for name, lambdas in (("lanes3", LAMBDAS), ("grid8", BATCH_GRID)):
+        cold, cold_ms = cold_starts(ecw32, lambdas, conv_thres=CONV_THRES)
+        b = batch_solve(ecw32, lambdas, conv_thres=CONV_THRES)
+        row[name] = check_lanes(f"14a {name}", b, cold, "packed", 1)
+        row[name]["cold_sequential_ms"] = cold_ms
+        launches[f"c2h2_ccpvdz_f32_batch_{name}"] = b["launches"]
+        cold3 = cold3 or cold
+    phase(14, "batch_ccpvdz_f32", **row, warm_sequential_ms=warm_ms,
+          warm_iterations=[s["iterations"] for s in warm])
+    return launches, cold3
+
+
+def run_batch_f64():
+    """Phase 14 (b): f64 at C2H2/6-31G (nvir 30: the dense route, 2
+    launches per iteration), the batch on the card against the batch on
+    the CPU (1e-9 Ha, equal iterations per lane), both against the card's
+    cold-start sequential solves."""
+    card = build_ecw("cuda", torch.float64, basis=SMALL_BASIS)
+    cpu = build_ecw("cpu", torch.float64, basis=SMALL_BASIS)
+    b_card = batch_solve(card, LAMBDAS, conv_thres=1e-9, maxiter=60)
+    t0 = time.perf_counter()
+    res = cpu.CCSD_GS(LAMBDAS, diis="tl", conv="tl", mode="parallel",
+                      conv_thres=1e-9, maxiter=60)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    ep_cpu = [float(cpu.EHF - e) for e in cpu.Ep_lamb]
+    its_cpu = [s["iterations"] for s in cpu.solve_log]
+    cold, cold_ms = cold_starts(card, LAMBDAS, conv_thres=1e-9, maxiter=60)
+    fields = check_lanes("14b card", b_card, cold, "dense", 2, tol=1e-9,
+                         dit=0)
+    d_cpu = [abs(a - c) for a, c in zip(b_card["Ep"], ep_cpu)]
+    phase(14, "batch_f64_card_vs_cpu", basis=SMALL_BASIS, card=fields,
+          iterations_cpu=its_cpu, dEp_card_vs_cpu=d_cpu, cpu_ms=cpu_ms,
+          cold_sequential_ms=cold_ms,
+          cpu_converged=all(s["status"] == 1 for s in cpu.solve_log),
+          rdm1_finite_cpu=bool(np.all(np.isfinite(res[4]))))
+    if max(d_cpu) > 1e-9 or its_cpu != fields["iterations"]:
+        raise AssertionError(f"14b: the f64 batch on the card differs from "
+                             f"the CPU: {d_cpu}, {its_cpu} against "
+                             f"{fields['iterations']}")
+    return {"c2h2_631g_f64_batch": b_card["launches"]}
+
+
+def batch_busy_share(ecw, lambdas, iters=PROFILE_ITERS):
+    """--profile's busy share of a fixed `iters`-iteration batched chain
+    (diis '', conv_thres 0): the profiler's device ms over the unprofiled
+    chain's wall ms, both per batched iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    chain = dict(diis="", conv_thres=0.0, maxiter=iters - 1)
+    plain = batch_solve(ecw, lambdas, **chain)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        batch_solve(ecw, lambdas, **chain)
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA")) / 1e3
+    wall = plain["ms"] / plain["iterations"]
+    dev = device_ms / plain["iterations"]
+    return dict(chain_iterations=plain["iterations"],
+                chain_ms_per_iteration=wall,
+                device_ms_per_iteration=dev, busy_share=dev / wall)
+
+
+def run_batch_tz(ecw_tz):
+    """Phase 14 (c): 3 lanes at full width, C2H2/cc-pVTZ f32 on phase 7's
+    ECW (packed route)."""
+    cold, cold_ms = cold_starts(ecw_tz, LAMBDAS, conv_thres=CONV_THRES)
+    b = batch_solve(ecw_tz, LAMBDAS, conv_thres=CONV_THRES)
+    fields = check_lanes("14c", b, cold, "packed", 1)
+    phase(14, "batch_ccpvtz_f32", **fields, cold_sequential_ms=cold_ms,
+          **batch_busy_share(ecw_tz, LAMBDAS))
+    return {"c2h2_ccpvtz_f32_batch": b["launches"]}
+
+
+def run_batch_routes(lmm, ecw32, cold):
+    """Phase 14 (d): the sorted sectored route at cc-pVDZ batched with the
+    mirror symmetry (2 launches per batched iteration), then 'high' and
+    'hybrid' batched on the packed route, each iteration launching its
+    leg's variant once for all lanes; every hybrid lane within 1e-5 Ha of
+    its 'highest' cold start (`cold`, 14a's).  Returns ({path: launches},
+    {variant: launches} of the precision runs)."""
+    er, op, perm, build_s = route_eris(ecw32, "sectored")
+    ecw_s = with_eris(ecw32, er, op, perm)
+    cold_s, cold_ms = cold_starts(ecw_s, LAMBDAS, conv_thres=CONV_THRES)
+    b = batch_solve(ecw_s, LAMBDAS, conv_thres=CONV_THRES)
+    row = {"sectored": check_lanes("14d sectored", b, cold_s, "sectored", 2)
+           | {"cold_sequential_ms": cold_ms, "build_s": build_s}}
+    if not b["log"][0]["sym"]:
+        raise AssertionError("14d: the sectored batch ran without sym")
+    launches = {"c2h2_ccpvdz_f32_batch_sectored": b["launches"]}
+    by_variant = dict.fromkeys(lmm.VARIANTS, 0)
+    del ecw_s, er, op
+    for mode in ("high", "hybrid"):
+        reset_counts(lmm.ladder_mm, lmm.VARIANTS)
+        with iter_precision(mode):
+            b = batch_solve(ecw32, LAMBDAS, conv_thres=CONV_THRES,
+                            maxiter=PREC_MAXITER)
+        counts = dict(lmm.ladder_mm.launches_by_variant)
+        want = dict.fromkeys(lmm.VARIANTS, 0)
+        for leg_mode, n, _ in b["log"][0]["legs"]:
+            want[LEG_VARIANT[leg_mode]] += max(n)
+        dEp = [abs(e - c[0]) for e, c in zip(b["Ep"], cold)]
+        row[mode] = dict(iterations=[s["iterations"] for s in b["log"]],
+                         legs=b["log"][0]["legs"], launches=counts,
+                         expected_launches=want, ms=b["ms"],
+                         ms_per_batched_iteration=b["ms"] / b["iterations"],
+                         dEp_vs_highest_cold=dEp)
+        if counts != want:
+            raise AssertionError(f"14d {mode}: launched {counts}, its legs "
+                                 f"predict {want}")
+        if not all(s["status"] == 1 for s in b["log"]):
+            raise AssertionError(f"14d {mode}: a lane did not converge")
+        if mode == "hybrid" and max(dEp) > 1e-5:
+            raise AssertionError(f"14d hybrid: lanes {dEp} Ha from their "
+                                 "'highest' cold starts")
+        for v, n in counts.items():
+            by_variant[v] += n
+    phase(14, "batch_routes_ccpvdz_f32", **row)
+    return launches, by_variant
+
+
+def sync_source(w):
+    """A sync-debug warning's Python line, from the package or torch."""
+    return (re.sub(r"^.*?(ecw_cc_torch/|torch/|chip_smoke)", r"\1",
+                   w.filename) + f":{w.lineno}")
+
+
+def syncs_per_iteration(run, iters=BATCH_SYNC_ITERS):
+    """({Python line: synchronizing CUDA calls per iteration}, {line: the
+    change of a count that did not follow the chain's length}) of the
+    chain run(n) (n iterations), as torch.cuda.set_sync_debug_mode('warn')
+    names them: the difference of two chains, after one unrecorded
+    warm-up.  A line whose count differs by one between the chains synced
+    once per call in one of them (a first use), not per iteration."""
+    run(iters[0])
+    got = []
+    for n in iters:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run(n)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        got.append(collections.Counter(
+            sync_source(w) for w in caught
+            if "synchroniz" in str(w.message).lower()))
+    (n1, n2), (s1, s2) = iters, got
+    diff = {k: s2[k] - s1[k] for k in s1.keys() | s2.keys()
+            if s2[k] != s1[k]}
+    return ({k: d / (n2 - n1) for k, d in diff.items() if abs(d) > 1},
+            {k: d for k, d in diff.items() if abs(d) <= 1})
+
+
+def run_batch_syncs(ecw32):
+    """Phase 14 (e): synchronizing calls per iteration, by Python line, of
+    a batched chain (3 lanes) and of the sequential CCSD chain (diis
+    'tl', conv_thres 0): exactly one each, the loop test's read of
+    solvers/gs.py."""
+    import ecw_cc_torch.solvers.gs as gs
+
+    # one loop runs both: SCF_batch's lanes and SCF's one
+    lines, start = inspect.getsourcelines(gs.Solver_CCSD._solve)
+    test = [f"ecw_cc_torch/solvers/gs.py:{start + i}"
+            for i, line in enumerate(lines) if SYNC_MARK in line]
+    want = {"batched": test, "sequential": test}
+    chains = {
+        "batched": lambda n: batch_solve(ecw32, LAMBDAS, conv_thres=0.0,
+                                         maxiter=n - 1),
+        "sequential": lambda n: solve(ecw32, [0.25], conv_thres=0.0,
+                                      maxiter=n - 1)}
+    per, once = {}, {}
+    for k, run in chains.items():
+        per[k], once[k] = syncs_per_iteration(run)
+    phase(14, "batch_syncs_per_iteration", **per, loop_test_lines=want,
+          per_call_differences=once)
+    for k, src in per.items():
+        if len(want[k]) != 1 or src != {want[k][0]: 1.0}:
+            raise AssertionError(f"14e: the {k} chain synchronizes {src} "
+                                 f"per iteration (expected one, at "
+                                 f"{want[k]})")
+
+
+def run_phase14(lmm, ecw32, ecw_tz):
+    """Phase 14; returns ({path: launches}, {variant: launches} of 14d's
+    precision runs)."""
+    launches, cold = run_batch_dz(ecw32)
+    launches.update(run_batch_f64())
+    launches.update(run_batch_tz(ecw_tz))
+    out, by_variant = run_batch_routes(lmm, ecw32, cold)
+    launches.update(out)
+    run_batch_syncs(ecw32)
+    torch.cuda.empty_cache()
+    return launches, by_variant
+
+
 def kernel_report(launches, checks, times, backward, grads, variants,
-                  eom_launches, tangents):
+                  eom_launches, tangents, batch_variants):
     """The kernel line: one entry per variant of the ladder kernel.  f32
     and f64 (csrc/ladder_mm.cu): the headline numbers at the main path's
     cc-pVTZ shape (392x13041x13041, the stacked packed GEMM), every timed
@@ -2901,7 +3286,9 @@ def kernel_report(launches, checks, times, backward, grads, variants,
     whose f32 and f64 launches join those entries.  eom_launches: {path:
     (forward, tangent, backward)} of phase 13, joining the f32 and f64
     entries by the dtype in the path's name; tangents: {(dtype, shape,
-    symmetric): error of the kernel's tangent} (phase 3)."""
+    symmetric): error of the kernel's tangent} (phase 3); batch_variants:
+    {variant: launches} of phase 14's batched precision runs, joining
+    phase 12's."""
     by_dtype = {}
     for dtype in DTYPES:
         by_dtype[str(dtype).split(".")[-1]] = {tag(shape): {
@@ -2923,6 +3310,7 @@ def kernel_report(launches, checks, times, backward, grads, variants,
         paths = {k: n for k, n in launches.items()
                  if ("f64" in k) == (v == "f64")}
         paths["phase12_precision_modes"] = v_launches[v]
+        paths["phase14_batch_precision_modes"] = batch_variants[v]
         eom = {k: n for k, n in eom_launches.items()
                if ("f64" in k) == (v == "f64")}
         paths.update({k: sum(n) for k, n in eom.items()})
@@ -2955,7 +3343,10 @@ def kernel_report(launches, checks, times, backward, grads, variants,
             "name": f"ladder_mm_{v}", "route": "cuda",
             "source": "ecw_cc_torch/csrc/ladder_mm_tc.cu",
             "replaces": "ecw_cc_tpu/ops/ladder.py:54",
-            "launches": v_launches[v],
+            "launches": v_launches[v] + batch_variants[v],
+            "launches_by_path": {
+                "phase12_precision_modes": v_launches[v],
+                "phase14_batch_precision_modes": batch_variants[v]},
             "max_abs_err": max(v_checks[(v, s)][0]
                                for s in MAIN_SHAPES + TZ_SHAPES
                                + ROUTE_SHAPES),
@@ -2968,7 +3359,8 @@ def kernel_report(launches, checks, times, backward, grads, variants,
             "by_shape": {tag(s): {k: v_times[(v, s)][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "host_us")} | {"max_abs_err": v_checks[(v, s)][0]}
-                for s in MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES}})
+                for s in MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
+                + BATCH_TC_SHAPES}})
     return {"kernels": entries}
 
 
@@ -3021,6 +3413,7 @@ def main(argv):
         for route in ("sectored", "packed"):
             for basis in (BASIS, BASIS_TZ):
                 profile_chain(basis, route)
+                profile_chain(basis, route, lanes=LAMBDAS)
             profile_chain(BASIS_TZ, route, diis="tl")
         print(smi)
         return 0
@@ -3059,6 +3452,29 @@ def main(argv):
         phase(0, "seconds", total=time.perf_counter() - t_start,
               by_phase=seconds)
         print(smi)
+        return 0
+
+    if "--batch" in argv:
+        # phase 3 at the batched shapes, then phase 14 on its own ECWs
+        with timed(3, seconds):
+            check_kernel(ladder_mm, ladder_mm_ref, lmm.device_plan, n_sm,
+                         only=BATCH_SHAPES)
+            time_kernel(ladder_mm, ladder_mm_ref, only=BATCH_SHAPES)
+            check_variants(lmm, n_sm, only=BATCH_TC_SHAPES)
+            time_variants(lmm, only=BATCH_TC_SHAPES)
+        with timed(14, seconds):
+            launches_14, by_variant_14 = run_phase14(
+                lmm, build_ecw("cuda", torch.float32),
+                build_ecw("cuda", torch.float32, basis=BASIS_TZ))
+        with timed(8, seconds):
+            check_no_jax(False)
+        phase(0, "seconds", total=time.perf_counter() - t_start,
+              by_phase=seconds, launches=launches_14,
+              launches_by_variant=by_variant_14)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
         return 0
 
     if "--eom" in argv:
@@ -3188,6 +3604,10 @@ def main(argv):
         launches_9.update(run_spin_mixing(ladder_mm, ecw32))
         launches_9.update(run_dense(ladder_mm, ecw32, ref32, ecw64c, ecwc))
 
+    # 14. the batched lambda sweep (phase 4's and phase 7's ECWs)
+    with timed(14, seconds):
+        launches_14, by_variant_14 = run_phase14(lmm, ecw32, ecw_tz)
+
     # 10. correlated targets and the CCS ground state
     with timed(10, seconds):
         launches_10, back_10, grads = run_phase10(
@@ -3221,9 +3641,10 @@ def main(argv):
         {"c2h2_ccpvdz_f32_packed_sweep": launches,
          "c2h2_ccpvdz_f64_packed": launches_64,
          "c2h2_ccpvtz_f32_packed": launches_tz, **launches_9,
-         **launches_10},
+         **launches_10, **launches_14},
         checks, times, back_10, grads,
-        (v_checks, v_times, by_variant_12), launches_13, tangents)))
+        (v_checks, v_times, by_variant_12), launches_13, tangents,
+        by_variant_14)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -23,6 +23,8 @@ Spec format (all keys but molecule/basis optional):
     "solver": "CCSD_GS",        // CCS_GS | CCSD_GS | CCS_ES
     "Larray": [0.0, 0.7, 8],    // np.linspace(start, stop, n); or a list
     "refine": true,             // CCSD_GS: an f64 polish after each solve
+    "mode": "parallel",         // CCSD_GS: every lambda in one batched
+                                // solve (cold starts; default "sweep")
     ...                         // remaining keys passed to the solver
   }
 }

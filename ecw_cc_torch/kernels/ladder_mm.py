@@ -27,6 +27,11 @@ the EOM-EE right sigma) is dC = dA @ b.T, one more launch on the same `b`.
 A backward or tangent pass through a reduced-precision product raises: no
 path differentiates through a reduced-precision solve.
 
+Under torch.func.vmap (the batched lambda sweep, whose lanes share every
+ERI block) both launches fold the lane axis of `a` into its rows: one
+launch of M = lanes x rows for all lanes, counted once; a `b` with a
+batch axis raises.
+
 `plan` is pure Python: it picks the tile width and the split of K across
 the blocks of a thread block cluster that fill the card at the solver's
 skinny shapes (M = 98), and for the tensor-core variants the cluster of
@@ -374,6 +379,14 @@ class _LadderMM(torch.autograd.Function):
         return _LadderMM.apply(da.contiguous(), b, ctx.symmetric, "tangent")
 
     @staticmethod
+    def vmap(info, in_dims, a, b, symmetric, backward):
+        # the lanes of a (torch.func.vmap: the batched lambda sweep) folded
+        # into M, one launch on the shared B
+        a2, lanes = _fold_lanes(in_dims, a, b)
+        c = _LadderMM.apply(a2.contiguous(), b, symmetric, backward)
+        return c.reshape(lanes + c.shape[1:]), 0
+
+    @staticmethod
     def backward(ctx, dc):
         (b,) = ctx.saved_tensors
         if ctx.needs_input_grad[1]:
@@ -410,6 +423,16 @@ class _ReducedMM(torch.autograd.Function):
         ctx.variant = variant(inputs[0].dtype, inputs[2])
 
     @staticmethod
+    def vmap(info, in_dims, a, b, precision):
+        # as _LadderMM.vmap; the launch pads the folded rows if the TMA
+        # loads need it (_tc_operands)
+        a2, lanes = _fold_lanes(in_dims, a, b)
+        if a2.shape[1] > 1 and a2.stride(1) != 1:
+            a2 = a2.contiguous()
+        c = _ReducedMM.apply(a2, b, precision)
+        return c.reshape(lanes + c.shape[1:]), 0
+
+    @staticmethod
     def backward(ctx, dc):
         raise RuntimeError(_no_reduced_derivative("gradient", ctx.variant))
 
@@ -424,6 +447,24 @@ def _no_reduced_derivative(what, v):
             f"reduced-precision solve; take the {what} at "
             "iter_precision='highest'")
 
+
+def _fold_lanes(in_dims, a, b):
+    """(a with its lane axis folded into its rows, (lanes, rows)): the
+    vmap rule of a product whose A carries lanes (torch.func.vmap over the
+    batched lambda sweep) and whose B is shared.  A batched B raises: each
+    lane would need a launch of its own."""
+    if in_dims[1] is not None:
+        raise RuntimeError(_NO_B_BATCH)
+    if in_dims[0] is None:
+        raise RuntimeError("ladder_mm vmap rule called with no batched "
+                           "operand")
+    a = a.movedim(in_dims[0], 0)
+    return a.reshape(-1, a.shape[-1]), a.shape[:2]
+
+
+_NO_B_BATCH = ("ladder_mm takes no batch axis (torch.func.vmap) on its "
+               "second operand (an ERI block, shared by the lanes): close "
+               "over it instead")
 
 _NO_B_GRAD = ("ladder_mm has no gradient or tangent for its second operand "
               "(an ERI block): detach it")

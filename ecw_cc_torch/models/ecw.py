@@ -357,15 +357,25 @@ class ECW:
                 maxiter=40, tablefmt="rst", HF_prop=False, target_rdm1_GS=None,
                 checkpoint_dir=None, resume=False, mode="sweep",
                 refine=False):
-        """GS-ECW-CCSD lambda sweep (warm-started, sequential).  Reference
-        Main.py:663-816.  refine=True follows each solve with f64 polish
+        """GS-ECW-CCSD lambda sweep.  Reference Main.py:663-816.
+
+        mode='sweep' (the reference's): warm-started and sequential, each
+        lambda starting from the previous one's amplitudes.
+        mode='parallel' (JAX models/ecw.py:487-492): every lambda at once
+        in one Solver_CCSD.SCF_batch, lanes of one vmapped step that share
+        each ladder launch; cold starts, so its iteration counts are those
+        of a cold-start sequential sweep and its converged results those of
+        the warm one.  It applies neither resume nor refine, as in the JAX
+        package; checkpoints are written.
+
+        refine=True (mode='sweep') follows each solve with f64 polish
         iterations on eris_f64 (built on the device at f32, at first use),
         for f64 parity of the returned energies, amplitudes and rdm1 (JAX
-        models/ecw.py:441-504).  mode='parallel' (ROADMAP A.13) is not
-        ported yet."""
-        if mode != "sweep":
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (ROADMAP A.13)")
+        models/ecw.py:441-504)."""
+        if mode not in ("sweep", "parallel"):
+            raise ValueError(f"mode must be 'sweep' or 'parallel', got "
+                             f"{mode!r}")
+        refine = refine and mode == "sweep"
         self.diis = diis + f" diis_max={diis_max}"
         if len(self.exp_data) > 1:
             print("Warning: ES data found but GS solver used; only GS data "
@@ -399,18 +409,31 @@ class ECW:
         print("#  Results using SCF for CCSD- GS calculation ")
         print("##############################################")
         print()
+        batch = None
+        if mode == "parallel":
+            batch = Solve.SCF_batch(list(Larray), alpha=alpha, diis=diis)
+            lanes = Solve.last_solve
         for idx_L, L in enumerate(Larray):
             print("LAMBDA= ", L)
-            if resume and checkpoint_dir is not None:
-                saved = checkpoint.load_amplitudes(checkpoint_dir, L)
-                if saved is not None:
-                    ts, ls = saved["ts"], saved["ls"]
-                    td, ld = saved["td"], saved["ld"]
-            # amplitudes stay on the device across the warm-started sweep
-            Result = Solve.SCF(L, ts=ts, ls=ls, td=td, ld=ld, alpha=alpha,
-                               keep_device=True, refine=refine)
+            if batch is not None:
+                Result = batch[idx_L]
+                self.solve_log.append(
+                    {**lanes, "L": L, "lane": idx_L,
+                     "iterations": lanes["iterations"][idx_L],
+                     "status": lanes["status"][idx_L]})
+            else:
+                if resume and checkpoint_dir is not None:
+                    saved = checkpoint.load_amplitudes(checkpoint_dir, L)
+                    if saved is not None:
+                        ts, ls = saved["ts"], saved["ls"]
+                        td, ld = saved["td"], saved["ld"]
+                # amplitudes stay on the device across the warm-started
+                # sweep
+                Result = Solve.SCF(L, ts=ts, ls=ls, td=td, ld=ld,
+                                   alpha=alpha, keep_device=True,
+                                   refine=refine)
+                self.solve_log.append(Solve.last_solve)
             ts, ls, td, ld = Result[5]
-            self.solve_log.append(Solve.last_solve)
             if checkpoint_dir is not None:
                 checkpoint.save_amplitudes(
                     checkpoint_dir, L,

@@ -841,11 +841,31 @@ class Gccs:
 # Instead of the reference's hand-derived Jacobian blocks (dT/dt, dT/dl,
 # dL/dt, dL/dl with three Vexp-derivative models DV1/DV2/DV3,
 # CCS.py:1668-2071), the Jacobian of the coupled (T1, Lambda1) residual
-# system is obtained exactly with torch.func.jacfwd through the whole
-# computation, the Vexp(gamma(t, l)) dependence included.  This covers the
-# reference's DV1 linear-in-gamma 'mat' model exactly and generalizes to
-# every property the device Vexp supports.
+# system is obtained exactly by forward-mode AD (torch.func.jvp along each
+# basis vector, vmapped in chunks) through the whole computation, the
+# Vexp(gamma(t, l)) dependence included.  This covers the reference's DV1
+# linear-in-gamma 'mat' model exactly and generalizes to every property
+# the device Vexp supports.
 # ---------------------------------------------------------------------------
+
+# the memory of one Jacobian column in units of L1inter's (o, v, v, v)
+# intermediate, with room for the temporaries beside it
+JAC_COLUMN_BLOCKS = 4
+JAC_CPU_BYTES = 2 ** 30      # the budget of the columns on the host
+
+
+def jac_chunk(nocc, nvir, x):
+    """Jacobian columns per vmapped jvp (ccs_gradient.Jacobian): as many as
+    half the device's free memory holds (JAC_CPU_BYTES on the host), at
+    JAC_COLUMN_BLOCKS o*v^3 blocks of x's dtype per column; at least 1, at
+    most all of them."""
+    if x.device.type == "cuda":
+        budget = torch.cuda.mem_get_info(x.device)[0] // 2
+    else:
+        budget = JAC_CPU_BYTES
+    per_column = JAC_COLUMN_BLOCKS * nocc * nvir ** 3 * x.element_size()
+    return int(min(max(1, budget // per_column), x.numel()))
+
 
 class ccs_gradient:
     def __init__(self, eris, Vexp_model=1, exp_pot=None):
@@ -883,7 +903,11 @@ class ccs_gradient:
 
     def Jacobian(self, ts, ls, fsp, L):
         """Exact Jacobian of the stacked (T1, L1) residuals w.r.t (t1, l1):
-        (J, residuals)."""
+        (J, residuals).  Its columns are the tangents of the residual along
+        the identity basis, as many at a time as half the free memory holds
+        (one torch.func.vmap of the jvp per chunk, jac_chunk): each tangent
+        holds L1inter's (o, v, v, v) intermediate, so all 2ov at once would
+        take ~46 GB at C2H2/cc-pVDZ f64."""
         ts, ls, fsp0 = self._tensor(ts), self._tensor(ls), self._tensor(fsp)
         gamma0 = gamma_CCS(ts, ls)
         n = ts.numel()
@@ -895,7 +919,11 @@ class ccs_gradient:
             return torch.cat([T1.reshape(-1), L1.reshape(-1)])
 
         x0 = torch.cat([ts.reshape(-1), ls.reshape(-1)])
-        return torch.func.jacfwd(stacked)(x0), stacked(x0)
+        chunk_size = jac_chunk(self.nocc, self.nvir, x0)
+        basis = torch.eye(x0.numel(), dtype=x0.dtype, device=x0.device)
+        J = torch.func.vmap(lambda v: torch.func.jvp(stacked, (x0,), (v,))[1],
+                            out_dims=1, chunk_size=chunk_size)(basis)
+        return J, stacked(x0)
 
     def Newton(self, ts, ls, fsp, L):
         """One Newton step on the coupled system. Reference CCS.py:2094-2124."""

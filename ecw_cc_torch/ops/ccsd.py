@@ -27,7 +27,7 @@ from ecw_cc_torch.ops import promote
 from ecw_cc_torch.ops.l1reg import subdiff
 from ecw_cc_torch.ops.ladder import apply_vvvv_op, dense_ladder, ladder_contract
 
-einsum = torch.einsum
+einsum = promote.lane_einsum
 
 
 def gamma_inter(t1, t2, l1, l2):

@@ -29,7 +29,7 @@ from ecw_cc_torch.ops.ladder import (SectoredVVVV, apply_vvvv_op,
 from ecw_cc_torch.ops.spinsect import (SpinBlocked, div_eijab, sector_einsum,
                                        wrap)
 
-einsum = torch.einsum
+einsum = promote.lane_einsum
 _S = sector_einsum
 
 

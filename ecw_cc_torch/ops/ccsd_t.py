@@ -197,7 +197,7 @@ def _no_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "the (T) pair loops sharded over a device mesh are not ported "
-            "yet (ROADMAP A.13)")
+            "yet (ROADMAP A.13b)")
 
 
 def _t_terms(eris, t1, t2, fo, fv, sect=None, slab_dtype=None):

@@ -35,8 +35,13 @@ class DIISState(NamedTuple):
     has_last: bool
 
 
-def diis_init(n, space=15, *, dtype, device):
-    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+def diis_init(n, space=15, *, dtype, device, lanes=None):
+    """An empty ring for vectors of n elements; lanes: a leading axis of
+    that many independent rings (the batched lambda sweep, which updates
+    them through torch.func.vmap: the bookkeeping is shared, as every
+    lane pushes at every call)."""
+    lead = () if lanes is None else (lanes,)
+    z = lambda *shape: torch.zeros(lead + shape, dtype=dtype, device=device)
     return DIISState(xs=z(space, n), errs=z(space, n), last=z(n),
                      B=z(space, space), nvec=0, head=0, has_last=False)
 
@@ -63,14 +68,15 @@ def diis_update(state: DIISState, x, min_space=2):
     x_new = x
     if nvec >= min_space:
         # bordered DIIS system over the valid slots (identity elsewhere)
-        Bfull = torch.zeros((space + 1, space + 1), dtype=B.dtype,
-                            device=B.device)
+        # allocated from B: under torch.func.vmap (one ring per lambda
+        # lane) they are then batched as B is
+        Bfull = B.new_zeros((space + 1, space + 1))
         Bfull[:space, :space] = torch.eye(space, dtype=B.dtype,
                                           device=B.device)
         Bfull[:nvec, :nvec] = B[:nvec, :nvec]
         Bfull[space, :nvec] = -1.0
         Bfull[:nvec, space] = -1.0
-        rhs = torch.zeros(space + 1, dtype=B.dtype, device=B.device)
+        rhs = B.new_zeros(space + 1)
         # a slice: assigning a Python number to one element of a CUDA
         # tensor copies it from the host and synchronizes the stream
         rhs[space:] = -1.0

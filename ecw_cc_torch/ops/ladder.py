@@ -41,8 +41,9 @@ import torch
 from ecw_cc_torch.config import active_precision, get_config
 from ecw_cc_torch.kernels.ladder_mm import (BF16_ROW_ALIGN, TF32_ROW_ALIGN,
                                             bf16_rows, ladder_mm, tf32_rows)
+from ecw_cc_torch.ops import promote
 
-einsum = torch.einsum
+einsum = promote.lane_einsum
 
 # ladder_mode='auto' packs the ladder operand from this nvir up (the JAX
 # package's default of config.ladder_packed_min_nvir)

@@ -127,8 +127,9 @@ class SpinBlocked:
         if some is None:
             raise ValueError("SpinBlocked.dense(): no stored blocks to take "
                              "a device and dtype from")
-        res = torch.zeros(shape, dtype=dtype or some.dtype,
-                          device=some.device)
+        # allocated from a stored block, so that under torch.func.vmap
+        # (the batched lambda sweep) the result is batched as the blocks are
+        res = some.new_zeros(shape, dtype=dtype or some.dtype)
         sl = _slices(info)
         for key, val in self.blocks.items():
             keys = ((key,) if not self.sym or _flip(key) == key
@@ -229,7 +230,7 @@ def sector_einsum(spec, *operands, info=None):
     # block under 'bf16') promote, as in the JAX package
     dtypes = {next(iter(op.blocks.values())).dtype for op in operands
               if op.blocks}
-    einsum = promote.einsum if len(dtypes) > 1 else torch.einsum
+    einsum = promote.einsum if len(dtypes) > 1 else promote.lane_einsum
 
     out_blocks = {}
     for combo in itertools.product((0, 1), repeat=len(letters)):

@@ -305,7 +305,9 @@ def _f_update(trace_F, F_pot, nh_F, tgt_np, rdm1):
 def make_gs_vexp_device(exp: Exp, perm=None, *, dtype, device):
     """The GS Vexp update as a function (rdm1, L) -> (Vexp00, Delta, vmax)
     on `device`, for properties 'mat', 'Ek', 'v1e', 'dip' and 'F'.  L is the
-    per-property weight list (Exp.L_check(L)[0]).
+    per-property weight list (Exp.L_check(L)[0]), or a tensor of them on
+    `device` (one lambda lane of the batched sweep, under torch.func.vmap):
+    the update reads no value back to the host.
 
     Two MO transforms, as in the reference: potential matrices use
     convert_aoint (C^-1 A C^-H) -> exp.dic_int; property values are
@@ -366,7 +368,7 @@ def make_gs_vexp_device(exp: Exp, perm=None, *, dtype, device):
         delta = torch.zeros((), dtype=rdm1.dtype, device=rdm1.device)
         vmax = torch.zeros((), dtype=rdm1.dtype, device=rdm1.device)
         for i, name in enumerate(names):
-            w = float(L[i])
+            w = L[i]
             hf = hf_props[i]
             if name == "mat":
                 tgt = targets[i]

@@ -44,16 +44,23 @@ config.hybrid_fast, then a 'highest' leg with a fresh DIIS ring.
 SCF(refine=True) follows the solve with polish_f64, f64 iterations on the
 amplitudes' own device.
 
+SCF_batch (JAX gs.py:1131-1179) solves every lambda of a sweep at once:
+one iteration step, the one SCF calls, runs under torch.func.vmap over a
+leading lambda axis, so each ladder product launches once with the lanes
+stacked into its rows; the loop, the legs, the stall detector and the
+per-lane freeze stay outside it, and the loop reads one scalar per
+iteration, whether any lane is still active.
+
 Every GS property is a device property, so the JAX package's host loops
 (_scf_host, and with it Solver_CCS.SCF(store_ite=True)) have no
-counterpart.  SCF_batch raises NotImplementedError naming its ROADMAP item
-(A.13).
+counterpart.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import types
 
 import numpy as np
 import torch
@@ -64,6 +71,7 @@ from ecw_cc_torch.ops import ccsd as ccsd_ops
 from ecw_cc_torch.ops import ccsd_sect
 from ecw_cc_torch.ops import diis as diis_ops
 from ecw_cc_torch.ops import spinsect
+from ecw_cc_torch.kernels.ladder_mm import ladder_mm
 from ecw_cc_torch.models.eris import GEris, warn_if_sorted_layout
 from ecw_cc_torch.ops.ladder import (PackedVVVV, SectoredVVVV,
                                      balanced_stacked_sectored_contract,
@@ -123,8 +131,12 @@ def _conv_text(status, L, n_ite, alpha=None, ccsd=False):
     return f"Diverges for lambda = {L} after {n_ite} iterations"
 
 
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+_RING = ("xs", "errs", "last", "B")   # the DIIS ring's tensors
+
+
+def _ring_tensors(ring):
+    """The tensors of the DIIS ring in ring[0], () without one."""
+    return tuple(getattr(ring[0], f) for f in _RING) if ring[0] else ()
 
 
 def _to_tensor(a, dtype, device):
@@ -567,19 +579,21 @@ class Solver_CCSD:
                      (self.tsini, self.lsini, self.tdini, self.ldini))]
         t0 = time.perf_counter()
         with torch.no_grad():
-            out = self._solve(L, *amps0, alpha=alpha, diis=diis or self.diis,
+            out = self._solve([L], amps0, alpha=alpha, diis=diis or self.diis,
                               sectored=route == "sectored", sym=sym)
-        (ts, ls, td, ld, rdm1, ite, k, status, Ep_h, Delta_h, vmax_h,
-         conv_h, legs) = out
+        ts, ls, td, ld, rdm1, ite, k, status, hist, legs = out
+        ite, k, status = int(ite[0]), int(k[0]), int(status[0])
+        Ep_h, Delta_h, vmax_h, conv_h = hist[0]
         # wall time to solution: _solve ends in a device->host copy
         self.last_solve = {"L": L, "iterations": k, "status": status,
                            "route": route, "sym": sym,
                            "precision": get_config().iter_precision,
-                           "legs": legs,
+                           "legs": [(m, n[0], d[0]) for m, n, d in legs],
                            "ms": (time.perf_counter() - t0) * 1e3}
         text = _conv_text(status, L, ite, alpha=alpha, ccsd=True)
         Delta_it = np.stack([Delta_h[:k], vmax_h[:k]], axis=1)
-        amps = [ts, ls, td, ld]
+        amps = [ts[0], ls[0], td[0], ld[0]]
+        rdm1 = rdm1[0].cpu().numpy()
         if refine:
             t1 = time.perf_counter()
             amps, Ep64, rdm1, n_pol = polish_f64(
@@ -623,21 +637,59 @@ class Solver_CCSD:
         return eris_bf, vv_bf, sb_bf
 
     def SCF_batch(self, Larray, alpha=None, diis=""):
-        raise _not_ported("SCF_batch (all lambdas in one batched solve)",
-                          "A.13")
+        """Solve every lambda of Larray at once (JAX gs.py:1131-1179): one
+        lane per lambda, each a cold start from tsini/lsini/tdini/ldini
+        (no warm start from the previous lambda, which is sequential by
+        nature), all lanes through one iteration step under
+        torch.func.vmap, so that each ladder product is one launch with the
+        lanes stacked into its rows.  A lane freezes where its cold-start
+        SCF would stop; the loop ends when none is left, reading one
+        scalar per iteration.  Returns a list of per-lambda results in
+        SCF's format (amplitudes as NumPy arrays).  No refine: as in the
+        JAX package, the batched solve has no f64 polish."""
+        route = self.route()
+        sym = (route == "sectored" and get_config().soup_sym
+               and self._spin_restricted())
+        t0 = time.perf_counter()
+        n0 = ladder_mm.launches
+        with torch.no_grad():
+            out = self._solve(list(Larray),
+                              (self.tsini, self.lsini, self.tdini,
+                               self.ldini),
+                              alpha=alpha, diis=diis or self.diis,
+                              sectored=route == "sectored", sym=sym)
+        ts, ls, td, ld, rdm1 = (a.cpu().numpy() for a in out[:5])
+        ite, k, status, hist, legs = out[5:]
+        self.last_solve = {"L": list(Larray), "lanes": len(Larray),
+                           "iterations": k.tolist(),
+                           "status": status.tolist(), "route": route,
+                           "sym": sym,
+                           "precision": get_config().iter_precision,
+                           "legs": legs,
+                           "ms": (time.perf_counter() - t0) * 1e3,
+                           "ladder_launches": ladder_mm.launches - n0}
+        results = []
+        for i, L in enumerate(Larray):
+            n = int(k[i])
+            Delta_it = np.stack([hist[i, 1, :n], hist[i, 2, :n]], axis=1)
+            results.append((
+                _conv_text(int(status[i]), L, int(ite[i]), alpha=alpha,
+                           ccsd=True),
+                hist[i, 0, :n], Delta_it, hist[i, 3, :n], rdm1[i],
+                [ts[i], ls[i], td[i], ld[i]]))
+        # the host Vexp state reflects the last lambda, as after a sweep
+        self.myVexp.Vexp_update(rdm1[-1], rdm1[-1], (0, 0), L=Larray[-1])
+        return results
 
-    def _solve(self, L, ts, ls, td, ld, alpha, diis, sectored, sym):
+    def _setup(self, diis, sectored, sym):
+        """What an SCF or SCF_batch call builds once: the ladder operand,
+        the packed-space maps of the route, the legs of the precision mode
+        and their update operands, the Vexp update, the DIIS vector size."""
         eris = self.mycc.eris
         vv = self._sectored_vvvv_op() if sectored else self._get_vvvv_op()
         info = self._sinfo
-        dev, dt = self.device, self.dtype
         nocc, nvir = self.nocc, self.nvir
-        dim = nocc + nvir
-        thres, maxiter, conv_kind = self.conv_thres, self.maxiter, self.conv
-        vexp_fn = make_gs_vexp_device(self.myVexp, perm=self.mo_perm,
-                                      dtype=dt, device=dev)
-        Lw = self.myVexp.L_check(L)[0]
-
+        dt, thres = self.dtype, self.conv_thres
         if sectored:
             # packed balanced-block space (canonical blocks when sym): the
             # amplitudes live entirely there, so packing is lossless
@@ -653,22 +705,6 @@ class Solver_CCSD:
             u_ov = lambda f: f.reshape(nocc, nvir)
             u_4 = lambda f: f.reshape(nocc, nocc, nvir, nvir)
             n_ov, n_4 = nocc * nvir, nocc * nocc * nvir * nvir
-
-        def conv_vec(ts, ls, td, ld, fsp):
-            if conv_kind == "tl":
-                return torch.cat([p_ov(ls.abs() + ts.abs()),
-                                  p_4(ld.abs() + td.abs())])
-            if conv_kind == "l":
-                return torch.cat([p_ov(ls), p_4(ld)])
-            return ccsd_ops.energy(eris, ts, td, fsp).reshape(1)
-
-        if self.mo_perm is not None:
-            # one sort on entry
-            po, pv = self._po, self._pv
-            ts, ls = _perm2(ts, po, pv), _perm2(ls, po, pv)
-            td, ld = _perm4(td, po, pv), _perm4(ld, po, pv)
-        eris_sb = ccsd_sect.wrap_eris(eris, info, sym=sym) if sectored else None
-
         # the legs of the solve: (precision mode, Dconv it runs down to)
         prec = get_config().iter_precision
         if prec == "hybrid":
@@ -684,148 +720,279 @@ class Solver_CCSD:
         # kernel instead: it is never copied)
         vv_tf = (vv.to("tf32") if vv is not None and dt == torch.float32
                  and any(m in TF32_MODES for m, _ in legs) else vv)
+        dim = nocc + nvir
+        return types.SimpleNamespace(
+            eris=eris, vv=vv, vv_tf=vv_tf, upd_bf=upd_bf, info=info,
+            sectored=sectored, sym=sym, legs=legs, diis=diis,
+            p_ov=p_ov, p_4=p_4, u_ov=u_ov, u_4=u_4, n_ov=n_ov, n_4=n_4,
+            nvec=(2 * n_ov + 2 * n_4) if diis == "tl" else dim * dim,
+            eris_sb=(ccsd_sect.wrap_eris(eris, info, sym=sym) if sectored
+                     else None),
+            vexp_fn=make_gs_vexp_device(self.myVexp, perm=self.mo_perm,
+                                        dtype=dt, device=self.device))
 
-        nvec = (2 * n_ov + 2 * n_4) if diis == "tl" else dim * dim
+    def _conv_vec(self, su, ts, ls, td, ld, fsp):
+        if self.conv == "tl":
+            return torch.cat([su.p_ov(ls.abs() + ts.abs()),
+                              su.p_4(ld.abs() + td.abs())])
+        if self.conv == "l":
+            return torch.cat([su.p_ov(ls), su.p_4(ld)])
+        return ccsd_ops.energy(su.eris, ts, td, fsp).reshape(1)
 
-        def fresh_diis():
-            return (diis_ops.diis_init(nvec, self.maxdiis, dtype=dt,
-                                       device=dev) if diis else None)
+    def _fresh_diis(self, su, lanes):
+        return (diis_ops.diis_init(su.nvec, self.maxdiis, dtype=self.dtype,
+                                   device=self.device, lanes=lanes)
+                if su.diis else None)
 
-        dstate = fresh_diis()
-        conv = torch.zeros_like(conv_vec(ts, ls, td, ld, eris.fock))
-        hist = torch.zeros((4, maxiter + 2), dtype=dt, device=dev)
-        Dconv, Dconv_v = torch.ones((), dtype=dt, device=dev), 1.0
-        ite = k = 0
-        status = RUNNING
-        rdm1 = torch.zeros((dim, dim), dtype=dt, device=dev)
+    def _make_step(self, su, mode, alpha, ring):
+        """One iteration of the leg at precision `mode`, as a function
+
+            step(amps, ring_t, conv, Lw) ->
+                (amps, ring_t, conv, rdm1, Ep, Delta, vmax,
+                 |conv - conv_old|)
+
+        of one lane's amplitudes (ts, ls, td, ld), DIIS ring tensors (xs,
+        errs, last, B; () without DIIS), convergence vector and Vexp
+        weights (a list of numbers, or a tensor of them).
+        The ERIs, the ladder operand and the leg's update operands are
+        closed over: _solve calls the step directly on one lane, and
+        through torch.func.vmap over a leading lambda axis of every
+        argument on several, so that each ladder product stacks the lanes
+        into its rows and launches once.  ring: a one-element list holding
+        the DIIS ring's bookkeeping (a DIISState, whose Python integers the
+        lanes share); the step replaces it."""
+        su_eris, info, sectored, sym = su.eris, su.info, su.sectored, su.sym
+        diis, dim, dt = su.diis, self.nocc + self.nvir, self.dtype
+        n_ov, n_4 = su.n_ov, su.n_4
+        p_ov, p_4, u_ov, u_4 = su.p_ov, su.p_4, su.u_ov, su.u_4
+        # the bf16 leg's update operands; rdm1, Vexp, the energy, DIIS and
+        # the convergence test stay in dt
+        er_u, vv_u, sb_u = (
+            su.upd_bf if mode == "bf16" else
+            (su_eris, su.vv_tf if mode in TF32_MODES else su.vv, su.eris_sb))
+        cast = ((lambda x: x) if mode != "bf16"
+                else (lambda x: x.to(torch.bfloat16)))
+
+        def diis_step(ring_t, x):
+            st = ring[0]._replace(**dict(zip(_RING, ring_t)))
+            ring[0], vec = diis_ops.diis_update(st, x, self.mindiis)
+            return tuple(getattr(ring[0], f) for f in _RING), vec
+
+        def step(amps, ring_t, conv, Lw):
+            ts, ls, td, ld = amps
+            conv_old = conv
+            rdm1 = ccsd_ops.gamma_CCSD(
+                ts, td, ls, ld,
+                inter=(ccsd_sect.gamma_inter_sect(ts, td, ls, ld, info,
+                                                  sym=sym)
+                       if sectored else None))
+            if diis == "rdm1":
+                ring_t, vec = diis_step(ring_t, rdm1.reshape(-1))
+                rdm1 = vec.reshape(dim, dim)
+            V, Delta, vmax = su.vexp_fn(rdm1, Lw)
+            fsp = su_eris.fock - V
+            Ep = ccsd_ops.energy(su_eris, ts, td, fsp)
+            ts_u, td_u, ls_u, ld_u, fsp_u = (
+                cast(x) for x in (ts, td, ls, ld, fsp))
+            # both vvvv ladders read only pre-update amplitudes (tau on the
+            # t side, l2 on the lambda side): one stacked GEMM per operand
+            # block, so each block is read once per iteration
+            ladder_t = ladder_l = tau_pre = None
+            if isinstance(vv_u, PackedVVVV):
+                ladder_t, ladder_l = stacked_packed_contract(
+                    vv_u, ccsd_ops.make_tau(td_u, ts_u, ts_u), ld_u)
+            elif isinstance(vv_u, SectoredVVVV):
+                if sectored:
+                    # balanced rows (mirror skip when sym); the blocked tau
+                    # is shared with tupdate_sect
+                    tau_pre = ccsd_sect._tau_b(
+                        spinsect.wrap(td_u, "oovv", info, sym=sym),
+                        spinsect.wrap(ts_u, "ov", info, sym=sym))
+                    ladder_t, ladder_l = balanced_stacked_sectored_contract(
+                        vv_u, tau_pre, ld_u, info.oa, sym=sym,
+                        blocked_info=info)
+                else:
+                    ladder_t, ladder_l = stacked_sectored_contract(
+                        vv_u, ccsd_ops.make_tau(td_u, ts_u, ts_u), ld_u)
+            if sectored:
+                ts, td = ccsd_sect.tupdate_sect(
+                    er_u, ts_u, td_u, fsp_u, info, alpha=alpha,
+                    vvvv_op=vv_u, ladder_pre=ladder_t, eris_sb=sb_u,
+                    sym=sym, tau_pre=tau_pre)
+                ls, ld = ccsd_sect.lupdate_sect(
+                    er_u, cast(ts), cast(td), ls_u, ld_u, fsp_u, info,
+                    alpha=alpha, energy_term=self.energy_term,
+                    vvvv_op=vv_u, ladder_pre=ladder_l, eris_sb=sb_u,
+                    sym=sym)
+            else:
+                ts, td = ccsd_ops.tupdate(
+                    er_u, ts_u, td_u, fsp=fsp_u, alpha=alpha,
+                    vvvv_op=vv_u, ladder_pre=ladder_t)
+                # the f32 denominators promoted ts/td back: the lambda
+                # update reads them in bf16 again
+                ls, ld = ccsd_ops.lupdate(
+                    er_u, cast(ts), cast(td), ls_u, ld_u, fsp=fsp_u,
+                    alpha=alpha, energy_term=self.energy_term,
+                    vvvv_op=vv_u, ladder_pre=ladder_l)
+            ts, td, ls, ld = (x.to(dt) for x in (ts, td, ls, ld))
+            vec = None
+            if diis == "tl":
+                ring_t, vec = diis_step(
+                    ring_t, torch.cat([p_ov(ls), p_ov(ts), p_4(ld),
+                                       p_4(td)]))
+                ls = u_ov(vec[:n_ov])
+                ts = u_ov(vec[n_ov:2 * n_ov])
+                ld = u_4(vec[2 * n_ov:2 * n_ov + n_4])
+                td = u_4(vec[2 * n_ov + n_4:])
+            if vec is not None and self.conv == "tl":
+                # the DIIS vector already holds the components conv_vec
+                # would gather
+                conv = torch.cat([
+                    vec[:n_ov].abs() + vec[n_ov:2 * n_ov].abs(),
+                    vec[2 * n_ov:2 * n_ov + n_4].abs()
+                    + vec[2 * n_ov + n_4:].abs()])
+            else:
+                conv = self._conv_vec(su, ts, ls, td, ld, fsp)
+            return ((ts, ls, td, ld), ring_t, conv, rdm1, Ep, Delta, vmax,
+                    torch.linalg.norm(conv - conv_old))
+
+        return step
+
+    def _sort_in(self, ts, ls, td, ld):
+        """Public (alternating) amplitudes into the ERIs' layout: one sort
+        on entry."""
+        if self.mo_perm is None:
+            return ts, ls, td, ld
+        po, pv = self._po, self._pv
+        return (_perm2(ts, po, pv), _perm2(ls, po, pv), _perm4(td, po, pv),
+                _perm4(ld, po, pv))
+
+    def _sort_out(self, ts, ls, td, ld, rdm1):
+        """... and back to the public layout: one unsort on exit."""
+        if self.mo_perm is None:
+            return ts, ls, td, ld, rdm1
+        io, iv, ip = self._io, self._iv, self._ip
+        return (_perm2(ts, io, iv), _perm2(ls, io, iv), _perm4(td, io, iv),
+                _perm4(ld, io, iv), rdm1[ip][:, ip])
+
+    def _solve(self, Ls, amps0, alpha, diis, sectored, sym):
+        """The loop of SCF (one lane) and SCF_batch (one lane per lambda of
+        Ls), every lane started from amps0 = (ts, ls, td, ld) (public
+        layout).  The state of every lane lives on the device; one lane
+        calls the step directly, several call it through torch.func.vmap,
+        so that each ladder product stacks the lanes into its rows.  A
+        lane is active while its solve would still iterate; an inactive
+        lane keeps its amplitudes, convergence vector, Dconv, status,
+        counters and rdm1 (torch.where), and the loop ends when no lane is
+        active, which it reads once per iteration.  Returns the per-lane
+        amplitudes and rdm1 (device tensors with a leading lane axis),
+        iterations, steps, status and hist (NumPy; hist: (lanes, 4,
+        maxiter + 2)), and the legs' log [(mode, steps, Dconv) per lane]."""
+        su = self._setup(diis, sectored, sym)
+        dev, dt, f64 = self.device, self.dtype, torch.float64
+        thres, maxiter = self.conv_thres, self.maxiter
+        nL = len(Ls)
+        Lw = (self.myVexp.L_check(Ls[0])[0] if nL == 1 else
+              torch.tensor([self.myVexp.L_check(L)[0] for L in Ls],
+                           dtype=dt, device=dev))
+        amps0 = self._sort_in(*amps0)
+        # one materialized copy per lane
+        amps = tuple(a.unsqueeze(0).repeat(nL, *(1,) * a.dim())
+                     for a in amps0)
+        conv0 = self._conv_vec(su, *amps0, su.eris.fock)
+        conv = conv0.new_zeros((nL,) + conv0.shape)
+        hist = torch.zeros((nL, 4, maxiter + 2), dtype=dt, device=dev)
+        # the lane controls: Dconv (compared in f64, as the host float the
+        # threshold is), iterations, steps, status
+        Dconv = torch.ones(nL, dtype=f64, device=dev)
+        ite = torch.zeros(nL, dtype=torch.int64, device=dev)
+        k = torch.zeros_like(ite)
+        status = torch.full_like(ite, RUNNING)
+        rdm1 = torch.zeros((nL,) + (self.nocc + self.nvir,) * 2, dtype=dt,
+                           device=dev)
+        # a single lane steps only while it is active: nothing to keep
+        keep = ((lambda act, new, old: new) if nL == 1 else
+                lambda act, new, old: torch.where(
+                    act.view((-1,) + (1,) * (new.dim() - 1)), new, old))
         leg_log = []
-        for leg, (mode, stop) in enumerate(legs):
+        for leg, (mode, stop) in enumerate(su.legs):
+            # a fresh DIIS ring per leg: the 'highest' leg of 'hybrid' (JAX
+            # gs.py:1019-1035) must not extrapolate over the fast leg's
+            # noisy differences, which poison the subspace.  The ring is
+            # not frozen with the lanes: a finished lane never reads it
+            # again, and the freeze's copy of the history (~1.3 GB per
+            # iteration at cc-pVTZ, as the JAX package notes) would cost
+            # more than the step it guards
+            ring = [self._fresh_diis(su, lanes=nL)]
             if leg:
-                # the 'highest' leg of 'hybrid' (JAX gs.py:1019-1035): a
-                # fresh DIIS ring (extrapolating over the fast leg's noisy
-                # differences poisons the subspace), and Dconv lifted above
-                # thres so that at least one full-precision iteration runs
-                dstate = fresh_diis()
-                Dconv_v = max(Dconv_v, 1.5 * thres)
-                Dconv = torch.full((), Dconv_v, dtype=dt, device=dev)
-            # the bf16 leg's update operands; rdm1, Vexp, the energy, DIIS
-            # and the convergence test stay in dt
-            er_u, vv_u, sb_u = (
-                upd_bf if mode == "bf16" else
-                (eris, vv_tf if mode in TF32_MODES else vv, eris_sb))
-            cast = ((lambda x: x) if mode != "bf16"
-                    else (lambda x: x.to(torch.bfloat16)))
+                # at least one full-precision iteration per running lane
+                Dconv = torch.where(status == RUNNING,
+                                    Dconv.clamp(min=1.5 * thres), Dconv)
+            step = self._make_step(su, mode, alpha, ring)
+            step = torch.func.vmap(step) if nL > 1 else _one_lane(step)
             # the fast leg of 'hybrid' also ends when Dconv stalls: 3
             # iterations without a new best below 0.95 * best
-            stall_on = len(legs) > 1 and leg == 0
-            dmin, stall, k0 = float("inf"), 0, k
+            stall_on = len(su.legs) > 1 and leg == 0
+            dmin = torch.full((nL,), float("inf"), dtype=f64, device=dev)
+            stall = torch.zeros_like(ite)
+            k0 = k.clone()
             with matmul_precision(mode):
-                while Dconv_v > stop and status == RUNNING and stall < 3:
-                    conv_old = conv
-                    rdm1 = ccsd_ops.gamma_CCSD(
-                        ts, td, ls, ld,
-                        inter=(ccsd_sect.gamma_inter_sect(ts, td, ls, ld,
-                                                          info, sym=sym)
-                               if sectored else None))
-                    if diis == "rdm1":
-                        dstate, vec = diis_ops.diis_update(
-                            dstate, rdm1.reshape(-1), self.mindiis)
-                        rdm1 = vec.reshape(dim, dim)
-                    V, Delta, vmax = vexp_fn(rdm1, Lw)
-                    fsp = eris.fock - V
-                    Ep = ccsd_ops.energy(eris, ts, td, fsp)
-                    ts_u, td_u, ls_u, ld_u, fsp_u = (
-                        cast(x) for x in (ts, td, ls, ld, fsp))
-                    # both vvvv ladders read only pre-update amplitudes
-                    # (tau on the t side, l2 on the lambda side): one
-                    # stacked GEMM per operand block, so each block is read
-                    # once per iteration
-                    ladder_t = ladder_l = tau_pre = None
-                    if isinstance(vv_u, PackedVVVV):
-                        ladder_t, ladder_l = stacked_packed_contract(
-                            vv_u, ccsd_ops.make_tau(td_u, ts_u, ts_u), ld_u)
-                    elif isinstance(vv_u, SectoredVVVV):
-                        if sectored:
-                            # balanced rows (mirror skip when sym); the
-                            # blocked tau is shared with tupdate_sect
-                            tau_pre = ccsd_sect._tau_b(
-                                spinsect.wrap(td_u, "oovv", info, sym=sym),
-                                spinsect.wrap(ts_u, "ov", info, sym=sym))
-                            ladder_t, ladder_l = (
-                                balanced_stacked_sectored_contract(
-                                    vv_u, tau_pre, ld_u, info.oa, sym=sym,
-                                    blocked_info=info))
-                        else:
-                            ladder_t, ladder_l = stacked_sectored_contract(
-                                vv_u, ccsd_ops.make_tau(td_u, ts_u, ts_u),
-                                ld_u)
-                    if sectored:
-                        ts, td = ccsd_sect.tupdate_sect(
-                            er_u, ts_u, td_u, fsp_u, info, alpha=alpha,
-                            vvvv_op=vv_u, ladder_pre=ladder_t, eris_sb=sb_u,
-                            sym=sym, tau_pre=tau_pre)
-                        ls, ld = ccsd_sect.lupdate_sect(
-                            er_u, cast(ts), cast(td), ls_u, ld_u, fsp_u, info,
-                            alpha=alpha, energy_term=self.energy_term,
-                            vvvv_op=vv_u, ladder_pre=ladder_l, eris_sb=sb_u,
-                            sym=sym)
-                    else:
-                        ts, td = ccsd_ops.tupdate(
-                            er_u, ts_u, td_u, fsp=fsp_u, alpha=alpha,
-                            vvvv_op=vv_u, ladder_pre=ladder_t)
-                        # the f32 denominators promoted ts/td back: the
-                        # lambda update reads them in bf16 again
-                        ls, ld = ccsd_ops.lupdate(
-                            er_u, cast(ts), cast(td), ls_u, ld_u, fsp=fsp_u,
-                            alpha=alpha, energy_term=self.energy_term,
-                            vvvv_op=vv_u, ladder_pre=ladder_l)
-                    ts, td, ls, ld = (x.to(dt) for x in (ts, td, ls, ld))
-                    vec = None
-                    if diis == "tl":
-                        dstate, vec = diis_ops.diis_update(
-                            dstate,
-                            torch.cat([p_ov(ls), p_ov(ts), p_4(ld), p_4(td)]),
-                            self.mindiis)
-                        ls = u_ov(vec[:n_ov])
-                        ts = u_ov(vec[n_ov:2 * n_ov])
-                        ld = u_4(vec[2 * n_ov:2 * n_ov + n_4])
-                        td = u_4(vec[2 * n_ov + n_4:])
-                    if vec is not None and conv_kind == "tl":
-                        # the DIIS vector already holds the components
-                        # conv_vec would gather
-                        conv = torch.cat([
-                            vec[:n_ov].abs() + vec[n_ov:2 * n_ov].abs(),
-                            vec[2 * n_ov:2 * n_ov + n_4].abs()
-                            + vec[2 * n_ov + n_4:].abs()])
-                    else:
-                        conv = conv_vec(ts, ls, td, ld, fsp)
-                    if ite > 0:
-                        Dconv = torch.linalg.norm(conv - conv_old)
-                        Dconv_v = float(Dconv)   # the one read per iteration
-                    hist[:, k] = torch.stack([Ep, Delta, vmax, Dconv])
-                    if ite >= maxiter:
-                        status = MAXITER
-                    elif Dconv_v > 1.0:
-                        status = DIVERGED
-                    else:
-                        ite += 1
-                    k += 1
-                    if stall_on and ite > 1:
+                while True:
+                    active = (Dconv > stop) & (status == RUNNING)
+                    if stall_on:
+                        active &= stall < 3
+                    if not bool(active.any()):   # the one read per iteration
+                        break
+                    (new_amps, ring_t, conv_n, rdm1_n, Ep, Delta, vmax,
+                     dnorm) = step(amps, _ring_tensors(ring), conv, Lw)
+                    if ring_t:
+                        # the lanes' rings as the step returns them
+                        ring[0] = ring[0]._replace(**dict(zip(_RING,
+                                                              ring_t)))
+                    amps = tuple(keep(active, a, b)
+                                 for a, b in zip(new_amps, amps))
+                    conv = keep(active, conv_n, conv)
+                    rdm1 = keep(active, rdm1_n, rdm1)
+                    Dconv = torch.where(ite > 0,
+                                        keep(active, dnorm.to(f64), Dconv),
+                                        Dconv)
+                    # column k of every lane: an inactive lane's k is one
+                    # past its history, which is read only up to k
+                    col = torch.stack([Ep, Delta, vmax, Dconv.to(dt)], dim=1)
+                    hist.scatter_(2, k.view(nL, 1, 1).expand(nL, 4, 1),
+                                  col[:, :, None])
+                    status = keep(active, torch.where(
+                        ite >= maxiter, MAXITER,
+                        torch.where(Dconv > 1.0, DIVERGED, status)), status)
+                    ite = keep(active, torch.where(status == RUNNING, ite + 1,
+                                                   ite), ite)
+                    k = keep(active, k + 1, k)
+                    if stall_on:
                         # (the first iteration's Dconv is a placeholder)
-                        stall = 0 if Dconv_v < 0.95 * dmin else stall + 1
-                        dmin = min(dmin, Dconv_v)
-            leg_log.append((mode, k - k0, Dconv_v))
-        if status == RUNNING:
-            status = CONVERGED
-        if self.mo_perm is not None:
-            # one unsort on exit
-            io, iv, ip = self._io, self._iv, self._ip
-            ts, ls = _perm2(ts, io, iv), _perm2(ls, io, iv)
-            td, ld = _perm4(td, io, iv), _perm4(ld, io, iv)
-            rdm1 = rdm1[ip][:, ip]
-        hist_np = hist.cpu().numpy()
-        return (ts, ls, td, ld, rdm1.cpu().numpy(), ite, k, status,
-                hist_np[0], hist_np[1], hist_np[2], hist_np[3], leg_log)
+                        upd = active & (ite > 1)
+                        stall = torch.where(
+                            upd, torch.where(Dconv < 0.95 * dmin, 0,
+                                             stall + 1), stall)
+                        dmin = torch.where(upd, torch.minimum(dmin, Dconv),
+                                           dmin)
+            leg_log.append((mode, (k - k0).tolist(), Dconv.tolist()))
+        status = torch.where(status == RUNNING, CONVERGED, status)
+        ts, ls, td, ld, rdm1 = torch.func.vmap(self._sort_out)(*amps, rdm1)
+        return (ts, ls, td, ld, rdm1, ite.cpu().numpy(), k.cpu().numpy(),
+                status.cpu().numpy(), hist.cpu().numpy(), leg_log)
+
+
+def _one_lane(step):
+    """The step over lane-stacked state of one lane, called directly (no
+    vmap): the lane axis taken off the tensors it is given and put back on
+    those it returns."""
+    def lane(amps, ring_t, conv, Lw):
+        out = step(tuple(a[0] for a in amps), tuple(r[0] for r in ring_t),
+                   conv[0], Lw)
+        return tuple(tuple(x.unsqueeze(0) for x in o)
+                     if isinstance(o, tuple) else o.unsqueeze(0)
+                     for o in out)
+    return lane
 
 
 # ---------------------------------------------------------------------------

@@ -221,6 +221,48 @@ def test_jacobian_matches_jax_and_finite_differences(h2_pair, model):
     assert np.abs(J.numpy() - J_fd).max() < 5e-7
 
 
+@pytest.mark.parametrize("model", [1, 2])
+def test_jacobian_chunks_equal_one_pass(h2_pair, model, monkeypatch):
+    """The Jacobian's columns in chunks of the vmapped jvp (ROADMAP A.9),
+    the chunk set by the memory budget (jac_chunk), equal all of them in
+    one pass and torch.func.jacfwd, to 1e-12."""
+    L = 0.1
+    _, tgrad, ts, ls, fsp, _ = _grad_state(h2_pair, L, model=model)
+    n2 = 2 * ts.size
+    per_column = (tccs.JAC_COLUMN_BLOCKS * tgrad.nocc * tgrad.nvir ** 3
+                  * 8)
+    x = torch.zeros(n2, dtype=torch.float64)
+
+    def jacobian(chunk):
+        # the budget that holds `chunk` columns and not one more
+        monkeypatch.setattr(tccs, "JAC_CPU_BYTES", chunk * per_column + 1)
+        assert tccs.jac_chunk(tgrad.nocc, tgrad.nvir, x) == chunk
+        return tgrad.Jacobian(ts, ls, fsp, L)
+
+    J_all, R_all = jacobian(n2)
+    for chunk in (1, 5, n2 - 1):
+        J, R = jacobian(chunk)
+        assert (J - J_all).abs().max() < 1e-12
+        assert torch.equal(R, R_all)
+    ts_t, ls_t = _t(ts), _t(ls)
+    gamma0 = tccs.gamma_CCS(ts_t, ls_t)
+
+    def stacked(x):
+        T1, L1 = tgrad._residuals(x[:n2 // 2].reshape(ts.shape),
+                                  x[n2 // 2:].reshape(ls.shape), _t(fsp),
+                                  gamma0, L)
+        return torch.cat([T1.reshape(-1), L1.reshape(-1)])
+
+    J_fwd = torch.func.jacfwd(stacked)(torch.cat([ts_t.reshape(-1),
+                                                  ls_t.reshape(-1)]))
+    assert (J_fwd - J_all).abs().max() < 1e-12
+    # no budget: one column at a time; more than all: all of them
+    monkeypatch.setattr(tccs, "JAC_CPU_BYTES", 0)
+    assert tccs.jac_chunk(tgrad.nocc, tgrad.nvir, x) == 1
+    monkeypatch.setattr(tccs, "JAC_CPU_BYTES", 10 * n2 * per_column)
+    assert tccs.jac_chunk(tgrad.nocc, tgrad.nvir, x) == n2
+
+
 def test_newton_and_descent_steps_match_jax(h2_pair):
     L = 0.1
     jgrad, tgrad, ts, ls, fsp, _ = _grad_state(h2_pair, L, scale=0.02)
@@ -451,9 +493,16 @@ def test_cli_runner_names_what_is_not_ported(tmp_path, capsys):
     spec = _spec(tmp_path, "CCS_ES")
     with pytest.raises(NotImplementedError, match="GS solver"):
         run_spec(spec)                      # CCS_ES without ES targets
-    spec = _spec(tmp_path, "CCSD_GS")
+    spec = _spec(tmp_path, "CCSD_GS", diis="tl", conv_thres=1e-8)
+    spec["run"]["Larray"] = [0.0, 0.5, 2]
+    sweep = run_spec(spec)
     spec["run"]["mode"] = "parallel"       # the batched sweep (A.13)
-    with pytest.raises(NotImplementedError, match="A.13"):
+    parallel = run_spec(spec)
+    assert parallel[0].startswith("Convergence reached")
+    assert abs(float(parallel[1][-1]) - float(sweep[1][-1])) < 1e-9
+    np.testing.assert_allclose(parallel[4], sweep[4], rtol=0, atol=1e-7)
+    spec["run"]["mode"] = "batched"        # no such mode
+    with pytest.raises(ValueError, match="mode"):
         run_spec(spec)
     spec = _spec(tmp_path, "CCS_GS")
     spec["es_targets"] = {"fci": 1}

@@ -118,8 +118,8 @@ def test_unported_routes_raise(sorted_problem):
     """The routes of ROADMAP A.2 are ported: the alternating layout
     (guarded by the sorted-layout warning), a solver with no ladder operand
     (derived from eris.vvvv, which a pack-on-build placeholder refuses) and
-    the dense route on the sorted layout.  SCF_batch (A.13) still raises,
-    naming its item; refine=True without eris_host raises as in JAX."""
+    the dense route on the sorted layout.  SCF_batch (A.13) runs on the
+    sectored route; refine=True without eris_host raises as in JAX."""
     p = sorted_problem
     exp = TExp(0.05, [[["mat", p["target"]]]], mol=p["mol"],
                mo_coeff=p["ghf"].mo_coeff)
@@ -133,8 +133,11 @@ def test_unported_routes_raise(sorted_problem):
     assert solver.route() == "sectored"
     with pytest.raises(ValueError, match="eris_host"):
         solver.SCF(0.05, refine=True)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        solver.SCF_batch([0.05, 0.1])
+    batch = solver.SCF_batch([0.05, 0.1])
+    assert solver.last_solve["route"] == "sectored"
+    assert solver.last_solve["lanes"] == 2
+    assert all("Convergence reached" in r[0] for r in batch)
+    assert solver.last_solve["iterations"] == [len(r[1]) for r in batch]
     # a precision mode that does not exist cannot be set at all
     with pytest.raises(ValueError, match="iter_precision"):
         ecw_cc_torch.set_config(iter_precision="tf32")
