@@ -30,6 +30,8 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --batch          # phases 1, 2, phase 3 at the
                                            # batched shapes and 14 only:
                                            # the batched lambda sweep
+    python3 chip_smoke.py --parallel       # phases 1, 2 and 15 only: the
+                                           # multi-device layer
 
 Phases, one output line each (and one "phase_seconds" line at the end of
 each); any failure raises and exits nonzero:
@@ -247,6 +249,31 @@ each); any failure raises and exits nonzero:
          (torch.cuda.set_sync_debug_mode('warn'), two chains differenced)
          of a 3-lane batched chain and of the sequential CCSD chain:
          exactly one each, the loop test of solvers/gs.py;
+ 15. (run after 14) the multi-device layer (ecw_cc_torch/parallel) on a
+     world-size-1 NCCL group started in the process (mesh dp 1 x tp 1 on
+     the card; NCCL takes no second rank on one card):
+     (a) C2H2/cc-pVDZ f32 at lambda = 0.25 on the packed route (phase 4's
+         ECW ERIs) and on the sorted sectored route with the mirror
+         symmetry, each solved whole and with ERIs, ladder operand and
+         amplitudes split (shard_eris, shard_vvvv_op, amp_shardings):
+         equal iterations, |dEp| <= 1e-9 Ha, ladder launches per
+         iteration unchanged (1 packed, 2 sectored), every one on the
+         rank's rows; the collectives counted (CommDebugMode, and their
+         shapes), none on the operand; ms per iteration of both;
+     (b) the shard launches at cc-pVTZ's packed shape (M = 392, p =
+         13041, f32) for tp = 2, 4 and 8, side by side in one process: each
+         rank's rows (6521, 3261, 1631 after padding) launched, the columns
+         concatenated, equal to the whole launch to 1e-5 * max|C|; the
+         shard backward (one launch on the rows as they are) equal to
+         dC @ B; the bytes per rank; each shard shape checked and timed
+         beside cuBLAS by phase 3's method;
+     (c) energy_t_sect over the mesh equal to the call without one, on
+         (a)'s sorted ERIs and amplitudes;
+     (d) the shard product's rules on the card: ladder_mm on a RowShard
+         of a symmetric 1891 x 1891 operand, forward, backward
+         (autograd), tangent (torch.func.jvp) and 3 vmapped lanes against
+         the plain product (1e-5 * max|ref|), with the launches each rule
+         predicts, every one on the rows;
   8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported,
      and the excited-state and EOM modules were.
 Before the last line it prints the kernel report as one JSON object and
@@ -3272,8 +3299,303 @@ def run_phase14(lmm, ecw32, ecw_tz):
     return launches, by_variant
 
 
+# Phase 15: the multi-device layer (ecw_cc_torch/parallel).  One card, so
+# the group is one NCCL rank (mesh 1 x 1): the sharded solves run every
+# collective and the launch on the rank's rows (here all of them), and
+# the shard launches of tp = 2, 4 and 8 are made side by side in one
+# process, at cc-pVTZ's packed shape.
+SHARD_TPS = (2, 4, 8)
+SHARD_P = 13041                 # C2H2/cc-pVTZ packed pairs (nvir 162)
+SHARD_M = 392                   # the stacked packed product's rows
+SHARD_SHAPES = [(SHARD_M, (SHARD_P + (-SHARD_P) % tp) // tp, SHARD_P)
+                for tp in SHARD_TPS]
+PAR_LAMBDA = 0.25
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def par_solve(ecw, eris, op, perm, mesh, sharding, log=False):
+    """Solver_CCSD.SCF at lambda PAR_LAMBDA on ECW's target, the ERIs,
+    operand and amplitudes split over `mesh` (None: whole); returns the
+    result, the solver, the kernel launches (all, on a shard) and, with
+    `log`, the collectives (their log and CommDebugMode's counts: both
+    are dispatch modes, which slow every operation, so a timed solve
+    runs without them)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from ecw_cc_torch.kernels.ladder_mm import ladder_mm
+    from ecw_cc_torch.ops.ccsd import GCC
+    from ecw_cc_torch.ops.vexp import Exp
+    from ecw_cc_torch.solvers.gs import Solver_CCSD
+
+    exp = Exp(PAR_LAMBDA, [ecw.exp_data[0]], ecw.mol, ecw.mo_coeff)
+    kw = {}
+    if mesh is not None:
+        eris = sharding.shard_eris(eris, mesh)
+        op = sharding.shard_vvvv_op(op, mesh)
+    torch.cuda.synchronize()
+    ladder_mm.launches = ladder_mm.shard_launches = 0
+    comm, coll = ((CommDebugMode(), sharding.CollectiveLog()) if log
+                  else (contextlib.nullcontext(), contextlib.nullcontext()))
+    with comm, coll:
+        solver = Solver_CCSD(GCC(eris), exp, conv="tl",
+                             conv_thres=CONV_THRES, diis="tl", maxiter=60,
+                             vvvv_op=op, mo_perm=perm)
+        if mesh is not None:
+            sh = sharding.amp_shardings(mesh)
+            kw = {k: sharding.shard_tensor(a, mesh, sh[n]) for k, a, n in zip(
+                ("ts", "ls", "td", "ld"),
+                (solver.tsini, solver.lsini, solver.tdini, solver.ldini),
+                ("t1", "l1", "t2", "l2"))}
+        res = solver.SCF(PAR_LAMBDA, keep_device=True, **kw)
+    torch.cuda.synchronize()
+    counts = ({str(k): v for k, v in comm.get_comm_counts().items()}
+              if log else None)
+    return (res, solver, ladder_mm.launches, ladder_mm.shard_launches,
+            coll, counts)
+
+
+def run_par_solves(ecw32, mesh):
+    """15a: the packed and the sectored route at C2H2/cc-pVDZ f32, whole
+    and split over the 1 x 1 mesh: equal iterations, |dEp| <= 1e-9 Ha,
+    the same launches per iteration (each on the rank's rows), and no
+    collective on the operand.  Returns ({path: launches}, the sorted
+    system for 15c)."""
+    from ecw_cc_torch.models.eris import build_eris_device
+    from ecw_cc_torch.parallel import sharding
+
+    er_s, sect = build_eris_device(ecw32.mol, ecw32.mf, dtype=torch.float32,
+                                   device="cuda", pack_ladder=True,
+                                   sort_spin=True)
+    perm = sort_perm(ecw32)
+    launches = {}
+    for route, eris, op, perm_, per_iter in (
+            ("packed", ecw32.eris, ecw32.vvvv_op, None, 1),
+            ("sectored", er_s, sect, perm, 2)):
+        # checked: whole, then split with its collectives logged; then
+        # timed in turns, whole, split, split, whole, with no log
+        (rw, sw, lw, _, _, _), (rs, ss, ls, shard_l, log, counts) = (
+            par_solve(ecw32, eris, op, perm_, None, sharding),
+            par_solve(ecw32, eris, op, perm_, mesh, sharding, log=True))
+        ms = [par_solve(ecw32, eris, op, perm_, m, sharding)[1].last_solve
+              for m in (None, mesh, mesh, None)]
+        ms = [r["ms"] / r["iterations"] for r in ms]
+        its = (sw.last_solve["iterations"], ss.last_solve["iterations"])
+        d_ep = abs(float(rw[1][-1]) - float(rs[1][-1]))
+        shapes = {tuple(w.shape) for w in (op if isinstance(op, tuple)
+                                           else [op])}
+        on_operand = [c for c in log.calls
+                      if any(tuple(x) in shapes for x in c[1])]
+        amps_placed = [str(list(a.placements)) for a in rs[5]]
+        phase(15, f"sharded_solve_{route}", mesh=[1, 1], L=PAR_LAMBDA,
+              route=ss.last_solve["route"], sym=ss.last_solve["sym"],
+              iterations=its, Ep=float(rs[1][-1]), dEp=d_ep,
+              launches=(lw, ls), shard_launches=shard_l,
+              launches_per_iteration=ls / its[1],
+              ms_per_iteration_whole=[ms[0], ms[3]],
+              ms_per_iteration_sharded=ms[1:3],
+              collectives=len(log.calls), comm_counts=counts,
+              collectives_on_operand=len(on_operand),
+              amp_placements=amps_placed)
+        if not (sw.last_solve["status"] == ss.last_solve["status"] == 1):
+            raise AssertionError(f"a {route} solve did not converge")
+        if ss.last_solve["route"] != route or its[0] != its[1] or \
+                d_ep > 1e-9:
+            raise AssertionError(f"sharded {route} solve differs: {its}, "
+                                 f"{d_ep}, {ss.last_solve['route']}")
+        if lw != per_iter * its[0] or ls != per_iter * its[1] or \
+                shard_l != ls:
+            raise AssertionError(f"{route}: launches whole {lw}, sharded "
+                                 f"{ls} ({shard_l} on the shard) in {its} "
+                                 f"iterations, expected {per_iter} each")
+        if on_operand:
+            raise AssertionError(f"a collective moved the operand: "
+                                 f"{on_operand[:3]}")
+        launches[f"phase15_sharded_{route}_f32"] = ls
+    return launches, (er_s, perm, ss, rs)
+
+
+def check_shard_launches(lmm):
+    """15b: the launches of tp = 2, 4 and 8 ranks on their rows of a
+    symmetric 13041 x 13041 f32 operand (rows zero-padded to a multiple
+    of tp), side by side: concatenated, they equal the whole launch to
+    1e-5 * max|C|, and the shard backward (dC[:, :K] on each rank's rows)
+    equals dC @ B.  Returns {tp: fields}."""
+    from ecw_cc_torch.config import matmul_precision
+
+    g = torch.Generator("cuda").manual_seed(15)
+    p = SHARD_P
+    b = torch.randn(p, p, generator=g, device="cuda")
+    b = (b + b.T).mul_(0.5e-2)
+    a = torch.randn(SHARD_M, p, generator=g, device="cuda")
+    dc = torch.randn(SHARD_M, p, generator=g, device="cuda")
+    whole = lmm._launch(a, b)
+    with matmul_precision("highest"):
+        da_ref = dc @ b
+    scale, dscale = float(whole.abs().max()), float(da_ref.abs().max())
+    out = {}
+    for tp in SHARD_TPS:
+        rows = p + (-p) % tp
+        per = rows // tp
+        cs, das, nbytes = [], [], 0
+        for r in range(tp):
+            b_r = b.new_zeros((per, p))
+            hi = min((r + 1) * per, p)
+            b_r[:hi - r * per] = b[r * per:hi]
+            nbytes = max(nbytes, b_r.numel() * b_r.element_size())
+            cs.append(lmm._launch(a, b_r))
+            das.append(lmm._launch(dc[:, :p].contiguous(), b_r,
+                                   backward=True))
+            del b_r
+        c = torch.cat(cs, 1)[:, :p]
+        da = torch.cat(das, 1)[:, :p]
+        err = float((c - whole).abs().max())
+        derr = float((da - da_ref).abs().max())
+        ok = err <= TOL[torch.float32] * scale and \
+            derr <= TOL[torch.float32] * dscale
+        out[tp] = dict(rows_per_rank=per, bytes_per_rank=nbytes,
+                       bytes_whole=p * p * 4, concatenated_max_abs_err=err,
+                       backward_max_abs_err=derr)
+        phase(15, "shard_launches", tp=tp, shape=(SHARD_M, per, p),
+              max_abs_err=err, max_abs_ref=scale,
+              backward_max_abs_err=derr, backward_max_abs_ref=dscale,
+              bytes_per_rank=nbytes, bytes_whole=p * p * 4, ok=ok)
+        if not ok:
+            raise AssertionError(f"shard launches at tp={tp} disagree: "
+                                 f"{err} / {scale}, {derr} / {dscale}")
+    del b, a, dc, whole, da_ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_par_t(mesh, sorted_system):
+    """15c: energy_t_sect over the 1 x 1 mesh equals the call without one,
+    on 15a's sorted ERIs and sectored amplitudes (sorted), sym on."""
+    from ecw_cc_torch.ops import ccsd_t
+    from ecw_cc_torch.parallel import sharding
+
+    er, perm, solver, res = sorted_system
+    nocc = solver.nocc
+    po = torch.as_tensor(perm[:nocc], device="cuda")
+    pv = torch.as_tensor(perm[nocc:] - nocc, device="cuda")
+    t1, _, t2, _ = (sharding.replicate(x) for x in res[5])
+    t1 = t1[po][:, pv]
+    t2 = t2[po][:, po][:, :, pv][:, :, :, pv]
+    info = solver._sinfo
+    es = {}
+    for name, m in (("whole", None), ("mesh", mesh)):
+        t0 = time.perf_counter()
+        es[name] = float(ccsd_t.energy_t_sect(er, t1, t2, info, sym=True,
+                                              mesh=m))
+        es[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    d = abs(es["mesh"] - es["whole"])
+    phase(15, "energy_t_sharded", E_T=es["whole"], dE=d,
+          ms=(es["whole_ms"], es["mesh_ms"]))
+    if not np.isfinite(es["whole"]) or d > 1e-7 * abs(es["whole"]):
+        raise AssertionError(f"(T) over the mesh differs: {es}")
+
+
+def check_shard_rules(lmm, mesh):
+    """15d: ladder_mm on a RowShard over the 1 x 1 mesh, a symmetric
+    1891 x 1891 f32 operand (the packed cc-pVDZ width) and M = 196: the
+    forward, the autograd backward, torch.func.jvp's tangent and
+    torch.func.vmap over 3 lanes, each against the plain product to
+    1e-5 * max|ref| and each the launches its rule predicts, every one
+    on the rows (forward 1; backward 1 + 1; tangent 1 + 1; vmap 1)."""
+    from ecw_cc_torch.config import matmul_precision
+    from ecw_cc_torch.ops.ladder import PackedVVVV
+    from ecw_cc_torch.parallel import sharding
+
+    mm = lmm.ladder_mm
+    g = torch.Generator("cuda").manual_seed(16)
+    n, M = 1891, 196
+    w = torch.randn(n, n, generator=g, device="cuda")
+    w = (w + w.T).mul_(0.05)
+    a, da, dc = (torch.randn(M, n, generator=g, device="cuda")
+                 for _ in range(3))
+    sh = sharding.local_operand(
+        sharding.shard_vvvv_op(PackedVVVV(wc=w), mesh)).wc
+    lanes = torch.stack([a, da, a - da])
+    with matmul_precision("highest"):
+        refs = {"forward": a @ w.T, "backward": dc @ w,
+                "tangent": da @ w.T, "vmap": lanes @ w.T}
+    runs = {
+        "forward": lambda: mm(a, sh, symmetric=True),
+        "backward": lambda: _shard_grad(mm, a, sh, dc),
+        "tangent": lambda: torch.func.jvp(
+            lambda y: mm(y, sh, symmetric=True), (a,), (da,))[1],
+        "vmap": lambda: torch.func.vmap(
+            lambda y: mm(y, sh, symmetric=True))(lanes)}
+    want = {"forward": 1, "backward": 2, "tangent": 2, "vmap": 1}
+    for name, fn in runs.items():
+        mm.launches = mm.shard_launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        err = float((out - refs[name]).abs().max())
+        scale = float(refs[name].abs().max())
+        launches = (mm.launches, mm.shard_launches)
+        phase(15, "shard_rule", rule=name, shape=(M, n, n),
+              max_abs_err=err, max_abs_ref=scale, launches=launches)
+        if err > TOL[torch.float32] * scale or launches != (want[name],) * 2:
+            raise AssertionError(f"shard {name}: {err} / {scale}, "
+                                 f"launches {launches}")
+
+
+def _shard_grad(mm, a, sh, dc):
+    x = a.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad((mm(x, sh, symmetric=True) * dc).sum(), x)
+    return gx
+
+
+def run_phase15(lmm, ecw32):
+    """Phase 15 on a world-size-1 NCCL group started here (and ended
+    here).  Returns ({path: launches}, {tp: shard check fields},
+    {shape: times})."""
+    import torch.distributed as dist
+
+    from ecw_cc_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(n_tp=1, n_dp=1)
+        phase(15, "mesh", shape=list(mesh.mesh.shape),
+              names=list(mesh.mesh_dim_names), backend=dist.get_backend())
+        launches, sorted_system = run_par_solves(ecw32, mesh)
+        check_par_t(mesh, sorted_system)
+        del sorted_system
+        check_shard_rules(lmm, mesh)
+    finally:
+        dist.destroy_process_group()
+    shards = check_shard_launches(lmm)
+    checks = check_kernel(lmm.ladder_mm, lmm.ladder_mm_ref, lmm.device_plan,
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count, only=SHARD_SHAPES)
+    times = time_kernel(lmm.ladder_mm, lmm.ladder_mm_ref,
+                        only=SHARD_SHAPES)
+    by_shape = {}
+    for tp, shape in zip(SHARD_TPS, SHARD_SHAPES):
+        t = times[(torch.float32, shape)]
+        err, plan_ = checks[(torch.float32, shape)]
+        by_shape[tag(shape)] = {
+            "tp": tp, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "max_abs_err": err,
+            "blocks": plan_.blocks, "split_k": plan_.split,
+            **shards[tp]}
+    torch.cuda.empty_cache()
+    return launches, by_shape
+
+
 def kernel_report(launches, checks, times, backward, grads, variants,
-                  eom_launches, tangents, batch_variants):
+                  eom_launches, tangents, batch_variants, shards):
     """The kernel line: one entry per variant of the ladder kernel.  f32
     and f64 (csrc/ladder_mm.cu): the headline numbers at the main path's
     cc-pVTZ shape (392x13041x13041, the stacked packed GEMM), every timed
@@ -3288,7 +3610,9 @@ def kernel_report(launches, checks, times, backward, grads, variants,
     entries by the dtype in the path's name; tangents: {(dtype, shape,
     symmetric): error of the kernel's tangent} (phase 3); batch_variants:
     {variant: launches} of phase 14's batched precision runs, joining
-    phase 12's."""
+    phase 12's; shards: phase 15's ({path: launches}, {shape: fields}):
+    the sharded solves' launches (each on the rank's rows) join the f32
+    entry, with the shard shapes' checks and times."""
     by_dtype = {}
     for dtype in DTYPES:
         by_dtype[str(dtype).split(".")[-1]] = {tag(shape): {
@@ -3334,9 +3658,14 @@ def kernel_report(launches, checks, times, backward, grads, variants,
             "tangent_max_abs_err": {
                 f"{tag(sh)} {'symmetric' if sym else 'general'}": e
                 for (d, sh, sym), e in tangents.items() if d == dtype}})
+    shard_launches, shard_shapes = shards
+    entries[0]["launches_by_path"].update(shard_launches)
+    entries[0]["launches"] += sum(shard_launches.values())
     entries[0].update(backward_launches=backward, gradient_max_abs_err={
         f"{str(d).split('.')[-1]} {tag(sh)}": e
-        for (d, sh), e in grads.items()}, by_dtype=by_dtype)
+        for (d, sh), e in grads.items()}, by_dtype=by_dtype,
+        shard_launches=sum(shard_launches.values()),
+        shard_shapes=shard_shapes)
     for v in TC_VARIANTS:
         t = v_times[(v, PACKED_TZ)]
         entries.append({
@@ -3477,6 +3806,21 @@ def main(argv):
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if "--parallel" in argv:
+        with timed(15, seconds):
+            launches_15, shards_15 = run_phase15(
+                lmm, build_ecw("cuda", torch.float32))
+        with timed(8, seconds):
+            check_no_jax(False)
+        phase(0, "seconds", total=time.perf_counter() - t_start,
+              by_phase=seconds, launches=launches_15,
+              shard_shapes=shards_15)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if "--eom" in argv:
         with timed(3, seconds):
             check_kernel_tangent(ladder_mm, ladder_mm_ref)
@@ -3608,6 +3952,10 @@ def main(argv):
     with timed(14, seconds):
         launches_14, by_variant_14 = run_phase14(lmm, ecw32, ecw_tz)
 
+    # 15. the multi-device layer (phase 4's ECW)
+    with timed(15, seconds):
+        launches_15, shards_15 = run_phase15(lmm, ecw32)
+
     # 10. correlated targets and the CCS ground state
     with timed(10, seconds):
         launches_10, back_10, grads = run_phase10(
@@ -3644,7 +3992,7 @@ def main(argv):
          **launches_10, **launches_14},
         checks, times, back_10, grads,
         (v_checks, v_times, by_variant_12), launches_13, tangents,
-        by_variant_14)))
+        by_variant_14, (launches_15, shards_15))))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -32,6 +32,12 @@ ERI block) both launches fold the lane axis of `a` into its rows: one
 launch of M = lanes x rows for all lanes, counted once; a `b` with a
 batch axis raises.
 
+On a device mesh (parallel/sharding.py) `b` is a `RowShard`: this rank's
+rows of the operand.  The product is one launch on them and an
+all-gather of C's columns over the rank's group (`_ShardMM`), with the
+same forward, backward, tangent and vmap rules, each one launch on the
+local rows; `ladder_mm.shard_launches` counts those launches.
+
 `plan` is pure Python: it picks the tile width and the split of K across
 the blocks of a thread block cluster that fill the card at the solver's
 skinny shapes (M = 98), and for the tensor-core variants the cluster of
@@ -52,6 +58,7 @@ import weakref
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ecw_cc_torch.config import matmul_precision
 from ecw_cc_torch.kernels import build
@@ -470,10 +477,152 @@ _NO_B_GRAD = ("ladder_mm has no gradient or tangent for its second operand "
               "(an ERI block): detach it")
 
 
+class RowShard:
+    """This rank's rows of a ladder operand whose rows are split over the
+    ranks of a process group (the 'tp' axis of a device mesh): `local`
+    holds rows [r * per, r * per + local.shape[0]) of the operand's GEMM
+    view (n_rows, K), r this rank's place in `group`; `shape` is the whole
+    operand's (2-D, or the (v, v, v, v) of a dense vvvv, whose GEMM view
+    is (v*v, v*v)).  The product C = A @ B.T on it is one launch on the
+    local rows and an all-gather of C's columns (`ladder_mm`); the
+    operand itself never moves.  Made by parallel.sharding.row_shard
+    from a DTensor, outside any torch.func transform (which cannot see
+    into one)."""
+
+    __slots__ = ("local", "shape", "n_rows", "per", "group", "size")
+
+    def __init__(self, local, shape, n_rows, per, group, size):
+        self.local, self.shape, self.n_rows = local, tuple(shape), n_rows
+        self.per, self.group, self.size = per, group, size
+
+    def with_local(self, local):
+        """The same split with other local rows (a cast of these)."""
+        return RowShard(local, self.shape, self.n_rows, self.per,
+                        self.group, self.size)
+
+    def to(self, *args, **kwargs):
+        return self.with_local(self.local.to(*args, **kwargs))
+
+    def numel(self):
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    def amax_abs(self, other=None):
+        """max |B| (or max |B - other|, `other` split alike) over the
+        whole operand: the local maximum, then one all-reduce."""
+        x = self.local if other is None else self.local - other.local
+        m = (x.abs().max() if x.numel() else x.new_zeros(())).reshape(1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
+        return m[0]
+
+
+def _local_mm(a, b, precision, kind):
+    """One rank's product a @ b.T on its rows: the launch on CUDA tensors
+    (counted, also in ladder_mm.shard_launches), the plain version on CPU
+    ones.  kind: False (forward), True (backward), "tangent"."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return ladder_mm_plain(a, b, precision)
+    c = _launch(a, b, backward=kind is True, precision=precision,
+                tangent=kind == "tangent")
+    ladder_mm.shard_launches += 1
+    return c
+
+
+def _gather_cols(c, shard):
+    """The local columns c (M, rows) of every rank in the group, side by
+    side: (M, n_rows).  One all-gather of M x per per rank."""
+    M = c.shape[0]
+    if c.shape[1] < shard.per:
+        c = torch.nn.functional.pad(c, (0, shard.per - c.shape[1]))
+    out = c.new_empty((shard.size * M, shard.per))
+    dist.all_gather_into_tensor(out, c.contiguous(), group=shard.group)
+    out = out.view(shard.size, M, shard.per).permute(1, 0, 2)
+    return out.reshape(M, shard.size * shard.per)[:, :shard.n_rows]
+
+
+class _ShardMM(torch.autograd.Function):
+    """The product on a row shard, C = A @ B.T with B's rows shard over
+    the group: each rank launches on its rows, the columns of C are
+    gathered.  Its gradient uses the whole operand's symmetry (every
+    ladder operand's): dA = dC @ B, and dA[:, rows_r] = dC[:, :K] @
+    B_r.T, so the backward is one launch on the local rows as they are,
+    then the same all-gather (no transposed copy of the shard).  Its
+    tangent dC = dA @ B.T is the forward's launch on dA.  Under
+    torch.func.vmap the lanes of A fold into its rows, as in _LadderMM.
+    kind: False (forward), True (backward), "tangent"."""
+
+    @staticmethod
+    def forward(a, b, shard, precision, kind):
+        return _gather_cols(_local_mm(a, b, precision, kind), shard)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b, shard, precision, _ = inputs
+        ctx.save_for_backward(b)
+        ctx.save_for_forward(b)
+        v = variant(a.dtype, precision)
+        ctx.shard, ctx.reduced = shard, v if v in REDUCED else None
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def jvp(ctx, da, db, dshard, dprecision, dkind):
+        if db is not None:
+            raise RuntimeError(_NO_B_GRAD)
+        if ctx.reduced:
+            raise RuntimeError(_no_reduced_derivative("tangent",
+                                                      ctx.reduced))
+        (b,) = ctx.saved_tensors
+        return _ShardMM.apply(da.contiguous(), b, ctx.shard, None,
+                              "tangent")
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, shard, precision, kind):
+        a2, lanes = _fold_lanes(in_dims, a, b)
+        c = _ShardMM.apply(a2.contiguous(), b, shard, precision, kind)
+        return c.reshape(lanes + c.shape[1:]), 0
+
+    @staticmethod
+    def backward(ctx, dc):
+        if ctx.needs_input_grad[1]:
+            raise RuntimeError(_NO_B_GRAD)
+        if dc is None:
+            return None, None, None, None, None
+        if ctx.reduced:
+            raise RuntimeError(_no_reduced_derivative("gradient",
+                                                      ctx.reduced))
+        (b,) = ctx.saved_tensors
+        K = b.shape[1]
+        da = _ShardMM.apply(dc[:, :K].contiguous(), b, ctx.shard, None,
+                            True)
+        return da[:, :K], None, None, None, None
+
+
+def _shard_mm(a, shard, symmetric, precision):
+    """ladder_mm on a RowShard."""
+    if not symmetric:
+        raise ValueError("ladder_mm on a row shard takes symmetric=True "
+                         "only: its backward rests on the whole operand's "
+                         "symmetry")
+    if shard.n_rows < shard.local.shape[1]:
+        raise ValueError(f"ladder_mm: an operand of {shard.n_rows} rows "
+                         f"and {shard.local.shape[1]} columns cannot be "
+                         "symmetric in its leading rows")
+    # the RowShard rides along as a plain object (torch.func passes it
+    # through untouched); its rows go in as the tensor argument
+    return _ShardMM.apply(a, shard.local, shard, precision, False)
+
+
 def ladder_mm(a, b, symmetric=False, precision=None):
     """C = a @ b.T through the CUDA kernel of variant(a.dtype, precision)
     (CPU tensors: the variant's plain version; the full-precision ones
     with their native autograd).
+
+    b may be a RowShard (its rows split over a process group, symmetric
+    =True), or the DTensor of one: one launch on the local rows, C's
+    columns all-gathered (_ShardMM), with the same gradient, tangent and
+    vmap rules.
 
     precision: None, or 'tf32' for float32 operands (the 'high' and
     'default' modes).  bfloat16 operands take the BF16 variant and give a
@@ -485,6 +634,15 @@ def ladder_mm(a, b, symmetric=False, precision=None):
     transposed copy of it.  The tangent in `a` (torch.func.jvp or forward
     mode) is dC = dA @ b.T, one more launch on `b` as it is.  `b` takes no
     gradient and no tangent: one that carries either raises."""
+    if type(b).__name__ == "DTensor":
+        # split over a mesh: its RowShard (eagerly; a consumer under a
+        # torch.func transform makes it first, parallel.sharding.
+        # local_operand)
+        from ecw_cc_torch.parallel.sharding import row_shard
+
+        b = row_shard(b)
+    if isinstance(b, RowShard):
+        return _shard_mm(a, b, symmetric, precision)
     v = variant(a.dtype, precision)
     if b.requires_grad and (v in REDUCED or a.device.type != "cpu"
                             or b.device.type != "cpu"):
@@ -502,4 +660,5 @@ def ladder_mm(a, b, symmetric=False, precision=None):
 ladder_mm.launches = 0             # every launch of the kernel
 ladder_mm.backward_launches = 0    # those of them made by a backward
 ladder_mm.tangent_launches = 0     # those of them made by a tangent (jvp)
+ladder_mm.shard_launches = 0       # those of them on a RowShard's rows
 ladder_mm.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -359,7 +359,8 @@ class ECW:
                 refine=False):
         """GS-ECW-CCSD lambda sweep.  Reference Main.py:663-816.
 
-        mode='sweep' (the reference's): warm-started and sequential, each
+        mode='sweep' (the reference's), or any mode but 'parallel', as in
+        the JAX ECW (models/ecw.py:487): warm-started and sequential, each
         lambda starting from the previous one's amplitudes.
         mode='parallel' (JAX models/ecw.py:487-492): every lambda at once
         in one Solver_CCSD.SCF_batch, lanes of one vmapped step that share
@@ -368,14 +369,12 @@ class ECW:
         the warm one.  It applies neither resume nor refine, as in the JAX
         package; checkpoints are written.
 
-        refine=True (mode='sweep') follows each solve with f64 polish
-        iterations on eris_f64 (built on the device at f32, at first use),
+        refine=True (every mode but 'parallel') follows each solve with
+        f64 polish iterations on eris_f64 (built on the device at f32, at
+        first use),
         for f64 parity of the returned energies, amplitudes and rdm1 (JAX
         models/ecw.py:441-504)."""
-        if mode not in ("sweep", "parallel"):
-            raise ValueError(f"mode must be 'sweep' or 'parallel', got "
-                             f"{mode!r}")
-        refine = refine and mode == "sweep"
+        refine = refine and mode != "parallel"
         self.diis = diis + f" diis_max={diis_max}"
         if len(self.exp_data) > 1:
             print("Warning: ES data found but GS solver used; only GS data "

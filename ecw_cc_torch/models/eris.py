@@ -146,10 +146,21 @@ class ErisHost:
         self.EHF = ghf.e_tot
         del eri
 
-    def to_device(self, dtype=None, device="cuda") -> GEris:
+    def to_device(self, dtype=None, device="cuda", sharding=None) -> GEris:
         """The blocks as a GEris of tensors on `device` in `dtype` (torch
-        dtype or name; None = config.dtype), in the alternating layout."""
-        return from_numpy(self, dtype=torch_dtype(dtype), device=device)
+        dtype or name; None = config.dtype), in the alternating layout.
+        sharding: {block name: placements}, as parallel.sharding.
+        eris_shardings(mesh) gives them (each carrying its mesh): a block
+        named there becomes a DTensor with those placements, of which
+        each rank keeps its own part."""
+        er = from_numpy(self, dtype=torch_dtype(dtype), device=device)
+        if not sharding:
+            return er
+        from ecw_cc_torch.parallel.sharding import shard_tensor
+
+        return er._replace(**{
+            k: shard_tensor(getattr(er, k), p.mesh, p)
+            for k, p in sharding.items()})
 
 
 def build_eris(mol, ghf, int_thresh=1e-13, dir_cont=False):

@@ -34,6 +34,7 @@ from ecw_cc_torch.ops import ccsd as ccsd_ops
 from ecw_cc_torch.ops import diis as diis_ops
 from ecw_cc_torch.ops import ladder
 from ecw_cc_torch.ops import spinsect as ss
+from ecw_cc_torch.parallel import sharding
 from ecw_cc_torch.utils.metrics import StageClock
 
 einsum = torch.einsum
@@ -117,7 +118,8 @@ def _dense_pairs(eris, t1, t2, fo, fv):
             yield torch.sum(w * (w + v) / D)
 
 
-def _sect_pairs(eris, t1, t2, fo, fv, info, sI, sJ, slab_dtype=None):
+def _sect_pairs(eris, t1, t2, fo, fv, info, sI, sJ, slab_dtype=None,
+                mesh=None):
     """The (T) energy terms of the pairs (I, J) with I in occupied spin
     sector sI and J in sector sJ (sorted layout), one scalar each.  With the
     pair spins fixed, every slab contraction decomposes over the compatible
@@ -125,7 +127,12 @@ def _sect_pairs(eris, t1, t2, fo, fv, info, sI, sJ, slab_dtype=None):
     structurally-zero blocks of the per-pair t3 slab are never formed.
 
     slab_dtype: the five big operands are cast to it once; the energy
-    denominators and the accumulation stay at fo.dtype."""
+    denominators and the accumulation stay at fo.dtype.
+
+    mesh: a DeviceMesh: this rank takes only its share of the pairs, the
+    pair list (I * nJ + J order) cut into mesh.size() even chunks, the
+    last ones short (JAX ccsd_t.py:192-196); the caller sums over the
+    ranks."""
     nI = info.oa if sI == 0 else info.ob
     nJ = info.oa if sJ == 0 else info.ob
     baseI = 0 if sI == 0 else info.oa
@@ -150,57 +157,55 @@ def _sect_pairs(eris, t1, t2, fo, fv, info, sI, sJ, slab_dtype=None):
                 + x.transpose(0, 3, 2, 1).scale(-1.0))
 
     S = ss.sector_einsum
-    for I in range(baseI, baseI + nI):
-        for J in range(baseJ, baseJ + nJ):
-            t2I = blk(t2[I], "oovv", {0: sI})
-            t2J = blk(t2[J], "oovv", {0: sJ})
-            vovvI = blk(vovv[:, I], "vovv", {1: sI})
-            vovvJ = blk(vovv[:, J], "vovv", {1: sJ})
-            ovooJ = blk(ovoo[:, :, J], "ovoo", {2: sJ})
-            ovooI = blk(ovoo[:, :, I], "ovoo", {2: sI})
-            t2JI = blk(t2[J, I], "oovv", {0: sJ, 1: sI})
-            ovooJI = blk(ovoo[:, :, J, I], "ovoo", {2: sJ, 3: sI})
-            t1I = blk(t1[I], "ov", {0: sI})
-            t1J = blk(t1[J], "ov", {0: sJ})
-            oovvI = blk(oovv[I], "oovv", {0: sI})
-            oovvJ = blk(oovv[J], "oovv", {0: sJ})
-            oovvJI = blk(oovv[J, I], "oovv", {0: sJ, 1: sI})
-            # P(i/jk) W0 at (I, J, k): the terms of the dense body
-            A = (S("kae,ebc->kabc", t2J, vovvI)
-                 + S("mbc,mak->kabc", t2I, ovooJ).scale(-1.0))
-            B = (S("kae,ebc->kabc", t2I, vovvJ)
-                 + S("mbc,mak->kabc", t2J, ovooI).scale(-1.0))
-            C = (S("ae,ekbc->kabc", t2JI, vovv_b)
-                 + S("kmbc,ma->kabc", t2_b, ovooJI).scale(-1.0))
-            w = pabc(A + B.scale(-1.0) + C.scale(-1.0))
-            v0 = (S("a,kbc->kabc", t1I, oovvJ)
-                  + S("a,kbc->kabc", t1J, oovvI).scale(-1.0)
-                  + S("ka,bc->kabc", t1_b, oovvJI).scale(-1.0))
-            v = pabc(v0)
-            foIJ = fo[I] + fo[J]
-            e = torch.zeros((), dtype=fo.dtype, device=fo.device)
-            for key, wblk in w.blocks.items():
-                sk, sa, sb, sc = key
-                D = (foIJ + fo_s[sk][:, None, None, None]
-                     - fv_s[sa][None, :, None, None]
-                     - fv_s[sb][None, None, :, None]
-                     - fv_s[sc][None, None, None, :])
-                vblk = v.get(key)
-                tot = wblk if vblk is None else wblk + vblk
-                # the products are promoted to fo.dtype before the
-                # reduction, also when the slabs are stored reduced
-                e = e + torch.sum(wblk.to(fo.dtype) * tot.to(fo.dtype) / D)
-            yield e
-
-
-def _no_mesh(mesh):
+    ids = range(nI * nJ)
     if mesh is not None:
-        raise NotImplementedError(
-            "the (T) pair loops sharded over a device mesh are not ported "
-            "yet (ROADMAP A.13b)")
+        per = -(-len(ids) // mesh.size())
+        r = sharding.mesh_rank(mesh)
+        ids = ids[r * per:(r + 1) * per]
+    for ij in ids:
+        I, J = baseI + ij // nJ, baseJ + ij % nJ
+        t2I = blk(t2[I], "oovv", {0: sI})
+        t2J = blk(t2[J], "oovv", {0: sJ})
+        vovvI = blk(vovv[:, I], "vovv", {1: sI})
+        vovvJ = blk(vovv[:, J], "vovv", {1: sJ})
+        ovooJ = blk(ovoo[:, :, J], "ovoo", {2: sJ})
+        ovooI = blk(ovoo[:, :, I], "ovoo", {2: sI})
+        t2JI = blk(t2[J, I], "oovv", {0: sJ, 1: sI})
+        ovooJI = blk(ovoo[:, :, J, I], "ovoo", {2: sJ, 3: sI})
+        t1I = blk(t1[I], "ov", {0: sI})
+        t1J = blk(t1[J], "ov", {0: sJ})
+        oovvI = blk(oovv[I], "oovv", {0: sI})
+        oovvJ = blk(oovv[J], "oovv", {0: sJ})
+        oovvJI = blk(oovv[J, I], "oovv", {0: sJ, 1: sI})
+        # P(i/jk) W0 at (I, J, k): the terms of the dense body
+        A = (S("kae,ebc->kabc", t2J, vovvI)
+             + S("mbc,mak->kabc", t2I, ovooJ).scale(-1.0))
+        B = (S("kae,ebc->kabc", t2I, vovvJ)
+             + S("mbc,mak->kabc", t2J, ovooI).scale(-1.0))
+        C = (S("ae,ekbc->kabc", t2JI, vovv_b)
+             + S("kmbc,ma->kabc", t2_b, ovooJI).scale(-1.0))
+        w = pabc(A + B.scale(-1.0) + C.scale(-1.0))
+        v0 = (S("a,kbc->kabc", t1I, oovvJ)
+              + S("a,kbc->kabc", t1J, oovvI).scale(-1.0)
+              + S("ka,bc->kabc", t1_b, oovvJI).scale(-1.0))
+        v = pabc(v0)
+        foIJ = fo[I] + fo[J]
+        e = torch.zeros((), dtype=fo.dtype, device=fo.device)
+        for key, wblk in w.blocks.items():
+            sk, sa, sb, sc = key
+            D = (foIJ + fo_s[sk][:, None, None, None]
+                 - fv_s[sa][None, :, None, None]
+                 - fv_s[sb][None, None, :, None]
+                 - fv_s[sc][None, None, None, :])
+            vblk = v.get(key)
+            tot = wblk if vblk is None else wblk + vblk
+            # the products are promoted to fo.dtype before the
+            # reduction, also when the slabs are stored reduced
+            e = e + torch.sum(wblk.to(fo.dtype) * tot.to(fo.dtype) / D)
+        yield e
 
 
-def _t_terms(eris, t1, t2, fo, fv, sect=None, slab_dtype=None):
+def _t_terms(eris, t1, t2, fo, fv, sect=None, slab_dtype=None, mesh=None):
     """(terms, factor): the generator of per-pair energy terms of the route
     and the factor that turns their sum into E_T.  With sect=(info, True)
     the inputs must already be mirror-averaged (_mirror_average)."""
@@ -217,7 +222,7 @@ def _t_terms(eris, t1, t2, fo, fv, sect=None, slab_dtype=None):
     def terms():
         for sI, sJ in pairs:
             yield from _sect_pairs(eris, t1, t2, fo, fv, info, sI, sJ,
-                                   slab_dtype=slab_dtype)
+                                   slab_dtype=slab_dtype, mesh=mesh)
 
     return terms(), (2.0 if sym else 1.0) / 36.0
 
@@ -248,15 +253,23 @@ def energy_t_sect(eris, t1, t2, info, fsp=None, sym=False, mesh=None,
     inputs are therefore mirror-AVERAGED first ((x + Mx)/2, the identity on
     symmetric inputs): the chain rule then emits exactly (1 + M)/2 of the
     folded gradient, the true one, so that the response density can
-    differentiate straight through."""
-    _no_mesh(mesh)
+    differentiate straight through.
+
+    mesh: a DeviceMesh (parallel/mesh.py): the pairs are split evenly over
+    all its ranks (they are independent: the operands stay replicated,
+    each rank runs its share), and the energy is one all-reduce of the
+    ranks' sums.  Sharded operands are gathered first."""
+    if mesh is not None:
+        eris = sharding.local_eris(eris)
+        t1, t2, fsp = (sharding.replicate(x) for x in (t1, t2, fsp))
     fo, fv = _fock_diag(eris, fsp, info.nocc)
     if sym:
         t1, t2, fo, fv = _mirror_average(t1, t2, fo, fv, info)
     terms, factor = _t_terms(eris, t1, t2, fo, fv, sect=(info, sym),
-                             slab_dtype=slab_dtype)
-    return factor * sum(terms, torch.zeros((), dtype=fo.dtype,
-                                           device=fo.device))
+                             slab_dtype=slab_dtype, mesh=mesh)
+    e = factor * sum(terms, torch.zeros((), dtype=fo.dtype,
+                                        device=fo.device))
+    return e if mesh is None else sharding.all_reduce_sum(e, mesh)
 
 
 def energy_t(eris, t1, t2, fsp=None, sect=None, mesh=None, slab_dtype=None):
@@ -274,7 +287,10 @@ def energy_t(eris, t1, t2, fsp=None, sect=None, mesh=None, slab_dtype=None):
         info, sym = sect
         return energy_t_sect(eris, t1, t2, info, fsp=fsp, sym=sym, mesh=mesh,
                              slab_dtype=slab_dtype)
-    _no_mesh(mesh)
+    if mesh is not None:
+        raise ValueError("energy_t(mesh=...) requires sect: the sharded "
+                         "pair loops are implemented on the sector-blocked "
+                         "route only (pass sect=(SectorInfo, sym))")
     fo, fv = _fock_diag(eris, fsp, t1.shape[0])
     terms, factor = _t_terms(eris, t1, t2, fo, fv, slab_dtype=slab_dtype)
     return factor * sum(terms, torch.zeros((), dtype=t1.dtype,

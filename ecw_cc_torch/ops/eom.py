@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ecw_cc_torch.ops import ccsd as ccsd_ops
+from ecw_cc_torch.parallel import sharding
 from ecw_cc_torch.utils.linalg import davidson_device
 
 
@@ -124,10 +125,31 @@ def make_sigma(eris, t1, t2, fsp=None, vvvv_op=None, sect=None):
     sect: optional (SectorInfo, sym): the sector-blocked residual (sorted
     layout), always run with sym=False.  Exact for EOM-EE: Sz-conserving
     R/L vectors are spin-balanced, the Jacobian maps the balanced subspace
-    to itself, and the guesses are balanced."""
+    to itself, and the guesses are balanced.
+
+    On a device mesh (ERIs, amplitudes or operand as DTensors,
+    parallel/sharding.py) the transforms run on plain tensors: the ERIs
+    and amplitudes are gathered once here, the ladder operand (a split
+    vvvv or vvvv_op) becomes this rank's RowShard, whose product carries
+    its own tangent and gradient rules (one launch on the local rows
+    each), and each sigma gathers its input vectors and returns its
+    output in their placements."""
+    if sharding.mesh_of(eris, t1, t2, fsp, vvvv_op) is not None:
+        eris = sharding.local_eris(eris)
+        t1, t2, fsp = (sharding.replicate(x) for x in (t1, t2, fsp))
+        vvvv_op = sharding.local_operand(vvvv_op)
+
+    def placed(fn):
+        def run(x1, x2):
+            y1, y2 = fn(sharding.replicate(x1), sharding.replicate(x2))
+            return sharding.place_like(y1, x1), sharding.place_like(y2, x2)
+        return run
+
+    @placed
     def sigma(r1, r2):
         return _sigma_right(eris, vvvv_op, fsp, t1, t2, r1, r2, sect=sect)
 
+    @placed
     def sigma_left(l1, l2):
         return _sigma_left(eris, vvvv_op, fsp, t1, t2, l1, l2, sect=sect)
 

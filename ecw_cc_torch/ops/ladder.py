@@ -25,6 +25,11 @@ density takes, is then one more launch of the kernel per product
 corrections of `ladder_contract` stay torch.einsum, as they were XLA
 einsums outside any Pallas kernel in the JAX package.
 
+Any operand here may be split by rows over a device mesh (a RowShard,
+parallel/sharding.py): each product then launches on this rank's rows
+and gathers its columns (kernels/ladder_mm._ShardMM); the code here is
+the same.
+
 The JAX package's alternating-layout spin sectors (`vvvv_spin_sectors`,
 `sector_vvvv_contract`, config.ladder_mode='sectors') are deliberately not
 ported: 'auto' never picks them, and the sorted layout does the same work
@@ -40,7 +45,8 @@ import torch
 
 from ecw_cc_torch.config import active_precision, get_config
 from ecw_cc_torch.kernels.ladder_mm import (BF16_ROW_ALIGN, TF32_ROW_ALIGN,
-                                            bf16_rows, ladder_mm, tf32_rows)
+                                            RowShard, bf16_rows, ladder_mm,
+                                            tf32_rows)
 from ecw_cc_torch.ops import promote
 
 einsum = promote.lane_einsum
@@ -103,6 +109,12 @@ def _cast(w, dtype):
     get rows padded for the tensor-core kernels' TMA loads
     (kernels.ladder_mm.bf16_rows, tf32_rows), so no launch copies them
     again."""
+    if type(w) is not torch.Tensor:
+        # a sharded operand (RowShard, DTensor): its local rows, placement
+        # kept
+        from ecw_cc_torch.parallel.sharding import map_local
+
+        return map_local(lambda x: _cast(x, dtype), w)
     if dtype == "tf32":
         return tf32_rows(w)
     return bf16_rows(w) if dtype == torch.bfloat16 else w.to(dtype)
@@ -277,6 +289,7 @@ def ensure_sorted_vvvv_op(vvvv_op, eris, info):
     into a SectoredVVVV (sector sizes from `info`)."""
     if vvvv_op is not None:
         return vvvv_op
+    _refuse_shard_pack(eris.vvvv)
     if eris.vvvv.numel() == 0:
         raise ValueError(
             "sectored kernels need a ladder operand: eris were built with "
@@ -305,6 +318,17 @@ def resolve_mode(nvir):
     return mode
 
 
+def _refuse_shard_pack(vvvv):
+    """Packing reads the whole vvvv: a split one is packed before it is
+    split, never gathered here."""
+    if isinstance(vvvv, RowShard):
+        raise ValueError(
+            "the dense vvvv is split over a device mesh: pack it before "
+            "splitting it and pass the operand split by parallel.sharding."
+            "shard_vvvv_op (vvvv_op=), as the mesh never gathers a ladder "
+            "operand")
+
+
 def make_vvvv_op(vvvv):
     """The ladder operand for this vvvv block per config.ladder_mode (JAX
     ladder.py:579): None for 'dense', a PackedVVVV for 'packed'."""
@@ -316,6 +340,7 @@ def make_vvvv_op(vvvv):
     mode = resolve_mode(vvvv.shape[0])
     if mode == "dense":
         return None
+    _refuse_shard_pack(vvvv)
     if mode == "packed":
         return pack_vvvv(vvvv)
     raise ValueError(f"unknown ladder_mode {mode!r}")
@@ -367,10 +392,11 @@ def dense_ladder(x, vvvv):
             "its ladder operand (vvvv_op)")
     # a view of vvvv as it lies, never a copy of its 60 MB-3 GB: view
     # raises where the strides do not allow one, and the kernel on a
-    # non-contiguous operand
+    # non-contiguous operand.  A RowShard (vvvv split over a mesh) is
+    # already its rows' GEMM view
     x2 = x.reshape(o * o2, v * v).contiguous()
-    y = ladder_mm(x2, vvvv.view(v * v, v * v), symmetric=True,
-                  precision=_precision(x2))
+    w = vvvv if isinstance(vvvv, RowShard) else vvvv.view(v * v, v * v)
+    y = ladder_mm(x2, w, symmetric=True, precision=_precision(x2))
     return y.reshape(o, o2, v, v)
 
 

@@ -51,6 +51,14 @@ stacked into its rows; the loop, the legs, the stall detector and the
 per-lane freeze stay outside it, and the loop reads one scalar per
 iteration, whether any lane is still active.
 
+On a device mesh (ERIs, ladder operand or amplitudes split as
+parallel/sharding.py places them, JAX SCF_device(ts=, ls=, td=, ld=))
+Solver_CCSD gathers the split ERI blocks at construction and the split
+amplitudes at SCF's entry, and keeps the ladder operand split: every
+ladder product is one launch on this rank's rows (a RowShard) and an
+all-gather of its columns.  The loop runs on plain tensors; amplitudes
+kept on the device come back in amp_shardings' placements.
+
 Every GS property is a device property, so the JAX package's host loops
 (_scf_host, and with it Solver_CCS.SCF(store_ite=True)) have no
 counterpart.
@@ -71,7 +79,7 @@ from ecw_cc_torch.ops import ccsd as ccsd_ops
 from ecw_cc_torch.ops import ccsd_sect
 from ecw_cc_torch.ops import diis as diis_ops
 from ecw_cc_torch.ops import spinsect
-from ecw_cc_torch.kernels.ladder_mm import ladder_mm
+from ecw_cc_torch.kernels.ladder_mm import RowShard, ladder_mm
 from ecw_cc_torch.models.eris import GEris, warn_if_sorted_layout
 from ecw_cc_torch.ops.ladder import (PackedVVVV, SectoredVVVV,
                                      balanced_stacked_sectored_contract,
@@ -80,6 +88,7 @@ from ecw_cc_torch.ops.ladder import (PackedVVVV, SectoredVVVV,
                                      stacked_sectored_contract)
 from ecw_cc_torch.ops.l1reg import subdiff
 from ecw_cc_torch.ops.vexp import make_gs_vexp_device
+from ecw_cc_torch.parallel import sharding
 from ecw_cc_torch.utils.metrics import IterationMetrics
 
 # the iter_precision modes whose float32 ladder products run TF32
@@ -141,6 +150,7 @@ def _ring_tensors(ring):
 
 def _to_tensor(a, dtype, device):
     if isinstance(a, torch.Tensor):
+        a = sharding.replicate(a)
         return a.to(device=device, dtype=dtype)
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -380,6 +390,15 @@ class Solver_CCSD:
             raise ValueError("Accepted convergence parameter is Ep, l or tl")
         if diis not in ("", "tl", "rdm1"):
             raise ValueError("diis must be '', 'tl' or 'rdm1'")
+        # ERIs, ladder operand or amplitudes split over a device mesh
+        # (parallel/sharding.py): the loop runs on the gathered blocks and
+        # launches each ladder product on this rank's rows of the operand
+        self.mesh = sharding.mesh_of(mycc.eris, vvvv_op, tsini, lsini,
+                                     tdini, ldini)
+        if self.mesh is not None:
+            mycc = ccsd_ops.GCC(sharding.local_eris(mycc.eris),
+                                fock=sharding.replicate(mycc.fock))
+            vvvv_op = sharding.local_operand(vvvv_op)
         if mo_perm is None:
             # without mo_perm the kernels take the alternating layout; a
             # sorted handle (ECW's f32 sectored ERIs) would scramble them
@@ -508,8 +527,12 @@ class Solver_CCSD:
                 if vv.wc_aa.shape != vv.wc_bb.shape:
                     self._eris_sym_checked = False
                     return False
-                worst.append((vv.wc_aa - vv.wc_bb).abs().max())
-                scale.append(vv.wc_aa.abs().max())
+                if isinstance(vv.wc_aa, RowShard):
+                    worst.append(vv.wc_aa.amax_abs(vv.wc_bb))
+                    scale.append(vv.wc_aa.amax_abs())
+                else:
+                    worst.append((vv.wc_aa - vv.wc_bb).abs().max())
+                    scale.append(vv.wc_aa.abs().max())
             worst_v, scale_v = (float(torch.stack(worst).max()),
                                 float(torch.stack(scale).max()))
             self._eris_sym_checked = worst_v <= 1e3 * eps * scale_v
@@ -562,6 +585,11 @@ class Solver_CCSD:
         (conv_text, Ep_it, Delta_it, conv_it, rdm1, [ts, ls, td, ld]),
         amplitudes as NumPy arrays (device tensors with keep_device=True).
 
+        On a device mesh (sharded ERIs, ladder operand or amplitudes,
+        parallel/sharding.py) the amplitudes given as DTensors are gathered
+        on entry, and those kept on the device come back as DTensors in
+        amp_shardings' placements.
+
         refine=True follows the solve with at least `refine_iter` f64
         polish iterations (polish_f64) on the amplitudes' device, recovering
         f64 parity from an f32 or reduced-precision solve (JAX
@@ -571,6 +599,7 @@ class Solver_CCSD:
         if refine and self.eris_host is None:
             raise ValueError("refine=True requires eris_host at "
                              "Solver_CCSD construction")
+        mesh = self.mesh or sharding.mesh_of(ts, ls, td, ld)
         route = self.route()
         sym = (route == "sectored" and get_config().soup_sym
                and self._spin_restricted())
@@ -608,6 +637,10 @@ class Solver_CCSD:
             k += 1
         if not keep_device:
             amps = [a.cpu().numpy() for a in amps]
+        elif mesh is not None:
+            sh = sharding.amp_shardings(mesh)
+            amps = [sharding.shard_tensor(a, mesh, sh[n])
+                    for a, n in zip(amps, ("t1", "l1", "t2", "l2"))]
         self.myVexp.Vexp_update(rdm1, rdm1, (0, 0), L=L)
         _record_metrics(self, "CCSD_device", L, Ep_h[:k], Delta_it,
                         conv_h[:k])
@@ -619,8 +652,8 @@ class Solver_CCSD:
         if getattr(self, "_eris64", None) is None:
             er = self.eris_host
             self._eris64 = er._replace(
-                **{f: getattr(er, f).to(self.device, torch.float64)
-                   for f in er._fields})
+                **{f: sharding.replicate(getattr(er, f)).to(
+                    self.device, torch.float64) for f in er._fields})
         return self._eris64
 
     def _bf16_operands(self, eris, vv, sectored, sym):

@@ -173,8 +173,12 @@ def test_ecw_parallel_matches_sweep_and_jax(h2o_631g):
     np.testing.assert_allclose(ep_par, ep_jax, rtol=0, atol=1e-9)
     assert res_par[0] == res_jax[0]
     assert len(res_par[1]) == len(res_jax[1])
-    with pytest.raises(ValueError, match="mode"):
-        port.CCSD_GS([0.0], mode="batched")
+    # any other mode runs the warm sweep, as the JAX ECW does (JAX
+    # models/ecw.py:487)
+    _quiet(port.CCSD_GS, [0.0], conv_thres=1e-8, maxiter=60, diis="tl",
+           mode="batched")
+    assert "lanes" not in port.solve_log[-1]
+    assert port.solve_log[-1]["status"] == 1
 
 
 # ---------------------------------------------------------------------------

@@ -501,9 +501,13 @@ def test_cli_runner_names_what_is_not_ported(tmp_path, capsys):
     assert parallel[0].startswith("Convergence reached")
     assert abs(float(parallel[1][-1]) - float(sweep[1][-1])) < 1e-9
     np.testing.assert_allclose(parallel[4], sweep[4], rtol=0, atol=1e-7)
-    spec["run"]["mode"] = "batched"        # no such mode
-    with pytest.raises(ValueError, match="mode"):
-        run_spec(spec)
+    # any other mode runs the warm sweep, as the JAX ECW does (JAX
+    # models/ecw.py:487)
+    spec["run"]["mode"] = "batched"
+    other = run_spec(spec)
+    assert other[0] == sweep[0]
+    np.testing.assert_array_equal(np.asarray(other[1]), np.asarray(sweep[1]))
+    np.testing.assert_array_equal(other[4], sweep[4])
     spec = _spec(tmp_path, "CCS_GS")
     spec["es_targets"] = {"fci": 1}
     with pytest.raises(ValueError, match="unknown es_targets"):

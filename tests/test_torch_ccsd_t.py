@@ -224,7 +224,7 @@ def test_energy_t_refuses_what_it_cannot_route(sto3g):
     t1, t2 = _t(s["t1"]), _t(s["t2"])
     with pytest.raises(ValueError, match="slab_dtype"):
         tt.energy_t(s["er_t"], t1, t2, slab_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="A.13b"):
+    with pytest.raises(ValueError, match="requires sect"):
         tt.energy_t(s["er_t"], t1, t2, mesh=object())
 
 

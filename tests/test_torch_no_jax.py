@@ -6,7 +6,9 @@
     sectored routes), and run a solve on each, and a 'hybrid' bf16 solve
     with refine=True; build a CCSD(T) target, run the CCS ground state on
     it, the JSON runner, a coupled excited-state solve (host loop,
-    device loop, Davidson), and EOM-EE targets and EOM-IP/EA roots;
+    device loop, Davidson), and EOM-EE targets and EOM-IP/EA roots, and
+    one sharded ECW-CCSD step on a 2-rank gloo group (each rank a fresh
+    interpreter with the same imports made to fail);
   - no file of the port, and not chip_smoke.py, has an import statement
     naming jax or ecw_cc_tpu (read with `ast`, so lazy imports inside
     functions count too).
@@ -112,6 +114,14 @@ SCRIPT = textwrap.dedent("""
     assert solver.last_solve["route"] == "sectored", solver.last_solve
     assert solver.last_solve["sym"] is True
     assert abs(out[1][-1] - res[1][-1]) < 1e-5
+    # one sharded step on a 2-rank gloo group: each rank a fresh
+    # interpreter with the same two imports made to fail
+    import os, subprocess, tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", os.environ["RANK_SCRIPT"], str(r), tmp])
+            for r in range(2)]
+        assert [p.wait(timeout=240) for p in procs] == [0, 0]
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "ecw_cc_tpu")
                  or m.startswith(("jax.", "jaxlib", "ecw_cc_tpu.")))
@@ -120,10 +130,48 @@ SCRIPT = textwrap.dedent("""
     print("NO_JAX_OK", res[1][-1])
 """)
 
+RANK_SCRIPT = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["ecw_cc_tpu"] = None
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    rank, tmp = int(sys.argv[1]), sys.argv[2]
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=2)
+    from ecw_cc_torch.parallel import dryrun, sharding
+    from ecw_cc_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(n_tp=2, device_type="cpu")
+    eris = dryrun._synthetic_eris(4, 8, torch.float64)
+    target = torch.diag((torch.arange(12) < 4).double())
+    rng = np.random.default_rng(1)
+    t2 = rng.standard_normal((4, 4, 8, 8)) * 0.01
+    t2 = t2 - t2.transpose(1, 0, 2, 3)
+    amps = [torch.as_tensor(rng.standard_normal((4, 8)) * 0.01),
+            torch.as_tensor(t2 - t2.transpose(0, 1, 3, 2))]
+    amps += [0.5 * a for a in amps]
+    ref = dryrun._step_fn(eris, target, 0.1)(*amps)
+    sh = sharding.amp_shardings(mesh)
+    out = dryrun._step_fn(sharding.shard_eris(eris, mesh), target, 0.1)(
+        *(sharding.shard_tensor(a, mesh, sh[n])
+          for a, n in zip(amps, ("t1", "t2", "l1", "l2"))))
+    err = max(float((sharding.replicate(a) - b).abs().max())
+              for a, b in zip(out, ref))
+    assert err < 1e-11, err
+    assert sharding.is_sharded(out[1])
+    dist.destroy_process_group()
+    bad = sorted(m for m in sys.modules
+                 if m in ("jax", "ecw_cc_tpu")
+                 or m.startswith(("jax.", "jaxlib", "ecw_cc_tpu.")))
+    assert bad == ["ecw_cc_tpu", "jax"], bad
+""")
+
 
 def test_port_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+               + os.environ.get("PYTHONPATH", ""), RANK_SCRIPT=RANK_SCRIPT)
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
