@@ -14,8 +14,10 @@ Run from the repository root on a machine with a CUDA card:
                                            # sweep on each route, nvir 16 to
                                            # 162
     python3 chip_smoke.py --chain          # phase 1 and the timed f32
-                                           # 'highest' chain, cc-pVDZ and
-                                           # cc-pVTZ (copied into an older
+                                           # 'highest' chains, cc-pVDZ and
+                                           # cc-pVTZ, 1 and 3 lanes, the ES
+                                           # chain and the converged sweeps
+                                           # (copied into an older
                                            # checkout, it times that one)
     python3 chip_smoke.py --targets        # phases 1, 2 and 10 only: the
                                            # correlated targets and the CCS
@@ -36,6 +38,9 @@ Run from the repository root on a machine with a CUDA card:
                                            # flagship's shapes and 16 only:
                                            # C2H2/6-311++G(2d,2p) and the
                                            # example twins
+    python3 chip_smoke.py --graphs         # phases 1, 2 and 17 only: the
+                                           # solver loops captured as CUDA
+                                           # graphs
 
 Phases, one output line each (and one "phase_seconds" line at the end of
 each); any failure raises and exits nonzero:
@@ -254,7 +259,8 @@ each); any failure raises and exits nonzero:
      (e) synchronizing calls per iteration by Python line
          (torch.cuda.set_sync_debug_mode('warn'), two chains differenced)
          of a 3-lane batched chain and of the sequential CCSD chain:
-         exactly one each, the loop test of solvers/gs.py;
+         exactly one each, the flag read after each replay of the
+         captured loop (solvers/device_loop.py);
  15. (run after 14) the multi-device layer (ecw_cc_torch/parallel) on a
      world-size-1 NCCL group started in the process (mesh dp 1 x tp 1 on
      the card; NCCL takes no second rank on one card):
@@ -264,8 +270,11 @@ each); any failure raises and exits nonzero:
          amplitudes split (shard_eris, shard_vvvv_op, amp_shardings):
          equal iterations, |dEp| <= 1e-9 Ha, ladder launches per
          iteration unchanged (1 packed, 2 sectored), every one on the
-         rank's rows; the collectives counted (CommDebugMode, and their
-         shapes), none on the operand; ms per iteration of both;
+         rank's rows; the split solve's loop replayed its captured graph,
+         the all-gathers inside (printed as loop; the collectives are
+         dispatched, and counted, at the warm-up and the capture only);
+         the collectives counted (CommDebugMode, and their shapes), none
+         on the operand; ms per iteration of both;
      (b) the shard launches at cc-pVTZ's packed shape (M = 392, p =
          13041, f32) for tp = 2, 4 and 8, side by side in one process: each
          rank's rows (6521, 3261, 1631 after padding) launched, the columns
@@ -304,7 +313,32 @@ each); any failure raises and exits nonzero:
          and roots within 1e-5 Ha, the landscapes within 1e-5 relative,
          the seconds of each; and Solver_CCS.SCF(store_ite=True)'s
          synchronizing calls per iteration by Python line (two chains
-         differenced, as 14e): one, the loop test's read;
+         differenced, as 14e): one, the captured loop's flag read;
+  17. (run after 16) the solver loops captured as CUDA graphs
+     (solvers/device_loop.py: one iteration captured per leg and
+     replayed, one flag read per iteration):
+     (a) C2H2 f32 at cc-pVDZ and cc-pVTZ, on the packed and the sorted
+         sectored route, 1 lane (lambda = 0.25) and 3 (lambda = 0, 0.25,
+         0.5; mode='parallel'): a converged solve (diis 'tl') whose every
+         loop replayed its graph, with the ladder launches per iteration
+         exactly as in phase 4 / 9a (1 packed, 2 sectored), the capture
+         and instantiation ms of each leg and the peak memory;
+         20-iteration chains (no DIIS), 3 timed, for ms per iteration
+         (set-up and capture included) and ms per replayed iteration
+         (the replays' own wall time, device_loop's log) without the
+         profiler; two profiled chains differenced for the
+         device ms, the kernels and the host's launch calls per iteration
+         (at most GRAPH_MAX_CALLS: the graph launch and the flag read) and
+         the busy share; the same for the ES loop on phase 11a's system
+         (two states, f32); and phase 4's sweep at cc-pVDZ (one solver
+         over lambda = 0, 0.25, 0.5): its loops captured at the first
+         lambda only and replayed at the others;
+     (b) f64 at C2H2/6-31G, the captured solve on the card against the
+         CPU's eager one on the same host ERIs, equal iterations and Ep to
+         1e-9 Ha: CCSD on the packed, dense, sectored and dense sorted
+         routes, 1 and 3 lanes; CCS_GS (and Solver_CCS.SCF(store_ite=True)
+         row by row); the ES loop on phase 11a's system (maxdiis 20); and
+         f32 within +-1 iteration and 1e-5 Ha of f64 for each;
   8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported,
      and the excited-state, EOM and example-twin modules were.
 Before the last line it prints the kernel report as one JSON object and
@@ -904,19 +938,39 @@ def solve(ecw, lambdas, **kw):
     return res, ecw.solve_log
 
 
-def chain_ops(ecw, diis):
-    """Device operations per iteration of --chain's chain: the difference
-    of two profiled chains (CHAIN_OPS_ITERS), so that a solve's set-up and
-    read-back cancel."""
+def is_ladder_kernel(name):
+    """Whether a profiled device event is a ladder kernel's: its name,
+    mangled (SASS_NAMES) or demangled, names ladder_mm_nt or ladder_mm_tc."""
+    return re.search(r"ladder_mm_(nt|tc)(\b|I)", name) is not None
+
+
+def chain_ops(run, iters=CHAIN_OPS_ITERS):
+    """(device operations, device ms, {host launch call: count}, ladder
+    kernels) per iteration of a chain run(n) of n iterations: the
+    difference of two profiled chains, so that a solve's set-up, capture
+    and read-back cancel.  The launch calls are the runtime calls that put
+    work on the card (LAUNCH_CALLS); the ladder kernels are the device's
+    own records of the ladder kernel's runs (is_ladder_kernel), a witness
+    beside the wrapper's counters."""
     from torch.profiler import ProfilerActivity, profile
 
     got = []
-    for n in CHAIN_OPS_ITERS:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            solve(ecw, [0.25], diis=diis, conv_thres=0.0, maxiter=n - 1)
-        got.append(sum(e.count for e in prof.key_averages()
-                       if str(e.device_type).endswith("CUDA")))
-    return (got[1] - got[0]) / (CHAIN_OPS_ITERS[1] - CHAIN_OPS_ITERS[0])
+    for n in iters:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(n)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+        got.append((sum(e.count for e in dev),
+                    sum(e.self_device_time_total for e in dev) / 1e3,
+                    launch_calls(prof),
+                    sum(e.count for e in dev if is_ladder_kernel(e.key))))
+    (k1, u1, c1, l1), (k2, u2, c2, l2) = got
+    dn = iters[1] - iters[0]
+    calls = {k: (c2[k] - c1[k]) / dn for k in c1.keys() | c2.keys()
+             if c2[k] != c1[k]}
+    return (k2 - k1) / dn, (u2 - u1) / dn, calls, (l2 - l1) / dn
 
 
 def chain_times():
@@ -925,29 +979,116 @@ def chain_times():
     without DIIS and with the sweep's 'tl' DIIS, at C2H2/cc-pVDZ and
     cc-pVTZ: one untimed run, then CHAIN_REPS timed, on the wall clock and
     in the process's CPU time (which other load on the host moves less),
-    and the device operations per iteration (chain_ops).  It calls only ECW and
-    CCSD_GS, so a copy of this script times an older checkout the same
-    way."""
+    the device operations and ms per iteration (chain_ops) and the busy
+    share (device ms over wall ms); the same for the 3-lane batched chain
+    (CCSD_GS(mode='parallel') over LAMBDAS, no DIIS) and for the ES chain
+    (CCS_ES(method='device') on phase 11a's system, two states, from a
+    cold start) and the CCS chain (CCS_GS, no DIIS, on the HF target);
+    and the converged sweeps over LAMBDAS, CCSD warm-started and batched
+    and CCS warm-started (diis 'tl', conv_thres 1e-6), with their peak
+    memory.  It calls only ECW, CCSD_GS, CCS_GS and CCS_ES, so a copy of
+    this script times an older checkout the same way."""
+    def timed_runs(run):
+        runs, cpu = [], []
+        for _ in range(CHAIN_REPS + 1):
+            c0 = time.process_time()
+            its, ms = run()
+            runs.append(ms / its)
+            cpu.append((time.process_time() - c0) * 1e3 / its)
+        return dict(ms_per_iteration=statistics.median(runs[1:]),
+                    ms_per_iteration_runs=runs[1:], untimed_run=runs[0],
+                    cpu_ms_per_iteration=statistics.median(cpu[1:]),
+                    cpu_ms_per_iteration_runs=cpu[1:])
+
+    def with_ops(fields, run_n):
+        ops, dev_ms, calls, ladder = chain_ops(run_n)
+        return dict(fields, device_ops_per_iteration=ops,
+                    device_ms_per_iteration=dev_ms,
+                    busy_share=dev_ms / fields["ms_per_iteration"],
+                    launch_calls_per_iteration=sum(calls.values()),
+                    launch_calls_by_name=calls,
+                    ladder_kernels_per_iteration=ladder)
+
     for basis, iters in ((BASIS, CHAIN_ITERS), (BASIS_TZ, CHAIN_ITERS_TZ)):
         ecw = build_ecw("cuda", torch.float32, basis=basis)
         for diis in ("", "tl"):
-            runs, cpu = [], []
-            for _ in range(CHAIN_REPS + 1):
-                c0 = time.process_time()
+            def one(n, diis=diis):
                 _, log = solve(ecw, [0.25], diis=diis, conv_thres=0.0,
-                               maxiter=iters)
-                its = log[-1]["iterations"]
-                runs.append(log[-1]["ms"] / its)
-                cpu.append((time.process_time() - c0) * 1e3 / its)
+                               maxiter=n - 1)
+                return log[-1]["iterations"], log[-1]["ms"]
+
+            fields = timed_runs(lambda: one(iters + 1))
             phase("chain", "chain_f32", basis=basis, diis=diis,
-                  route=log[-1]["route"], iterations=its,
-                  ms_per_iteration=statistics.median(runs[1:]),
-                  ms_per_iteration_runs=runs[1:], untimed_run=runs[0],
-                  cpu_ms_per_iteration=statistics.median(cpu[1:]),
-                  cpu_ms_per_iteration_runs=cpu[1:],
-                  device_ops_per_iteration=chain_ops(ecw, diis))
+                  route=ecw.solve_log[-1]["route"], iterations=iters + 1,
+                  **with_ops(fields, one))
+
+        def three(n):
+            b = batch_solve(ecw, LAMBDAS, diis="", conv_thres=0.0,
+                            maxiter=n - 1)
+            return b["iterations"], b["ms"]
+
+        fields = timed_runs(lambda: three(iters + 1))
+        phase("chain", "chain_f32_3lanes", basis=basis, diis="",
+              lanes=len(LAMBDAS), iterations=iters + 1,
+              **with_ops(fields, three))
+
+        def ccs(n):
+            # a negative threshold: the chain runs its n iterations where
+            # f32 reaches a fixed point (Dconv exactly 0) before
+            its, ms = ccs_sweep(ecw, [0.25], diis="", conv_thres=-1.0,
+                                maxiter=n - 1)[:2]
+            return its[0], ms
+
+        fields = timed_runs(lambda: ccs(iters + 1))
+        phase("chain", "chain_ccs_f32", basis=basis, diis="",
+              iterations=iters + 1, **with_ops(fields, ccs))
+        # what users wait for: phase 4's warm-started sweep, the 3-lane
+        # batch (14a, 14c) and the CCS sweep, converged, with their peak
+        # memory
+        for name, run in (
+                ("sweep", lambda: solve(ecw, LAMBDAS,
+                                        conv_thres=CONV_THRES)[1]),
+                ("batch", lambda: batch_solve(ecw, LAMBDAS,
+                                              conv_thres=CONV_THRES)),
+                ("ccs_sweep", lambda: ccs_sweep(ecw, LAMBDAS, diis="tl",
+                                                conv_thres=CONV_THRES)[2])):
+            ms, peak = [], []
+            for _ in range(CHAIN_REPS + 1):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                peak.append(torch.cuda.max_memory_allocated())
+            log = out["log"] if name == "batch" else out
+            phase("chain", f"converged_{name}_f32", basis=basis,
+                  L=LAMBDAS, ms=statistics.median(ms[1:]), ms_runs=ms[1:],
+                  untimed_run=ms[0], peak_bytes=max(peak),
+                  iterations=[s["iterations"] for s in log])
         del ecw
         torch.cuda.empty_cache()
+    ecw = es_anchor_ecw(torch.float32)
+    es_solve(ecw, ES_L)
+    fields = timed_runs(lambda: es_chain_ms(ecw, ES_CHAIN_ITERS))
+    phase("chain", "chain_es_f32", molecule=ES_MOLECULE, basis=ES_BASIS,
+          states=2, iterations=ES_CHAIN_ITERS,
+          **with_ops(fields, lambda n: es_chain_ms(ecw, n)))
+
+
+def ccs_sweep(ecw, lambdas, **kw):
+    """One ECW.CCS_GS call (method 'scf'), its printing muted: ([iterations
+    per lambda], wall ms, solve_log entries)."""
+    import io
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ecw.CCS_GS(list(lambdas), **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    log = list(ecw.solve_log)
+    return [s["iterations"] for s in log], ms, log
 
 
 def with_eris(ecw, eris, vvvv_op, mo_perm):
@@ -1847,17 +1988,24 @@ def r1_matrix(eris, ts):
                              device=ts.device), inter
 
 
-def run_es_anchor():
-    """Phase 11 (a) and (b)."""
+def es_anchor_ecw(dtype, device=CARD):
+    """Phase 11a's system: H2O/6-31++G** with two transition-dipole
+    targets."""
     from ecw_cc_torch import ECW
 
+    ecw = ECW(ES_MOLECULE, ES_BASIS, device=device, dtype=dtype)
+    ecw.Build_ES_exp_input([[["trdip", (ES_DIPS[0], 0.0, 0.0)]],
+                            [["trdip", (0.0, 0.0, ES_DIPS[1])]]])
+    return ecw
+
+
+def run_es_anchor():
+    """Phase 11 (a) and (b)."""
     ecws, outs, ms = {}, {}, {}
     for name, device, dtype in (("cuda_f32", CARD, torch.float32),
                                 ("cuda_f64", CARD, torch.float64),
                                 ("cpu_f64", "cpu", torch.float64)):
-        ecw = ECW(ES_MOLECULE, ES_BASIS, device=device, dtype=dtype)
-        ecw.Build_ES_exp_input([[["trdip", (ES_DIPS[0], 0.0, 0.0)]],
-                                [["trdip", (0.0, 0.0, ES_DIPS[1])]]])
+        ecw = es_anchor_ecw(dtype, device)
         _, first = es_solve(ecw, ES_L)       # loads the card's kernels
         outs[name], ms[name] = es_solve(ecw, ES_L)
         ecws[name] = ecw
@@ -3063,7 +3211,7 @@ def run_phase13(ladder_mm):
 # lambda (a CCSD_GS call per lambda), not to the warm-started sweep.
 BATCH_GRID = [float(x) for x in np.linspace(0.0, 0.5, 8)]
 BATCH_SYNC_ITERS = (4, 12)    # 14e: two chains, differenced
-SYNC_MARK = "the one read per iteration"    # solvers/gs.py's loop tests
+SYNC_MARK = "the one read per iteration"    # solvers/device_loop.py's
 
 
 def batch_solve(ecw, lambdas, **kw):
@@ -3298,14 +3446,11 @@ def syncs_per_iteration(run, iters=BATCH_SYNC_ITERS):
 def run_batch_syncs(ecw32):
     """Phase 14 (e): synchronizing calls per iteration, by Python line, of
     a batched chain (3 lanes) and of the sequential CCSD chain (diis
-    'tl', conv_thres 0): exactly one each, the loop test's read of
-    solvers/gs.py."""
-    import ecw_cc_torch.solvers.gs as gs
-
-    # one loop runs both: SCF_batch's lanes and SCF's one
-    lines, start = inspect.getsourcelines(gs.Solver_CCSD._solve)
-    test = [f"ecw_cc_torch/solvers/gs.py:{start + i}"
-            for i, line in enumerate(lines) if SYNC_MARK in line]
+    'tl', conv_thres 0): exactly one each, the flag read after each
+    replay of the captured loop (solvers/device_loop.py)."""
+    # one loop runs both: SCF_batch's lanes and SCF's one, replaying its
+    # captured graph
+    test = loop_test_lines()
     want = {"batched": test, "sequential": test}
     chains = {
         "batched": lambda n: batch_solve(ecw32, LAMBDAS, conv_thres=0.0,
@@ -3431,7 +3576,12 @@ def run_par_solves(ecw32, mesh):
         on_operand = [c for c in log.calls
                       if any(tuple(x) in shapes for x in c[1])]
         amps_placed = [str(list(a.placements)) for a in rs[5]]
+        # the split solve's loop replays a captured graph, its all-gathers
+        # inside: the collectives are dispatched (and counted) at the
+        # warm-up and the capture only
+        loop = check_graphs(f"15a {route}", [ss.last_solve])
         phase(15, f"sharded_solve_{route}", mesh=[1, 1], L=PAR_LAMBDA,
+              loop="graph", capture_ms_per_leg=loop,
               route=ss.last_solve["route"], sym=ss.last_solve["sym"],
               iterations=its, Ep=float(rs[1][-1]), dEp=d_ep,
               launches=(lw, ls), shard_launches=shard_l,
@@ -3778,7 +3928,8 @@ def energies(name, res):
 
 def store_ite_syncs(ecw, L):
     """16c: synchronizing calls per iteration of Solver_CCS.SCF(store_ite=
-    True) on the card, by Python line: one, the loop test's read.  On an
+    True) on the card, by Python line: one, the captured loop's flag
+    read.  On an
     ECW whose solve at L does not stop before the chains' lengths (the
     landscape's H2 trajectory is exactly 0 after 2 iterations, so
     newton_smoke's f64 H2O is used)."""
@@ -3786,9 +3937,7 @@ def store_ite_syncs(ecw, L):
     from ecw_cc_torch.ops.ccs import Gccs
     from ecw_cc_torch.ops.vexp import Exp
 
-    lines, start = inspect.getsourcelines(gs.Solver_CCS.SCF)
-    test = [f"ecw_cc_torch/solvers/gs.py:{start + i}"
-            for i, line in enumerate(lines) if SYNC_MARK in line]
+    test = loop_test_lines()
 
     def chain(n):
         vx = Exp(L, ecw.exp_data, ecw.mol, ecw.mo_coeff)
@@ -3862,6 +4011,395 @@ def run_phase16(ladder_mm):
         res, launches = run_flagship(ladder_mm, out_dir)
     check_flagship_eris(res.pop("ecw"))
     phase(16, "twin_seconds", **run_twins())
+    return launches
+
+
+# Phase 17: the solver loops captured as CUDA graphs (solvers/
+# device_loop.py).  Each cell is C2H2 f32 at lambda = 0.25 (3 lanes: phase
+# 4's LAMBDAS) on a route's ERIs: a converged solve (launches, capture ms
+# per leg, peak memory), GRAPH_REPS timed chains of GRAPH_CHAIN_ITERS
+# iterations (no DIIS, conv_thres 0; ms per iteration, set-up and capture
+# included, and ms per replayed iteration, both without the profiler),
+# and two profiled chains differenced (device ms, kernels, the ladder
+# kernels and the host's launch calls per iteration).
+GRAPH_CHAIN_ITERS = 20
+GRAPH_REPS = 3
+GRAPH_LAUNCHES = {"packed": 1, "sectored": 2}   # per iteration (sym)
+# the runtime calls that put work on the card, as the profiler names them
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy",
+                "cudaMemset")
+GRAPH_MAX_CALLS = 4     # launch calls per iteration of a captured loop
+GRAPH_F64_TOL = 1e-9
+GRAPH_F32_TOL = 1e-5
+# 17b's routes on the f64 ERIs of C2H2/6-31G: (layout, config)
+GRAPH_F64_ROUTES = {"packed": ("alt", dict(ladder_mode="packed")),
+                    "dense": ("alt", dict(ladder_mode="dense")),
+                    "sectored": ("srt", dict(soup_sector=True)),
+                    "dense_sorted": ("srt", dict(soup_sector=False))}
+
+
+def loop_test_lines():
+    """The Python line of the device loops' one read per iteration on the
+    card: the flag read after each replay (solvers/device_loop.py)."""
+    from ecw_cc_torch.solvers import device_loop
+
+    lines, start = inspect.getsourcelines(device_loop.Loop._run_graph)
+    return [f"ecw_cc_torch/solvers/device_loop.py:{start + i}"
+            for i, line in enumerate(lines) if SYNC_MARK in line]
+
+
+def loops_of(log):
+    """The device_loop logs of a solve_log (one per leg and solve)."""
+    return [lp for s in log for lp in (s or {}).get("loops", [])]
+
+
+def check_graphs(name, log):
+    """Every loop of the solves in `log` that ran past its warm-up
+    replayed a captured graph.  Returns the capture ms per leg."""
+    loops = loops_of(log)
+    if not loops or not all(lp["graph"] for lp in loops
+                            if lp["iterations"] > 1):
+        raise AssertionError(f"{name}: a loop ran without its graph: "
+                             f"{loops}")
+    return [lp.get("capture_ms") for lp in loops]
+
+
+def launch_calls(prof):
+    """{runtime call: count} of the host calls that put work on the card."""
+    out = collections.Counter()
+    for e in prof.key_averages():
+        if (e.key.startswith(LAUNCH_CALLS)
+                and not str(e.device_type).endswith("CUDA")):
+            out[e.key] += e.count
+    return out
+
+
+def chain_and_replay_ms(run):
+    """({ms per iteration of a GRAPH_CHAIN_ITERS chain and its runs}, {ms
+    per replayed iteration and its runs}) of the chain run(n) (n
+    iterations; returns its host ms and solve_log): GRAPH_REPS timed
+    chains after one untimed.  The first includes the solve's set-up,
+    warm-up and capture; the second is the replays' own wall time
+    (device_loop's 'replay_ms' over 'replays', every leg)."""
+    n = GRAPH_CHAIN_ITERS
+    chain, replay = [], []
+    for rep in range(GRAPH_REPS + 1):
+        ms, log = run(n)
+        loops = loops_of(log)
+        if rep:
+            chain.append(ms / n)
+            replay.append(sum(lp.get("replay_ms", 0.0) for lp in loops)
+                          / sum(lp.get("replays", 0) for lp in loops))
+    return (dict(chain_iterations=n,
+                 ms_per_iteration=statistics.median(chain),
+                 ms_per_iteration_runs=chain),
+            dict(replay_ms_per_iteration=statistics.median(replay),
+                 replay_ms_per_iteration_runs=replay))
+
+
+def graph_sweep(ecw):
+    """Phase 17 (a): phase 4's warm-started sweep (lambda = 0, 0.25, 0.5;
+    one solver): the legs' loops are captured at the first lambda and
+    replayed at once at the others."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, log = solve(ecw, LAMBDAS, conv_thres=CONV_THRES)
+    ms = (time.perf_counter() - t0) * 1e3
+    check_graphs("17a sweep", log)
+    captures = [[lp.get("capture_ms") for lp in s["loops"]] for s in log]
+    phase(17, "graph_sweep", L=LAMBDAS, sweep_ms=ms,
+          solve_ms=[s["ms"] for s in log],
+          iterations=[s["iterations"] for s in log],
+          capture_ms_by_lambda=captures)
+    if any(c is not None for cs in captures[1:] for c in cs) or \
+            captures[0][0] is None:
+        raise AssertionError(f"17a sweep: captures {captures} (expected "
+                             "one, at the first lambda)")
+    if not all(s["status"] == 1 for s in log):
+        raise AssertionError("17a sweep: a lambda did not converge")
+
+
+def graph_run(ecw, lanes, n=None):
+    """One CCSD_GS call on `ecw`, 1 lane at lambda = 0.25 or 3 (LAMBDAS,
+    mode='parallel'): converged (diis 'tl', conv_thres 1e-6), or a chain
+    of n iterations (no DIIS, conv_thres 0).  Returns {its (batched),
+    ms, log, launches, peak_bytes, Ep}."""
+    from ecw_cc_torch.kernels.ladder_mm import ladder_mm
+
+    kw = (dict(diis="", conv_thres=0.0, maxiter=n - 1) if n else
+          dict(diis="tl", conv_thres=CONV_THRES))
+    if lanes > 1:
+        b = batch_solve(ecw, LAMBDAS, **kw)
+        return dict(its=b["iterations"], ms=b["ms"], log=b["log"],
+                    launches=b["launches"], peak_bytes=b["peak_bytes"],
+                    Ep=b["Ep"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = ladder_mm.launches
+    t0 = time.perf_counter()
+    res, log = solve(ecw, [0.25], **kw)
+    torch.cuda.synchronize()
+    return dict(its=log[0]["iterations"],
+                ms=(time.perf_counter() - t0) * 1e3, log=list(log),
+                launches=ladder_mm.launches - n0,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                Ep=[float(res[1][-1])])
+
+
+def graph_cell(ecw, basis, route, lanes):
+    """Phase 17 (a): one cell (the phase's comment)."""
+    conv = graph_run(ecw, lanes)
+    name = f"17a {basis} {route} {lanes} lane(s)"
+    capture_ms = check_graphs(name, conv["log"])
+    per_iter = GRAPH_LAUNCHES[route]
+    if not all(s["status"] == 1 and s["route"] == route
+               for s in conv["log"]):
+        raise AssertionError(f"{name}: did not converge on the route: "
+                             f"{conv['log']}")
+    if conv["launches"] != per_iter * conv["its"]:
+        raise AssertionError(f"{name}: {conv['launches']} ladder launches "
+                             f"in {conv['its']} iterations (expected "
+                             f"{per_iter} each)")
+    def run(n):
+        r = graph_run(ecw, lanes, n)
+        return r["ms"], r["log"]
+
+    chain, replay = chain_and_replay_ms(run)
+    kernels, dev_ms, calls, ladder = chain_ops(
+        lambda n: graph_run(ecw, lanes, n))
+    n_calls = sum(calls.values())
+    fields = dict(basis=basis, route=route, lanes=lanes,
+                  iterations=conv["its"],
+                  lane_iterations=[s["iterations"] for s in conv["log"]],
+                  ladder_launches_per_iteration=conv["launches"]
+                  / conv["its"], ladder_kernels_per_iteration=ladder,
+                  capture_ms_per_leg=capture_ms,
+                  peak_bytes=conv["peak_bytes"],
+                  loop_memory=[lp.get("memory")
+                               for lp in loops_of(conv["log"])], **chain,
+                  **replay, device_ms_per_iteration=dev_ms,
+                  busy_share=dev_ms / chain["ms_per_iteration"],
+                  busy_share_replayed=dev_ms
+                  / replay["replay_ms_per_iteration"],
+                  kernels_per_iteration=kernels,
+                  launch_calls_per_iteration=n_calls,
+                  launch_calls_by_name=calls)
+    phase(17, "graph_cell", **fields)
+    if n_calls > GRAPH_MAX_CALLS or kernels <= 0:
+        raise AssertionError(f"{name}: {n_calls} launch calls and "
+                             f"{kernels} kernels per iteration: {calls}")
+    # the replays' ladder launches as the device recorded them, not as
+    # the wrapper's counters add them up (device_loop.py)
+    if ladder != per_iter:
+        raise AssertionError(f"{name}: the profiler saw {ladder} ladder "
+                             f"kernels per replayed iteration (expected "
+                             f"{per_iter})")
+    return fields
+
+
+def es_chain_ms(ecw, n):
+    """(n, host ms) of an n-iteration chain of the device ES loop at
+    lambda = ES_L from a cold start (conv_thres 0), through ECW.CCS_ES."""
+    out, ms = es_solve(ecw, ES_L, conv_thres=0.0, maxiter=n - 1)
+    if "Max iteration" not in out[0]:
+        raise AssertionError(f"the ES chain stopped early: {out[0]}")
+    return n, ms
+
+
+def graph_es_cell():
+    """Phase 17 (a): the ES loop (two states, f32): converged solve, chain
+    and profile as a CCSD cell."""
+    ecw = es_anchor_ecw(torch.float32)
+    es_solve(ecw, ES_L)
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = es_solve(ecw, ES_L)
+    capture_ms = check_graphs("17a ES", ecw.solve_log)
+    peak = torch.cuda.max_memory_allocated()
+    chain, replay = chain_and_replay_ms(
+        lambda n: (es_chain_ms(ecw, n)[1], ecw.solve_log))
+    kernels, dev_ms, calls, ladder = chain_ops(
+        lambda n: es_chain_ms(ecw, n))
+    n_calls = sum(calls.values())
+    fields = dict(molecule=ES_MOLECULE, basis=ES_BASIS, states=2,
+                  iterations=es_iterations(out[0]),
+                  capture_ms_per_leg=capture_ms, peak_bytes=peak,
+                  ladder_kernels_per_iteration=ladder,
+                  **chain, **replay, device_ms_per_iteration=dev_ms,
+                  busy_share=dev_ms / chain["ms_per_iteration"],
+                  busy_share_replayed=dev_ms
+                  / replay["replay_ms_per_iteration"],
+                  kernels_per_iteration=kernels,
+                  launch_calls_per_iteration=n_calls,
+                  launch_calls_by_name=calls)
+    phase(17, "graph_es", **fields)
+    if "Convergence reached" not in out[0]:
+        raise AssertionError(f"17a ES: {out[0]}")
+    if n_calls > GRAPH_MAX_CALLS or kernels <= 0:
+        raise AssertionError(f"17a ES: {n_calls} launch calls and "
+                             f"{kernels} kernels per iteration: {calls}")
+    if ladder != 0:        # the ES step has no ladder product
+        raise AssertionError(f"17a ES: {ladder} ladder kernels per "
+                             "iteration")
+    return fields
+
+
+@contextlib.contextmanager
+def port_config(**kw):
+    import ecw_cc_torch
+
+    ecw_cc_torch.set_config(**kw)
+    try:
+        yield
+    finally:
+        ecw_cc_torch.set_config(ladder_mode="auto", soup_sector=True,
+                                soup_sym=True)
+
+
+def graph_f64_ccsd(ecw64c, ecwc, ecw32):
+    """Phase 17 (b), CCSD: C2H2/6-31G at f64, the captured solve on the
+    card against the CPU's eager one on the same host ERIs, every route,
+    1 lane (lambda = 0.25) and 3 (LAMBDAS): equal iterations per lane and
+    Ep to 1e-9 Ha; the f32 card solve on its own device ERIs within +-1
+    iteration and 1e-5 Ha of f64 on the dense (nvir 30: ECW's) route."""
+    from ecw_cc_torch.models.eris import sorted_from_host
+    from ecw_cc_torch.ops.ladder import spin_sort_perm
+
+    perm = spin_sort_perm(ecwc.mf.orbspin, ecwc.nocc)
+    eris = {}
+    for e in (ecw64c, ecwc):
+        er, op = sorted_from_host(e.eris_host, perm, dtype=torch.float64,
+                                  device=e.device)
+        eris[e] = {"alt": (e.eris, None, None), "srt": (er, op, perm)}
+    rows = []
+    for route, (layout, cfg) in GRAPH_F64_ROUTES.items():
+        for lanes in (1, 3):
+            card, cpu = [], []
+            for e, out in ((ecw64c, card), (ecwc, cpu)):
+                target = with_eris(e, *eris[e][layout])
+                with port_config(**cfg):
+                    out.append(graph_run(target, lanes))
+            card, cpu = card[0], cpu[0]
+            name = f"17b f64 {route} {lanes} lane(s)"
+            capture_ms = check_graphs(name, card["log"])
+            its = ([s["iterations"] for s in card["log"]],
+                   [s["iterations"] for s in cpu["log"]])
+            d = max(abs(a - b) for a, b in zip(card["Ep"], cpu["Ep"]))
+            routes = {s["route"] for s in card["log"] + cpu["log"]}
+            row = dict(route=route, lanes=lanes, iterations=its, dEp=d,
+                       capture_ms_per_leg=capture_ms,
+                       solver_routes=sorted(routes))
+            phase(17, "graph_f64_ccsd", **row)
+            if its[0] != its[1] or d > GRAPH_F64_TOL or routes != {route}:
+                raise AssertionError(f"{name}: card {its[0]} / CPU "
+                                     f"{its[1]} iterations, |dEp| {d}, "
+                                     f"routes {routes}")
+            rows.append(row)
+    r32, r64 = graph_run(ecw32, 1), graph_run(ecw64c, 1)
+    d = abs(r32["Ep"][0] - r64["Ep"][0])
+    dit = r32["its"] - r64["its"]
+    phase(17, "graph_f32_vs_f64_ccsd", route=r32["log"][0]["route"],
+          iterations=[r32["its"], r64["its"]], dEp=d)
+    check_graphs("17b f32", r32["log"])
+    if abs(dit) > 1 or d > GRAPH_F32_TOL:
+        raise AssertionError(f"17b: f32 {r32['its']} / f64 {r64['its']} "
+                             f"iterations, |dEp| {d}")
+    return rows
+
+
+def graph_f64_ccs(ecw64c, ecwc, ecw32):
+    """Phase 17 (b), CCS: ECW.CCS_GS at lambda = 0.25 (diis 'tl') on the
+    HF target, f64 card against CPU (equal iterations, 1e-9 Ha), f32
+    within +-1 iteration and 1e-5 Ha; and store_ite=True on the card
+    equal to the CPU's."""
+    import io
+
+    from ecw_cc_torch.ops.ccs import Gccs
+    from ecw_cc_torch.ops.vexp import Exp
+    from ecw_cc_torch.solvers.gs import Solver_CCS
+
+    got = {}
+    for name, e in (("card_f64", ecw64c), ("cpu_f64", ecwc),
+                    ("card_f32", ecw32)):
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = e.CCS_GS([0.25], diis="tl")
+        got[name] = (float(res[1][-1]), e.solve_log[-1]["iterations"],
+                     e.solve_log)
+    capture_ms = check_graphs("17b CCS", got["card_f64"][2])
+    check_graphs("17b CCS f32", got["card_f32"][2])
+    d64 = abs(got["card_f64"][0] - got["cpu_f64"][0])
+    d32 = abs(got["card_f32"][0] - got["cpu_f64"][0])
+    its = {k: v[1] for k, v in got.items()}
+    store = {}
+    for name, e in ((CARD, ecw64c), ("cpu", ecwc)):
+        vx = Exp(0.25, e.exp_data, e.mol, e.mo_coeff)
+        s = Solver_CCS(Gccs(e.eris), vx, conv_thres=1e-6, diis="tl")
+        store[name] = s.SCF(0.25, store_ite=True)
+    d_ite = max(float(np.abs(a - b).max()) for a, b in
+                zip(store[CARD][5:], store["cpu"][5:]))
+    phase(17, "graph_ccs", iterations=its, dEp_card_f64=d64,
+          dEp_card_f32=d32, capture_ms_per_leg=capture_ms,
+          store_ite_rows=len(store[CARD][5]), store_ite_max_diff=d_ite)
+    if (its["card_f64"] != its["cpu_f64"] or d64 > GRAPH_F64_TOL
+            or abs(its["card_f32"] - its["cpu_f64"]) > 1
+            or d32 > GRAPH_F32_TOL):
+        raise AssertionError(f"17b CCS: {its}, |dEp| {d64} / {d32}")
+    if (len(store[CARD][5]) != len(store["cpu"][5])
+            or d_ite > GRAPH_F64_TOL):
+        raise AssertionError(f"17b CCS store_ite: {len(store[CARD][5])} / "
+                             f"{len(store['cpu'][5])} rows, {d_ite}")
+
+
+def graph_f64_es():
+    """Phase 17 (b), ES: phase 11a's system at lambda = ES_L, f64 card
+    against CPU (equal iterations, 1e-9 Ha), f32 within +-1 iteration and
+    1e-5 Ha of f64.  maxdiis 20: the ring's bordered system is 21 x 21."""
+    got = {}
+    for name, dev, dt in (("card_f64", CARD, torch.float64),
+                          ("cpu_f64", "cpu", torch.float64),
+                          ("card_f32", CARD, torch.float32)):
+        ecw = es_anchor_ecw(dt, dev)
+        out, _ = es_solve(ecw, ES_L)
+        got[name] = (np.asarray(out[3], dtype=np.float64),
+                     es_iterations(out[0]), ecw.solve_log)
+    capture_ms = check_graphs("17b ES", got["card_f64"][2])
+    check_graphs("17b ES f32", got["card_f32"][2])
+    d64 = float(np.abs(got["card_f64"][0] - got["cpu_f64"][0]).max())
+    d32 = float(np.abs(got["card_f32"][0] - got["card_f64"][0]).max())
+    its = {k: v[1] for k, v in got.items()}
+    phase(17, "graph_es_f64", iterations=its, dEp_card_f64=d64,
+          dEp_card_f32=d32, capture_ms_per_leg=capture_ms)
+    if (None in its.values() or its["card_f64"] != its["cpu_f64"]
+            or d64 > GRAPH_F64_TOL
+            or abs(its["card_f32"] - its["card_f64"]) > 1
+            or d32 > GRAPH_F32_TOL):
+        raise AssertionError(f"17b ES: {its}, |dEp| {d64} / {d32}")
+
+
+def run_phase17():
+    """Phase 17; returns {path: ladder launches} of its CCSD cells'
+    converged solves."""
+    launches = {}
+    for basis in (BASIS, BASIS_TZ):
+        base = build_ecw(CARD, torch.float32, basis=basis)
+        for route in ("packed", "sectored"):
+            er, op, perm, _ = route_eris(base, route)
+            ecw = with_eris(base, er, op, perm)
+            if basis == BASIS and route == "packed":
+                graph_sweep(ecw)
+            for lanes in (1, 3):
+                f = graph_cell(ecw, basis, route, lanes)
+                launches[f"graph_f32_{basis}_{route}_{lanes}lanes"] = round(
+                    f["ladder_launches_per_iteration"] * f["iterations"])
+            del ecw, er, op
+        del base
+        torch.cuda.empty_cache()
+    graph_es_cell()
+    ecw64c = build_ecw(CARD, torch.float64, basis=SMALL_BASIS)
+    ecwc = build_ecw("cpu", torch.float64, basis=SMALL_BASIS)
+    ecw32 = build_ecw(CARD, torch.float32, basis=SMALL_BASIS)
+    graph_f64_ccsd(ecw64c, ecwc, ecw32)
+    graph_f64_ccs(ecw64c, ecwc, ecw32)
+    graph_f64_es()
     return launches
 
 
@@ -4092,6 +4630,19 @@ def main(argv):
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if "--graphs" in argv:
+        with timed(17, seconds):
+            launches_17 = run_phase17()
+        with timed(8, seconds):
+            check_no_jax(False)
+        phase(0, "seconds", total=time.perf_counter() - t_start,
+              by_phase=seconds, launches=launches_17)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if "--flagship" in argv:
         # phase 3 at the flagship's shapes, then phase 16
         with timed(3, seconds):
@@ -4272,6 +4823,10 @@ def main(argv):
     with timed(16, seconds):
         launches_16 = run_phase16(ladder_mm)
 
+    # 17. the solver loops captured as CUDA graphs
+    with timed(17, seconds):
+        launches_17 = run_phase17()
+
     # 8. neither JAX nor the JAX package
     with timed(8, seconds):
         check_no_jax(True, eom_ran=True, twins_ran=True)
@@ -4282,7 +4837,7 @@ def main(argv):
         {"c2h2_ccpvdz_f32_packed_sweep": launches,
          "c2h2_ccpvdz_f64_packed": launches_64,
          "c2h2_ccpvtz_f32_packed": launches_tz, **launches_9,
-         **launches_10, **launches_14, **launches_16},
+         **launches_10, **launches_14, **launches_16, **launches_17},
         checks, times, back_10, grads,
         (v_checks, v_times, by_variant_12), launches_13, tangents,
         by_variant_14, (launches_15, shards_15))))

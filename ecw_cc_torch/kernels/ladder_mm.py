@@ -17,7 +17,9 @@ it compute the variant's plain version (`ladder_mm_plain`).
 backward, so a run can show that its main path went through the kernel;
 `ladder_mm.backward_launches` and `ladder_mm.tangent_launches` count the
 backward and the tangent ones among them, and
-`ladder_mm.launches_by_variant` the launches of each variant.
+`ladder_mm.launches_by_variant` the launches of each variant.  A launch
+captured into a CUDA graph is counted at each replay instead
+(`launch_counts`, `add_launch_counts`; solvers/device_loop.py).
 
 The full-precision launch is a `torch.autograd.Function`: the gradient
 for `a` is dA = dC @ b, one more launch of the same kernel: on `b` itself
@@ -662,3 +664,27 @@ ladder_mm.backward_launches = 0    # those of them made by a backward
 ladder_mm.tangent_launches = 0     # those of them made by a tangent (jvp)
 ladder_mm.shard_launches = 0       # those of them on a RowShard's rows
 ladder_mm.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+_COUNTERS = ("launches", "backward_launches", "tangent_launches",
+             "shard_launches")
+
+
+def launch_counts(since=None):
+    """The launch counters as a dict (the variants' under their names),
+    or their change since an earlier such dict."""
+    now = {n: getattr(ladder_mm, n) for n in _COUNTERS}
+    now.update(ladder_mm.launches_by_variant)
+    if since is None:
+        return now
+    return {n: v - since[n] for n, v in now.items()}
+
+
+def add_launch_counts(delta, times=1):
+    """Add `times` x a change of the counters (launch_counts(since=)):
+    the launches that a replayed CUDA graph makes without passing through
+    the wrapper (solvers/device_loop.py)."""
+    for n, v in delta.items():
+        if n in ladder_mm.launches_by_variant:
+            ladder_mm.launches_by_variant[n] += times * v
+        else:
+            setattr(ladder_mm, n, getattr(ladder_mm, n) + times * v)

@@ -460,6 +460,7 @@ class ECW:
             self.vmax_lamb.append(vmax)
             if VXexp.Delta_Ek_GS is not None:
                 self.Delta_Ek.append(VXexp.Delta_Ek_GS)
+        Solve.release_graphs()
         print()
         print("FINAL RESULTS")
         print("Ep   = " + format_float.format(Ep + self.EHF))
@@ -589,7 +590,7 @@ class ECW:
                 'device' - the whole iteration on the device
                            (SolverES_Device: rdm1s, Vexp refresh, coupled
                            t/lambda and the r/l updates of all states at
-                           once, DIIS; one scalar read per iteration),
+                           once, DIIS; one flag read per iteration),
                 'diag'   - the diagonalization variant (reference branch
                            Main.py:892-894; davidson=True for the
                            matrix-free solver).

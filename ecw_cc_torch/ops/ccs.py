@@ -464,7 +464,7 @@ def Extract_Em_r(eris, rs, r0, Rinter, ov=None):
 
 def _force_alpha(a):
     a = a.clone()
-    a[..., 0::2, :] = 0.0
+    a[..., 0::2, :].zero_()
     return a
 
 

@@ -277,24 +277,31 @@ class Exp:
         raise SyntaxError("L must be a float or a nested list")
 
 
-def _f_update(trace_F, F_pot, nh_F, tgt_np, rdm1):
+def _f_target(tgt_np, dtype, device):
+    """A structure-factor target as _f_update takes it, uploaded once:
+    (Re, Im on the device, the host normalization |exp[1]| (|exp[0]| for
+    a single component))."""
+    tgt_np = np.asarray(tgt_np)
+    t_re = torch.as_tensor(np.real(tgt_np), dtype=dtype, device=device)
+    t_im = torch.as_tensor(np.imag(tgt_np), dtype=dtype, device=device)
+    ref = (abs(complex(tgt_np.ravel()[1])) if tgt_np.size > 1
+           else abs(complex(tgt_np.ravel()[0])))
+    return t_re, t_im, ref
+
+
+def _f_update(trace_F, F_pot, nh_F, tgt, rdm1):
     """Structure-factor body of the device GS and ES updates (one state):
     |F| deviation per
     reciprocal vector, potential = deviation-weighted real MO FT integrals
-    scaled 2/nh.  Returns (vpot, delta_inc or None, vmax_inc); delta_inc is
-    None when the normalization reference is below threshold (host Delta()
-    quirk: every component is normalized by |exp[1]|)."""
+    scaled 2/nh.  tgt: the target as _f_target gives it.  Returns (vpot,
+    delta_inc or None, vmax_inc); delta_inc is None when the normalization
+    reference is below threshold (host Delta() quirk: every component is
+    normalized by |exp[1]|)."""
     Fre, Fim = trace_F
     cre = torch.einsum("hij,ji->h", Fre, rdm1)
     cim = torch.einsum("hij,ji->h", Fim, rdm1)
-    tgt_np = np.asarray(tgt_np)
-    t_re = torch.as_tensor(np.real(tgt_np), dtype=rdm1.dtype,
-                           device=rdm1.device)
-    t_im = torch.as_tensor(np.imag(tgt_np), dtype=rdm1.dtype,
-                           device=rdm1.device)
+    t_re, t_im, ref = tgt
     diff = torch.sqrt((t_re - cre) ** 2 + (t_im - cim) ** 2)
-    ref = (abs(complex(tgt_np.ravel()[1])) if tgt_np.size > 1
-           else abs(complex(tgt_np.ravel()[0])))
     delta_inc = diff.sum() / ref if ref > 1e-6 else None
     dmat = diff[:, None, None] * F_pot
     vpot = (2.0 / nh_F) * dmat.sum(dim=0)
@@ -335,6 +342,19 @@ def make_gs_vexp_device(exp: Exp, perm=None, *, dtype, device):
     targets = [exp.exp_data[0][i][1] if n != "mat"
                else dev(pmat(exp.exp_data[0][i][1]))
                for i, n in enumerate(names)]
+    # the device constants of the 'dip' and 'F' targets, uploaded once:
+    # the update makes no tensor from host data
+    consts = {}
+    for i, n in enumerate(names):
+        if n == "dip":
+            exp_np = np.asarray(targets[i], dtype=np.float64)
+            hf = exp.HF_prop[0][i]
+            consts[i] = (dev(exp_np),
+                         dev(np.abs(exp_np) if hf is None
+                             else np.abs(exp_np - np.asarray(hf))),
+                         dev(np.abs(exp_np) > 1e-6))
+        elif n == "F":
+            consts[i] = _f_target(targets[i], dtype, device)
     pot_mats = {}
     for k, v in exp.dic_int.items():
         v = np.real(np.asarray(v))
@@ -390,12 +410,8 @@ def make_gs_vexp_device(exp: Exp, perm=None, *, dtype, device):
                 vmax = vmax + dmat.abs().max()
             elif name == "dip":
                 calc = torch.einsum("xij,ji->x", trace_mats["dip"], rdm1)
-                exp_np = np.asarray(targets[i], dtype=np.float64)
-                exp_val = dev(exp_np)
+                exp_val, den, keep = consts[i]
                 diff = (exp_val - calc).abs()
-                den = dev(np.abs(exp_np) if hf is None
-                          else np.abs(exp_np - np.asarray(hf)))
-                keep = dev(np.abs(exp_np) > 1e-6)
                 delta = delta + torch.where(keep > 0, diff / den,
                                             torch.zeros_like(diff)).sum()
                 dmat = diff[:, None, None] * pot_mats["dip"]
@@ -403,7 +419,7 @@ def make_gs_vexp_device(exp: Exp, perm=None, *, dtype, device):
                 vmax = vmax + dmat.abs().amax(dim=(1, 2)).sum()
             else:   # 'F'
                 vpot, delta_inc, vmax_inc = _f_update(
-                    trace_mats["F"], pot_mats["F"], nh_F, targets[i], rdm1)
+                    trace_mats["F"], pot_mats["F"], nh_F, consts[i], rdm1)
                 if delta_inc is not None:
                     delta = delta + delta_inc
                 v = v + w * vpot
@@ -489,7 +505,7 @@ def make_es_vexp_device(exp: Exp, *, dtype, device):
             elif name in ("Ek", "v1e", "dip", "DEk", "trdip"):
                 targets[n, i] = relative(val)
             elif name == "F":
-                targets[n, i] = val
+                targets[n, i] = _f_target(val, dtype, device)
             else:
                 raise NotImplementedError(
                     f"device ES Vexp does not support {name!r}")

@@ -19,14 +19,14 @@ Three routes, as in the JAX package:
     device Davidson of utils/linalg.py.
   - `SolverES_Device.SCF`: the whole iteration on the device.  The JAX
     package compiles it as one lax.while_loop with jax.vmap over the
-    excited states; here it is a Python loop whose state stays on the
-    device and whose per-state work carries a leading state axis through
-    the einsums of ops/ccs.py.  Each iteration reads back ONE scalar, the
-    convergence measure; the positions of the extracted amplitudes are
-    found (argmax), read (gather) and written (scatter) with index tensors,
-    and the DIIS ring of ops/diis.py stays on the device.  Nothing in the
-    body depends on a host value but that scalar, so the body can be
-    captured into a CUDA graph as it is.
+    excited states; here it is a solvers/device_loop.Loop whose state
+    stays on the device and whose per-state work carries a leading state
+    axis through the einsums of ops/ccs.py.  On the card the iteration is
+    captured once as a CUDA graph and replayed; each iteration reads back
+    ONE flag, whether the loop goes on.  The positions of the extracted
+    amplitudes are found (argmax), read (gather) and written (scatter)
+    with index tensors, the histories are written at the iteration's
+    tensor index, and the DIIS ring of ops/diis.py stays on the device.
 
 The solvers take the ERIs in the reference (alternating) MO layout.
 """
@@ -40,6 +40,7 @@ from ecw_cc_torch.models.eris import warn_if_sorted_layout
 from ecw_cc_torch.models.scf import HostDIIS
 from ecw_cc_torch.ops import ccs as ccs_ops
 from ecw_cc_torch.ops import diis as diis_ops
+from ecw_cc_torch.solvers import device_loop
 from ecw_cc_torch.solvers.gs import (CONVERGED, DIVERGED, MAXITER, RUNNING,
                                      _conv_text, _record_metrics)
 from ecw_cc_torch.utils import linalg as ulinalg
@@ -763,70 +764,71 @@ class SolverES_Device:
 
         nvec = {"GS": 2 * nov, "ES": 2 * n_es * nov + 2 * n_es,
                 "all": 2 * nov + 2 * n_es * nov + 2 * n_es}.get(diis)
-        dstate = (diis_ops.diis_init(nvec, s.maxdiis, dtype=dt, device=dev)
-                  if nvec else None)
+        ring = (tuple(diis_ops.diis_init(nvec, s.maxdiis, dtype=dt,
+                                         device=dev)) if nvec else ())
         hist = maxiter + 2
         Ep_h = torch.zeros((hist, n_states, 2), dtype=dt, device=dev)
         Delta_h = torch.zeros((hist, n_states, n_states), dtype=dt,
                               device=dev)
         zeros_es = torch.zeros(n_es, dtype=dt, device=dev)
         conv = torch.zeros_like(self._conv_vec(ts, ls, rn, ln, Ep_h[0]))
-        Dconv_v = 1.0
-        ite = k = 0
-        status = RUNNING
-        while Dconv_v > thres and status == RUNNING:
-            conv_old = conv
+        f64 = torch.float64
+
+        def body(state):
+            # one coupled iteration (JAX es.py:643-842): every decision a
+            # tensor, every write at a tensor index
+            (_, ts, ls, rn, ln, r0n, l0n, conv_old, Dconv, ite, k, status,
+             Ep_h, Delta_h, *ring) = state
             (ts, ls, rnew, lnew, r0new, l0new, Em_r, Em_l, fsp0, V0n,
              Delta) = self.step(eris, {"ts": ts, "ls": ls, "rn": rn, "ln": ln,
                                        "r0n": r0n, "l0n": l0n},
                                 ov, Lflat, force_alpha)
-
-            if diis == "GS":
-                dstate, vec = diis_ops.diis_update(
-                    dstate, torch.cat([ls.reshape(-1), ts.reshape(-1)]),
-                    s.mindiis)
-                ls = vec[:nov].reshape(nocc, nvir)
-                ts = vec[nov:].reshape(nocc, nvir)
-            elif diis == "ES":
-                dstate, vec = diis_ops.diis_update(
-                    dstate, torch.cat([rnew.reshape(-1), lnew.reshape(-1),
-                                       r0new, l0new]), s.mindiis)
-                rnew = vec[:n_es * nov].reshape(n_es, nocc, nvir)
-                lnew = vec[n_es * nov:2 * n_es * nov].reshape(n_es, nocc, nvir)
-                r0new = vec[2 * n_es * nov:2 * n_es * nov + n_es]
-                l0new = vec[-n_es:]
-            elif diis == "all":
-                dstate, vec = diis_ops.diis_update(
-                    dstate, torch.cat([ts.reshape(-1), ls.reshape(-1),
-                                       rnew.reshape(-1), lnew.reshape(-1),
-                                       r0new, l0new]), s.mindiis)
-                ts = vec[:nov].reshape(nocc, nvir)
-                ls = vec[nov:2 * nov].reshape(nocc, nvir)
-                rnew = vec[2 * nov:2 * nov + n_es * nov
-                           ].reshape(n_es, nocc, nvir)
-                lnew = vec[2 * nov + n_es * nov:2 * nov + 2 * n_es * nov
-                           ].reshape(n_es, nocc, nvir)
-                r0new = vec[-2 * n_es:-n_es]
-                l0new = vec[-n_es:]
+            if diis:
+                parts = {"GS": (ls, ts), "ES": (rnew, lnew, r0new, l0new),
+                         "all": (ts, ls, rnew, lnew, r0new, l0new)}[diis]
+                st, vec = diis_ops.diis_update(
+                    diis_ops.DIISState(*ring),
+                    torch.cat([x.reshape(-1) for x in parts]), s.mindiis)
+                ring = tuple(st)
+                out, i = [], 0
+                for x in parts:
+                    out.append(vec[i:i + x.numel()].reshape(x.shape))
+                    i += x.numel()
+                if diis == "GS":
+                    ls, ts = out
+                elif diis == "ES":
+                    rnew, lnew, r0new, l0new = out
+                else:
+                    ts, ls, rnew, lnew, r0new, l0new = out
 
             rn, ln, r0n, l0n = rnew, lnew, r0new, l0new
             Ep0 = ccs_ops.energy_ccs(eris, ts, fsp0, rsn=rn, r0n=r0n, vn=V0n)
             Ep = torch.stack([torch.cat([Ep0.reshape(1), Em_r]),
                               torch.cat([zeros_es[:1], Em_l])], dim=1)
             conv = self._conv_vec(ts, ls, rn, ln, Ep)
-            Ep_h[k] = Ep
-            Delta_h[k] = Delta
-            if ite > 0:
-                # the one read of the iteration
-                Dconv_v = float(torch.linalg.norm(conv - conv_old))
-            if ite >= maxiter:
-                status = MAXITER
-            elif not Dconv_v <= 10.0:
-                # NaN included: it compares false with the threshold
-                status = DIVERGED
-            else:
-                ite += 1
-            k += 1
+            Ep_h.index_put_((k,), Ep)
+            Delta_h.index_put_((k,), Delta)
+            Dconv = torch.where(
+                ite > 0, torch.linalg.norm(conv - conv_old).to(f64), Dconv)
+            # NaN included: it compares false with the threshold
+            status = torch.where(ite >= maxiter, MAXITER,
+                                 torch.where(Dconv <= 10.0, status,
+                                             DIVERGED))
+            ite = torch.where(status == RUNNING, ite + 1, ite)
+            go = (Dconv > thres) & (status == RUNNING)
+            return (go, ts, ls, rn, ln, r0n, l0n, conv, Dconv, ite, k + 1,
+                    status, Ep_h, Delta_h, *ring)
+
+        i0 = torch.zeros((), dtype=torch.int64, device=dev)
+        log = {}
+        (_, ts, ls, rn, ln, r0n, l0n, _, _, ite, k, status, Ep_h,
+         Delta_h, *_) = device_loop.Loop(body)(
+            (torch.full((), 1.0 > thres, dtype=torch.bool, device=dev),
+                   ts, ls, rn, ln, r0n, l0n, conv,
+                   torch.ones((), dtype=f64, device=dev), i0, i0.clone(),
+                   torch.full_like(i0, RUNNING), Ep_h, Delta_h, *ring),
+            log)
+        ite, k, status = int(ite), int(k), int(status)
         if status == RUNNING:
             status = CONVERGED
 
@@ -836,7 +838,8 @@ class SolverES_Device:
         Ep_h, Delta_h = _np(Ep_h), _np(Delta_h)
         Ep = Ep_h[k - 1] if k else Ep_h[0]
         Delta = Delta_h[k - 1] if k else Delta_h[0]
-        self.last_solve = {"L": L, "iterations": k, "status": status}
+        self.last_solve = {"L": L, "iterations": k, "status": status,
+                           "loops": [log]}
         _record_metrics(self, "ES_device", L if np.isscalar(L) else 0.0,
                         Ep_h[:k, 0, 0], Delta_h[:k, 0, 0], [])
         return _conv_text(status, L, ite), dic_amp, Delta, Ep, rdm1_gs

@@ -27,9 +27,13 @@ JAX loop (gs.py:681-1067), chosen per solver:
     against eris.vvvv).
 Every ladder product is a launch of the hand-written GEMM kernel.
 
-The JAX package compiles the solve as one lax.while_loop.  Here it is a
-Python loop whose state stays on the device; each iteration reads back one
-scalar, the convergence measure Dconv, for the loop test.  Public
+The JAX package compiles the solve as one lax.while_loop.  Here each leg
+is a body over device tensors, every decision of the loop a tensor, run by
+solvers/device_loop.py: on the card one iteration is captured as a CUDA
+graph and replayed, each iteration reading back one flag, whether any
+lane is still active.  The set-up and the loops are kept on the solver
+for its next SCF call with the same arguments (the lambdas of a sweep),
+until release_graphs().  Public
 amplitudes and rdm1s are in the reference (alternating) spin convention:
 on the sorted layout they are sorted once on entry and unsorted once on
 exit.
@@ -37,8 +41,8 @@ exit.
 Precision (config.iter_precision, JAX gs.py:732-1038): each leg of the
 loop runs under config.matmul_precision of its mode; under 'bf16' the
 t/lambda updates read bf16 copies of the ERI blocks, the ladder operand
-(and, on the sectored route, their blocked views), built once per SCF
-call, and bf16 amplitudes, while rdm1, Vexp, the energy, DIIS and the
+(and, on the sectored route, their blocked views), built once per set-up
+(_setup), and bf16 amplitudes, while rdm1, Vexp, the energy, DIIS and the
 convergence test stay in the loop's dtype; 'hybrid' runs a leg at
 config.hybrid_fast, then a 'highest' leg with a fresh DIIS ring.
 SCF(refine=True) follows the solve with polish_f64, f64 iterations on the
@@ -47,9 +51,8 @@ amplitudes' own device.
 SCF_batch (JAX gs.py:1131-1179) solves every lambda of a sweep at once:
 one iteration step, the one SCF calls, runs under torch.func.vmap over a
 leading lambda axis, so each ladder product launches once with the lanes
-stacked into its rows; the loop, the legs, the stall detector and the
-per-lane freeze stay outside it, and the loop reads one scalar per
-iteration, whether any lane is still active.
+stacked into its rows; the legs, the stall detector and the per-lane
+freeze stay outside it, in the loop's body.
 
 On a device mesh (ERIs, ladder operand or amplitudes split as
 parallel/sharding.py places them, JAX SCF_device(ts=, ls=, td=, ld=))
@@ -67,6 +70,7 @@ SCF_device names SCF on both solvers, as in the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 import types
@@ -90,6 +94,7 @@ from ecw_cc_torch.ops.ladder import (PackedVVVV, SectoredVVVV,
 from ecw_cc_torch.ops.l1reg import subdiff
 from ecw_cc_torch.ops.vexp import make_gs_vexp_device
 from ecw_cc_torch.parallel import sharding
+from ecw_cc_torch.solvers import device_loop
 from ecw_cc_torch.utils.metrics import IterationMetrics
 
 # the iter_precision modes whose float32 ladder products run TF32
@@ -139,14 +144,6 @@ def _conv_text(status, L, n_ite, alpha=None, ccsd=False):
     if status == MAXITER:
         return "Max iteration reached"
     return f"Diverges for lambda = {L} after {n_ite} iterations"
-
-
-_RING = ("xs", "errs", "last", "B")   # the DIIS ring's tensors
-
-
-def _ring_tensors(ring):
-    """The tensors of the DIIS ring in ring[0], () without one."""
-    return tuple(getattr(ring[0], f) for f in _RING) if ring[0] else ()
 
 
 def _to_tensor(a, dtype, device):
@@ -201,8 +198,9 @@ class Solver_CCS:
 
     def SCF(self, L, ts=None, ls=None, diis="", alpha=None, store_ite=False):
         """SCF+DIIS solve at constraint weight L (reference
-        Solver_GS.py:101-239): a Python loop whose state stays on the
-        device, one scalar read per iteration.  Returns the reference
+        Solver_GS.py:101-239): a device_loop.Loop whose state stays on the
+        device (a replayed graph on the card), one flag read per
+        iteration.  Returns the reference
         6-tuple (conv_text, Ep_it, Delta_it, conv_it, rdm1, (ts, ls)) as
         NumPy arrays.
 
@@ -219,58 +217,76 @@ class Solver_CCS:
         nocc, nvir = self.nocc, self.nvir
         n1, dim = nocc * nvir, nocc + nvir
         dev, dt, maxiter = self.device, self.dtype, self.maxiter
+        f64, thres = torch.float64, self.conv_thres
         vexp_fn = make_gs_vexp_device(self.myVexp, dtype=dt, device=dev)
         Lw = self.myVexp.L_check(L)[0]
+        rows = torch.arange(4, device=dev)
+
+        def body(state):
+            # one iteration (JAX gs.py:203-310): every decision a tensor,
+            # every write at a tensor index
+            (_, ts, ls, rdm1, conv_old, Dconv, ite, k, status, hist,
+             *rest) = state
+            ring = tuple(rest[:len(rest) - 2 * store_ite])
+            ite_bufs = rest[len(ring):]
+            V, Delta, vmax = vexp_fn(rdm1, Lw)
+            fsp = eris.fock - V
+            T1i = ccs_ops.T1inter(eris, ts, fsp)
+            ts = (ccs_ops.tsupdate(eris, ts, T1i) if alpha is None
+                  else ccs_ops.tsupdate_L1(eris, ts, T1i, alpha))
+            L1i = ccs_ops.L1inter(eris, ts, fsp)
+            ls = (ccs_ops.lsupdate(eris, ts, ls, L1i) if alpha is None
+                  else ccs_ops.lsupdate_L1(eris, ls, L1i, alpha))
+            if diis == "tl":
+                st, vec = diis_ops.diis_update(
+                    diis_ops.DIISState(*ring),
+                    torch.cat([ls.reshape(-1), ts.reshape(-1)]),
+                    self.mindiis)
+                ring = tuple(st)
+                ls = vec[:n1].reshape(nocc, nvir)
+                ts = vec[n1:].reshape(nocc, nvir)
+            rdm1 = ccs_ops.gamma_CCS(ts, ls)
+            if diis == "rdm1":
+                st, vec = diis_ops.diis_update(
+                    diis_ops.DIISState(*ring), rdm1.reshape(-1),
+                    self.mindiis)
+                ring = tuple(st)
+                rdm1 = vec.reshape(dim, dim)
+            Ep = ccs_ops.energy_ccs(eris, ts, fsp)
+            conv = self._conv_vec(ts, ls, fsp)
+            Dconv = torch.where(ite > 0, torch.linalg.norm(conv - conv_old),
+                                Dconv)
+            hist.index_put_((rows, k), torch.stack([Ep, Delta, vmax, Dconv]))
+            D64 = Dconv.to(f64)     # compared as the host float it was
+            status = torch.where(ite >= maxiter, MAXITER,
+                                 torch.where(D64 > 10.0, DIVERGED, status))
+            for buf, x in zip(ite_bufs, (ts, ls)):
+                # row ite is read only if this iteration counts
+                buf.index_put_((ite,), x)
+            ite = torch.where(status == RUNNING, ite + 1, ite)
+            go = (D64 > thres) & (status == RUNNING)
+            return (go, ts, ls, rdm1, conv, Dconv, ite, k + 1, status, hist,
+                    *ring, *ite_bufs)
+
         with torch.no_grad():
             rdm1 = ccs_ops.gamma_CCS(ts, ls)
-            dstate = (diis_ops.diis_init(2 * n1 if diis == "tl" else dim * dim,
-                                         self.maxdiis, dtype=dt, device=dev)
-                      if diis else None)
+            ring = (tuple(diis_ops.diis_init(
+                2 * n1 if diis == "tl" else dim * dim, self.maxdiis,
+                dtype=dt, device=dev)) if diis else ())
             conv = torch.zeros_like(self._conv_vec(ts, ls, eris.fock))
             hist = torch.zeros((4, maxiter + 2), dtype=dt, device=dev)
-            if store_ite:
-                ts_ite, ls_ite = (torch.zeros((maxiter + 2, nocc, nvir),
-                                              dtype=dt, device=dev)
-                                  for _ in range(2))
-            Dconv, Dconv_v = torch.ones((), dtype=dt, device=dev), 1.0
-            ite = k = 0
-            status = RUNNING
-            while Dconv_v > self.conv_thres and status == RUNNING:
-                conv_old = conv
-                V, Delta, vmax = vexp_fn(rdm1, Lw)
-                fsp = eris.fock - V
-                T1i = ccs_ops.T1inter(eris, ts, fsp)
-                ts = (ccs_ops.tsupdate(eris, ts, T1i) if alpha is None
-                      else ccs_ops.tsupdate_L1(eris, ts, T1i, alpha))
-                L1i = ccs_ops.L1inter(eris, ts, fsp)
-                ls = (ccs_ops.lsupdate(eris, ts, ls, L1i) if alpha is None
-                      else ccs_ops.lsupdate_L1(eris, ls, L1i, alpha))
-                if diis == "tl":
-                    dstate, vec = diis_ops.diis_update(
-                        dstate, torch.cat([ls.reshape(-1), ts.reshape(-1)]),
-                        self.mindiis)
-                    ls = vec[:n1].reshape(nocc, nvir)
-                    ts = vec[n1:].reshape(nocc, nvir)
-                rdm1 = ccs_ops.gamma_CCS(ts, ls)
-                if diis == "rdm1":
-                    dstate, vec = diis_ops.diis_update(
-                        dstate, rdm1.reshape(-1), self.mindiis)
-                    rdm1 = vec.reshape(dim, dim)
-                Ep = ccs_ops.energy_ccs(eris, ts, fsp)
-                conv = self._conv_vec(ts, ls, fsp)
-                if ite > 0:
-                    Dconv = torch.linalg.norm(conv - conv_old)
-                    Dconv_v = float(Dconv)       # the one read per iteration
-                hist[:, k] = torch.stack([Ep, Delta, vmax, Dconv])
-                if ite >= maxiter:
-                    status = MAXITER
-                elif Dconv_v > 10.0:
-                    status = DIVERGED
-                else:
-                    if store_ite:
-                        ts_ite[ite], ls_ite[ite] = ts, ls
-                    ite += 1
-                k += 1
+            ite_bufs = tuple(torch.zeros((maxiter + 2, nocc, nvir),
+                                         dtype=dt, device=dev)
+                             for _ in range(2 * store_ite))
+            i0 = torch.zeros((), dtype=torch.int64, device=dev)
+            go = torch.full((), 1.0 > thres, dtype=torch.bool, device=dev)
+            log = {}
+            (_, ts, ls, rdm1, _, _, ite, k, status, hist,
+             *rest) = device_loop.Loop(body)(
+                (go, ts, ls, rdm1, conv,
+                 torch.ones((), dtype=dt, device=dev), i0, i0.clone(),
+                 torch.full_like(i0, RUNNING), hist, *ring, *ite_bufs), log)
+        ite, k, status = int(ite), int(k), int(status)
         if status == RUNNING:
             status = CONVERGED
         Ep_h, Delta_h, vmax_h, conv_h = hist[:, :k].cpu().numpy()
@@ -278,10 +294,12 @@ class Solver_CCS:
         Delta_it = np.stack([Delta_h, vmax_h], axis=1)
         # keep the host Vexp state consistent for later property queries
         self.myVexp.Vexp_update(rdm1, rdm1, (0, 0), L=L)
-        self.last_solve = {"L": L, "iterations": k, "status": status}
+        self.last_solve = {"L": L, "iterations": k, "status": status,
+                           "loops": [log]}
         _record_metrics(self, "CCS_device", L, Ep_h, Delta_it, conv_h)
         text = _conv_text(status, L, ite)
         if store_ite:
+            ts_ite, ls_ite = rest[-2:]
             return (text, Ep_h, Delta_it, conv_h, rdm1,
                     ts_ite[:ite].cpu().numpy(), ls_ite[:ite].cpu().numpy())
         return (text, Ep_h, Delta_it, conv_h, rdm1,
@@ -476,6 +494,7 @@ class Solver_CCSD:
         self.tdini = self._amp(tdini)
         self.ldini = self._amp(ldini)
         self._eris_sym_checked = None
+        self._kept = None     # (key, set-up, weights, loops): _solve
 
     def _amp(self, a, zeros_shape=None):
         if a is None:
@@ -626,7 +645,7 @@ class Solver_CCSD:
         with torch.no_grad():
             out = self._solve([L], amps0, alpha=alpha, diis=diis or self.diis,
                               sectored=route == "sectored", sym=sym)
-        ts, ls, td, ld, rdm1, ite, k, status, hist, legs = out
+        ts, ls, td, ld, rdm1, ite, k, status, hist, legs, loops = out
         ite, k, status = int(ite[0]), int(k[0]), int(status[0])
         Ep_h, Delta_h, vmax_h, conv_h = hist[0]
         # wall time to solution: _solve ends in a device->host copy
@@ -634,6 +653,7 @@ class Solver_CCSD:
                            "route": route, "sym": sym,
                            "precision": get_config().iter_precision,
                            "legs": [(m, n[0], d[0]) for m, n, d in legs],
+                           "loops": loops,
                            "ms": (time.perf_counter() - t0) * 1e3}
         text = _conv_text(status, L, ite, alpha=alpha, ccsd=True)
         Delta_it = np.stack([Delta_h[:k], vmax_h[:k]], axis=1)
@@ -662,6 +682,12 @@ class Solver_CCSD:
                         conv_h[:k])
         return (text, Ep_h[:k], Delta_it, conv_h[:k], rdm1, amps)
 
+    def release_graphs(self):
+        """Free the set-up and the captured loops (their graphs, pools and
+        static state) that SCF and SCF_batch keep for the next call with
+        the same arguments; ECW.CCSD_GS calls it after its sweep."""
+        self._kept = None
+
     def _polish_eris(self):
         """eris_host as f64 tensors on the solve's device, moved once per
         solver (JAX uploads them per polish)."""
@@ -673,7 +699,7 @@ class Solver_CCSD:
         return self._eris64
 
     def _bf16_operands(self, eris, vv, sectored, sym):
-        """The 'bf16' mode's update operands, built once per SCF call (JAX
+        """The 'bf16' mode's update operands, built once per set-up (JAX
         gs.py:922-936): every ERI block but fock and the ladder operand in
         bf16, and on the sectored route their blocked views; fock stays in
         the loop's dtype, so the denominators divide there."""
@@ -710,13 +736,13 @@ class Solver_CCSD:
                               alpha=alpha, diis=diis or self.diis,
                               sectored=route == "sectored", sym=sym)
         ts, ls, td, ld, rdm1 = (a.cpu().numpy() for a in out[:5])
-        ite, k, status, hist, legs = out[5:]
+        ite, k, status, hist, legs, loops = out[5:]
         self.last_solve = {"L": list(Larray), "lanes": len(Larray),
                            "iterations": k.tolist(),
                            "status": status.tolist(), "route": route,
                            "sym": sym,
                            "precision": get_config().iter_precision,
-                           "legs": legs,
+                           "legs": legs, "loops": loops,
                            "ms": (time.perf_counter() - t0) * 1e3,
                            "ladder_launches": ladder_mm.launches - n0}
         results = []
@@ -767,8 +793,9 @@ class Solver_CCSD:
         upd_bf = (self._bf16_operands(eris, vv, sectored, sym)
                   if any(mode == "bf16" for mode, _ in legs) else None)
         # the TF32 modes' ladder operand, rounded into TMA-ready rows once
-        # per SCF call (the dense route's vvvv view is rounded by the
-        # kernel instead: it is never copied)
+        # per set-up, which the captured loops keep alive with the TMA
+        # descriptors that hold its address (the dense route's vvvv view
+        # is rounded by the kernel instead: it is never copied)
         vv_tf = (vv.to("tf32") if vv is not None and dt == torch.float32
                  and any(m in TF32_MODES for m, _ in legs) else vv)
         dim = nocc + nvir
@@ -782,38 +809,36 @@ class Solver_CCSD:
             vexp_fn=make_gs_vexp_device(self.myVexp, perm=self.mo_perm,
                                         dtype=dt, device=self.device))
 
-    def _conv_vec(self, su, ts, ls, td, ld, fsp):
-        if self.conv == "tl":
-            return torch.cat([su.p_ov(ls.abs() + ts.abs()),
-                              su.p_4(ld.abs() + td.abs())])
-        if self.conv == "l":
-            return torch.cat([su.p_ov(ls), su.p_4(ld)])
-        return ccsd_ops.energy(su.eris, ts, td, fsp).reshape(1)
-
-    def _fresh_diis(self, su, lanes):
+    def _fresh_diis(self, su, lanes, reset=False):
         return (diis_ops.diis_init(su.nvec, self.maxdiis, dtype=self.dtype,
-                                   device=self.device, lanes=lanes)
+                                   device=self.device, lanes=lanes,
+                                   reset=reset)
                 if su.diis else None)
 
-    def _make_step(self, su, mode, alpha, ring):
+    def _make_step(self, su, mode, alpha):
         """One iteration of the leg at precision `mode`, as a function
 
             step(amps, ring_t, conv, Lw) ->
                 (amps, ring_t, conv, rdm1, Ep, Delta, vmax,
                  |conv - conv_old|)
 
-        of one lane's amplitudes (ts, ls, td, ld), DIIS ring tensors (xs,
-        errs, last, B; () without DIIS), convergence vector and Vexp
-        weights (a list of numbers, or a tensor of them).
+        of one lane's amplitudes (ts, ls, td, ld), DIIS ring (the fields of
+        a DIISState, in order; () without DIIS), convergence vector and
+        Vexp weights (a device tensor, one per property).
         The ERIs, the ladder operand and the leg's update operands are
         closed over: _solve calls the step directly on one lane, and
         through torch.func.vmap over a leading lambda axis of every
-        argument on several, so that each ladder product stacks the lanes
-        into its rows and launches once.  ring: a one-element list holding
-        the DIIS ring's bookkeeping (a DIISState, whose Python integers the
-        lanes share); the step replaces it."""
+        argument on several (but the ring's SHARED_FIELDS, which the lanes
+        share), so that each ladder product stacks the lanes into its
+        rows and launches once."""
         su_eris, info, sectored, sym = su.eris, su.info, su.sectored, su.sym
         diis, dim, dt = su.diis, self.nocc + self.nvir, self.dtype
+        # the step closes over no reference to the solver: a solver that
+        # keeps its captured loops is then freed as soon as it is dropped
+        # (a cycle would leave the graphs to the garbage collector, which
+        # may run in the middle of another loop's capture)
+        conv_kind, mindiis = self.conv, self.mindiis
+        energy_term = self.energy_term
         n_ov, n_4 = su.n_ov, su.n_4
         p_ov, p_4, u_ov, u_4 = su.p_ov, su.p_4, su.u_ov, su.u_4
         # the bf16 leg's update operands; rdm1, Vexp, the energy, DIIS and
@@ -825,9 +850,9 @@ class Solver_CCSD:
                 else (lambda x: x.to(torch.bfloat16)))
 
         def diis_step(ring_t, x):
-            st = ring[0]._replace(**dict(zip(_RING, ring_t)))
-            ring[0], vec = diis_ops.diis_update(st, x, self.mindiis)
-            return tuple(getattr(ring[0], f) for f in _RING), vec
+            st, vec = diis_ops.diis_update(diis_ops.DIISState(*ring_t), x,
+                                           mindiis)
+            return tuple(st), vec
 
         def step(amps, ring_t, conv, Lw):
             ts, ls, td, ld = amps
@@ -872,7 +897,7 @@ class Solver_CCSD:
                     sym=sym, tau_pre=tau_pre)
                 ls, ld = ccsd_sect.lupdate_sect(
                     er_u, cast(ts), cast(td), ls_u, ld_u, fsp_u, info,
-                    alpha=alpha, energy_term=self.energy_term,
+                    alpha=alpha, energy_term=energy_term,
                     vvvv_op=vv_u, ladder_pre=ladder_l, eris_sb=sb_u,
                     sym=sym)
             else:
@@ -883,7 +908,7 @@ class Solver_CCSD:
                 # update reads them in bf16 again
                 ls, ld = ccsd_ops.lupdate(
                     er_u, cast(ts), cast(td), ls_u, ld_u, fsp=fsp_u,
-                    alpha=alpha, energy_term=self.energy_term,
+                    alpha=alpha, energy_term=energy_term,
                     vvvv_op=vv_u, ladder_pre=ladder_l)
             ts, td, ls, ld = (x.to(dt) for x in (ts, td, ls, ld))
             vec = None
@@ -895,7 +920,7 @@ class Solver_CCSD:
                 ts = u_ov(vec[n_ov:2 * n_ov])
                 ld = u_4(vec[2 * n_ov:2 * n_ov + n_4])
                 td = u_4(vec[2 * n_ov + n_4:])
-            if vec is not None and self.conv == "tl":
+            if vec is not None and conv_kind == "tl":
                 # the DIIS vector already holds the components conv_vec
                 # would gather
                 conv = torch.cat([
@@ -903,7 +928,7 @@ class Solver_CCSD:
                     vec[2 * n_ov:2 * n_ov + n_4].abs()
                     + vec[2 * n_ov + n_4:].abs()])
             else:
-                conv = self._conv_vec(su, ts, ls, td, ld, fsp)
+                conv = _ccsd_conv_vec(conv_kind, su, ts, ls, td, ld, fsp)
             return ((ts, ls, td, ld), ring_t, conv, rdm1, Ep, Delta, vmax,
                     torch.linalg.norm(conv - conv_old))
 
@@ -935,22 +960,41 @@ class Solver_CCSD:
         lane is active while its solve would still iterate; an inactive
         lane keeps its amplitudes, convergence vector, Dconv, status,
         counters and rdm1 (torch.where), and the loop ends when no lane is
-        active, which it reads once per iteration.  Returns the per-lane
-        amplitudes and rdm1 (device tensors with a leading lane axis),
-        iterations, steps, status and hist (NumPy; hist: (lanes, 4,
-        maxiter + 2)), and the legs' log [(mode, steps, Dconv) per lane]."""
-        su = self._setup(diis, sectored, sym)
+        active.  Each leg is one device_loop.Loop over `body`, whose every
+        decision is a tensor (JAX body_impl/body_fast, gs.py:772-1019):
+        on the card the leg replays a captured graph and reads one flag
+        per iteration, whether any lane is still active.  Returns the
+        per-lane amplitudes and rdm1 (device tensors with a leading lane
+        axis), iterations, steps, status and hist (NumPy; hist: (lanes, 4,
+        maxiter + 2)), the legs' log [(mode, steps, Dconv) per lane] and
+        the loops' logs (one per leg).  The set-up and the legs' loops are
+        kept for the next call with the same arguments (release_graphs)."""
         dev, dt, f64 = self.device, self.dtype, torch.float64
         thres, maxiter = self.conv_thres, self.maxiter
         nL = len(Ls)
-        Lw = (self.myVexp.L_check(Ls[0])[0] if nL == 1 else
-              torch.tensor([self.myVexp.L_check(L)[0] for L in Ls],
-                           dtype=dt, device=dev))
+        Lw_host = torch.tensor([self.myVexp.L_check(L)[0] for L in Ls],
+                               dtype=dt)
+        # the set-up and the legs' loops are kept for the next call with
+        # the same arguments and config (the lambdas of a sweep): its
+        # loops start replaying at once.  The weights are a device tensor
+        # the kept bodies read, refilled per call
+        key = (nL, alpha, diis, sectored, sym,
+               dataclasses.astuple(get_config()), self.conv,
+               self.conv_thres, self.maxiter, self.mindiis, self.maxdiis,
+               self.energy_term, tuple(Lw_host.shape))
+        if self._kept is None or self._kept[0] != key:
+            self.release_graphs()
+            su = self._setup(diis, sectored, sym)
+            self._kept = (key, su, torch.empty_like(Lw_host, device=dev),
+                          [None] * len(su.legs))
+        _, su, Lw_t, loops = self._kept
+        Lw_t.copy_(Lw_host)
+        Lw = Lw_t[0] if nL == 1 else Lw_t
         amps0 = self._sort_in(*amps0)
         # one materialized copy per lane
         amps = tuple(a.unsqueeze(0).repeat(nL, *(1,) * a.dim())
                      for a in amps0)
-        conv0 = self._conv_vec(su, *amps0, su.eris.fock)
+        conv0 = _ccsd_conv_vec(self.conv, su, *amps0, su.eris.fock)
         conv = conv0.new_zeros((nL,) + conv0.shape)
         hist = torch.zeros((nL, 4, maxiter + 2), dtype=dt, device=dev)
         # the lane controls: Dconv (compared in f64, as the host float the
@@ -965,7 +1009,7 @@ class Solver_CCSD:
         keep = ((lambda act, new, old: new) if nL == 1 else
                 lambda act, new, old: torch.where(
                     act.view((-1,) + (1,) * (new.dim() - 1)), new, old))
-        leg_log = []
+        leg_log, loop_log = [], []
         for leg, (mode, stop) in enumerate(su.legs):
             # a fresh DIIS ring per leg: the 'highest' leg of 'hybrid' (JAX
             # gs.py:1019-1035) must not extrapolate over the fast leg's
@@ -974,75 +1018,123 @@ class Solver_CCSD:
             # again, and the freeze's copy of the history (~1.3 GB per
             # iteration at cc-pVTZ, as the JAX package notes) would cost
             # more than the step it guards
-            ring = [self._fresh_diis(su, lanes=nL)]
+            # (a kept loop's ring is emptied by copies of broadcast zeros:
+            # a fresh one would cost the history's size again)
+            ring = self._fresh_diis(
+                su, lanes=nL,
+                reset=loops[leg] is not None and loops[leg].captured)
+            ring = tuple(ring) if ring is not None else ()
+            ring_dims = ((0,) * len(diis_ops.LANE_FIELDS)
+                         + (None,) * len(diis_ops.SHARED_FIELDS)
+                         if ring else 0)
             if leg:
                 # at least one full-precision iteration per running lane
                 Dconv = torch.where(status == RUNNING,
                                     Dconv.clamp(min=1.5 * thres), Dconv)
-            step = self._make_step(su, mode, alpha, ring)
-            step = torch.func.vmap(step) if nL > 1 else _one_lane(step)
+            step = self._make_step(su, mode, alpha)
+            step = (torch.func.vmap(
+                step, in_dims=(0, ring_dims, 0, 0),
+                out_dims=(0, ring_dims, 0, 0, 0, 0, 0, 0))
+                if nL > 1 else _one_lane(step, ring_dims))
             # the fast leg of 'hybrid' also ends when Dconv stalls: 3
             # iterations without a new best below 0.95 * best
             stall_on = len(su.legs) > 1 and leg == 0
             dmin = torch.full((nL,), float("inf"), dtype=f64, device=dev)
             stall = torch.zeros_like(ite)
             k0 = k.clone()
-            with matmul_precision(mode):
-                while True:
-                    active = (Dconv > stop) & (status == RUNNING)
-                    if stall_on:
-                        active &= stall < 3
-                    if not bool(active.any()):   # the one read per iteration
-                        break
-                    (new_amps, ring_t, conv_n, rdm1_n, Ep, Delta, vmax,
-                     dnorm) = step(amps, _ring_tensors(ring), conv, Lw)
-                    if ring_t:
-                        # the lanes' rings as the step returns them
-                        ring[0] = ring[0]._replace(**dict(zip(_RING,
-                                                              ring_t)))
-                    amps = tuple(keep(active, a, b)
-                                 for a, b in zip(new_amps, amps))
-                    conv = keep(active, conv_n, conv)
-                    rdm1 = keep(active, rdm1_n, rdm1)
-                    Dconv = torch.where(ite > 0,
-                                        keep(active, dnorm.to(f64), Dconv),
-                                        Dconv)
-                    # column k of every lane: an inactive lane's k is one
-                    # past its history, which is read only up to k
-                    col = torch.stack([Ep, Delta, vmax, Dconv.to(dt)], dim=1)
-                    hist.scatter_(2, k.view(nL, 1, 1).expand(nL, 4, 1),
-                                  col[:, :, None])
-                    status = keep(active, torch.where(
-                        ite >= maxiter, MAXITER,
-                        torch.where(Dconv > 1.0, DIVERGED, status)), status)
-                    ite = keep(active, torch.where(status == RUNNING, ite + 1,
-                                                   ite), ite)
-                    k = keep(active, k + 1, k)
-                    if stall_on:
-                        # (the first iteration's Dconv is a placeholder)
-                        upd = active & (ite > 1)
-                        stall = torch.where(
-                            upd, torch.where(Dconv < 0.95 * dmin, 0,
-                                             stall + 1), stall)
-                        dmin = torch.where(upd, torch.minimum(dmin, Dconv),
-                                           dmin)
+            nr = len(ring)
+
+            def active_of(Dconv, status, stall, stop=stop,
+                          stall_on=stall_on):
+                act = (Dconv > stop) & (status == RUNNING)
+                return act & (stall < 3) if stall_on else act
+
+            def body(state, step=step, nr=nr, stall_on=stall_on,
+                     active_of=active_of):
+                (_, ts, ls, td, ld, *rest) = state
+                ring_t, rest = tuple(rest[:nr]), rest[nr:]
+                conv, rdm1, Dconv, ite, k, status, hist, stall, dmin = rest
+                amps = (ts, ls, td, ld)
+                active = active_of(Dconv, status, stall)
+                (new_amps, ring_t, conv_n, rdm1_n, Ep, Delta, vmax,
+                 dnorm) = step(amps, ring_t, conv, Lw)
+                amps = tuple(keep(active, a, b)
+                             for a, b in zip(new_amps, amps))
+                conv = keep(active, conv_n, conv)
+                rdm1 = keep(active, rdm1_n, rdm1)
+                Dconv = torch.where(ite > 0,
+                                    keep(active, dnorm.to(f64), Dconv),
+                                    Dconv)
+                # column k of every lane: an inactive lane's k is one past
+                # its history, which is read only up to k
+                col = torch.stack([Ep, Delta, vmax, Dconv.to(dt)], dim=1)
+                hist.scatter_(2, k.view(nL, 1, 1).expand(nL, 4, 1),
+                              col[:, :, None])
+                status = keep(active, torch.where(
+                    ite >= maxiter, MAXITER,
+                    torch.where(Dconv > 1.0, DIVERGED, status)), status)
+                ite = keep(active, torch.where(status == RUNNING, ite + 1,
+                                               ite), ite)
+                k = keep(active, k + 1, k)
+                if stall_on:
+                    # (the first iteration's Dconv is a placeholder)
+                    upd = active & (ite > 1)
+                    stall = torch.where(
+                        upd, torch.where(Dconv < 0.95 * dmin, 0,
+                                         stall + 1), stall)
+                    dmin = torch.where(upd, torch.minimum(dmin, Dconv),
+                                       dmin)
+                go = active_of(Dconv, status, stall).any()
+                return (go, *amps, *ring_t, conv, rdm1, Dconv, ite, k,
+                        status, hist, stall, dmin)
+
+            go = active_of(Dconv, status, stall).any()
+            log = {}
+            if loops[leg] is None:
+                loops[leg] = device_loop.Loop(body, mode=mode)
+            state = loops[leg](
+                (go, *amps, *ring, conv, rdm1, Dconv, ite, k, status, hist,
+                 stall, dmin), log)
+            amps, rest = tuple(state[1:5]), state[5 + nr:]
+            conv, rdm1, Dconv, ite, k, status, hist = rest[:7]
+            del state, rest
+            loop_log.append(log)
             leg_log.append((mode, (k - k0).tolist(), Dconv.tolist()))
         status = torch.where(status == RUNNING, CONVERGED, status)
+        # copies: the kept loops' static state is overwritten by the next
+        # call
+        amps, rdm1 = tuple(a.clone() for a in amps), rdm1.clone()
         ts, ls, td, ld, rdm1 = torch.func.vmap(self._sort_out)(*amps, rdm1)
         return (ts, ls, td, ld, rdm1, ite.cpu().numpy(), k.cpu().numpy(),
-                status.cpu().numpy(), hist.cpu().numpy(), leg_log)
+                status.cpu().numpy(), hist.cpu().numpy(), leg_log, loop_log)
 
 
-def _one_lane(step):
+def _ccsd_conv_vec(conv, su, ts, ls, td, ld, fsp):
+    """The convergence vector of Solver_CCSD(conv=conv) on set-up su."""
+    if conv == "tl":
+        return torch.cat([su.p_ov(ls.abs() + ts.abs()),
+                          su.p_4(ld.abs() + td.abs())])
+    if conv == "l":
+        return torch.cat([su.p_ov(ls), su.p_4(ld)])
+    return ccsd_ops.energy(su.eris, ts, td, fsp).reshape(1)
+
+
+def _one_lane(step, ring_dims):
     """The step over lane-stacked state of one lane, called directly (no
     vmap): the lane axis taken off the tensors it is given and put back on
-    those it returns."""
+    those it returns (but the ring's fields that ring_dims marks None,
+    which have none)."""
     def lane(amps, ring_t, conv, Lw):
-        out = step(tuple(a[0] for a in amps), tuple(r[0] for r in ring_t),
+        dims = ring_dims if ring_t else ()
+        out = step(tuple(a[0] for a in amps),
+                   tuple(r if d is None else r[0]
+                         for r, d in zip(ring_t, dims)),
                    conv[0], Lw)
-        return tuple(tuple(x.unsqueeze(0) for x in o)
-                     if isinstance(o, tuple) else o.unsqueeze(0)
-                     for o in out)
+        amps, ring_t, rest = out[0], out[1], out[2:]
+        return ((tuple(x.unsqueeze(0) for x in amps),
+                 tuple(r if d is None else r.unsqueeze(0)
+                       for r, d in zip(ring_t, dims)))
+                + tuple(o.unsqueeze(0) for o in rest))
     return lane
 
 
