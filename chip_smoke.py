@@ -22,6 +22,13 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --targets        # phases 1, 2 and 10 only: the
                                            # correlated targets and the CCS
                                            # ground state
+    python3 chip_smoke.py --targets --chain  # phase 1 and the target's
+                                           # stage seconds at cc-pVDZ,
+                                           # cc-pVTZ and 6-311++G(2d,2p),
+                                           # the converged CCS sweeps and
+                                           # the ES L_loop sweep (copied
+                                           # into an older checkout, it
+                                           # times that one)
     python3 chip_smoke.py --es             # phases 1, 2 and 11 only: the
                                            # excited states
     python3 chip_smoke.py --precision      # phases 1, 2 and 12 only: the
@@ -72,7 +79,9 @@ each); any failure raises and exits nonzero:
      plain versions and the library call (cuBLAS with TF32 on, on bf16);
      phase 13's EOM shapes (196x1891x1891 and 14x1891x1891, the sorted
      sigma's 196x465x465 and 196x961x961) checked and timed in f32 and
-     f64; phase 16's flagship shapes (FLAGSHIP_SHAPES: the packed
+     f64; phase 10's target shapes (TARGET_SHAPES: 196x13041x13041 and
+     196x900x900 timed in f32, 196x900x900 in f64, 196x1891x1891 with
+     the EOM shapes); phase 16's flagship shapes (FLAGSHIP_SHAPES: the packed
      392x8911x8911 and the sector GEMMs 98x2211x2211, 98x4489x4489)
      checked and timed in f32; and the kernel's tangent: torch.func.jvp of ladder_mm(a, w) in
      a against that of a @ w.T at 196x1891x1891, 14x1891x1891 and a
@@ -121,10 +130,19 @@ each); any failure raises and exits nonzero:
          0.5: E_CCSD, E_T, the iterations and seconds of each stage, peak
          memory, Tr(target) = N to 1e-5, Delta falling with lambda, and
          the forward and backward ladder launches exactly as the iteration
-         counts predict; then the stages of an f32 CCSD(T) target (no
-         field) on ERIs built both ways (sorted sectored as Gexp builds
-         them, and alternating packed with the dense (T) loop), twice each
-         in turns, for their seconds;
+         counts predict, every loop (CCSD, adjoint) and (T) scan (energy,
+         gradient; one per spin-sector pair) replayed with its capture ms;
+         then the stages of an f32 CCSD(T) target (no field) on ERIs
+         built both ways (sorted sectored as Gexp builds them, and
+         alternating packed with the dense (T) scan), twice each in turns,
+         for their seconds; on the first sorted build, per iteration of
+         the CCSD, Lambda and adjoint loops and per pair of the (T)
+         energy and gradient scans (two profiled windows differenced):
+         the host's launch calls (at most 4 per iteration, 2 per pair),
+         device operations and ms, and the ladder launches on the
+         counters and on the profiler's kernel records (2 per CCSD and
+         Lambda iteration with the mirror symmetry, 3 backward per adjoint
+         iteration, none in a pair);
      (b) the CCSD(T) target at f64 on the card against the CPU at
          C2H2/6-31G (E_CCSD and E_T to 1e-10, the density to 1e-8, equal
          adjoint iterations), and at cc-pVDZ f32 against f64 on the card
@@ -339,6 +357,10 @@ each); any failure raises and exits nonzero:
          routes, 1 and 3 lanes; CCS_GS (and Solver_CCS.SCF(store_ite=True)
          row by row); the ES loop on phase 11a's system (maxdiis 20); and
          f32 within +-1 iteration and 1e-5 Ha of f64 for each;
+     (c) the converged CCS sweep (lambda = 0, 0.25, 0.5) at cc-pVDZ and
+         cc-pVTZ captures once, its loop kept across the lambdas, and the
+         ES L_loop sweep (lambda = 0, 0.05, 0.1) on phase 11a's system at
+         most twice; each sweep's ms;
   8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported,
      and the excited-state, EOM and example-twin modules were.
 Before the last line it prints the kernel report as one JSON object and
@@ -418,14 +440,15 @@ BATCH_TC_SHAPES = [(1176, 1891, 1891), (1176, 13041, 13041)]
 # pairs) and the sorted target build's sector GEMMs (alpha-alpha 67 * 66
 # / 2 = 2211 pairs, alpha-beta 67^2 = 4489)
 FLAGSHIP_SHAPES = [(392, 8911, 8911), (98, 2211, 2211), (98, 4489, 4489)]
-TIMED_SHAPES = {torch.float32: MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
-                + EOM_SHAPES + BATCH_SHAPES + FLAGSHIP_SHAPES,
-                torch.float64: MAIN_SHAPES + TZ_SHAPES + [DENSE_DZ,
-                                                          PACKED_TZ]
-                + F64_SHAPES + EOM_SHAPES}
 # phase 10's target builds (C2H2, 196 occupied pairs, one ladder at a time):
 # the packed GEMM at cc-pVDZ and cc-pVTZ, the dense one at 6-31G (nvir 30)
 TARGET_SHAPES = [(196, 1891, 1891), (196, 13041, 13041), (196, 900, 900)]
+TIMED_SHAPES = {torch.float32: MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
+                + EOM_SHAPES + BATCH_SHAPES + FLAGSHIP_SHAPES
+                + TARGET_SHAPES[1:],
+                torch.float64: MAIN_SHAPES + TZ_SHAPES + [DENSE_DZ,
+                                                          PACKED_TZ]
+                + F64_SHAPES + EOM_SHAPES + TARGET_SHAPES[2:]}
 RAGGED_SHAPES = [(1, 1, 1), (37, 513, 129), (100, 130, 1001)]
 # The split-K plan's edges: K across 16 chunks (split 8 -> 16 at N = 465)
 # and 17, K across a chunk boundary at N = 961, K below one chunk, one row,
@@ -1076,6 +1099,103 @@ def chain_times():
           **with_ops(fields, lambda n: es_chain_ms(ecw, n)))
 
 
+TARGET_TIME_BASES = (BASIS, BASIS_TZ, "6-311++g(2d,2p)")
+TARGET_TIME_REPS = 3         # the first pays the process's first uses
+
+
+def captures(log):
+    """The captures of the loops in a solve_log (one per graph built)."""
+    return sum("capture_ms" in lp for s in log
+               for lp in (s or {}).get("loops", []))
+
+
+def target_times():
+    """--targets --chain: the stages of the f32 CCSD(T) target on the
+    sorted ERIs as Gexp builds them (gamma_exp._run_gccsd_t_rdm1, no
+    field) at C2H2/cc-pVDZ, cc-pVTZ and the flagship's 6-311++G(2d,2p),
+    TARGET_TIME_REPS builds each (seconds by stage and peak memory); the
+    converged CCS sweep over LAMBDAS (diis 'tl', 1e-6) on the HF target at
+    cc-pVDZ and cc-pVTZ and the ES L_loop sweep over ES_SWEEP on phase
+    11a's system (CHAIN_REPS timed after one untimed), with the loops'
+    captures per sweep.  It calls only what an older checkout also has,
+    so a copy of this script times that one the same way."""
+    from ecw_cc_torch.models import gamma_exp
+    from ecw_cc_torch.models.molecule import Molecule
+    from ecw_cc_torch.models.scf import GHF, RHF
+    from ecw_cc_torch.utils.metrics import StageClock
+
+    for basis in TARGET_TIME_BASES:
+        mol = Molecule(MOLECULE, basis, charge=0, spin=0)
+        mf = RHF(mol, conv_tol=1e-11)
+        mf.kernel()
+        ghf = GHF(mf)
+        runs = []
+        for _ in range(TARGET_TIME_REPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            log = {}
+            clock = StageClock(torch.device(CARD), log)
+            built = target_eris("sorted", mol, ghf)
+            clock.done("eris_s")
+            built_sym = built[2][1]
+            e_cc, e_t, _ = gamma_exp._run_gccsd_t_rdm1(built, log=log)
+            ad = log["adjoint"]
+            row = {k: log[k] for k in ("eris_s", "ccsd_s", "energy_t_s",
+                                       "adjoint_s")}
+            row.update({k: ad[k] for k in ("energy_grad_s", "map_s",
+                                           "iterations_s")})
+            row.update(whole_s=sum(log[k] for k in (
+                "eris_s", "ccsd_s", "energy_t_s", "adjoint_s")),
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                iterations=(log["ccsd"]["iterations"], ad["iterations"]),
+                E_CCSD_T=e_cc + e_t)
+            runs.append(row)
+            del built
+            torch.cuda.empty_cache()
+        phase("target_chain", "target_stages_f32", basis=basis,
+              layout="sorted", sym=bool(built_sym), runs=runs,
+              median={k: statistics.median(r[k] for r in runs[1:])
+                      for k in runs[0] if k.endswith("_s")})
+        del mol, mf, ghf
+    for basis in (BASIS, BASIS_TZ):
+        ecw = build_ecw(CARD, torch.float32, basis=basis)
+        ms, caps = [], []
+        for _ in range(CHAIN_REPS + 1):
+            its, t, log = ccs_sweep(ecw, LAMBDAS, diis="tl",
+                                    conv_thres=CONV_THRES)
+            ms.append(t)
+            caps.append(captures(log))
+        phase("target_chain", "converged_ccs_sweep_f32", basis=basis,
+              L=LAMBDAS, ms=statistics.median(ms[1:]), ms_runs=ms[1:],
+              untimed_run=ms[0], iterations=its, captures_per_sweep=caps)
+        del ecw
+        torch.cuda.empty_cache()
+    ecw = es_anchor_ecw(torch.float32)
+    ms, caps = [], []
+    for _ in range(CHAIN_REPS + 1):
+        t, log = es_sweep_ms(ecw, ES_SWEEP)
+        ms.append(t)
+        caps.append(captures(log))
+    phase("target_chain", "es_l_loop_sweep_f32", molecule=ES_MOLECULE,
+          basis=ES_BASIS, L=ES_SWEEP, ms=statistics.median(ms[1:]),
+          ms_runs=ms[1:], untimed_run=ms[0],
+          iterations=[s["iterations"] for s in log],
+          captures_per_sweep=caps)
+
+
+def es_sweep_ms(ecw, lambdas):
+    """(host ms, solve_log) of one ECW.CCS_ES L_loop sweep (method
+    'device', ES_KW's settings), its printing muted."""
+    import io
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ecw.CCS_ES(np.asarray(lambdas), L_loop=True, **ES_KW)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, list(ecw.solve_log)
+
+
 def ccs_sweep(ecw, lambdas, **kw):
     """One ECW.CCS_GS call (method 'scf'), its printing muted: ([iterations
     per lambda], wall ms, solve_log entries)."""
@@ -1407,6 +1527,117 @@ def target_launches(log, per_solve, route_backward):
             route_backward * log["adjoint"]["iterations"])
 
 
+def target_graphs(name, log):
+    """{loop or scan: (capture ms, empty_cache ms)} of a correlated
+    target's log (Gexp.log, _run_gccsd_t_rdm1's): its CCSD, Lambda and
+    adjoint loops and its (T) energy and gradient scans (one per
+    spin-sector pair).  Every one that ran past its first step must have
+    replayed a captured graph."""
+    adj = log.get("adjoint", {})
+    runs = [(part, log[part]["loop"], "iterations")
+            for part in ("ccsd", "lambda") if part in log]
+    if adj:
+        runs.append(("adjoint", adj["loop"], "iterations"))
+    for part, sub in (("energy_t", log.get("energy_t", {})),
+                      ("energy_grad", adj.get("energy_grad", {}))):
+        runs += [(f"{part}_{i}", sc, "steps")
+                 for i, sc in enumerate(sub.get("scans", []))]
+    out = {}
+    for part, lp, count in runs:
+        if lp[count] > 1 and not lp["graph"]:
+            raise AssertionError(f"{name}: the {part} loop ran without "
+                                 f"its graph: {lp}")
+        out[part] = (lp.get("capture_ms"), lp.get("empty_cache_ms"))
+    return out
+
+
+TARGET_OPS_ITERS = (4, 12)     # two profiled loop windows, differenced
+TARGET_OPS_PAIRS = (8, 24)     # and two (T) scan windows, in pairs
+PAIR_MAX_CALLS = 2             # launch calls per pair of a replayed scan
+
+
+def per_step(ladder_mm, run, steps):
+    """chain_ops of run(n) over two windows of `steps`, with the ladder
+    launches the wrapper's counters add up per step (forward, backward)
+    beside the profiler's ladder kernel records."""
+    counts = []
+
+    def counted(n):
+        ladder_mm.launches = ladder_mm.backward_launches = 0
+        run(n)
+        counts.append((ladder_mm.launches - ladder_mm.backward_launches,
+                       ladder_mm.backward_launches))
+
+    kernels, dev_ms, calls, ladder = chain_ops(counted, steps)
+    dn = steps[1] - steps[0]
+    return dict(kernels=kernels, device_ms=dev_ms,
+                launch_calls=sum(calls.values()), launch_calls_by_name=calls,
+                ladder_kernels=ladder,
+                ladder_launches=tuple((b - a) / dn for a, b in
+                                      zip(counts[0], counts[1])))
+
+
+def target_calls(ladder_mm, tag_, built):
+    """Phase 10 (a): host launch calls, device operations and ms, and
+    ladder launches (counters and the profiler's records) per iteration
+    of the target's CCSD, Lambda and adjoint loops (conv_tol below zero:
+    windows of 4 and 12 iterations) and per pair of its (T) energy and
+    gradient scans (the first spin-sector pair's body, windows of 8 and
+    24 pairs), on the sorted ERIs of `built`."""
+    from ecw_cc_torch.models import gamma_exp
+    from ecw_cc_torch.ops import ccsd_t
+    from ecw_cc_torch.solvers import device_loop
+
+    eris, op, sect, _ = built
+    t1, t2, _ = ccsd_t.solve_ccsd(eris, vvvv_op=op, sect=sect)
+    fo, fv = ccsd_t._fock_diag(eris, None, eris.nocc)
+    leaves = [x.clone().requires_grad_(True) for x in (t1, t2, fo, fv)]
+    term_e = ccsd_t._pair_scans(eris, t1, t2, fo, fv, sect=sect)[0][0][0]
+    term_g = ccsd_t._pair_scans(eris, *leaves, sect=sect)[0][0][0]
+
+    def energy(n):
+        device_loop.scan(ccsd_t._energy_step(term_e),
+                         (ccsd_t._ij(0, fo.device), fo.new_zeros(())), n)
+
+    def gradient(n):
+        device_loop.scan(ccsd_t._grad_step(term_g, leaves),
+                         (ccsd_t._ij(0, fo.device), fo.new_zeros(()),
+                          *(torch.zeros_like(x) for x in leaves)), n)
+
+    loops = {
+        "ccsd": lambda n: ccsd_t.solve_ccsd(
+            eris, conv_tol=-1.0, max_cycle=n, vvvv_op=op, sect=sect),
+        "lambda": lambda n: gamma_exp.solve_lambda(
+            eris, t1, t2, conv_tol=-1.0, max_cycle=n, vvvv_op=op,
+            sect=sect),
+        "adjoint": lambda n: ccsd_t.ccsd_t_rdm1_response(
+            eris, t1, t2, with_t=False, tol=-1.0, maxiter=n, vvvv_op=op,
+            sect=sect)}
+    per_solve = 2 if sect[1] else 3
+    want = {"ccsd": (per_solve, 0), "lambda": (per_solve, 0),
+            "adjoint": (0, 3), "energy_t": (0, 0), "energy_grad": (0, 0)}
+    out = {}
+    for name, run in loops.items():
+        out[name] = per_step(ladder_mm, run, TARGET_OPS_ITERS)
+    for name, run in (("energy_t", energy), ("energy_grad", gradient)):
+        out[name] = per_step(ladder_mm, run, TARGET_OPS_PAIRS)
+    phase(10, f"target_launch_calls_{tag_}", sym=bool(sect[1]),
+          per_iteration={k: out[k] for k in loops},
+          per_pair={k: out[k] for k in ("energy_t", "energy_grad")},
+          max_calls_per_iteration=GRAPH_MAX_CALLS,
+          max_calls_per_pair=PAIR_MAX_CALLS)
+    for name, row in out.items():
+        limit = PAIR_MAX_CALLS if name.startswith("energy") else \
+            GRAPH_MAX_CALLS
+        if (row["launch_calls"] > limit or row["kernels"] <= 0
+                or row["ladder_launches"] != want[name]
+                or row["ladder_kernels"] != sum(want[name])):
+            raise AssertionError(f"{tag_} target {name}: {row}, expected "
+                                 f"<= {limit} calls and ladder launches "
+                                 f"{want[name]}")
+    return out
+
+
 def gexp_target(mol, method, dtype, device):
     from ecw_cc_torch.models.gamma_exp import Gexp
 
@@ -1434,7 +1665,8 @@ def run_target_sweep(ladder_mm, ecw32):
           Eexp=ecw.Eexp_GS, stages=log, trace=trace, electrons=nelec,
           peak_bytes=torch.cuda.max_memory_allocated(),
           forward_launches=fwd, backward_launches=back,
-          expected_launches=want)
+          expected_launches=want,
+          capture_ms=target_graphs("10a target", log))
     if not (log["ccsd"]["converged"] and log["adjoint"]["converged"]):
         raise AssertionError(f"the f32 CCSD(T) target did not converge: {log}")
     if abs(trace - nelec) > 1e-5:
@@ -1628,13 +1860,17 @@ def target_eris(layout, mol, ghf):
         None, None)
 
 
-def run_target_stages(ladder_mm, tag, mol, ghf, layouts, t_row=False):
+def run_target_stages(ladder_mm, tag, mol, ghf, layouts, t_row=False,
+                      calls=False):
     """The stages of an f32 CCSD(T) target of (mol, ghf), one build per
     entry of `layouts` (target_eris), each through the stages Gexp.build
-    runs and times (gamma_exp._run_gccsd_t_rdm1).  Phase 10 (a) runs it at
-    cc-pVDZ (twice each, in turns), (d) at cc-pVTZ, with t_row the (T)
-    energy three ways on the sorted ERIs.  Returns ({path: launches},
-    backward launches)."""
+    runs and times (gamma_exp._run_gccsd_t_rdm1), with the capture ms of
+    its loops and scans.  Phase 10 (a) runs it at cc-pVDZ (twice each, in
+    turns) with calls the launch calls per iteration and pair
+    (target_calls) on the first sorted build, (d) at cc-pVTZ, with t_row
+    the (T) energy three ways on the sorted ERIs.  Returns ({path:
+    launches}, backward launches); the launches of target_calls are not
+    among them."""
     from ecw_cc_torch.models import gamma_exp
     from ecw_cc_torch.utils.metrics import StageClock
 
@@ -1659,7 +1895,8 @@ def run_target_stages(ladder_mm, tag, mol, ghf, layouts, t_row=False):
               seconds=sum(v for k, v in log.items() if k.endswith("_s")),
               trace=trace, peak_bytes=torch.cuda.max_memory_allocated(),
               forward_launches=fwd, backward_launches=back,
-              expected_launches=want)
+              expected_launches=want,
+              capture_ms=target_graphs(f"{tag} target ({layout})", log))
         if not (cc["converged"] and ad["converged"]):
             raise AssertionError(f"{tag} target ({layout}) did not "
                                  f"converge: {cc}, {ad}")
@@ -1681,6 +1918,9 @@ def run_target_stages(ladder_mm, tag, mol, ghf, layouts, t_row=False):
         if t_row and layout == "sorted":
             n = run_t_row(ladder_mm, tag, built)
             out[key] += n
+        if calls and layout == "sorted":
+            target_calls(ladder_mm, tag, built)
+            calls = False
         del built, gamma
         torch.cuda.empty_cache()
     return out, total_back
@@ -1852,7 +2092,8 @@ def run_phase10(ladder_mm, ladder_mm_ref, ecw32, ecw64c, ecwc, tz):
     steps = (
         lambda: run_target_stages(
             ladder_mm, "ccpvdz", ecw32.mol, ecw32.mf,
-            ("sorted", "alternating", "alternating", "sorted")),
+            ("sorted", "alternating", "alternating", "sorted"),
+            calls=True),
         lambda: run_target_parity(ladder_mm, ecw32),
         lambda: run_target_stages(ladder_mm, "ccpvtz", *tz,
                                   ("sorted", "alternating"), t_row=True))
@@ -4243,6 +4484,33 @@ def graph_es_cell():
     return fields
 
 
+def graph_sweeps(ecw, basis, es=False):
+    """Phase 17 (c): the converged CCS sweep (ECW.CCS_GS over LAMBDAS,
+    diis 'tl', 1e-6, on the HF target) captures once per sweep (its
+    loop is kept across the lambdas); with es, the ES L_loop sweep over
+    ES_SWEEP on phase 11a's system (f32) captures at most twice (a cold
+    start that pins, warm starts that follow).  Each sweep's ms is the
+    second run's (the first pays the process's first uses)."""
+    rows = {}
+    for _ in range(2):
+        its, ms, log = ccs_sweep(ecw, LAMBDAS, diis="tl",
+                                 conv_thres=CONV_THRES)
+        rows["ccs"] = dict(ms=ms, iterations=its, captures=captures(log))
+        check_graphs("17c CCS sweep", log)
+    if es:
+        ecw_es = es_anchor_ecw(torch.float32)
+        for _ in range(2):
+            ms, log = es_sweep_ms(ecw_es, ES_SWEEP)
+            rows["es"] = dict(ms=ms, captures=captures(log),
+                              iterations=[s["iterations"] for s in log])
+            check_graphs("17c ES sweep", log)
+    phase(17, "graph_sweeps", basis=basis, L_ccs=LAMBDAS, L_es=ES_SWEEP,
+          **rows)
+    if rows["ccs"]["captures"] != 1 or (es and rows["es"]["captures"] > 2):
+        raise AssertionError(f"17c: captures per sweep {rows} (expected "
+                             "1 per CCS sweep, at most 2 per ES sweep)")
+
+
 @contextlib.contextmanager
 def port_config(**kw):
     import ecw_cc_torch
@@ -4381,6 +4649,7 @@ def run_phase17():
     launches = {}
     for basis in (BASIS, BASIS_TZ):
         base = build_ecw(CARD, torch.float32, basis=basis)
+        graph_sweeps(base, basis, es=basis == BASIS)
         for route in ("packed", "sectored"):
             er, op, perm, _ = route_eris(base, route)
             ecw = with_eris(base, er, op, perm)
@@ -4544,7 +4813,10 @@ def main(argv):
         print(smi)
         return 0
     if "--chain" in argv:
-        chain_times()
+        if "--targets" in argv:
+            target_times()
+        else:
+            chain_times()
         print(smi)
         return 0
     if "--profile" in argv:

@@ -565,6 +565,7 @@ class ECW:
             self.vmax_lamb.append(vmax)
             if VXexp.Delta_Ek_GS is not None:
                 self.Delta_Ek.append(VXexp.Delta_Ek_GS)
+        Solve.release_graphs()
 
         print("FINAL RESULTS")
         print("Ep   = " + format_float.format(Ep + self.EHF))
@@ -647,6 +648,8 @@ class ECW:
         if not L_loop:
             Conv_text, dic_amp, Delta, Ep, rdm1_GS = solve(L)
             self.solve_log.append(getattr(used, "last_solve", None))
+            if method == "device":
+                used.release_graphs()
             if target_rdm1_GS is not None:
                 diff = np.subtract(target_rdm1_GS, rdm1_GS)
                 self.Delta_rdm1 = (np.sum(np.abs(diff)) / np.sum(np.abs(
@@ -674,6 +677,8 @@ class ECW:
             print(Conv_text)
             print("Delta = \n", Delta)
             print()
+        if method == "device":
+            used.release_graphs()
 
     # ------------------------------------------------------------------
     # Output (reference Main.py:956-1179)

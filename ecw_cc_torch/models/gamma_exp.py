@@ -28,6 +28,7 @@ from ecw_cc_torch.ops import ccsd as ccsd_ops
 from ecw_cc_torch.ops import ccsd_t
 from ecw_cc_torch.ops.ladder import ensure_sorted_vvvv_op, spin_sort_perm
 from ecw_cc_torch.ops.spinsect import sector_info
+from ecw_cc_torch.solvers import device_loop
 from ecw_cc_torch.utils import convert, linalg, props
 from ecw_cc_torch.utils.metrics import StageClock
 
@@ -49,28 +50,39 @@ def solve_lambda(eris, t1, t2, conv_tol=None, max_cycle=200, vvvv_op=None,
                  sect=None, log=None):
     """GS Lambda amplitudes (textbook equations, energy_term='off'): plain
     Jacobi iterations from l = t, converged when the norm |l1| + |l2| moves
-    by less than conv_tol; one scalar read per iteration.
+    by less than conv_tol.  The iterations are a device_loop.Loop (JAX
+    gamma_exp.py:35-67, one jitted step per iteration): on the card one is
+    captured and replayed, one flag read per iteration; the first
+    iteration, which has no norm to compare with, is a flag in the state.
 
     sect: optional (SectorInfo, sym): sector-blocked kernels (sorted
     layout).  conv_tol: None is 1e-10 at f64 (the JAX package's value) and
-    1e-6 at f32.  log: a dict that receives 'iterations' and 'converged'."""
+    1e-6 at f32.  log: a dict that receives 'iterations', 'converged' and
+    the loop's log ('loop')."""
     conv_tol = ccsd_t._default_tol(conv_tol, t1.dtype, 1e-10, 1e-6)
     if sect is not None:
         vvvv_op = ensure_sorted_vvvv_op(vvvv_op, eris, sect[0])
-    l1, l2 = t1, t2
-    l_old = None
-    converged = False
-    k = 0
+    dev, f64 = t1.device, torch.float64
+
+    def body(state):
+        # the norm compared in f64, as the host float it was
+        _, l1, l2, l_old, has_old, k, _ = state
+        l1, l2, nrm = _l_step(eris, vvvv_op, t1, t2, l1, l2, sect=sect)
+        nrm = nrm.to(f64)
+        conv = has_old & ((nrm - l_old).abs() < conv_tol)
+        k = k + 1
+        return (~conv & (k < max_cycle), l1, l2, nrm,
+                torch.ones_like(has_old), k, conv)
+
+    false = torch.zeros((), dtype=torch.bool, device=dev)
     with torch.no_grad():
-        for k in range(1, max_cycle + 1):
-            l1, l2, nrm = _l_step(eris, vvvv_op, t1, t2, l1, l2, sect=sect)
-            nrm = float(nrm)
-            if l_old is not None and abs(nrm - l_old) < conv_tol:
-                converged = True
-                break
-            l_old = nrm
+        _, l1, l2, _, _, k, conv = device_loop.Loop(body)(
+            (torch.full((), max_cycle > 0, device=dev), t1, t2,
+             torch.zeros((), dtype=f64, device=dev), false,
+             torch.zeros((), dtype=torch.int64, device=dev), false.clone()),
+            None if log is None else log.setdefault("loop", {}))
     if log is not None:
-        log.update(iterations=k, converged=converged)
+        log.update(iterations=int(k), converged=bool(conv))
     return l1, l2
 
 
@@ -176,7 +188,8 @@ def _run_gccsd_t_rdm1(built, log=None):
                                      log=stage.sub("ccsd"))
     stage.done("ccsd_s")
     with torch.no_grad():
-        e_t = float(ccsd_t.energy_t(eris, t1, t2, sect=sect))
+        e_t = float(ccsd_t.energy_t(eris, t1, t2, sect=sect,
+                                    log=stage.sub("energy_t")))
     stage.done("energy_t_s")
     rdm1_mo = ccsd_t.ccsd_t_rdm1_response(
         eris, t1, t2, vvvv_op=vvvv_op, sect=sect,

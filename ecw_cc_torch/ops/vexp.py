@@ -440,7 +440,8 @@ def make_es_vexp_device(exp: Exp, *, dtype, device):
     matrix.  Supports mat/Ek/v1e/dip/F for the GS and
     mat/Ek/v1e/dip/DEk/trdip/trmat/F for excited states (reference
     exp_pot.py:131-345 and Solver_ES.py:274-296).  Lflat is the flattened
-    per-state per-property weight list, host numbers.
+    per-state per-property weight list: host numbers, or a tensor of them
+    on `device` (a kept loop's weights, refilled per solve).
 
     Every target is uploaded here, once; the update itself reads nothing
     from the host and nothing back.  The loop over the states is over their
@@ -532,7 +533,7 @@ def make_es_vexp_device(exp: Exp, *, dtype, device):
         for n in range(1, n_states):
             e = n - 1
             for i, name in enumerate(names[n]):
-                w = float(Lflat[offs[n] + i])
+                w = Lflat[offs[n] + i]
                 if name == "mat":
                     tgt, den = targets[n, i]
                     diff = tgt - rdm1_es[e]
@@ -569,7 +570,7 @@ def make_es_vexp_device(exp: Exp, *, dtype, device):
                                         rdm1_gs - rdm1_es[e])
                     diff = (exp_val - calc).abs()
                     add_delta(n, n, diff * inv)
-                    wgs = (float(Lflat[offs[0] + DEk_GS_idx])
+                    wgs = (Lflat[offs[0] + DEk_GS_idx]
                            if DEk_GS_idx is not None else w)
                     V00 = V00 + (wgs * diff) * pot_mats["Ek"]
                 elif name == "trdip":

@@ -25,8 +25,9 @@ torch keeps a cuBLAS workspace for each stream it runs cuBLAS on for as
 long as the process lives, so a stream per Loop would leave a workspace
 behind for each stream of torch's pool.  A Loop keeps its graph, its
 pool and its static state for its lifetime: its next call starts
-replaying at once (Solver_CCSD keeps its loops across the lambdas of a
-sweep; Solver_CCS and SolverES_Device drop theirs when SCF returns).
+replaying at once (Solver_CCSD, Solver_CCS and SolverES_Device keep
+their loops across the lambdas of a sweep, the weights a device tensor
+the body reads, until their release_graphs()).
 
 A replay launches the ladder kernel without passing through its wrapper,
 so the loop takes the wrapper's launch counters' change over the capture
@@ -34,6 +35,17 @@ so the loop takes the wrapper's launch counters' change over the capture
 those of the kernel launches made.
 
 On the CPU the same body is called eagerly.
+
+`scan(body, state, n)` is the counterpart of a lax.scan of known length
+(JAX ccsd_t.py:185, the (T) pairs): the body runs n times, with no flag
+and no host read between steps; on the card the first step is the
+warm-up, the second is captured and the graph replayed n - 1 times, then
+freed.  A scan body may take gradients inside itself (torch.enable_grad()
+around its part): autograd runs each backward operation on its forward
+operation's stream, here the capture's, so the backward is captured with
+its forward.  A Loop body that applies an autograd graph evaluated before
+the loop (the (T) adjoint's map) needs that graph evaluated on the side
+stream (`on_side_stream`) for the same reason.
 
 The bordered DIIS system is solved by torch.linalg.solve_ex; the warm-up
 and the capture run with cuSOLVER as the preferred linear-algebra library,
@@ -120,7 +132,8 @@ class Loop:
                 return state
             self.static = _owned(state)
             del state
-            self._capture(log)
+            self.graph, self.per_replay = _capture(self.body, self.static,
+                                                   log)
             mem["capture"] = _bytes()
         else:
             for s, t in zip(self.static, state):
@@ -144,48 +157,125 @@ class Loop:
         """Whether the next call replays at once (a kept graph)."""
         return self.graph is not None
 
-    def _capture(self, log):
-        static = self.static
-        ptrs = {t.untyped_storage().data_ptr() for t in static}
-        # the warm-up's blocks go back before the graph's pool is filled
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        before = _lmm.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        # capture_begin/end on the side stream (the current one here), not
-        # the torch.cuda.graph context, which runs a full garbage
-        # collection first.  The collector is off during the capture
-        # instead: a graph it freed there (one left in a reference cycle)
-        # would invalidate the capture
-        gc_was_on = gc.isenabled()
-        gc.disable()
-        graph.capture_begin()
-        try:
-            out = tuple(self.body(static))
-            if len(out) != len(static):
-                raise ValueError("device_loop: the body returned "
-                                 f"{len(out)} tensors for a state of "
-                                 f"{len(static)}")
-            for s, o in zip(static, out):
-                if (o.data_ptr() == s.data_ptr() and o.shape == s.shape
-                        and o.stride() == s.stride()):
-                    continue                   # written in place
-                if o.untyped_storage().data_ptr() in ptrs:
-                    raise ValueError("device_loop: the body returned a "
-                                     "view of a state tensor in another "
-                                     "place; the copies into the static "
-                                     "state would overwrite it")
-                s.copy_(o)
-        finally:
-            graph.capture_end()
-            if gc_was_on:
-                gc.enable()
-        del out
-        log["capture_ms"] = (time.perf_counter() - t0) * 1e3
-        self.per_replay = _lmm.launch_counts(since=before)
-        # the capture launched nothing
-        _lmm.add_launch_counts(self.per_replay, -1)
-        self.graph = graph
+
+def _capture(body, static, log):
+    """(graph, launch counts per replay) of one call of body on the static
+    state, its outputs copied into the static buffers at its end; log
+    receives 'empty_cache_ms' and 'capture_ms'."""
+    ptrs = {t.untyped_storage().data_ptr() for t in static}
+    # the warm-up's blocks go back before the graph's pool is filled
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    log["empty_cache_ms"] = (t1 - t0) * 1e3
+    before = _lmm.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    # capture_begin/end on the side stream (the current one here), not
+    # the torch.cuda.graph context, which runs a full garbage
+    # collection first.  The collector is off during the capture
+    # instead: a graph it freed there (one left in a reference cycle)
+    # would invalidate the capture
+    gc_was_on = gc.isenabled()
+    gc.disable()
+    graph.capture_begin()
+    try:
+        out = tuple(body(static))
+        if len(out) != len(static):
+            raise ValueError("device_loop: the body returned "
+                             f"{len(out)} tensors for a state of "
+                             f"{len(static)}")
+        for s, o in zip(static, out):
+            if (o.data_ptr() == s.data_ptr() and o.shape == s.shape
+                    and o.stride() == s.stride()):
+                continue                   # written in place
+            if o.untyped_storage().data_ptr() in ptrs:
+                raise ValueError("device_loop: the body returned a "
+                                 "view of a state tensor in another "
+                                 "place; the copies into the static "
+                                 "state would overwrite it")
+            s.copy_(o)
+    finally:
+        graph.capture_end()
+        if gc_was_on:
+            gc.enable()
+    del out
+    log["capture_ms"] = (time.perf_counter() - t1) * 1e3
+    per_replay = _lmm.launch_counts(since=before)
+    # the capture launched nothing
+    _lmm.add_launch_counts(per_replay, -1)
+    return graph, per_replay
+
+
+def scan(body, state, n, log=None):
+    """state after n calls of body(state) -> state (a flat tuple of
+    tensors of fixed shapes, dtypes and devices), with no host read
+    between the steps: the counterpart of lax.scan.  A step index the body
+    needs lives in the state as a 0-d int64 tensor that the body
+    increments.
+
+    On the CPU the body runs n times as it is called (the caller's grad
+    mode).  On CUDA tensors, under torch.no_grad() (the body enables grad
+    for its own part) and matmul_precision('highest'): the first step runs
+    eagerly (the warm-up), the second is captured (which runs nothing)
+    and the graph replayed for steps 2 to n, n - 1 replays, on the side
+    stream, ordered after the caller's work and before what follows; the
+    graph and its pool are freed on return.  The launch counters grow by
+    the capture's count at each replay, as in Loop.  n = 0 and n = 1
+    capture nothing.  log: a dict that receives 'steps', 'graph', and where
+    a graph ran 'empty_cache_ms', 'capture_ms', 'replays' and 'replay_ms'
+    (the replays' wall time, enqueue only)."""
+    state = tuple(state)
+    log = {} if log is None else log
+    log.update(steps=n, graph=False)
+    if n <= 0:
+        return state
+    if state[0].device.type != "cuda":
+        for _ in range(n):
+            state = tuple(body(state))
+        return state
+    caller = torch.cuda.current_stream(state[0].device)
+    side = _side_stream(state[0].device)
+    side.wait_stream(caller)
+    try:
+        with (torch.no_grad(), matmul_precision("highest"),
+              torch.cuda.stream(side), _cusolver()):
+            state = tuple(body(state))          # the warm-up step
+            if n == 1:
+                return state
+            static = _owned(state)
+            del state
+            graph, per_replay = _capture(body, static, log)
+            log["graph"] = True
+            t0 = time.perf_counter()
+            for _ in range(n - 1):
+                graph.replay()
+                _lmm.add_launch_counts(per_replay)
+            log.update(replays=n - 1,
+                       replay_ms=(time.perf_counter() - t0) * 1e3)
+            del graph
+            return static
+    finally:
+        caller.wait_stream(side)
+
+
+@contextlib.contextmanager
+def on_side_stream(device):
+    """Run the block on `device`'s side stream (a no-op on the CPU),
+    ordered after the caller's work and before what follows it: an
+    autograd graph that a Loop body applies is evaluated here, so that
+    its backward is launched on the capture's stream."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield
+        return
+    caller = torch.cuda.current_stream(device)
+    side = _side_stream(device)
+    side.wait_stream(caller)
+    try:
+        with torch.cuda.stream(side):
+            yield
+    finally:
+        caller.wait_stream(side)
 
 
 _SIDE = {}      # device index -> the Loops' side stream

@@ -27,6 +27,8 @@ Three routes, as in the JAX package:
     amplitudes are found (argmax), read (gather) and written (scatter)
     with index tensors, the histories are written at the iteration's
     tensor index, and the DIIS ring of ops/diis.py stays on the device.
+    The loop is kept across the lambdas of a sweep (one per kind of
+    start), the weights and pinned positions device tensors it reads.
 
 The solvers take the ERIs in the reference (alternating) MO layout.
 """
@@ -656,6 +658,120 @@ class Solver_ES:
 _ES_DEVICE_PROPS = {"mat", "trmat", "Ek", "v1e", "dip", "DEk", "trdip", "F"}
 
 
+def _es_conv_vec(kind, ts, ls, rn, ln, Ep):
+    if kind == "Ep":
+        return Ep.reshape(-1)
+    if kind == "tl":
+        return (ts + ls).reshape(-1)
+    if kind == "rl":
+        return (rn + ln).sum(dim=0).reshape(-1)
+    return ((ts + ls) + (rn + ln).sum(dim=0)).reshape(-1)
+
+
+def _es_step(vexp, eris, amp, ov, Lflat, force_alpha=True):
+    """One coupled iteration before DIIS: (ts, ls, rnew, lnew, r0new,
+    l0new, Em_r, Em_l, fsp0, V0n, Delta) from the amplitudes `amp` (the
+    stacked form of amp_from_numpy), vexp the multi-state Vexp update
+    (ops/vexp.make_es_vexp_device) and Lflat its weights.  ov: flattened
+    (o, v) positions, one per state, or None to take each state's largest
+    amplitude.  It reads nothing to the host."""
+    ts, ls, rn, ln, r0n, l0n = (amp[k] for k in
+                                ("ts", "ls", "rn", "ln", "r0n", "l0n"))
+    nvir = ts.shape[1]
+    rdm1_gs = ccs_ops.gamma_CCS(ts, ls)
+    rdm1_es = ccs_ops.gamma_es_CCS(ts, ln, rn, r0n, l0n)
+    tr_r = ccs_ops.gamma_tr_CCS(ts, ln, torch.zeros_like(ts), 1.0, l0n)
+    tr_l = ccs_ops.gamma_tr_CCS(ts, ls, rn, r0n, 1.0)
+
+    V00, Vnn, V0n, Vn0, Delta = vexp(rdm1_gs, rdm1_es, tr_r, tr_l, Lflat)
+    fsp0 = eris.fock - V00
+    fspn = eris.fock[None] - Vnn
+
+    T1i = ccs_ops.T1inter(eris, ts, fsp0)
+    ts = ccs_ops.tsupdate(eris, ts, T1i, rsn=rn, r0n=r0n, vn=V0n)
+    L1i = ccs_ops.L1inter(eris, ts, fsp0)
+    ls = ccs_ops.lsupdate(eris, ts, ls, L1i, rsn=rn, lsn=ln, r0n=r0n,
+                          l0n=l0n, vn=Vn0)
+
+    pos = None if ov is None else (ov // nvir, ov % nvir)
+    Rinter = ccs_ops.R1inter(eris, ts, fspn, V0n)
+    Em_r, o, v = ccs_ops.Extract_Em_r(eris, rn, r0n, Rinter, ov=pos)
+    rnew = ccs_ops.rsupdate(eris, rn, r0n, Rinter, Em_r,
+                            force_alpha=force_alpha)
+    rov = ccs_ops.get_ov(ln, l0n, rn, r0n, (o, v))
+    rnew = ccs_ops._put(rnew, o * nvir + v, rov)
+    r0new = ccs_ops.r0_fromE(eris, Em_r, ts, rn, V0n, fsp=fspn)
+
+    Linter = ccs_ops.es_L1inter(eris, ts, fspn, Vn0)
+    Em_l, o, v = ccs_ops.Extract_Em_l(eris, ln, l0n, Linter, ov=pos)
+    lnew = ccs_ops.es_lsupdate(eris, ln, l0n, Em_l, Linter,
+                               force_alpha=force_alpha)
+    lov = ccs_ops.get_ov(rn, r0n, ln, l0n, (o, v))
+    lnew = ccs_ops._put(lnew, o * nvir + v, lov)
+    l0new = ccs_ops.l0_fromE(eris, Em_l, ts, ln, Vn0, fsp=fspn)
+    return (ts, ls, rnew, lnew, r0new, l0new, Em_r, Em_l, fsp0, V0n,
+            Delta)
+
+
+def _es_body(vexp, s, diis, force_alpha, pins, Lflat):
+    """SolverES_Device.SCF's loop body (JAX es.py:643-842) for the
+    Solver_ES s and these arguments: pins the (o, v) positions of the
+    states (a device tensor), or None to follow each state's largest
+    amplitude; Lflat the weights (a device tensor).  It holds no
+    reference to the SolverES_Device, which keeps it."""
+    eris = s.mycc.eris
+    n_es = s.nbr_states - 1
+    maxiter, thres, mindiis = s.maxiter, s.conv_thres, s.mindiis
+    conv_var, f64 = s.conv_var, torch.float64
+    zeros_es = torch.zeros(n_es, dtype=s.dtype, device=s.device)
+
+    def body(state):
+        # one coupled iteration: every decision a tensor, every write at
+        # a tensor index
+        (_, ts, ls, rn, ln, r0n, l0n, conv_old, Dconv, ite, k, status,
+         Ep_h, Delta_h, *ring) = state
+        (ts, ls, rnew, lnew, r0new, l0new, Em_r, Em_l, fsp0, V0n,
+         Delta) = _es_step(vexp, eris, {"ts": ts, "ls": ls, "rn": rn,
+                                        "ln": ln, "r0n": r0n, "l0n": l0n},
+                           pins, Lflat, force_alpha)
+        if diis:
+            parts = {"GS": (ls, ts), "ES": (rnew, lnew, r0new, l0new),
+                     "all": (ts, ls, rnew, lnew, r0new, l0new)}[diis]
+            st, vec = diis_ops.diis_update(
+                diis_ops.DIISState(*ring),
+                torch.cat([x.reshape(-1) for x in parts]), mindiis)
+            ring = tuple(st)
+            out, i = [], 0
+            for x in parts:
+                out.append(vec[i:i + x.numel()].reshape(x.shape))
+                i += x.numel()
+            if diis == "GS":
+                ls, ts = out
+            elif diis == "ES":
+                rnew, lnew, r0new, l0new = out
+            else:
+                ts, ls, rnew, lnew, r0new, l0new = out
+
+        rn, ln, r0n, l0n = rnew, lnew, r0new, l0new
+        Ep0 = ccs_ops.energy_ccs(eris, ts, fsp0, rsn=rn, r0n=r0n, vn=V0n)
+        Ep = torch.stack([torch.cat([Ep0.reshape(1), Em_r]),
+                          torch.cat([zeros_es[:1], Em_l])], dim=1)
+        conv = _es_conv_vec(conv_var, ts, ls, rn, ln, Ep)
+        Ep_h.index_put_((k,), Ep)
+        Delta_h.index_put_((k,), Delta)
+        Dconv = torch.where(
+            ite > 0, torch.linalg.norm(conv - conv_old).to(f64), Dconv)
+        # NaN included: it compares false with the threshold
+        status = torch.where(ite >= maxiter, MAXITER,
+                             torch.where(Dconv <= 10.0, status, DIVERGED))
+        ite = torch.where(status == RUNNING, ite + 1, ite)
+        go = (Dconv > thres) & (status == RUNNING)
+        return (go, ts, ls, rn, ln, r0n, l0n, conv, Dconv, ite, k + 1,
+                status, Ep_h, Delta_h, *ring)
+
+    return body
+
+
 class SolverES_Device:
     """Solver_ES.SCF with all state/transition rdm1s, the whole Vexp[n,m]
     refresh, the coupled t/lambda updates, the (r, r0, l, l0) updates of
@@ -676,76 +792,40 @@ class SolverES_Device:
         self._vexp = make_es_vexp_device(solver.Vexp_class,
                                          dtype=solver.dtype,
                                          device=solver.device)
+        # SCF's loops by what changes their launches, and the device
+        # tensors their bodies read: the weights and the pinned positions
+        self._loops = {}
+        self._weights = self._pins = None
 
-    def _conv_vec(self, ts, ls, rn, ln, Ep):
-        kind = self.s.conv_var
-        if kind == "Ep":
-            return Ep.reshape(-1)
-        if kind == "tl":
-            return (ts + ls).reshape(-1)
-        if kind == "rl":
-            return (rn + ln).sum(dim=0).reshape(-1)
-        return ((ts + ls) + (rn + ln).sum(dim=0)).reshape(-1)
-
-    def step(self, eris, amp, ov, Lflat, force_alpha=True):
-        """One coupled iteration before DIIS: (ts, ls, rnew, lnew, r0new,
-        l0new, Em_r, Em_l, fsp0, V0n, Delta) from the amplitudes `amp` (the
-        stacked form of amp_from_numpy).  ov: flattened (o, v) positions,
-        one per state, or None to take each state's largest amplitude.  It
-        reads nothing to the host."""
-        ts, ls, rn, ln, r0n, l0n = (amp[k] for k in
-                                    ("ts", "ls", "rn", "ln", "r0n", "l0n"))
-        nvir = ts.shape[1]
-        rdm1_gs = ccs_ops.gamma_CCS(ts, ls)
-        rdm1_es = ccs_ops.gamma_es_CCS(ts, ln, rn, r0n, l0n)
-        tr_r = ccs_ops.gamma_tr_CCS(ts, ln, torch.zeros_like(ts), 1.0, l0n)
-        tr_l = ccs_ops.gamma_tr_CCS(ts, ls, rn, r0n, 1.0)
-
-        V00, Vnn, V0n, Vn0, Delta = self._vexp(rdm1_gs, rdm1_es, tr_r, tr_l,
-                                               Lflat)
-        fsp0 = eris.fock - V00
-        fspn = eris.fock[None] - Vnn
-
-        T1i = ccs_ops.T1inter(eris, ts, fsp0)
-        ts = ccs_ops.tsupdate(eris, ts, T1i, rsn=rn, r0n=r0n, vn=V0n)
-        L1i = ccs_ops.L1inter(eris, ts, fsp0)
-        ls = ccs_ops.lsupdate(eris, ts, ls, L1i, rsn=rn, lsn=ln, r0n=r0n,
-                              l0n=l0n, vn=Vn0)
-
-        pos = None if ov is None else (ov // nvir, ov % nvir)
-        Rinter = ccs_ops.R1inter(eris, ts, fspn, V0n)
-        Em_r, o, v = ccs_ops.Extract_Em_r(eris, rn, r0n, Rinter, ov=pos)
-        rnew = ccs_ops.rsupdate(eris, rn, r0n, Rinter, Em_r,
-                                force_alpha=force_alpha)
-        rov = ccs_ops.get_ov(ln, l0n, rn, r0n, (o, v))
-        rnew = ccs_ops._put(rnew, o * nvir + v, rov)
-        r0new = ccs_ops.r0_fromE(eris, Em_r, ts, rn, V0n, fsp=fspn)
-
-        Linter = ccs_ops.es_L1inter(eris, ts, fspn, Vn0)
-        Em_l, o, v = ccs_ops.Extract_Em_l(eris, ln, l0n, Linter, ov=pos)
-        lnew = ccs_ops.es_lsupdate(eris, ln, l0n, Em_l, Linter,
-                                   force_alpha=force_alpha)
-        lov = ccs_ops.get_ov(rn, r0n, ln, l0n, (o, v))
-        lnew = ccs_ops._put(lnew, o * nvir + v, lov)
-        l0new = ccs_ops.l0_fromE(eris, Em_l, ts, ln, Vn0, fsp=fspn)
-        return (ts, ls, rnew, lnew, r0new, l0new, Em_r, Em_l, fsp0, V0n,
-                Delta)
+    def release_graphs(self):
+        """Free the loops (their graphs, pools and static state) that SCF
+        keeps for the next call with the same arguments; ECW.CCS_ES calls
+        it after its solve or sweep."""
+        self._loops = {}
+        self._weights = self._pins = None
 
     @torch.no_grad()
     def SCF(self, L=None, dic_amp_ini=None, diis=None, force_alpha=True,
             print_ite=False):
+        """One coupled solve at weights L, a device_loop.Loop (a replayed
+        graph on the card, one flag read per iteration).  The loop is
+        kept for the next call with the same diis, force_alpha and kind of
+        start (a cold start pins each state's (o, v) position, a warm one
+        follows the largest amplitude: an L_loop sweep captures at most
+        twice), its weights and pinned positions device tensors the body
+        reads, refilled per call, until release_graphs()."""
         s = self.s
         Vexp_class = s.Vexp_class
         L = Vexp_class.L if L is None else Vexp_class.L_check(L)
-        Lflat = [float(x) for st in L for x in np.atleast_1d(st)]
+        Lflat = torch.tensor(
+            [float(x) for st in L for x in np.atleast_1d(st)], dtype=s.dtype)
         diis = s.diis if diis is None else diis
-        eris = s.mycc.eris
         dev, dt = s.device, s.dtype
         nocc, nvir = s.nocc, s.nvir
         nov = nocc * nvir
         n_states = s.nbr_states
         n_es = n_states - 1
-        maxiter, thres = s.maxiter, s.conv_thres
+        maxiter = s.maxiter
 
         if dic_amp_ini is None:
             amp = amp_from_numpy(s._ini_amp(), dev, dt)
@@ -755,12 +835,25 @@ class SolverES_Device:
             # entry equal to 1, and pinning (0, 0) there divided by zero);
             # a warm start follows the largest amplitude
             ov = torch.tensor([int(np.argmax(np.abs(np.asarray(r))))
-                               for r in s.rn_ini], device=dev)
+                               for r in s.rn_ini])
         else:
             amp = amp_from_numpy(dic_amp_ini, dev, dt)
             ov = None
         ts, ls, rn, ln, r0n, l0n = (amp[k] for k in
                                     ("ts", "ls", "rn", "ln", "r0n", "l0n"))
+        if self._weights is None:
+            self._weights = torch.empty_like(Lflat, device=dev)
+            self._pins = torch.zeros(n_es, dtype=torch.int64, device=dev)
+        self._weights.copy_(Lflat)
+        if ov is not None:
+            self._pins.copy_(ov)
+        key = (diis, force_alpha, ov is None, s.conv_var, s.conv_thres,
+               maxiter, s.mindiis, s.maxdiis)
+        if key not in self._loops:
+            self._loops[key] = device_loop.Loop(_es_body(
+                self._vexp, s, diis, force_alpha,
+                None if ov is None else self._pins, self._weights))
+        loop = self._loops[key]
 
         nvec = {"GS": 2 * nov, "ES": 2 * n_es * nov + 2 * n_es,
                 "all": 2 * nov + 2 * n_es * nov + 2 * n_es}.get(diis)
@@ -770,60 +863,15 @@ class SolverES_Device:
         Ep_h = torch.zeros((hist, n_states, 2), dtype=dt, device=dev)
         Delta_h = torch.zeros((hist, n_states, n_states), dtype=dt,
                               device=dev)
-        zeros_es = torch.zeros(n_es, dtype=dt, device=dev)
-        conv = torch.zeros_like(self._conv_vec(ts, ls, rn, ln, Ep_h[0]))
+        conv = torch.zeros_like(_es_conv_vec(s.conv_var, ts, ls, rn, ln,
+                                             Ep_h[0]))
         f64 = torch.float64
-
-        def body(state):
-            # one coupled iteration (JAX es.py:643-842): every decision a
-            # tensor, every write at a tensor index
-            (_, ts, ls, rn, ln, r0n, l0n, conv_old, Dconv, ite, k, status,
-             Ep_h, Delta_h, *ring) = state
-            (ts, ls, rnew, lnew, r0new, l0new, Em_r, Em_l, fsp0, V0n,
-             Delta) = self.step(eris, {"ts": ts, "ls": ls, "rn": rn, "ln": ln,
-                                       "r0n": r0n, "l0n": l0n},
-                                ov, Lflat, force_alpha)
-            if diis:
-                parts = {"GS": (ls, ts), "ES": (rnew, lnew, r0new, l0new),
-                         "all": (ts, ls, rnew, lnew, r0new, l0new)}[diis]
-                st, vec = diis_ops.diis_update(
-                    diis_ops.DIISState(*ring),
-                    torch.cat([x.reshape(-1) for x in parts]), s.mindiis)
-                ring = tuple(st)
-                out, i = [], 0
-                for x in parts:
-                    out.append(vec[i:i + x.numel()].reshape(x.shape))
-                    i += x.numel()
-                if diis == "GS":
-                    ls, ts = out
-                elif diis == "ES":
-                    rnew, lnew, r0new, l0new = out
-                else:
-                    ts, ls, rnew, lnew, r0new, l0new = out
-
-            rn, ln, r0n, l0n = rnew, lnew, r0new, l0new
-            Ep0 = ccs_ops.energy_ccs(eris, ts, fsp0, rsn=rn, r0n=r0n, vn=V0n)
-            Ep = torch.stack([torch.cat([Ep0.reshape(1), Em_r]),
-                              torch.cat([zeros_es[:1], Em_l])], dim=1)
-            conv = self._conv_vec(ts, ls, rn, ln, Ep)
-            Ep_h.index_put_((k,), Ep)
-            Delta_h.index_put_((k,), Delta)
-            Dconv = torch.where(
-                ite > 0, torch.linalg.norm(conv - conv_old).to(f64), Dconv)
-            # NaN included: it compares false with the threshold
-            status = torch.where(ite >= maxiter, MAXITER,
-                                 torch.where(Dconv <= 10.0, status,
-                                             DIVERGED))
-            ite = torch.where(status == RUNNING, ite + 1, ite)
-            go = (Dconv > thres) & (status == RUNNING)
-            return (go, ts, ls, rn, ln, r0n, l0n, conv, Dconv, ite, k + 1,
-                    status, Ep_h, Delta_h, *ring)
-
         i0 = torch.zeros((), dtype=torch.int64, device=dev)
         log = {}
         (_, ts, ls, rn, ln, r0n, l0n, _, _, ite, k, status, Ep_h,
-         Delta_h, *_) = device_loop.Loop(body)(
-            (torch.full((), 1.0 > thres, dtype=torch.bool, device=dev),
+         Delta_h, *_) = loop(
+            (torch.full((), 1.0 > s.conv_thres, dtype=torch.bool,
+                        device=dev),
                    ts, ls, rn, ln, r0n, l0n, conv,
                    torch.ones((), dtype=f64, device=dev), i0, i0.clone(),
                    torch.full_like(i0, RUNNING), Ep_h, Delta_h, *ring),

@@ -71,6 +71,7 @@ SCF_device names SCF on both solvers, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 import types
@@ -153,6 +154,14 @@ def _to_tensor(a, dtype, device):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
+def _ccs_conv_vec(conv, mycc, ts, ls, fsp):
+    if conv == "tl":
+        return (ts + ls).reshape(-1)
+    if conv == "l":
+        return ls.reshape(-1)
+    return mycc.energy_ccs(ts, fsp).reshape(1)
+
+
 class Solver_CCS:
     """Reference API: Solver_GS.Solver_CCS (Solver_GS.py:22-239).
 
@@ -182,6 +191,7 @@ class Solver_CCS:
         self.device, self.dtype = self.fock.device, self.fock.dtype
         self.tsini = self._amp(tsini)
         self.lsini = self._amp(lsini)
+        self._kept = None     # (key, loop, weights): SCF
 
     def _amp(self, a):
         if a is None:
@@ -189,12 +199,14 @@ class Solver_CCS:
                                device=self.device)
         return _to_tensor(a, self.dtype, self.device)
 
+    def release_graphs(self):
+        """Free the loop (its graph, pool and static state) that SCF keeps
+        for the next call with the same arguments; ECW.CCS_GS calls it
+        after its sweep."""
+        self._kept = None
+
     def _conv_vec(self, ts, ls, fsp):
-        if self.conv == "tl":
-            return (ts + ls).reshape(-1)
-        if self.conv == "l":
-            return ls.reshape(-1)
-        return self.mycc.energy_ccs(ts, fsp).reshape(1)
+        return _ccs_conv_vec(self.conv, self.mycc, ts, ls, fsp)
 
     def SCF(self, L, ts=None, ls=None, diis="", alpha=None, store_ite=False):
         """SCF+DIIS solve at constraint weight L (reference
@@ -209,7 +221,12 @@ class Solver_CCS:
         each iteration's DIIS, of every iteration that did not stop the
         loop on maxiter or divergence (the converging one included), as
         (n, nocc, nvir) arrays.  They are kept in device buffers and read
-        once, after the loop."""
+        once, after the loop.
+
+        The loop is kept for the next call with the same diis, alpha and
+        store_ite (the lambdas of a sweep: one capture per sweep), its
+        weights a device tensor the body reads, refilled per call, until
+        release_graphs()."""
         ts = self.tsini if ts is None else self._amp(ts)
         ls = self.lsini if ls is None else self._amp(ls)
         diis = diis or self.diis
@@ -218,55 +235,16 @@ class Solver_CCS:
         n1, dim = nocc * nvir, nocc + nvir
         dev, dt, maxiter = self.device, self.dtype, self.maxiter
         f64, thres = torch.float64, self.conv_thres
-        vexp_fn = make_gs_vexp_device(self.myVexp, dtype=dt, device=dev)
-        Lw = self.myVexp.L_check(L)[0]
-        rows = torch.arange(4, device=dev)
-
-        def body(state):
-            # one iteration (JAX gs.py:203-310): every decision a tensor,
-            # every write at a tensor index
-            (_, ts, ls, rdm1, conv_old, Dconv, ite, k, status, hist,
-             *rest) = state
-            ring = tuple(rest[:len(rest) - 2 * store_ite])
-            ite_bufs = rest[len(ring):]
-            V, Delta, vmax = vexp_fn(rdm1, Lw)
-            fsp = eris.fock - V
-            T1i = ccs_ops.T1inter(eris, ts, fsp)
-            ts = (ccs_ops.tsupdate(eris, ts, T1i) if alpha is None
-                  else ccs_ops.tsupdate_L1(eris, ts, T1i, alpha))
-            L1i = ccs_ops.L1inter(eris, ts, fsp)
-            ls = (ccs_ops.lsupdate(eris, ts, ls, L1i) if alpha is None
-                  else ccs_ops.lsupdate_L1(eris, ls, L1i, alpha))
-            if diis == "tl":
-                st, vec = diis_ops.diis_update(
-                    diis_ops.DIISState(*ring),
-                    torch.cat([ls.reshape(-1), ts.reshape(-1)]),
-                    self.mindiis)
-                ring = tuple(st)
-                ls = vec[:n1].reshape(nocc, nvir)
-                ts = vec[n1:].reshape(nocc, nvir)
-            rdm1 = ccs_ops.gamma_CCS(ts, ls)
-            if diis == "rdm1":
-                st, vec = diis_ops.diis_update(
-                    diis_ops.DIISState(*ring), rdm1.reshape(-1),
-                    self.mindiis)
-                ring = tuple(st)
-                rdm1 = vec.reshape(dim, dim)
-            Ep = ccs_ops.energy_ccs(eris, ts, fsp)
-            conv = self._conv_vec(ts, ls, fsp)
-            Dconv = torch.where(ite > 0, torch.linalg.norm(conv - conv_old),
-                                Dconv)
-            hist.index_put_((rows, k), torch.stack([Ep, Delta, vmax, Dconv]))
-            D64 = Dconv.to(f64)     # compared as the host float it was
-            status = torch.where(ite >= maxiter, MAXITER,
-                                 torch.where(D64 > 10.0, DIVERGED, status))
-            for buf, x in zip(ite_bufs, (ts, ls)):
-                # row ite is read only if this iteration counts
-                buf.index_put_((ite,), x)
-            ite = torch.where(status == RUNNING, ite + 1, ite)
-            go = (D64 > thres) & (status == RUNNING)
-            return (go, ts, ls, rdm1, conv, Dconv, ite, k + 1, status, hist,
-                    *ring, *ite_bufs)
+        Lw_host = torch.tensor(self.myVexp.L_check(L)[0], dtype=dt)
+        key = (diis, alpha, store_ite, self.conv, thres, maxiter,
+               self.mindiis, self.maxdiis, tuple(Lw_host.shape))
+        if self._kept is None or self._kept[0] != key:
+            self.release_graphs()
+            Lw = torch.empty_like(Lw_host, device=dev)
+            self._kept = (key, device_loop.Loop(
+                self._scf_body(diis, alpha, store_ite, Lw)), Lw)
+        _, loop, Lw = self._kept
+        Lw.copy_(Lw_host)
 
         with torch.no_grad():
             rdm1 = ccs_ops.gamma_CCS(ts, ls)
@@ -282,7 +260,7 @@ class Solver_CCS:
             go = torch.full((), 1.0 > thres, dtype=torch.bool, device=dev)
             log = {}
             (_, ts, ls, rdm1, _, _, ite, k, status, hist,
-             *rest) = device_loop.Loop(body)(
+             *rest) = loop(
                 (go, ts, ls, rdm1, conv,
                  torch.ones((), dtype=dt, device=dev), i0, i0.clone(),
                  torch.full_like(i0, RUNNING), hist, *ring, *ite_bufs), log)
@@ -304,6 +282,68 @@ class Solver_CCS:
                     ts_ite[:ite].cpu().numpy(), ls_ite[:ite].cpu().numpy())
         return (text, Ep_h, Delta_it, conv_h, rdm1,
                 (ts.cpu().numpy(), ls.cpu().numpy()))
+
+    def _scf_body(self, diis, alpha, store_ite, Lw):
+        """SCF's loop body for these arguments, reading the weights from
+        the device tensor Lw."""
+        eris = self.mycc.eris
+        nocc, nvir = self.nocc, self.nvir
+        n1, dim = nocc * nvir, nocc + nvir
+        dev, maxiter = self.device, self.maxiter
+        f64, thres, mindiis = torch.float64, self.conv_thres, self.mindiis
+        # the body holds no reference to the solver, which keeps it
+        conv_vec = functools.partial(_ccs_conv_vec, self.conv, self.mycc)
+        vexp_fn = make_gs_vexp_device(self.myVexp, dtype=self.dtype,
+                                      device=dev)
+        rows = torch.arange(4, device=dev)
+
+        def body(state):
+            # one iteration (JAX gs.py:203-310): every decision a tensor,
+            # every write at a tensor index
+            (_, ts, ls, rdm1, conv_old, Dconv, ite, k, status, hist,
+             *rest) = state
+            ring = tuple(rest[:len(rest) - 2 * store_ite])
+            ite_bufs = rest[len(ring):]
+            V, Delta, vmax = vexp_fn(rdm1, Lw)
+            fsp = eris.fock - V
+            T1i = ccs_ops.T1inter(eris, ts, fsp)
+            ts = (ccs_ops.tsupdate(eris, ts, T1i) if alpha is None
+                  else ccs_ops.tsupdate_L1(eris, ts, T1i, alpha))
+            L1i = ccs_ops.L1inter(eris, ts, fsp)
+            ls = (ccs_ops.lsupdate(eris, ts, ls, L1i) if alpha is None
+                  else ccs_ops.lsupdate_L1(eris, ls, L1i, alpha))
+            if diis == "tl":
+                st, vec = diis_ops.diis_update(
+                    diis_ops.DIISState(*ring),
+                    torch.cat([ls.reshape(-1), ts.reshape(-1)]),
+                    mindiis)
+                ring = tuple(st)
+                ls = vec[:n1].reshape(nocc, nvir)
+                ts = vec[n1:].reshape(nocc, nvir)
+            rdm1 = ccs_ops.gamma_CCS(ts, ls)
+            if diis == "rdm1":
+                st, vec = diis_ops.diis_update(
+                    diis_ops.DIISState(*ring), rdm1.reshape(-1),
+                    mindiis)
+                ring = tuple(st)
+                rdm1 = vec.reshape(dim, dim)
+            Ep = ccs_ops.energy_ccs(eris, ts, fsp)
+            conv = conv_vec(ts, ls, fsp)
+            Dconv = torch.where(ite > 0, torch.linalg.norm(conv - conv_old),
+                                Dconv)
+            hist.index_put_((rows, k), torch.stack([Ep, Delta, vmax, Dconv]))
+            D64 = Dconv.to(f64)     # compared as the host float it was
+            status = torch.where(ite >= maxiter, MAXITER,
+                                 torch.where(D64 > 10.0, DIVERGED, status))
+            for buf, x in zip(ite_bufs, (ts, ls)):
+                # row ite is read only if this iteration counts
+                buf.index_put_((ite,), x)
+            ite = torch.where(status == RUNNING, ite + 1, ite)
+            go = (D64 > thres) & (status == RUNNING)
+            return (go, ts, ls, rdm1, conv, Dconv, ite, k + 1, status, hist,
+                    *ring, *ite_bufs)
+
+        return body
 
     SCF_device = SCF    # the JAX name of the device loop
 

@@ -75,7 +75,9 @@ def test_solve_ccsd_matches_jax(system, request, monkeypatch):
     t1j, t2j, ej = jt.solve_ccsd(er)
     log = {}
     t1, t2, e = tt.solve_ccsd(from_numpy(er, **F64), log=log)
-    assert log == {"iterations": calls[0], "converged": True}
+    # the loop's own log beside them: eager on the CPU
+    assert log == {"iterations": calls[0], "converged": True,
+                   "loop": {"graph": False, "iterations": calls[0]}}
     assert abs(e - ej) < 1e-10
     assert np.abs(t1.numpy() - np.asarray(t1j)).max() < 1e-9
     assert np.abs(t2.numpy() - np.asarray(t2j)).max() < 1e-9
@@ -115,7 +117,8 @@ def test_solve_lambda_matches_jax(sto3g, monkeypatch):
     l1j, l2j = jgexp.solve_lambda(s["er"], s["t1"], s["t2"])
     log = {}
     l1, l2 = tgexp.solve_lambda(s["er_t"], _t(s["t1"]), _t(s["t2"]), log=log)
-    assert log == {"iterations": calls[0], "converged": True}
+    assert log == {"iterations": calls[0], "converged": True,
+                   "loop": {"graph": False, "iterations": calls[0]}}
     assert np.abs(l1.numpy() - np.asarray(l1j)).max() < 1e-9
     assert np.abs(l2.numpy() - np.asarray(l2j)).max() < 1e-9
     packed = tl.pack_vvvv(s["er_t"].vvvv)
@@ -253,6 +256,35 @@ def test_energy_t_grad_pairwise_matches_autograd(sorted_631g, route):
     dense = tt.energy_t_grad(er, _t(t1), _t(t2), er.fock)
     for got, want in zip(out[1:], dense[1:]):
         assert (got - want).abs().max() < 1e-11
+
+
+@pytest.mark.parametrize("route", ["dense", "sect", "sect_sym"])
+def test_energy_t_grad_scan_matches_jax_grad(sorted_631g, route):
+    """energy_t_grad (the pairs' device_loop.scan) against jax.grad of the
+    JAX package's energy_t on the same inputs: the energy and dE_T / d(t1,
+    t2, diag f) to the tolerances above."""
+    import jax
+
+    s = sorted_631g
+    info = s["info"]
+    sect = {"dense": None, "sect": (info, False),
+            "sect_sym": (info, True)}[route]
+    t1, t2 = _amps(info, True, seed=43)
+    er, erj = s["er_dense_t"], s["er_dense"]
+    f = np.asarray(erj.fock)
+
+    def e_jax(a, b, ff):
+        return jt.energy_t(erj, a, b, ff, sect=sect)
+
+    ref = float(e_jax(jnp.asarray(t1), jnp.asarray(t2), jnp.asarray(f)))
+    g1, g2, gf = jax.grad(e_jax, argnums=(0, 1, 2))(
+        jnp.asarray(t1), jnp.asarray(t2), jnp.asarray(f))
+    out = tt.energy_t_grad(er, _t(t1), _t(t2), er.fock, sect=sect)
+    assert abs(float(out[0]) - ref) < 1e-13
+    nocc = info.nocc
+    gd = np.diagonal(np.asarray(gf))
+    for got, want in zip(out[1:], (g1, g2, gd[:nocc], gd[nocc:])):
+        assert np.abs(got.numpy() - np.asarray(want)).max() < 1e-12
 
 
 def test_h2s_631gstar_ccsd_t_anchor():

@@ -10,6 +10,13 @@ fixed-shape DIIS ring under them (ecw_cc_torch.ops.diis), f64 on the CPU:
     iterations 2, 3 and one after the DIIS ring has filled issue the same
     operations on tensors of the same shapes and dtypes: the
     precondition of a CUDA graph capture, checked without a card;
+  - the same for the target's loops (solve_ccsd, solve_lambda, the (T)
+    adjoint's iterations) and for the (T) scans' pair bodies, energy and
+    gradient, on every route and spin-sector pair;
+  - device_loop.scan on the CPU is the Python loop of its body;
+  - Solver_CCS and SolverES_Device keep their loops across a sweep's
+    lambdas: one loop per CCS sweep, at most two per ES sweep, with the
+    results of one solver per lambda;
   - on a card (marked `gpu`, skipped without one): the captured C2H2/6-31G
     f64 solve equals the CPU's.
 """
@@ -187,7 +194,20 @@ def recorded(monkeypatch):
             log.update(graph=False, iterations=N_ITER)
         return state
 
+    def scan(body, state, n, log=None):
+        # N_ITER steps whatever n says (every case has more pairs)
+        recs = []
+        state = tuple(state)
+        for _ in range(N_ITER):
+            rec = _Record()
+            with rec:
+                state = tuple(body(state))
+            recs.append(rec)
+        loops.append(recs)
+        return state
+
     monkeypatch.setattr(device_loop.Loop, "__call__", call)
+    monkeypatch.setattr(device_loop, "scan", scan)
     return loops
 
 
@@ -277,26 +297,212 @@ def _es_case(diis):
     SolverES_Device(S).SCF(0.15)
 
 
+def _target_system(p, route):
+    """(eris, vvvv_op, sect, t1, t2) of the target's loops on H2O/6-31G:
+    'sectored_sym' and 'sectored' the sorted ERIs with their
+    SectoredVVVV, amplitudes balanced and mirror symmetric; 'dense' the
+    alternating ERIs and their MP2 amplitudes with a small t1."""
+    from test_ccsd_kernels import _mirror_amps
+
+    from ecw_cc_torch.ops.spinsect import sector_info
+
+    if route == "dense":
+        er, _ = p["alt"]
+        e = torch.diagonal(er.fock)
+        no = er.nocc
+        eia = e[:no, None] - e[None, no:]
+        t2 = er.oovv / (eia[:, None, :, None] + eia[None, :, None, :])
+        t1 = 0.01 * torch.ones_like(eia)
+        return er, None, None, t1, t2
+    er, op = p["srt"]
+    info = sector_info(np.asarray(p["ghf"].orbspin)[p["perm"]], er.nocc)
+    t1, t2 = (torch.tensor(x) for x in _mirror_amps(info, seed=7)[:2])
+    return er, op, (info, route == "sectored_sym"), t1, t2
+
+
+def _target_case(p, part, route):
+    from ecw_cc_torch.models import gamma_exp
+    from ecw_cc_torch.ops import ccsd_t
+
+    er, op, sect, t1, t2 = _target_system(p, route)
+    if part == "ccsd":
+        ccsd_t.solve_ccsd(er, vvvv_op=op, sect=sect)
+    elif part == "lambda":
+        gamma_exp.solve_lambda(er, t1, t2, vvvv_op=op, sect=sect)
+    elif part == "adjoint":
+        ccsd_t.ccsd_t_rdm1_response(er, t1, t2, with_t=False, vvvv_op=op,
+                                    sect=sect)
+    elif part == "t_energy":
+        ccsd_t.energy_t(er, t1, t2, sect=sect)
+    else:
+        ccsd_t.energy_t_grad(er, t1, t2, sect=sect)
+
+
+TARGET_ROUTES = {"ccsd": ("sectored_sym", "sectored", "dense"),
+                 "lambda": ("sectored", "dense"),
+                 "adjoint": ("sectored", "dense"),
+                 "t_energy": ("sectored_sym", "sectored", "dense"),
+                 "t_grad": ("sectored_sym", "sectored", "dense")}
+# the loops (and scans: one per spin-sector pair) each case records
+TARGET_LOOPS = {"sectored_sym": 2, "sectored": 4, "dense": 1}
+
 CASES = ([("ccsd", r, n, d) for r in CCSD_ROUTES for n in (1, 3)
           for d in ("", "tl", "rdm1")]
          + [("ccs", d, s) for d in ("", "tl", "rdm1") for s in (False, True)]
-         + [("es", d) for d in ("", "GS", "ES", "all")])
+         + [("es", d) for d in ("", "GS", "ES", "all")]
+         + [("target", part, r) for part, routes in TARGET_ROUTES.items()
+            for r in routes])
 
 
 @pytest.mark.parametrize("case", CASES, ids=["-".join(map(str, c))
                                              for c in CASES])
 def test_loop_body_is_capturable(request, recorded, case):
     """The loop body of every CCSD route (1 and 3 lanes), of CCS (with
-    store_ite) and of ES, with every DIIS kind, reads nothing to the host
-    and repeats one sequence of operations (module docstring)."""
+    store_ite) and of ES, with every DIIS kind, and of the target's CCSD,
+    Lambda and adjoint loops and the (T) scans (energy and gradient, each
+    spin-sector pair, with the mirror symmetry and without, and the dense
+    route), reads nothing to the host and repeats one sequence of
+    operations (module docstring)."""
     kind, *args = case
     if kind == "ccsd":
         _ccsd_case(request.getfixturevalue("ccsd_problem"), *args)
     elif kind == "ccs":
         _ccs_case(*args)
-    else:
+    elif kind == "es":
         _es_case(*args)
+    else:
+        _target_case(request.getfixturevalue("ccsd_problem"), *args)
+        if args[0] in ("t_energy", "t_grad"):
+            assert len(recorded) == TARGET_LOOPS[args[1]]
     _assert_capturable(recorded)
+
+
+def test_scan_gradient_body_records_its_backward(recorded, ccsd_problem):
+    """The (T) gradient's step takes its pair's gradient inside the body:
+    the recorded steps hold the backward operations (here, the gathers'
+    scatter-adds), which a capture therefore holds too."""
+    _target_case(ccsd_problem, "t_grad", "sectored_sym")
+    ops = {op for op, *_ in recorded[0][1].ops}
+    assert any("index_add" in op for op in ops), sorted(ops)
+
+
+@pytest.mark.parametrize("n", [0, 1, 5])
+def test_scan_on_cpu_is_the_python_loop(n):
+    """device_loop.scan on the CPU: the body n times from the state, the
+    step index a 0-d tensor in the state, nothing read to the host (no
+    flag: the length is known); a body that takes a gradient inside
+    itself adds it up as the loop would."""
+    x = torch.linspace(0.5, 2.0, 12, dtype=torch.float64)
+    w = x.clone().requires_grad_(True)
+
+    def body(state):
+        ij, acc, g = state
+        with torch.enable_grad():
+            t = _take1(w, ij) ** 3
+            dt, = torch.autograd.grad(t, w)
+        g.add_(dt)
+        return ij + 1, acc + t.detach(), g
+
+    rec = _Record()
+    log = {}
+    state = (torch.tensor(3), torch.zeros((), dtype=torch.float64),
+             torch.zeros_like(x))
+    with rec:
+        ij, acc, g = device_loop.scan(body, state, n, log)
+    assert not rec.host, sorted(set(rec.host))
+    assert log == {"steps": n, "graph": False}
+    assert int(ij) == 3 + n
+    want_g = torch.zeros_like(x)
+    want_g[3:3 + n] = 3 * x[3:3 + n] ** 2
+    assert abs(float(acc) - float((x[3:3 + n] ** 3).sum())) < 1e-14
+    assert (g - want_g).abs().max() < 1e-14
+
+
+def _take1(x, ij):
+    return x.index_select(0, ij.reshape(1)).squeeze(0)
+
+
+def _count_loops(monkeypatch):
+    made = [0]
+    init = device_loop.Loop.__init__
+
+    def counted(self, *a, **k):
+        made[0] += 1
+        init(self, *a, **k)
+
+    monkeypatch.setattr(device_loop.Loop, "__init__", counted)
+    return made
+
+
+SWEEP = (0.0, 0.25, 0.5)
+
+
+@pytest.mark.parametrize("diis,store_ite", [("", False), ("tl", False),
+                                            ("rdm1", False), ("tl", True)])
+def test_ccs_sweep_keeps_one_loop(monkeypatch, diis, store_ite):
+    """Solver_CCS over three lambdas, each warm-started from the last,
+    builds one loop (the weights a device tensor the kept body reads);
+    every lambda equals a new solver's solve from the same start to
+    1e-12."""
+    ecw = ECW("h2o", "6-31g", **F64)
+    ecw.Build_GS_exp("mat", "HF", field=[0.05, 0.01, 0.0])
+
+    def solver():
+        return Solver_CCS(Gccs(ecw.eris),
+                          TExp(0.5, ecw.exp_data, ecw.mol, ecw.mo_coeff,
+                               Ek_exp_GS=ecw.Ek_exp_GS),
+                          conv="tl", conv_thres=1e-10, maxiter=60,
+                          maxdiis=6, diis=diis)
+
+    made = _count_loops(monkeypatch)
+    kept, amps, outs = solver(), (None, None), []
+    for L in SWEEP:
+        out = kept.SCF(L, *amps, store_ite=store_ite)
+        outs.append((out, amps))
+        amps = out[5:] if store_ite else out[5]
+        if store_ite:
+            amps = (amps[0][-1], amps[1][-1])
+    assert made[0] == 1
+    kept.release_graphs()
+    assert kept._kept is None
+    for L, (out, start) in zip(SWEEP, outs):
+        ref = solver().SCF(L, *start, store_ite=store_ite)
+        assert out[0] == ref[0]
+        for a, b in zip(out[1:], ref[1:]):
+            a, b = (np.asarray(v, dtype=float) for v in (a, b))
+            assert np.abs(a - b).max() < 1e-12
+
+
+@pytest.mark.parametrize("diis", ["", "all"])
+def test_es_sweep_keeps_at_most_two_loops(monkeypatch, diis):
+    """SolverES_Device over three lambdas (the L_loop sweep's way: a cold
+    start that pins each state's position, then warm starts that follow
+    the largest amplitude) builds two loops; every lambda equals a new
+    solver's solve from the same start to 1e-12."""
+    ecw = ECW("h2o", "6-31g", **F64)
+    dip = (0.523742 + 0.550251) / 2.0
+    ecw.Build_ES_exp_input([[["trdip", (dip, 0.0, 0.0)]],
+                            [["DEk", 7.6051 * 0.03675]]])
+    S = Solver_ES(Gccs(ecw.eris),
+                  TExp(0.15, ecw.exp_data, ecw.mol, ecw.mo_coeff),
+                  rn_ini=ecw.r_ini, conv_var="rl", conv_thres=1e-9,
+                  maxiter=60, maxdiis=8, diis=diis)
+    made = _count_loops(monkeypatch)
+    kept, amp, outs = SolverES_Device(S), None, []
+    for L in (0.0, 0.05, 0.1):
+        out = kept.SCF(L, dic_amp_ini=amp, diis=diis)
+        outs.append((L, out, amp))
+        amp = out[1]
+    assert made[0] == 2
+    kept.release_graphs()
+    for L, out, start in outs:
+        ref = SolverES_Device(S).SCF(L, dic_amp_ini=start, diis=diis)
+        assert out[0] == ref[0]
+        for a, b in ((out[2], ref[2]), (out[3], ref[3]), (out[4], ref[4])):
+            assert np.abs(np.asarray(a) - np.asarray(b)).max() < 1e-12
+        for k in out[1]:
+            assert np.abs(np.asarray(out[1][k])
+                          - np.asarray(ref[1][k])).max() < 1e-12
 
 
 def test_cpu_loop_reads_one_flag_per_iteration():
