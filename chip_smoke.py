@@ -36,6 +36,11 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --eom            # phases 1, 2, phase 3's
                                            # tangent check and 13 only:
                                            # EOM-EE/IP/EA-CCSD
+    python3 chip_smoke.py --eom --chain    # phase 1 and the EOM times:
+                                           # the warm bench solves, the
+                                           # solver's matvecs, 13c's
+                                           # stages (copied into an older
+                                           # checkout, it times that one)
     python3 chip_smoke.py --batch          # phases 1, 2, phase 3 at the
                                            # batched shapes and 14 only:
                                            # the batched lambda sweep
@@ -225,9 +230,11 @@ each); any failure raises and exits nonzero:
          without refine, and both hybrids, the same way, and the chains of
          'highest', 'high' and 'bf16' (ms per iteration; every chain's
          launches exactly one per iteration in its mode's variant);
-  13. EOM-CCSD (the sigmas by torch.func.jvp / vjp of the CCSD residual,
-     whose ladder launches the kernel forward, for the tangent and
-     backward):
+  13. EOM-CCSD (the Davidson is the JAX package's pipelined one, each
+     cycle a captured program replayed, one copy in and one read out; the
+     EE matvecs run off the residual evaluated once per problem, whose
+     ladder launches the kernel forward once, then per right matvec a
+     tangent (a double backward) and per left matvec a backward):
      (a) the JAX package's EOM bench rows, C2H2/cc-pVDZ f32 on ECW's ERIs
          (alternating, a PackedVVVV), solve_ccsd(conv_tol=1e-8), then
          eom_ccsd(nroots=1), eom_ccsd(nroots=2, left=True),
@@ -237,15 +244,24 @@ each); any failure raises and exits nonzero:
          within 1e-5 Ha per root; <L_j|R_k> = delta_jk to 1e-5 (1e-4 off
          the diagonal); per solve the Davidson cycles and matvecs, the
          ladder launches (forward, tangent, backward) exactly as the
-         matvecs predict (one product per matvec on this route, none for
-         IP), peak memory, and the warm solve ms (median of 3);
+         matvecs predict (expected_eom_launches: one product per matvec
+         on this route, none for IP; no forward launch in an EE matvec),
+         every Davidson past its first cycle replayed its graph, the
+         capture and empty_cache ms of each, peak memory, and the warm
+         solve ms (median of 3); make_sigma's jvp and vjp, the bare
+         residual, the solver's own right and left matvecs and the
+         problem's set-up (ms); per cycle of the EE right Davidson (two
+         windows of 4 and 12 cycles differenced) the host's launch calls
+         (at most GRAPH_MAX_CALLS), device operations and ms, and the
+         ladder launches: 0 forward, 1 tangent, on the counters and the
+         profiler's records;
      (b) the same four solves at f64 at C2H2/6-31G (the dense ladder, the
          kernel at 196x900x900), card against CPU: roots to 1e-9 Ha, equal
          cycles and matvecs, the card's launches as predicted;
      (c) ECW(trans-bent acetylene, cc-pVDZ).Build_ES_exp_EOM(2, 'trdip')
          at f32 (the sorted sectored ESexp.EOM: three products per
          matvec) and at f64 on the card: launches as the iteration and
-         matvec counts predict, Tr(gamma_es) = N to 1e-5, the f32 roots
+         matvec counts predict, every Davidson replayed, Tr(gamma_es) = N to 1e-5, the f32 roots
          and oscillator strengths within 1e-5 Ha and 1e-4 of f64; then
          CCS_ES over lambda = 0, 0.05, 0.1 (method='device', L_loop=True)
          on the f32 states, with their 'trdip' targets (printed: the two
@@ -3100,31 +3116,60 @@ def eom_calls(eris, op, t1, t2, tol):
 def eom_matvecs(log):
     """(right, left) matvecs of an EOM solve's log, the left ones with
     those of every per-root solve."""
-    left = log.get("left", [])
-    left = left if isinstance(left, list) else [left]
-    left = left + log.get("left_follow", [])
-    return log["right"]["matvecs"], sum(x["matvecs"] for x in left)
+    return (log["right"]["matvecs"],
+            sum(x["matvecs"] for x in davidson_logs(log)[1:]))
 
 
 def eom_cycles(log):
-    left = log.get("left", [])
-    left = left if isinstance(left, list) else [left]
-    return ([log["right"]["cycles"]]
-            + [x["cycles"] for x in left + log.get("left_follow", [])])
+    return [x["cycles"] for x in davidson_logs(log)]
 
 
 def expected_eom_launches(name, log, products, ea_packed):
-    """(forward, tangent, backward) ladder launches of one solve: per right
-    matvec `products` forward and as many tangent ones (EE), per left
-    matvec forward and backward; the EA sigma as many forward per right
-    matvec on pack-on-build ERIs (`ea_packed`; with a dense vvvv its
-    ladder terms are einsums, as in the JAX package); IP none."""
+    """(forward, tangent, backward) ladder launches of one solve.  EE: the
+    problem's primal `products` forward and its linear map's graph as many
+    backward, once per solve (ops/eom._linearize), then per right matvec
+    `products` tangent launches (a double backward) and per left matvec as
+    many backward: no matvec launches a forward product.  EA on
+    pack-on-build ERIs (`ea_packed`; with a dense vvvv its ladder terms are
+    einsums, as in the JAX package): per right matvec `products` forward,
+    the left map's sigma at zeros once more where left solves ran, and per
+    left matvec as many backward.  IP none.  The matvecs are those the
+    Davidsons made (a collapse cycle's discarded ones included)."""
     right, left = eom_matvecs(log)
     if name == "ip" or (name == "ea" and not ea_packed):
         return 0, 0, 0
     if name == "ea":
-        return products * right, 0, products * left
-    return products * (right + left), products * right, products * left
+        return products * (right + bool(log.get("left"))), 0, products * left
+    return products, products * right, products * (1 + left)
+
+
+def davidson_logs(log):
+    """The logs of an EOM solve's Davidsons: right, left, per-root."""
+    left = log.get("left", [])
+    left = left if isinstance(left, list) else [left]
+    return [log["right"]] + left + log.get("left_follow", [])
+
+
+def capture_costs(log):
+    """(capture ms, empty_cache ms) of each Davidson of an EOM solve (None
+    where the log has none: no capture, or an older tree's log)."""
+    return [(d.get("capture_ms"), d.get("empty_cache_ms"))
+            for d in davidson_logs(log)]
+
+
+def check_davidson_graphs(name, log):
+    """Every Davidson of the solve that ran past its first cycle replayed
+    its captured cycle program (utils/linalg.davidson_device).  Returns
+    per Davidson (cycles, collapses, replays, capture ms, empty_cache
+    ms)."""
+    rows = [(d["cycles"], d.get("collapses"), d.get("replays"),
+             d.get("capture_ms"), d.get("empty_cache_ms"))
+            for d in davidson_logs(log)]
+    if any(d["cycles"] > 1 and not d.get("graph")
+           for d in davidson_logs(log)):
+        raise AssertionError(f"{name}: a Davidson ran without its graph: "
+                             f"{rows}")
+    return rows
 
 
 def count_all(ladder_mm, fn):
@@ -3151,15 +3196,20 @@ def run_eom_solves(ladder_mm, tag_, eris, op, t1, t2, route, reps):
         torch.cuda.synchronize()
         cold_ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated() - base
-        runs = []
+        runs, run_programs = [], []
         for _ in range(reps):
+            warm_log = {}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fn({})
+            fn(warm_log)
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t0) * 1e3)
+            run_programs.append(capture_costs(warm_log))
         want = expected_eom_launches(name, log, EOM_PRODUCTS[route],
                                      eris.vvvv.numel() == 0)
+        programs = check_davidson_graphs(f"{tag_} {name}", log)
+        # EE: the primal's forward launches, once per solve
+        per_problem = EOM_PRODUCTS[route] if name.startswith("ee") else 0
         omegas = [float(w) for w in res[0]]
         conv = [log["right"]["converged"]] + [
             x["converged"] for x in ([log["left"]] if isinstance(
@@ -3169,9 +3219,12 @@ def run_eom_solves(ladder_mm, tag_, eris, op, t1, t2, route, reps):
               omegas_eV=[w * EV for w in omegas], cycles=eom_cycles(log),
               matvecs=eom_matvecs(log), converged=conv,
               launches_fwd_tan_back=launches, expected=want,
-              launches_per_matvec=want[0] / max(1, sum(eom_matvecs(log))),
+              matvec_forward_launches=launches[0] - per_problem,
+              davidson_cycles_collapses_replays_capture_ms=programs,
               cold_ms=cold_ms, warm_ms=statistics.median(runs) if runs
-              else None, warm_ms_runs=runs, peak_bytes_above_base=peak)
+              else None, warm_ms_runs=runs,
+              warm_capture_and_empty_cache_ms=run_programs,
+              peak_bytes_above_base=peak)
         if tuple(launches) != tuple(want):
             raise AssertionError(f"{tag_} {name}: ladder launches "
                                  f"(forward, tangent, backward) {launches}, "
@@ -3196,9 +3249,10 @@ def eom_overlaps(Rs, Ls):
 
 def eom_matvec_ms(eris, op, t1, t2, reps=EOM_REPS * 3):
     """Host ms (synchronized, median of `reps` after one untimed call) of
-    one right EE matvec (torch.func.jvp of the residual), one left one
-    (vjp), and the residual alone (the primal that the jvp evaluates
-    again in every right matvec, ROADMAP A.12)."""
+    make_sigma's right EE sigma (torch.func.jvp of the residual), its left
+    one (vjp), and the residual alone (the primal that the jvp evaluates
+    again at every call; the solver's matvecs evaluate it once per
+    problem instead: solver_matvec_ms)."""
     from ecw_cc_torch.ops import eom
 
     g = torch.Generator(t1.device).manual_seed(7)
@@ -3212,8 +3266,8 @@ def eom_matvec_ms(eris, op, t1, t2, reps=EOM_REPS * 3):
             return eom._residual(eris, op, None, t1, t2, None)
 
     out = {}
-    for name, fn in (("right_matvec", lambda: sigma(r1, r2)),
-                     ("left_matvec", lambda: sigma_left(r1, r2)),
+    for name, fn in (("right_sigma_jvp", lambda: sigma(r1, r2)),
+                     ("left_sigma_vjp", lambda: sigma_left(r1, r2)),
                      ("primal_residual", primal)):
         fn()
         runs = []
@@ -3225,6 +3279,113 @@ def eom_matvec_ms(eris, op, t1, t2, reps=EOM_REPS * 3):
             runs.append((time.perf_counter() - t0) * 1e3)
         out[name] = statistics.median(runs)
     return out
+
+
+def solver_matvec_ms(eris, op, t1, t2, reps=EOM_REPS * 3):
+    """Host ms (synchronized, median of `reps` after one untimed call) of
+    one right and one left EE matvec as eom_ccsd's Davidsons call them:
+    the matvec (and operands) each is handed, read off the module's
+    davidson_device and applied to a random vector, in a call
+    eom_ccsd(nroots=1, left=True) at tol 1e-5.  It asks nothing else of
+    the solver, so it times an older checkout's matvecs the same way."""
+    from ecw_cc_torch.ops import eom
+
+    real = eom.davidson_device
+    g = torch.Generator(t1.device).manual_seed(8)
+    out = {}
+
+    def timing(matvec, x0, diag, **kw):
+        name = ("right_matvec", "left_matvec")[len(out)] \
+            if len(out) < 2 else None
+        if name is not None:
+            v = torch.randn(diag.numel(), generator=g, device=t1.device,
+                            dtype=t1.dtype)
+            ops = kw.get("operands")
+            fn = (lambda: matvec(v)) if ops is None else \
+                (lambda: matvec(v, ops))
+            with torch.no_grad():
+                fn()
+                runs = []
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    runs.append((time.perf_counter() - t0) * 1e3)
+            out[name] = statistics.median(runs)
+        return real(matvec, x0, diag, **kw)
+
+    eom.davidson_device = timing
+    try:
+        eom.eom_ccsd(eris, t1, t2, nroots=1, tol=EOM_TOL[t1.dtype],
+                     left=True, vvvv_op=op)
+    finally:
+        eom.davidson_device = real
+    return out
+
+
+EOM_CYCLE_WINDOWS = (4, 12)   # 13a: two EE Davidsons of n cycles, differenced
+
+
+def eom_cycle_calls(ladder_mm, eris, op, t1, t2, products):
+    """Phase 13 (a): per cycle of the EE right Davidson (nroots 1, tol
+    below zero so that it runs its max_cycle; windows of 4 and 12 cycles,
+    differenced so that the solve's set-up, first cycle and capture
+    cancel): the host's launch calls (at most GRAPH_MAX_CALLS: the copy
+    of Y and theta, the graph launch and the one read), the device
+    operations and ms, and the ladder launches, on the wrapper's counters
+    (forward, tangent, backward: 0, `products`, 0) and in the profiler's
+    records."""
+    from ecw_cc_torch.ops import eom
+
+    counts = []
+
+    def run(n):
+        ladder_mm.launches = ladder_mm.backward_launches = 0
+        ladder_mm.tangent_launches = 0
+        log = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            eom.eom_ccsd(eris, t1, t2, nroots=1, tol=-1.0, max_cycle=n,
+                         vvvv_op=op, log=log)
+        d = log["right"]
+        if d["cycles"] != n or not d["graph"] or d["collapses"]:
+            raise AssertionError(f"13a cycle window {n}: {d}")
+        tan, back = ladder_mm.tangent_launches, ladder_mm.backward_launches
+        counts.append((ladder_mm.launches - tan - back, tan, back))
+
+    kernels, dev_ms, calls, ladder = chain_ops(run, EOM_CYCLE_WINDOWS)
+    dn = EOM_CYCLE_WINDOWS[1] - EOM_CYCLE_WINDOWS[0]
+    per_cycle = tuple((b - a) / dn for a, b in zip(*counts))
+    n_calls = sum(calls.values())
+    row = dict(cycles=EOM_CYCLE_WINDOWS, launch_calls_per_cycle=n_calls,
+               launch_calls_by_name=calls, kernels_per_cycle=kernels,
+               device_ms_per_cycle=dev_ms, ladder_kernels_per_cycle=ladder,
+               launches_fwd_tan_back_per_cycle=per_cycle,
+               max_calls_per_cycle=GRAPH_MAX_CALLS)
+    phase(13, "eom_cycle_calls", **row)
+    if (n_calls > GRAPH_MAX_CALLS or kernels <= 0 or ladder != products
+            or per_cycle != (0, products, 0)):
+        raise AssertionError(f"13a Davidson cycle: {row}, expected <= "
+                             f"{GRAPH_MAX_CALLS} calls and {products} "
+                             "tangent launches")
+    return row
+
+
+def linearize_ms(eris, op, t1, t2, reps=EOM_REPS):
+    """Host ms (synchronized, median of `reps`) of the EE problem's set-up:
+    the residual and its linear map's graph (ops/eom._linearize)."""
+    from ecw_cc_torch.ops import eom
+
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lin = eom._linearize(eris, op, None, t1, t2)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        del lin
+    return statistics.median(runs)
 
 
 def run_eom_bench(ladder_mm):
@@ -3250,6 +3411,10 @@ def run_eom_bench(ladder_mm):
     r32 = run_eom_solves(ladder_mm, "c2h2_ccpvdz_f32_eom", ecw.eris,
                          ecw.vvvv_op, t1, t2, "packed", EOM_REPS)
     mv_ms = eom_matvec_ms(ecw.eris, ecw.vvvv_op, t1, t2)
+    mv_ms.update(solver_matvec_ms(ecw.eris, ecw.vvvv_op, t1, t2),
+                 linearize=linearize_ms(ecw.eris, ecw.vvvv_op, t1, t2))
+    eom_cycle_calls(ladder_mm, ecw.eris, ecw.vvvv_op, t1, t2,
+                    EOM_PRODUCTS["packed"])
     er64, op64 = build_eris_device(ecw.mol, ecw.mf, dtype=torch.float64,
                                    device=CARD, pack_ladder=True)
     t1d, t2d, e_cc64 = ccsd_t.solve_ccsd(er64, vvvv_op=op64)
@@ -3360,6 +3525,13 @@ def eom_target(ladder_mm, dtype):
     return ecw, setup_s, time.perf_counter() - t0, launches
 
 
+def name_of(dtype):
+    # "f32"/"f64" in the name: the kernel report files a path's launches
+    # under the entry of that dtype
+    return ("c2h2_bent_ccpvdz_"
+            f"{'f64' if dtype == torch.float64 else 'f32'}_eom_target")
+
+
 def run_eom_targets(ladder_mm):
     """Phase 13 (c)."""
     out, launches = {}, {}
@@ -3374,16 +3546,14 @@ def run_eom_targets(ladder_mm):
         route = "sectored" if dtype == torch.float32 else "dense"
         k = EOM_PRODUCTS[route]
         per_it = (2 if log["sym"] else 3) if route == "sectored" else 1
-        want = (k * (right + left) + per_it * (log["ccsd"]["iterations"]
-                                               + log["lambda"]["iterations"]),
-                k * right, k * left)
+        want = (k + per_it * (log["ccsd"]["iterations"]
+                              + log["lambda"]["iterations"]),
+                k * right, k * (1 + left))
+        programs = check_davidson_graphs(name_of(dtype), log["eom"])
         traces = [float(np.trace(g)) for g in ecw.es_eom.gamma_es_mo]
         out[dtype] = dict(ecw=ecw, w=np.asarray(ecw.Eexp_ES[0]),
                           f=np.asarray(ecw.f_osc_ES), traces=traces)
-        # "f32"/"f64" in the name: the kernel report files a path's
-        # launches under the entry of that dtype
-        name = ("c2h2_bent_ccpvdz_"
-                f"{'f64' if dtype == torch.float64 else 'f32'}_eom_target")
+        name = name_of(dtype)
         launches[name] = tuple(int(x) for x in n)
         phase(13, "eom_target", path=name, route=route, sym=log["sym"],
               setup_seconds=setup_s, target_seconds=target_s,
@@ -3394,7 +3564,8 @@ def run_eom_targets(ladder_mm):
               eom=log["eom"], omegas_eV=(out[dtype]["w"] * EV).tolist(),
               f_osc=out[dtype]["f"].tolist(), spin=ecw.spin_ES,
               trace_gamma_es=traces, launches_fwd_tan_back=n,
-              expected=want)
+              expected=want,
+              davidson_cycles_collapses_replays_capture_ms=programs)
         if tuple(n) != want:
             raise AssertionError(f"{name}: ladder launches {n}, expected "
                                  f"{want}")
@@ -3434,6 +3605,68 @@ def run_eom_targets(ladder_mm):
     if len(ok) != len(ES_SWEEP) or not all(ok):
         raise AssertionError(f"CCS_ES on the EOM 'trmat' targets: {ok}")
     return launches
+
+
+EOM_CHAIN_TARGETS = 2     # --eom --chain: 13c builds (the first pays the
+                          # process's first uses)
+
+
+def eom_times():
+    """--eom --chain: the EOM stages' times, through whatever ecw_cc_torch
+    is importable (copied into an older checkout, it times that one): on
+    13a's C2H2/cc-pVDZ f32 ECW and CCSD amplitudes, the four bench solves
+    warm (median of EOM_REPS after one untimed), the solver's right and
+    left EE matvec ms (solver_matvec_ms); then 13c's f32
+    Build_ES_exp_EOM(2, 'trdip') on bent acetylene EOM_CHAIN_TARGETS
+    times, its seconds by stage."""
+    import io
+
+    from ecw_cc_torch import ECW
+    from ecw_cc_torch.ops import ccsd_t
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        ecw = ECW(MOLECULE, BASIS, device=CARD, dtype=torch.float32)
+    t1, t2, _ = ccsd_t.solve_ccsd(ecw.eris, conv_tol=EOM_CCSD_TOL,
+                                  vvvv_op=ecw.vvvv_op)
+    warm, cycles = {}, {}
+    for name, fn in eom_calls(ecw.eris, ecw.vvvv_op, t1, t2,
+                              EOM_TOL[torch.float32]).items():
+        runs, costs = [], []
+        for rep in range(EOM_REPS + 1):
+            log = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(log)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+            costs.append(capture_costs(log))
+        warm[name] = dict(ms=statistics.median(runs[1:]), ms_runs=runs[1:],
+                          untimed_run=runs[0],
+                          capture_and_empty_cache_ms=costs[1:])
+        cycles[name] = (eom_cycles(log), list(eom_matvecs(log)))
+    phase("eom_chain", "eom_solves_f32", molecule=MOLECULE, basis=BASIS,
+          warm=warm, cycles_matvecs=cycles,
+          matvec_ms=solver_matvec_ms(ecw.eris, ecw.vvvv_op, t1, t2))
+    del ecw, t1, t2
+    torch.cuda.empty_cache()
+    stages = []
+    for _ in range(EOM_CHAIN_TARGETS):
+        with contextlib.redirect_stdout(io.StringIO()):
+            ecw = ECW(ES_ACETYLENE, BASIS, device=CARD, dtype=torch.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ecw.Build_ES_exp_EOM(2, "trdip")
+            torch.cuda.synchronize()
+        log = ecw.es_eom.log
+        stages.append(dict(target_s=time.perf_counter() - t0,
+                           **{k: v for k, v in log.items()
+                              if k.endswith("_s")},
+                           eom_cycles=eom_cycles(log["eom"]),
+                           eom_matvecs=list(eom_matvecs(log["eom"]))))
+        del ecw
+        torch.cuda.empty_cache()
+    phase("eom_chain", "eom_target_stages_f32", molecule=ES_ACETYLENE,
+          basis=BASIS, runs=stages)
 
 
 def run_phase13(ladder_mm):
@@ -4815,6 +5048,8 @@ def main(argv):
     if "--chain" in argv:
         if "--targets" in argv:
             target_times()
+        elif "--eom" in argv:
+            eom_times()
         else:
             chain_times()
         print(smi)

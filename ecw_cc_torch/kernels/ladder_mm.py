@@ -25,8 +25,11 @@ The full-precision launch is a `torch.autograd.Function`: the gradient
 for `a` is dA = dC @ b, one more launch of the same kernel: on `b` itself
 where the call site declares it symmetric (every ladder operand is), else
 on a transposed copy of it.  Its tangent (forward mode, `torch.func.jvp`:
-the EOM-EE right sigma) is dC = dA @ b.T, one more launch on the same `b`.
-A backward or tangent pass through a reduced-precision product raises: no
+the EOM-EE right sigma through torch.func.jvp) is dC = dA @ b.T, one
+more launch on the same `b`.  The gradient launch is itself such a
+function, so a double backward (the EOM-EE right matvec, ops/eom.py: the
+backward of a backward product taken for its cotangent) is one more
+launch on `b`, a tangent dA @ b.T, and is counted as one.  A backward or tangent pass through a reduced-precision product raises: no
 path differentiates through a reduced-precision solve.
 
 Under torch.func.vmap (the batched lambda sweep, whose lanes share every
@@ -304,7 +307,9 @@ def is_tf32_rows(x):
 def _launch(a, b, backward=False, precision=None, tangent=False):
     """One launch of the kernel on checked CUDA operands: C = a @ b.T.
     backward, tangent: the launch computes a gradient or a tangent
-    (counted as such)."""
+    (counted as such); backward="second": the backward of a backward
+    launch (a double backward), whose product is a tangent and is
+    counted as one."""
     v = variant(a.dtype, precision)
     _check(a, b, v)
     M, K = a.shape
@@ -329,8 +334,8 @@ def _launch(a, b, backward=False, precision=None, tangent=False):
         raise RuntimeError(f"ladder_mm {v} kernel launch failed: "
                            f"cudaError {err}")
     ladder_mm.launches += 1
-    ladder_mm.backward_launches += bool(backward)
-    ladder_mm.tangent_launches += bool(tangent)
+    ladder_mm.backward_launches += backward is True
+    ladder_mm.tangent_launches += bool(tangent) or backward == "second"
     ladder_mm.launches_by_variant[v] += 1
     return c
 
@@ -358,7 +363,8 @@ class _LadderMM(torch.autograd.Function):
     torch.func transforms, which hand forward the plain tensors behind
     their wrappers (the launch reads data_ptr()).  backward: False for a
     forward product, True where this launch is part of a backward pass,
-    "tangent" where it computes a tangent."""
+    "tangent" where it computes a tangent, "second" where it is the
+    backward of a backward launch."""
 
     @staticmethod
     def forward(a, b, symmetric, backward):
@@ -368,10 +374,11 @@ class _LadderMM(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, b, symmetric, _ = inputs
+        _, b, symmetric, backward = inputs
         ctx.save_for_backward(b)
         ctx.save_for_forward(b)
         ctx.symmetric = symmetric
+        ctx.kind = backward
         ctx.set_materialize_grads(False)   # an absent tangent stays None
 
     @staticmethod
@@ -406,13 +413,16 @@ class _LadderMM(torch.autograd.Function):
         # symmetric operand (its K leading rows; further rows are zero
         # padding) serves as it is: dC[:, :K] @ B[:K] = (dC[:, :K] @
         # B.T)[:, :K].  Any other is transposed first: dC @ B = dC @ (B.T).T
+        # the backward of a backward product (a double backward) is a
+        # tangent: d(dC @ B)/d(dC) applied to a direction
         K = b.shape[1]
+        kind = "second" if ctx.kind is True else True
         if ctx.symmetric:
-            da = _LadderMM.apply(dc[:, :K].contiguous(), b, True, True)
+            da = _LadderMM.apply(dc[:, :K].contiguous(), b, True, kind)
             da = da[:, :K] if b.shape[0] != K else da
         else:
             da = _LadderMM.apply(dc.contiguous(), b.T.contiguous(), False,
-                                 True)
+                                 kind)
         return da, None, None, None
 
 

@@ -5,24 +5,31 @@ A_{mu nu} = dR_mu/dt_nu = <mu| e^-T [H, tau_nu] e^T |0>, is the EOM-EE-CCSD
 matrix: its right and left eigenpairs are the EOM excitation energies and
 R/L amplitudes.  The sigma vectors are therefore
 
-    sigma(r)   = jvp(residual, t, r)      (right; torch.func.jvp)
-    sigma_L(l) = vjp(residual, t)(l)      (left;  torch.func.vjp)
+    sigma(r)   = jvp(residual, t, r)      (right)
+    sigma_L(l) = vjp(residual, t)(l)      (left)
 
 with residual = ops/ccsd.tupdate(..., equation=True) (or the sorted
-layout's ops/ccsd_sect.tupdate_sect), which is zero at the solution.  The
-residual runs the ladder, so on the card every right matvec launches the
-hand-written kernel forward and once more for the tangent (kernels/
-ladder_mm.py, `_LadderMM.jvp`), and every left matvec forward and backward.
-torch.func.jvp evaluates the primal as well: the forward launches of a
-right matvec recompute the residual's ladder at the fixed amplitudes each
-time.
+layout's ops/ccsd_sect.tupdate_sect), which is zero at the solution.
+`make_sigma`, the public pair, takes them with torch.func.jvp and vjp.
+The solver evaluates the residual once per problem instead and keeps its
+autograd graph (`_linearize`; under jit the JAX package's XLA drops the
+primal that jax.jvp computes, JAX ops/eom.py:53-61): a left matvec is
+that graph's backward, and a right matvec the backward of the linear map
+l -> vjp(l), taken once at l = 0 with its own graph (a double backward).
+On the card the residual's ladder runs the hand-written kernel, so a
+problem launches it once forward per product for the primal and once
+backward for the map's graph, then each right matvec once per product (a
+tangent, kernels/ladder_mm.py) and each left matvec once backward; no
+matvec launches a forward product.
 
-The Davidson (utils/linalg.davidson_device) runs in the antisymmetric,
-spin-balanced doubles subspace; the left roots take the raw-storage to
-determinant metric correction (x4 on the doubles) and are biorthonormalised
-to the right ones.  Transition and excited-state densities come from the
-Wick engine's terms (ops/wick.generate_trdm_terms), contracted with
-torch.einsum along a path chosen once per expression (`contract`).
+The Davidson (utils/linalg.davidson_device, the JAX package's pipelined
+one, each cycle a captured program on the card) runs in the
+antisymmetric, spin-balanced doubles subspace; the left roots take the
+raw-storage to determinant metric correction (x4 on the doubles) and are
+biorthonormalised to the right ones.  Transition and excited-state
+densities come from the Wick engine's terms (ops/wick.
+generate_trdm_terms), contracted with torch.einsum along a path chosen
+once per expression (`contract`).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 
 from ecw_cc_torch.ops import ccsd as ccsd_ops
 from ecw_cc_torch.parallel import sharding
+from ecw_cc_torch.solvers.device_loop import on_side_stream
 from ecw_cc_torch.utils.linalg import davidson_device
 
 
@@ -176,13 +184,40 @@ def _balance_masks(nocc, nvir, info):
     return mask1, mask2
 
 
-def _mv_factory(nocc, nvir, sect, dtype, device):
-    """(mv_right, mv_left, project, unpack) for one EE problem: the
-    antisymmetriser and, on the sorted layout, the spin-balance projector
-    (the sectored Jacobian's off-balance sector is an exact null space, in
-    which f32 Davidson residuals otherwise gather roundoff until a
-    spurious ~0 root converges; masking every iterate and matvec output
-    keeps the Krylov space exactly Sz-conserving)."""
+def _linearize(eris, vvvv_op, fsp, t1, t2, sect=None):
+    """(right, left) at the converged amplitudes from one evaluation of
+    the residual, kept with its autograd graph for the problem:
+    left(l1, l2) is its vjp, the kept graph's backward; right(r1, r2) = J r
+    is the vjp of the linear map u -> J^T u, whose graph is taken once at
+    u = 0 (create_graph).  Equal to make_sigma's jvp and vjp (the exact
+    Jacobian of the same function either way), with no forward product
+    per call.  The graph is built on the device loops' side stream
+    (device_loop.on_side_stream), so that each backward, which runs on
+    its forward's stream, lands on a captured Davidson cycle's stream."""
+    with on_side_stream(t1.device), torch.enable_grad():
+        a = t1.detach().requires_grad_(True)
+        b = t2.detach().requires_grad_(True)
+        res = _residual(eris, vvvv_op, fsp, a, b, sect)
+        u = tuple(torch.zeros_like(x).requires_grad_(True) for x in res)
+        g = torch.autograd.grad(res, (a, b), u, create_graph=True)
+
+    def right(r1, r2):
+        return torch.autograd.grad(g, u, (r1, r2), retain_graph=True)
+
+    def left(l1, l2):
+        return torch.autograd.grad(res, (a, b), (l1, l2), retain_graph=True)
+
+    return right, left
+
+
+def _mv_factory(nocc, nvir, sect, dtype, device, right, left):
+    """(mv_right, mv_left, project, unpack) for one EE problem, the
+    matvecs on `_linearize`'s (right, left): the antisymmetriser and, on
+    the sorted layout, the spin-balance projector (the sectored Jacobian's
+    off-balance sector is an exact null space, in which f32 Davidson
+    residuals otherwise gather roundoff until a spurious ~0 root
+    converges; masking every iterate and matvec output keeps the Krylov
+    space exactly Sz-conserving)."""
     nov = nocc * nvir
     if sect is not None:
         m1, m2 = _balance_masks(nocc, nvir, sect[0])
@@ -207,18 +242,13 @@ def _mv_factory(nocc, nvir, sect, dtype, device):
             s2 = s2 * mask2
         return torch.cat([s1.reshape(-1), s2.reshape(-1)])
 
-    def mv_right(v, mops):
-        er, vvo, f, a, b = mops
-        s1, s2 = _sigma_right(er, vvo, f, a, b, *unpack(v.to(a.dtype)),
-                              sect=sect)
-        return _pack_out(s1, s2)
+    def mv_right(v):
+        return _pack_out(*right(*unpack(v.to(dtype))))
 
-    def mv_left(v, mops):
+    def mv_left(v):
         # the transpose of (A . P) is P . A^T: the raw cotangent goes into
         # the vjp unprojected, and the output doubles are antisymmetrised
-        er, vvo, f, a, b = mops
-        s1, s2 = _sigma_left(er, vvo, f, a, b,
-                             *unpack(v.to(a.dtype), asym=False), sect=sect)
+        s1, s2 = left(*unpack(v.to(dtype), asym=False))
         return _pack_out(s1, _asym(s2))
 
     def project(v):
@@ -370,18 +400,19 @@ def eom_ccsd(eris, t1, t2, nroots=1, fsp=None, guess=None, tol=1e-7,
         sector-blocked residual, always sym=False, and the balance
         projector).
     :param log: a dict that receives, per Davidson solve ('right', 'left'
-        and 'left_follow' for each per-root fallback), its cycles, matvecs
-        and converged flags.
+        and 'left_follow' for each per-root fallback), its log
+        (utils/linalg.davidson_device: cycles, matvecs, converged flags,
+        and its programs' graph, replays and capture ms).
     :return: (omegas, [(r1, r2), ...]) as floats and tensors; with
         left=True also [(l1, l2), ...], metric-corrected and
         biorthonormalised: l1.r1 + 1/4 l2.r2 = 1.
     """
     nocc, nvir = t1.shape
     dtype, device = t1.dtype, t1.device
-    ops = (eris, vvvv_op, fsp, t1, t2)
     diag = torch.as_tensor(_diag(eris, nocc), dtype=dtype, device=device)
-    mv_right, mv_left, project, unpack = _mv_factory(nocc, nvir, sect,
-                                                     dtype, device)
+    mv_right, mv_left, project, unpack = _mv_factory(
+        nocc, nvir, sect, dtype, device,
+        *_linearize(eris, vvvv_op, fsp, t1, t2, sect))
     log = {} if log is None else log
 
     if guess is None:
@@ -393,8 +424,7 @@ def eom_ccsd(eris, t1, t2, nroots=1, fsp=None, guess=None, tol=1e-7,
     log["right"] = {}
     conv, w, xs = davidson_device(mv_right, x0, diag, nroots=nroots, tol=tol,
                                   max_cycle=max_cycle, max_space=max_space,
-                                  operands=ops, project=project,
-                                  log=log["right"])
+                                  project=project, log=log["right"])
     if not all(conv[:nroots]):
         # an exhausted Davidson can report junk roots (e.g. ~0 from the
         # projected null space); say so instead of returning quietly
@@ -416,7 +446,7 @@ def eom_ccsd(eris, t1, t2, nroots=1, fsp=None, guess=None, tol=1e-7,
     conv_l, wl, xls = davidson_device(mv_left, xr, diag, nroots=nroots,
                                       tol=tol, max_cycle=max_cycle,
                                       project=project, max_space=max_space,
-                                      operands=ops, log=log["left"])
+                                      log=log["left"])
     ovm = (torch.stack(list(xls)) @ torch.stack(xr).T).abs().double()
     ovm = ovm.cpu().numpy()
     assign = {}
@@ -436,7 +466,7 @@ def eom_ccsd(eris, t1, t2, nroots=1, fsp=None, guess=None, tol=1e-7,
             conv_1, _, xl_1 = davidson_device(
                 mv_left, [xr[k]], diag, nroots=1, tol=tol,
                 max_cycle=max_cycle, project=project, max_space=max_space,
-                follow=True, operands=ops, log=sub[-1])
+                follow=True, log=sub[-1])
             if not conv_1[0]:
                 warnings.warn(
                     f"EOM left Davidson unconverged for root {k} "
@@ -543,10 +573,14 @@ def es_rdm1(t1, t2, lk1, lk2, r1, r2, r0):
 
 
 def eom_r0(eris, t1, t2, r1, r2, omega, fsp=None):
-    """r0 = <0|Hbar R|0> / omega, with <0|Hbar R|0> = dE/dt . R by
-    torch.func.jvp of the CCSD energy functional."""
-    def efn(a, b):
-        return ccsd_ops.energy(eris, a, b, fsp)
-
-    _, dE = torch.func.jvp(efn, (t1, t2), (_as(r1, t1), _as(r2, t1)))
+    """r0 = <0|Hbar R|0> / omega, with <0|Hbar R|0> = dE/dt . R: the
+    gradient of the CCSD energy functional (one backward) dotted with R,
+    as the JAX package's jax.jvp of it gives."""
+    with torch.enable_grad():
+        a = t1.detach().requires_grad_(True)
+        b = t2.detach().requires_grad_(True)
+        g = torch.autograd.grad(ccsd_ops.energy(eris, a, b, fsp), (a, b),
+                                allow_unused=True)
+    dE = sum(torch.vdot(x.reshape(-1), _as(r, t1).reshape(-1))
+             for x, r in zip(g, (r1, r2)) if x is not None)
     return float(dE) / omega

@@ -18,9 +18,15 @@ The EA sigma's two <ab||cd> terms on pack-on-build ERIs (no dense vvvv)
 run as one ladder product through the hand-written kernel
 (`_ea_vvvv_packed`, M = nocc rows); on dense ERIs they stay torch.einsum
 against eris.vvvv, as the JAX package's are an einsum outside any Pallas
-kernel.  IP never touches vvvv.  The left sigma is torch.func.vjp of the
-(linear) right one; the left roots take the raw-storage metric correction
-(x2 on the doubles) and are biorthonormalised to the right ones.
+kernel.  IP never touches vvvv.  The left sigma is the vjp of the
+(linear) right one: make_sigma_ipea takes it with torch.func.vjp at each
+call; the solver evaluates the sigma at zeros once per problem and keeps
+its autograd graph, whose backward each left matvec applies (on the card
+one backward launch per left matvec on the EA packed route, and no
+forward).  The Davidson is utils/linalg.davidson_device, each cycle a
+captured program on the card.  The left roots take the raw-storage
+metric correction (x2 on the doubles) and are biorthonormalised to the
+right ones.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 
 from ecw_cc_torch.ops.eom import canonical_phase, contract
 from ecw_cc_torch.ops.wick import generate_dyson_terms, generate_eom_terms
+from ecw_cc_torch.solvers.device_loop import on_side_stream
 from ecw_cc_torch.utils.linalg import davidson_device
 
 _OCC = set("ijklmnop")
@@ -194,10 +201,15 @@ def _asym2(x, kind):
     return 0.5 * (x - x.permute(0, 2, 1))
 
 
-def _mv_factory(kind, use_packed, nocc, nvir):
-    """(mv_right, mv_left, project, unpack) for one problem: the operands
-    (eris, ladder operand, fock, amplitudes) arrive as the Davidson's
-    `operands`."""
+def _mv_factory(kind, use_packed, ops):
+    """(mv_right, left_map, project, unpack) for one problem on its
+    operands (eris, ladder operand, fock, amplitudes).  left_map() makes
+    mv_left: the sigma evaluated at zeros once, on the device loops' side
+    stream (device_loop.on_side_stream: the backward of a captured cycle
+    runs on its forward's stream), and each call its kept graph's
+    backward."""
+    er, vvo, f, a, b = ops
+    nocc, nvir = a.shape
     n1 = nocc if kind == "ip" else nvir
     shape2 = (nocc, nocc, nvir) if kind == "ip" else (nocc, nvir, nvir)
 
@@ -208,29 +220,31 @@ def _mv_factory(kind, use_packed, nocc, nvir):
             r2 = _asym2(r2, kind)
         return r1, r2
 
-    def mv_right(v, mops):
-        er, vvo, f, a, b = mops
+    def mv_right(v):
         s1, s2 = _sigma(er, vvo, f, a, b, *unpack(v.to(a.dtype)), kind,
                         use_packed=use_packed)
         return torch.cat([s1.reshape(-1), s2.reshape(-1)])
 
-    def mv_left(v, mops):
-        # the transpose of (A . P) is P . A^T: raw cotangent in, output
-        # doubles antisymmetrised (as ops/eom's left matvec)
-        er, vvo, f, a, b = mops
-        l1, l2 = unpack(v.to(a.dtype), asym=False)
-        _, vjp = torch.func.vjp(
-            lambda x, y: _sigma(er, vvo, f, a, b, x, y, kind,
-                                use_packed=use_packed),
-            torch.zeros_like(l1), torch.zeros_like(l2))
-        s1, s2 = vjp((l1, l2))
-        return torch.cat([s1.reshape(-1), _asym2(s2, kind).reshape(-1)])
+    def left_map():
+        with on_side_stream(a.device), torch.enable_grad():
+            x = (a.new_zeros(n1).requires_grad_(True),
+                 a.new_zeros(shape2).requires_grad_(True))
+            s = _sigma(er, vvo, f, a, b, *x, kind, use_packed=use_packed)
+
+        def mv_left(v):
+            # the transpose of (A . P) is P . A^T: raw cotangent in, output
+            # doubles antisymmetrised (as ops/eom's left matvec)
+            s1, s2 = torch.autograd.grad(
+                s, x, unpack(v.to(a.dtype), asym=False), retain_graph=True)
+            return torch.cat([s1.reshape(-1), _asym2(s2, kind).reshape(-1)])
+
+        return mv_left
 
     def project(v):
         r1, r2 = unpack(v)
         return torch.cat([r1.reshape(-1), r2.reshape(-1)])
 
-    return mv_right, mv_left, project, unpack
+    return mv_right, left_map, project, unpack
 
 
 def make_sigma_ipea(eris, t1, t2, kind, fsp=None, connected=True,
@@ -314,15 +328,14 @@ def eom_ipea_ccsd(eris, t1, t2, kind, nroots=1, fsp=None, guess=None,
     diag = torch.as_tensor(diag, dtype=dtype, device=device)
     if guess is None:
         guess = auto_guess
-    mv_right, mv_left, project, unpack = _mv_factory(kind, use_packed,
-                                                     *t1.shape)
+    mv_right, left_map, project, unpack = _mv_factory(kind, use_packed,
+                                                      ops)
     log = {} if log is None else log
     log["right"] = {}
     conv, w, xs = davidson_device(mv_right, guess, diag, nroots=nroots,
                                   tol=tol, max_cycle=max_cycle,
                                   max_space=max_space, verbose=verbose,
-                                  operands=ops, project=project,
-                                  log=log["right"])
+                                  project=project, log=log["right"])
     if not all(conv[:nroots]):
         warnings.warn(
             f"EOM-{kind.upper()} Davidson unconverged roots: "
@@ -336,13 +349,14 @@ def eom_ipea_ccsd(eris, t1, t2, kind, nroots=1, fsp=None, guess=None,
 
     Ls = []
     log["left"] = []
+    mv_left = left_map()
     for k in range(nroots):
         log["left"].append({})
         conv_l, _, xls = davidson_device(
             mv_left, [torch.cat([Rs[k][0].reshape(-1),
                                  Rs[k][1].reshape(-1)])],
             diag, nroots=1, tol=tol, max_cycle=max_cycle,
-            max_space=max_space, follow=True, operands=ops, project=project,
+            max_space=max_space, follow=True, project=project,
             log=log["left"][-1])
         if not conv_l[0]:
             warnings.warn(

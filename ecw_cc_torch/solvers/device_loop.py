@@ -1,5 +1,6 @@
 """The solver loops' counterpart of jax.jit + lax.while_loop: one iteration
-captured once as a CUDA graph and replayed while the loop runs.
+captured once as a CUDA graph and replayed while the loop runs; and of a
+jitted program called once per host round trip (`Program`).
 
 The JAX package compiles each solve (JAX gs.py:681-1041, :203-310, es.py:
 615-842) as one lax.while_loop on the device.  Here a solver writes its
@@ -47,6 +48,18 @@ its forward.  A Loop body that applies an autograd graph evaluated before
 the loop (the (T) adjoint's map) needs that graph evaluated on the side
 stream (`on_side_stream`) for the same reason.
 
+`Program(body, inputs)` is the third form, the counterpart of a jitted
+program that the host calls once per round trip: the pipelined Davidson
+of the EOM-EE/IP/EA solves and of Solver_ES.SCF_diag(davidson=True)
+(utils/linalg.davidson_device; JAX linalg.py:613-642), whose host solves
+the small eigenproblem between cycles.  Each call copies the host's
+small inputs into a static buffer, runs the body (the first call eagerly,
+the second captured and replayed, the rest replayed) and reads its one
+packed output: on the card a cycle is one copy, one graph launch and one
+read.  The EOM matvecs inside apply autograd graphs built before the
+solve on the side stream (ops/eom._linearize, ops/eom_ipea._mv_factory),
+as the adjoint's map.
+
 The bordered DIIS system is solved by torch.linalg.solve_ex; the warm-up
 and the capture run with cuSOLVER as the preferred linear-algebra library,
 whose LU factorization and solve are device routines that a graph
@@ -60,6 +73,7 @@ import contextlib
 import gc
 import time
 
+import numpy as np
 import torch
 
 from ecw_cc_torch.config import matmul_precision
@@ -256,6 +270,63 @@ def scan(body, state, n, log=None):
             return static
     finally:
         caller.wait_stream(side)
+
+
+class Program:
+    """A body run once per call, with host data in and one host read out:
+    the counterpart of a jitted program that the host calls once per round
+    trip, for a loop whose decisions are made on the host between its
+    iterations (the pipelined Davidson's cycle, utils/linalg.py, whose
+    host solves the small eigenproblem; JAX linalg.py:613-642).
+
+    body() takes no argument.  It reads `inputs`, a static device buffer
+    that each call first fills from a host array (one copy), and the
+    tensors it keeps and updates in place, and returns one flat tensor,
+    which the call reads to the host (one read) and returns as a NumPy
+    array.  Calls run under torch.no_grad() and matmul_precision(mode).
+    On CUDA tensors the first call runs body eagerly (the warm-up), the
+    second captures it as a CUDA graph (as Loop does: `_capture`, the
+    launch counters' change over the capture added at each replay) and
+    replays it, and the later calls replay it, all on the Loops' side
+    stream: one copy, one graph launch and one read per call.  A body may
+    therefore make no host read and issues the same launches at every
+    call.  A capture or replay that fails raises.  On the CPU the body runs
+    eagerly at every call.  Counts: `replays`, and where a capture ran
+    `capture_ms` and `empty_cache_ms`.  release() frees the graph and its
+    pool."""
+
+    def __init__(self, body, inputs, *, mode="highest"):
+        self.body, self.inputs, self.mode = body, inputs, mode
+        self.graph = self.out = self.per_replay = None
+        self.replays = 0
+        self.capture_ms = self.empty_cache_ms = None
+
+    def __call__(self, host=None):
+        """body's output after one call, as NumPy; `host`: the values of
+        `inputs` for this call (None: keep the last call's)."""
+        with torch.no_grad(), matmul_precision(self.mode), \
+                on_side_stream(self.inputs.device):
+            if host is not None:
+                self.inputs.copy_(torch.from_numpy(np.ascontiguousarray(
+                    host)).to(self.inputs.dtype))
+            if self.inputs.device.type != "cuda":
+                return self.body().numpy().copy()
+            if self.out is None:
+                self.out = self.body()          # the warm-up call
+                return self.out.cpu().numpy()
+            if self.graph is None:
+                log = {}
+                self.graph, self.per_replay = _capture(
+                    lambda static: (self.body(),), (self.out,), log)
+                self.capture_ms = log["capture_ms"]
+                self.empty_cache_ms = log["empty_cache_ms"]
+            self.graph.replay()
+            _lmm.add_launch_counts(self.per_replay)
+            self.replays += 1
+            return self.out.cpu().numpy()
+
+    def release(self):
+        self.graph = self.out = None
 
 
 @contextlib.contextmanager

@@ -477,8 +477,8 @@ class Solver_ES:
         matrix-free non-symmetric Davidson (utils.linalg.davidson_device,
         the analogue of pyscf lib.davidson_nosym1 at Solver_ES.py:710-711)
         runs on the solver's device with the exact map diagonal as
-        preconditioner; otherwise exact dense diagonalization on the
-        host."""
+        preconditioner, its cycle programs kept across the iterations;
+        otherwise exact dense diagonalization on the host."""
         Vexp_class = self.Vexp_class
         nbr_states = self.nbr_states
         eris = self.mycc.eris
@@ -517,10 +517,16 @@ class Solver_ES:
             return float(w[k].real), T((vec / np.linalg.norm(vec)
                                         ).reshape(nocc, nvir))
 
+        # the Davidson's device state and captured cycle programs, kept
+        # across the outer iterations: each solve copies its map's
+        # operands (the intermediates and r0/l0) into their buffers
+        programs = {}
+
         def davidson_root(matvec, cur, diag, operands):
             _, w, xs = ulinalg.davidson_device(
                 matvec, [cur.reshape(-1)], diag, nroots=1,
-                max_space=max_space, follow=True, operands=operands)
+                max_space=max_space, follow=True, operands=operands,
+                programs=programs)
             vec = xs[0]
             return float(w[0]), (vec / torch.linalg.norm(vec)
                                  ).reshape(nocc, nvir).to(self.dtype)
@@ -646,6 +652,7 @@ class Solver_ES:
         else:
             Conv_text = f"Convergence reached for lambda= {L}, after {ite} iteration"
 
+        ulinalg.release_programs(programs)
         dic_amp = amp_to_numpy({"ts": ts, "ls": ls, "rn": rn, "ln": ln,
                                 "r0n": r0n, "l0n": l0n})
         return Conv_text, dic_amp, Delta, Ep, rdm1_gs

@@ -5,25 +5,26 @@ The host half (everything down to `davidson_nosym`) is a copy of
 ecw_cc_tpu/utils/linalg.py:12-338 (the PyTorch port imports nothing of the
 JAX package); only the imports differ.
 
-`davidson_device` is the port of the JAX package's device Davidson
-(linalg.py:668-958).  The JAX package has three device variants, because a
-TPU has no non-symmetric eigensolver and every host read crosses a
-network: a host-cycle loop, a one-round-trip "pipelined" loop with a cache
-of compiled programs, and a fully fused loop on a hand-written shifted-QR
-eig (utils/schur.py).  Here `torch.linalg.eig` runs on the tensors' device,
-so one variant serves; `davidson_nosym_device` and
-`davidson_pipelined_device` are kept as names for it, so that callers read
-the same.  The fused variant, the program cache and schur.py are not
-ported.
+`davidson_device` is the port of the JAX package's default device
+Davidson, the pipelined one (linalg.py:545-757): each cycle is one device
+program (on the card a captured CUDA graph, solvers/device_loop.Program)
+and one read, and the host solves the small projected eigenproblem with
+numpy.linalg.eig.  `davidson_nosym_device` and `davidson_pipelined_device`
+are kept as names for it, so that callers read the same.  The JAX
+package's host-cycle and fused variants, its program cache and schur.py
+(a TPU has no non-symmetric eig) are not ported.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 
 import numpy as np
 import torch
 
+from ecw_cc_torch.config import matmul_precision
+from ecw_cc_torch.solvers.device_loop import Program, on_side_stream
 from ecw_cc_torch.utils import convert
 
 
@@ -360,27 +361,229 @@ def davidson_nosym(matvec, x0, diag, nroots=1, tol=1e-8, max_cycle=80,
 # The device Davidson
 # ---------------------------------------------------------------------------
 
+def _device_tree(x, dtype, device):
+    """A copy of an operand tree (tuples and lists of tensors, numbers and
+    None) that a kept cycle program reads: tensors cloned, numbers as 0-d
+    tensors of `dtype`."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (tuple, list)):
+        items = [_device_tree(y, dtype, device) for y in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    if x is None:
+        return None
+    if isinstance(x, (int, float, np.number)):
+        return torch.tensor(float(x), dtype=dtype, device=device)
+    raise TypeError("a kept Davidson program takes operands made of "
+                    f"tensors, numbers and None, not {type(x).__name__}")
+
+
+def _copy_tree(dst, src):
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(torch.as_tensor(src, dtype=dst.dtype))
+    elif dst is not None:
+        if len(dst) != len(src):
+            raise ValueError("the operands changed structure between "
+                             "solves of one kept Davidson program")
+        for d, s in zip(dst, src):
+            _copy_tree(d, s)
+
+
+class _Subspace:
+    """The device state of one pipelined Davidson (JAX linalg.py:545-665):
+    the basis V and its images AV as (S, n) tensors, the count m as a 0-d
+    tensor, and static buffers for what the host gives each solve (diag,
+    tol, the follow guesses G, the operands) and each cycle (`yth`: Y
+    (nroots, S) then theta).  init, cycle and ritz are JAX's init, cycle
+    and ritz programs; the cycle's collapse is a separate body (see
+    davidson_device).  Every method writes V, AV and m in place, makes no
+    host read and issues the same operations whatever the data."""
+
+    def __init__(self, matvec, project, S, B, k, n, ng, dtype, device,
+                 operands, kept):
+        self.matvec, self.project = matvec, project
+        self.S, self.B, self.k, self.n = S, B, k, n
+        self.dtype = dtype
+        z = dict(dtype=dtype, device=device)
+        self.V = torch.zeros((S, n), **z)
+        self.AV = torch.zeros((S, n), **z)
+        self.m = torch.zeros((), dtype=torch.long, device=device)
+        self.yth = torch.zeros(k * S + k, **z)
+        self.diag = torch.zeros(n, **z)
+        self.tol = torch.zeros((), **z)
+        self.G = torch.zeros((ng, n), **z)
+        self.rows = torch.arange(S, device=device)
+        self.tiny = torch.finfo(dtype).tiny
+        self.ops = (_device_tree(operands, dtype, device) if kept
+                    else operands)
+        self.kept = kept
+
+    def start(self, diag, tol, G, operands):
+        self.diag.copy_(diag)
+        self.tol.fill_(tol)
+        self.G.copy_(G)
+        if self.kept:
+            _copy_tree(self.ops, operands)
+
+    def mv(self, v):
+        out = self.matvec(v) if self.ops is None else self.matvec(v, self.ops)
+        return out.reshape(-1).to(self.dtype)
+
+    def insert(self, ptr, D, allow):
+        """CGS2-orthonormalise the candidates D (rows) one after another
+        against the first ptr rows of V and write each accepted one at
+        row ptr (JAX `_ortho_insert`, :568-590): a candidate is rejected
+        when its norm falls below 1e-12, when V is full, or where `allow`
+        (a 0-d bool tensor, or True) is false.  Returns the new ptr."""
+        V, S = self.V, self.S
+        for d in D:
+            if self.project is not None:
+                d = self.project(d)
+            mask = (self.rows < ptr).to(self.dtype)
+            for _ in range(2):
+                d = d - V.T @ ((V @ d) * mask)
+            if self.project is not None:
+                # CGS2 against projected rows brings back only O(eps) of
+                # null-space content; project again before normalising
+                d = self.project(d)
+            nrm = torch.linalg.norm(d)
+            ok = (nrm >= 1e-12) & (ptr < S) & allow
+            row = torch.where(ok, d / torch.clamp(nrm, min=self.tiny),
+                              torch.zeros_like(d))
+            at = torch.clamp(ptr, max=S - 1).reshape(1)
+            V.index_copy_(0, at, torch.where(ok, row[None, :],
+                                             V.index_select(0, at)))
+            ptr = ptr + ok.to(ptr.dtype)
+        return ptr
+
+    def mv_rows(self, start, count, allow):
+        """AV rows start .. start + count - 1 = the matvecs of V's rows,
+        one call each, the start clamped to S - count as JAX's
+        dynamic_slice clamps it (`_mv_rows`, :592-595); rows are written
+        only where `allow`."""
+        first = torch.clamp(start, min=0, max=self.S - count)
+        for i in range(count):
+            at = (first + i).reshape(1)
+            out = self.mv(self.V.index_select(0, at)[0])
+            if allow is not True:
+                out = torch.where(allow, out, self.AV.index_select(0, at)[0])
+            self.AV.index_copy_(0, at, out[None, :])
+
+    def pack(self, rn, need):
+        """(H = V AV^T | G V^T | rn | m | need), the one read of a cycle."""
+        H = self.V @ self.AV.T
+        return torch.cat([H.reshape(-1), (self.G @ self.V.T).reshape(-1),
+                          rn.to(self.dtype), self.m.to(self.dtype)[None],
+                          need.to(self.dtype)[None]])
+
+    def init(self, x0):
+        self.V.zero_()
+        self.AV.zero_()
+        self.m.zero_()
+        yes = torch.ones((), dtype=torch.bool, device=self.m.device)
+        self.m.copy_(self.insert(self.m, x0, yes))
+        self.mv_rows(torch.zeros_like(self.m), self.B, True)
+        rn = torch.full((self.k,), float("inf"), dtype=self.dtype,
+                        device=self.m.device)
+        return self.pack(rn, ~yes)
+
+    def ritz(self, Y):
+        X = Y @ self.V
+        return X / torch.clamp(torch.linalg.norm(X, dim=1, keepdim=True),
+                               min=self.tiny)
+
+    def cycle(self, collapse):
+        """JAX's cycle program (:613-642) for the Y and theta in `yth`:
+        the Ritz residuals, the preconditioned expansion, the insert, the
+        matvecs of rows m .. m + nroots - 1 and the next projected matrix.
+        `need` = m + (unconverged roots) > S is JAX's collapse condition.
+        collapse=False: where `need` holds, nothing is written (the host
+        then calls collapse=True with the same Y and theta); collapse=True:
+        the basis restarts from the Ritz vectors first, as JAX's lax.cond
+        branch does."""
+        k, S = self.k, self.S
+        Y = self.yth[:k * S].reshape(k, S)
+        theta = self.yth[k * S:]
+        X = Y @ self.V
+        R = Y @ self.AV - theta[:, None] * X
+        rn = torch.linalg.norm(R, dim=1)
+        conv = rn < self.tol
+        Xu = X / torch.clamp(torch.linalg.norm(X, dim=1, keepdim=True),
+                             min=self.tiny)
+        denom = theta[:, None] - self.diag[None, :]
+        denom = torch.where(denom.abs() < 1e-8,
+                            torch.sign(denom + 1e-30) * 1e-8, denom)
+        D = torch.where(conv[:, None], torch.zeros_like(R), R / denom)
+        need = self.m + (~conv).sum() > S
+        if collapse:
+            self.V.zero_()
+            self.AV.zero_()
+            zero = torch.zeros_like(self.m)
+            start = self.insert(zero, Xu, True)
+            self.mv_rows(zero, k, True)
+            allow = True
+        else:
+            start, allow = self.m, ~need
+        ptr = self.insert(start, D, allow)
+        self.mv_rows(start, k, allow)
+        self.m.copy_(ptr)
+        return self.pack(rn, need)
+
+
+class _Pipeline:
+    """A _Subspace with its two cycle programs (device_loop.Program), the
+    plain cycle and the collapse; the programs hold the subspace, and
+    nothing here is held by them."""
+
+    def __init__(self, sub):
+        self.sub = sub
+        self.programs = [Program(functools.partial(sub.cycle, c), sub.yth)
+                         for c in (False, True)]
+
+    def release(self):
+        for p in self.programs:
+            p.release()
+
+
 def davidson_device(matvec, x0, diag, nroots=1, tol=1e-8, max_cycle=80,
                     max_space=20, follow=False, guesses=None, verbose=False,
                     operands=None, project=None, *, dtype=None, device=None,
-                    log=None):
-    """davidson_nosym with the basis V and its images AV held as
-    (max_space, n) tensors on the device for the whole solve.  Same
-    algorithm and semantics as davidson_nosym (the analogue of
-    pyscf.lib.davidson_nosym1 at reference Solver_ES.py:710-711).
+                    log=None, programs=None):
+    """davidson_nosym on the device: the JAX package's pipelined Davidson
+    (davidson_pipelined_device and its programs, JAX linalg.py:545-757),
+    the analogue of pyscf.lib.davidson_nosym1 at reference
+    Solver_ES.py:710-711.
 
-    Per cycle the host reads the residual norms (one read of nroots
-    numbers) and the number of accepted directions (one integer).  The
-    small projected eigenproblem is ONE torch.linalg.eig call per cycle on
-    the (m, m) matrix, m <= max_space, on the tensors' device; its spectrum
-    comes back complex and unordered, so the roots are sorted by real part
-    (or by overlap with the guesses under `follow`) and the imaginary parts
-    of the real roots are dropped, as the twin does.
+    The basis V and its images AV are (max_space, n) tensors on the device
+    for the whole solve.  The init program inserts the guesses (CGS2) and
+    applies the matvec to them; then each cycle is one call of a device
+    program and one read: for the host's Ritz coefficients Y and values
+    theta it forms the residuals, the preconditioned expansion, inserts it,
+    applies nroots matvecs and packs (H = V AV^T | G V^T | |r| | m) into one
+    vector, which the host reads to solve the small eigenproblem
+    (numpy.linalg.eig of H[:m, :m], in the subspace dtype) for the next
+    cycle's Y and theta: roots ordered by real part, or under `follow` by
+    overlap with the guesses G.  It stops when every root's |r| < tol or
+    when the basis stopped growing, and returns the Ritz vectors of the
+    last Y.  JAX's collapse (a lax.cond) is a second program: a cycle
+    whose insert would overflow V writes nothing and says so in its read,
+    and the host calls the collapse program with the same Y and theta,
+    which restarts the basis from the Ritz vectors and then runs the
+    cycle.  The trajectory is JAX's; a collapse cycle costs the discarded
+    cycle's matvecs once more.
+
+    On the card each program is a device_loop.Program: the first call runs
+    eagerly, the second is captured as a CUDA graph and the others replay
+    it, so a cycle is one copy of Y and theta, one graph launch and one
+    read (two launches and two reads on a collapse cycle).  On the CPU the
+    same bodies run eagerly.
 
     :param matvec: flat (n,) tensor -> flat (n,) tensor; with `operands`
         given, called as matvec(v, operands).  It may run at a lower
-        precision than the subspace bookkeeping.
-    :param x0: initial guess vectors (tensors or arrays)
+        precision than the subspace bookkeeping.  It must read nothing to
+        the host (it runs inside the captured cycle).
+    :param x0: initial guess vectors (tensors or arrays), at most
+        max_space
     :param diag: diagonal of the matrix (preconditioner)
     :param follow: pick Ritz roots by maximum overlap with `guesses`
         (default: the x0 vectors) instead of lowest eigenvalue
@@ -395,8 +598,19 @@ def davidson_device(matvec, x0, diag, nroots=1, tol=1e-8, max_cycle=80,
         tensor among `diag` and `x0`.  With NumPy inputs only, the device
         is the card unless `device='cpu'` is given, and the dtype
         config.dtype.
-    :param log: a dict that receives 'cycles' (eigenproblems solved),
-        'matvecs' (calls of `matvec`) and 'converged', or None.
+    :param log: a dict that receives 'cycles', 'matvecs' (calls of
+        `matvec`: the JAX count, len(x0) + nroots per cycle + nroots per
+        collapse, plus nroots per collapse for the discarded cycle),
+        'collapses', 'converged', 'graph' (whether a program replayed a
+        captured graph), 'replays', and where a capture ran 'capture_ms'
+        and 'empty_cache_ms' (summed over the programs), or None.
+    :param programs: a dict that keeps the device state and its captured
+        programs across solves of one operator shape (the same matvec,
+        project, sizes, dtype and device): a later solve copies its diag,
+        tolerance, guesses and operands (tuples of tensors and numbers, of
+        the same structure) into the kept buffers and replays at once.
+        None: both are made for this solve and freed at its end.  The
+        caller releases a kept dict's entries (`release_programs`).
     :return: (converged flags, eigenvalues as float64 NumPy, eigenvectors
         as tensors on the device)
     """
@@ -419,117 +633,110 @@ def davidson_device(matvec, x0, diag, nroots=1, tol=1e-8, max_cycle=80,
     diag_d = dev(diag)
     n = diag_d.numel()
     S = int(max_space)
-    x0 = [dev(v) for v in x0]
-    if len(x0) > S:
+    x0 = torch.stack([dev(v) for v in x0])
+    B = x0.shape[0]
+    if B > S:
         raise ValueError("more guesses than max_space")
-    calls = [0]
-
-    def mv(v):
-        calls[0] += 1
-        return matvec(v) if operands is None else matvec(v, operands)
-
-    rows = torch.arange(S, device=device)
-    tiny = torch.finfo(dtype).tiny
-
-    def ortho_insert(V, m, D):
-        # CGS2-orthonormalise the candidates D (k, n) one after the other
-        # against the first `ptr` rows of V and write each accepted one in
-        # place; ptr stays on the device, so the block costs one read
-        ptr = torch.full((1,), m, dtype=torch.long, device=device)
-        for d in D:
-            if project is not None:
-                d = project(d)
-            mask = (rows < ptr).to(dtype)
-            for _ in range(2):
-                d = d - V.T @ ((V @ d) * mask)
-            if project is not None:
-                # CGS2 against projected rows brings back only O(eps) of
-                # null-space content; project again before normalising
-                d = project(d)
-            nrm = torch.linalg.norm(d)
-            ok = (nrm >= 1e-12) & (ptr < S)
-            row = torch.where(ok, d / torch.clamp(nrm, min=tiny),
-                              torch.zeros_like(d))
-            at = torch.clamp(ptr, max=S - 1)
-            V.index_copy_(0, at, torch.where(ok, row[None, :],
-                                             V.index_select(0, at)))
-            ptr = ptr + ok.to(ptr.dtype)
-        return int(ptr)
-
-    def add_block(V, AV, m, cand):
-        """Orthonormalise candidate directions into V, then their images."""
-        if not cand:
-            return m
-        m_new = ortho_insert(V, m, cand)
-        for i in range(m, m_new):
-            AV[i] = mv(V[i]).reshape(-1).to(dtype)
-        return m_new
-
-    V = torch.zeros((S, n), dtype=dtype, device=device)
-    AV = torch.zeros((S, n), dtype=dtype, device=device)
-    m = add_block(V, AV, 0, x0)
-    if m == 0:
-        raise ValueError("no independent initial vectors")
-    G = None
+    if nroots > S:
+        raise ValueError("more roots than max_space")
     if follow:
-        G = torch.stack([dev(g) for g in (x0 if guesses is None else guesses)])
+        G = torch.stack([dev(g) for g in (x0 if guesses is None
+                                          else guesses)])
+    else:
+        G = diag_d.new_zeros((0, n))
+    ng = G.shape[0]
 
-    conv = [False] * nroots
-    theta = np.zeros(nroots)
-    Xs = [None] * nroots
-    cycle = -1
-    for cycle in range(max_cycle):
-        H = V[:m] @ AV[:m].T
-        w, y = torch.linalg.eig(H)
-        if follow:
-            score = ((G @ V[:m].T) @ y.real).abs().amax(dim=0)
-            order = torch.argsort(-score)
-        else:
-            order = torch.argsort(w.real)
-        kc = min(nroots, m)
-        sel = order[:kc]
-        th = w.real[sel]                             # (kc,)
-        Y = y.real[:, sel].T                         # (kc, m)
-        X = Y @ V[:m]
-        R = Y @ AV[:m] - th[:, None] * X
-        Xn = X / torch.clamp(torch.linalg.norm(X, dim=1, keepdim=True),
-                             min=tiny)
-        denom = th[:, None] - diag_d[None, :]
-        denom = torch.where(denom.abs() < 1e-8,
-                            torch.sign(denom + 1e-30) * 1e-8, denom)
-        Dk = R / denom
-        # the one read of the cycle's Ritz data: theta and |r| together
-        got = torch.cat([th, torch.linalg.norm(R, dim=1)]).double().cpu()
-        theta[:kc] = got[:kc].numpy()
-        rns = got[kc:].numpy()
-        new_dirs = []
-        for k in range(kc):
-            Xs[k] = Xn[k]
-            conv[k] = float(rns[k]) < tol
+    key = (matvec, project, S, B, nroots, n, ng, dtype, str(device))
+    pipe = None if programs is None else programs.get(key)
+    if pipe is None:
+        pipe = _Pipeline(_Subspace(matvec, project, S, B, nroots, n, ng,
+                                   dtype, device, operands,
+                                   programs is not None))
+        if programs is not None:
+            programs[key] = pipe
+    sub = pipe.sub
+    progs = pipe.programs
+    # what a kept pipeline did before this solve
+    before = [(p.replays, p.graph is not None) for p in progs]
+    matvecs = B
+    try:
+        def unpack(p):
+            H = p[:S * S].reshape(S, S)
+            off = S * S
+            Gov = p[off:off + ng * S].reshape(ng, S)
+            off += ng * S
+            return (H, Gov, p[off:off + nroots],
+                    int(round(float(p[off + nroots]))),
+                    bool(p[off + nroots + 1]))
+
+        with torch.no_grad(), matmul_precision("highest"), \
+                on_side_stream(device):
+            sub.start(diag_d, tol, G, operands)
+            H, Gov, rn, m, _ = unpack(sub.init(x0).cpu().numpy())
+        if m < nroots:
+            raise ValueError("no independent initial vectors")
+        conv = [False] * nroots
+        theta = np.zeros(nroots)
+        Y = np.zeros((nroots, S))
+        collapses = 0
+        cyc = -1
+        for cyc in range(max_cycle):
+            w, y = np.linalg.eig(H[:m, :m])
+            if follow:
+                order = np.argsort(-np.max(np.abs(Gov[:, :m] @ y.real),
+                                           axis=0))
+            else:
+                order = np.argsort(w.real)
+            w = w[order]
+            y = y[:, order]
+            kc = min(nroots, m)
+            theta[:kc] = w[:kc].real
+            Y = np.zeros((nroots, S))
+            Y[:kc, :m] = y[:, :nroots].real.T
+            m_prev = m
+            H, Gov, rn, m, need = unpack(progs[0](
+                np.concatenate([Y.ravel(), theta])))
+            matvecs += nroots
+            if need:
+                H, Gov, rn, m, _ = unpack(progs[1]())
+                collapses += 1
+                matvecs += 2 * nroots
+            conv = [bool(r < tol) for r in rn]
             if verbose:
-                print(f"  davidson cycle {cycle:3d} m={m:3d} root {k}: "
-                      f"theta={theta[k]:.8f} |r|={rns[k]:.2e}", flush=True)
-            if not conv[k]:
-                new_dirs.append(Dk[k])
-        if all(conv[:kc]) and m >= nroots:
-            break
-        if m + len(new_dirs) > S:
-            # collapse the subspace to the current Ritz vectors
-            V = torch.zeros((S, n), dtype=dtype, device=device)
-            AV = torch.zeros((S, n), dtype=dtype, device=device)
-            m = add_block(V, AV, 0, [Xs[k] for k in range(min(nroots, len(Xs)))
-                                     if Xs[k] is not None])
-        m_before = m
-        m = add_block(V, AV, m, new_dirs)
-        if m == m_before and not all(conv[:nroots]):
-            break
+                print(f"  davidson cycle {cyc:3d} m={m_prev:3d} "
+                      f"|r|={[f'{r:.2e}' for r in rn]}", flush=True)
+            if all(conv[:nroots]):
+                break
+            if m == m_prev:
+                break                           # stall: no new directions
+        with torch.no_grad(), on_side_stream(device):
+            X = sub.ritz(torch.as_tensor(Y, dtype=dtype, device=device))
+    finally:
+        if programs is None:
+            pipe.release()
     if log is not None:
-        log.update(cycles=cycle + 1, matvecs=calls[0],
-                   converged=list(conv[:nroots]))
-    return conv, theta[:nroots], [Xs[k] for k in range(nroots)]
+        replays = sum(p.replays - r for p, (r, _) in zip(progs, before))
+        caps = [p for p, (_, had) in zip(progs, before)
+                if not had and p.capture_ms is not None]
+        log.update(cycles=cyc + 1, matvecs=matvecs, collapses=collapses,
+                   converged=list(conv[:nroots]), graph=replays > 0,
+                   replays=replays)
+        if caps:
+            log.update(capture_ms=sum(p.capture_ms for p in caps),
+                       empty_cache_ms=sum(p.empty_cache_ms for p in caps))
+    return conv, theta[:nroots].copy(), [X[k] for k in range(nroots)]
 
 
-# the JAX package's other two device variants differ from this one only in
-# how they cross to the host; the names stay so that callers read the same
+def release_programs(programs):
+    """Free the captured programs and device state that davidson_device
+    kept in `programs`, and empty it."""
+    for pipe in programs.values():
+        pipe.release()
+    programs.clear()
+
+
+# the JAX package's host-cycle and fused variants are not ported (the
+# fused one exists for a TPU's missing non-symmetric eig); the names stay
+# so that callers read the same
 davidson_nosym_device = davidson_device
 davidson_pipelined_device = davidson_device

@@ -3,12 +3,15 @@ ECW.Build_ES_exp_EOM) against the JAX package, f64 on the CPU, on the JAX
 fixtures' ERIs (one SCF, so MO-basis arrays compare as they are) or, for
 the entry points, through tests/gauge.py; the FCI identities of
 tests/test_eom.py for two electrons; the x4 metric of the left vectors;
-the sectored sigma without the mirror gate's sym; and the ladder kernel's
-tangent rule with the launch replaced by the plain product (no kernel runs
-off the card), down to the launches an EOM solve makes per matvec."""
+the sectored sigma without the mirror gate's sym; the solver's matvecs off
+the residual kept once per problem against torch.func.jvp and vjp, and
+their Davidson cycle bodies capturable; and the ladder kernel's tangent
+rule with the launch replaced by the plain product (no kernel runs off
+the card), down to the launches an EOM solve makes per matvec."""
 
 import contextlib
 import io
+import warnings
 
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ from ecw_cc_torch.ops import ccsd_t as tct
 from ecw_cc_torch.ops import eom as teom
 from ecw_cc_torch.ops import ladder as tladder
 from ecw_cc_torch.ops.spinsect import SectorInfo
+from test_torch_davidson import assert_programs_capturable, recorded_programs  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -308,8 +312,8 @@ def _stand_in_launch(counts):
         a.data_ptr()
         b.data_ptr()
         counts["forward"] += not backward and not tangent
-        counts["tangent"] += bool(tangent)
-        counts["backward"] += bool(backward)
+        counts["tangent"] += bool(tangent) or backward == "second"
+        counts["backward"] += backward is True
         return a @ b.T
     return stand_in
 
@@ -356,9 +360,11 @@ def test_reduced_precision_product_has_no_tangent():
 def test_eom_solve_launches_per_matvec(monkeypatch, systems, route):
     """With every ladder product sent through _LadderMM and the launch
     replaced by the plain product (as on the card, where ladder_mm takes
-    that path): each right matvec makes one forward and one tangent
-    launch per product, each left matvec one forward and one backward,
-    and the roots do not move."""
+    that path): the problem's primal makes one forward launch per product
+    and its linear map's graph one backward, then each right matvec one
+    tangent launch per product (a double backward) and each left matvec
+    one backward; no matvec makes a forward launch, and the roots do not
+    move."""
     _, _, _, er, top, tsect, t1, t2 = systems[route]
     counts = dict(forward=0, tangent=0, backward=0)
     monkeypatch.setattr(lmm, "_launch", _stand_in_launch(counts))
@@ -373,13 +379,60 @@ def test_eom_solve_launches_per_matvec(monkeypatch, systems, route):
     right = log["right"]["matvecs"]
     left = log["left"]["matvecs"] + sum(
         x["matvecs"] for x in log.get("left_follow", []))
-    assert counts == dict(forward=products * (right + left),
+    assert counts == dict(forward=products,
                           tangent=products * right,
-                          backward=products * left)
+                          backward=products * (1 + left))
     monkeypatch.undo()
     w0, _ = teom.eom_ccsd(er, _t(t1), _t(t2), nroots=2, tol=1e-8,
                           vvvv_op=top, sect=tsect)
     assert np.abs(np.asarray(w) - np.asarray(w0)).max() < 1e-9
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_linearized_matvecs_equal_jvp_and_vjp(monkeypatch, systems, route):
+    """The solver's matvecs off the residual kept once per problem
+    (_linearize): the right one (a double backward) equals make_sigma's
+    torch.func.jvp and the left one its fresh vjp, to 1e-12 relative; with
+    every ladder product through _LadderMM and a stand-in launch, the
+    problem launches each product once forward and once backward, and a
+    matvec then launches no forward product: a right one one tangent per
+    product, a left one one backward."""
+    _, _, _, er, top, tsect, t1, t2 = systems[route]
+    T1, T2 = _t(t1), _t(t2)
+    nocc, nvir = T1.shape
+    info = None if tsect is None else tsect[0]
+    r1, r2 = (_t(x) for x in _random_vectors(nocc, nvir, 5, info))
+    l1, l2 = (_t(x) for x in _random_vectors(nocc, nvir, 6, info))
+    sigma, sigma_left = teom.make_sigma(er, T1, T2, vvvv_op=top, sect=tsect)
+    want = (sigma(r1, r2), sigma_left(l1, l2))
+    counts = dict(forward=0, tangent=0, backward=0)
+    monkeypatch.setattr(lmm, "_launch", _stand_in_launch(counts))
+    monkeypatch.setattr(
+        tladder, "ladder_mm",
+        lambda a, b, symmetric=False, precision=None:
+        lmm._LadderMM.apply(a, b, bool(symmetric), False))
+    right, left = teom._linearize(er, top, None, T1, T2, tsect)
+    k = counts["forward"]
+    assert k > 0 and counts == dict(forward=k, tangent=0, backward=k)
+    got = (right(r1, r2), left(l1, l2))
+    assert counts == dict(forward=k, tangent=k, backward=2 * k)
+    for w, g in zip(want, got):
+        for a, b in zip(w, g):
+            assert (a - b).abs().max() < 1e-12 * max(1.0, a.abs().max())
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_eom_davidson_bodies_are_capturable(systems, recorded_programs,
+                                            route):
+    """The right and left solves' cycle and collapse bodies, the
+    linearised matvecs inside, read nothing to the host and issue the
+    same operations at every call (a small basis forces collapses)."""
+    _, _, _, er, top, tsect, t1, t2 = systems[route]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        teom.eom_ccsd(er, _t(t1), _t(t2), nroots=1, tol=1e-8, left=True,
+                      vvvv_op=top, sect=tsect, max_space=3, max_cycle=7)
+    assert_programs_capturable(recorded_programs)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,8 @@ generator takes about 35 s per doubles block; tests/test_torch_wick.py
 holds the table equal to both packages' generators), so these tests
 compare the evaluation: contraction, packing, vjp, Davidson."""
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ from ecw_cc_tpu.ops import eom_ipea as jip
 from ecw_cc_torch.models.eris import from_numpy
 from ecw_cc_torch.ops import eom_ipea as tip
 from ecw_cc_torch.ops import ladder as tladder
+from test_torch_davidson import assert_programs_capturable, recorded_programs  # noqa: F401
 from test_eom_ipea import (_detspace_matrix, _geris_from_fv, _lambda_bra,
                            _rand_amps, _rand_fv, _r_vector, _rect_op,
                            _sigma_matrix, _unit_r, _pack_sigma)
@@ -98,6 +101,73 @@ def test_ea_packed_ladder_matches_dense():
     with pytest.raises(NotImplementedError):
         tip._ea_vvvv_packed(object(), _t(t1), torch.zeros(nvir),
                             torch.zeros(nocc, nvir, nvir), ())
+
+
+def _random_problem(kind, packed=False):
+    """(eris, ladder operand, t1, t2) at nmo 6 with random amplitudes; with
+    `packed`, pack-on-build ERIs and their PackedVVVV (the EA ladder's
+    launch)."""
+    nmo, nocc = 6, 3 if kind == "ip" else 2
+    f, v = _rand_fv(nmo, nocc, seed=3)
+    t1, t2 = _rand_amps(nocc, nmo - nocc, seed=4)
+    et = _port_eris(_geris_from_fv(f, v, nocc))
+    op = None
+    if packed:
+        op = tladder.pack_vvvv(et.vvvv)
+        et = et._replace(vvvv=torch.zeros((nmo - nocc, 0, 0, 0),
+                                          dtype=torch.float64))
+    return et, op, _t(t1), _t(t2)
+
+
+@pytest.mark.parametrize("kind,packed", [("ip", False), ("ea", False),
+                                         ("ea", True)])
+def test_left_matvec_equals_a_fresh_vjp(monkeypatch, kind, packed):
+    """The solver's left matvec, the backward of the sigma kept at zeros
+    once per problem, equals a fresh torch.func.vjp at zeros (what it was
+    per call before); on the EA packed route, with the launch replaced by
+    the plain product, the kept sigma launches once forward and each
+    left matvec once backward, no forward."""
+    from test_torch_eom import _stand_in_launch
+    from ecw_cc_torch.kernels import ladder_mm as lmm
+
+    et, op, t1, t2 = _random_problem(kind, packed)
+    ops = (et, op, et.fock, t1, t2)
+    _, left_map, _, unpack = tip._mv_factory(kind, packed, ops)
+    nocc, nvir = t1.shape
+    n = nocc + nocc * nocc * nvir if kind == "ip" else nvir + nocc * nvir ** 2
+    v = torch.tensor(np.random.default_rng(7).standard_normal(n))
+    l1, l2 = unpack(v, asym=False)
+    _, vjp = torch.func.vjp(
+        lambda x, y: tip._sigma(et, op, et.fock, t1, t2, x, y, kind,
+                                use_packed=packed),
+        torch.zeros_like(l1), torch.zeros_like(l2))
+    s1, s2 = vjp((l1, l2))
+    want = torch.cat([s1.reshape(-1), tip._asym2(s2, kind).reshape(-1)])
+    counts = dict(forward=0, tangent=0, backward=0)
+    monkeypatch.setattr(lmm, "_launch", _stand_in_launch(counts))
+    monkeypatch.setattr(
+        tladder, "ladder_mm",
+        lambda a, b, symmetric=False, precision=None:
+        lmm._LadderMM.apply(a, b, bool(symmetric), False))
+    mv_left = left_map()
+    got = [mv_left(v) for _ in range(2)]
+    for g in got:
+        assert (g - want).abs().max() < 1e-12 * max(1.0, want.abs().max())
+    k = int(packed)
+    assert counts == dict(forward=k, tangent=0, backward=2 * k)
+
+
+@pytest.mark.parametrize("kind", ["ip", "ea"])
+def test_davidson_bodies_are_capturable(recorded_programs, kind):
+    """The right and the left (root-following) solves' cycle and collapse
+    bodies read nothing to the host and issue the same operations at
+    every call (a small basis forces collapses)."""
+    et, op, t1, t2 = _random_problem(kind, packed=kind == "ea")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        tip.eom_ipea_ccsd(et, t1, t2, kind, nroots=1, tol=1e-8, left=True,
+                          vvvv_op=op, max_space=3, max_cycle=7)
+    assert_programs_capturable(recorded_programs)
 
 
 @pytest.mark.parametrize("kind,nmo,nocc", [("ip", 6, 3), ("ea", 6, 2)])

@@ -24,6 +24,7 @@ from ecw_cc_torch.solvers.es import (Solver_ES, SolverES_Device,
 from ecw_cc_torch.utils import linalg as ulinalg
 from ecw_cc_torch.utils import props
 from gauge import jax_gauge
+from test_torch_davidson import assert_programs_capturable, recorded_programs  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -438,6 +439,24 @@ def test_scf_diag_davidson_matches_exact(sto3g_es):
     assert np.min(np.abs(w - out_d[3][1, 0])) < 1e-6
     assert np.min(np.abs(w - out_e[3][1, 0])) < 1e-6
     assert np.min(np.abs(w - out_d[3][1, 1])) < 1e-6
+
+
+def test_scf_diag_davidson_bodies_are_capturable(recorded_programs):
+    """SCF_diag(davidson=True) keeps one pair of Davidson programs per map
+    (right and left) across its outer iterations, each solve's operands
+    copied into them, and their cycle and collapse bodies read nothing to
+    the host and issue the same operations at every call (a small basis
+    forces collapses; the GS target and lambda make the maps' Davidsons
+    take several cycles)."""
+    ecw = ECW("h2o", "sto-3g", **F64)
+    ecw.Build_GS_exp("mat", "HF", field=[0.05, 0.01, 0.0])
+    ecw.Build_ES_exp_input([[["trdip", (0.5, 0.0, 0.0)]]])
+    Vexp = Exp(0.05, ecw.exp_data, ecw.mol, ecw.mo_coeff)
+    solver = Solver_ES(Gccs(ecw.eris), Vexp, rn_ini=ecw.r_ini, conv_var="rl",
+                       conv_thres=1e-7, maxiter=2)
+    solver.SCF_diag(0.05, davidson=True, max_space=3, print_ite=False)
+    assert len(recorded_programs) == 4
+    assert_programs_capturable(recorded_programs)
 
 
 def test_device_es_solver_matches_host(ecw_es_pair):
