@@ -12,7 +12,10 @@ Run from the repository root on a machine with a CUDA card:
                                            # sectored and packed routes
     python3 chip_smoke.py --routes         # phase 1 and the timed f32 lambda
                                            # sweep on each route, nvir 16 to
-                                           # 162
+                                           # 162, then ECW's sweep with
+                                           # spin_sorted True and False at
+                                           # cc-pVDZ, cc-pVTZ and the
+                                           # flagship basis
     python3 chip_smoke.py --chain          # phase 1 and the timed f32
                                            # 'highest' chains, cc-pVDZ and
                                            # cc-pVTZ, 1 and 3 lanes, the ES
@@ -92,38 +95,46 @@ each); any failure raises and exits nonzero:
      a against that of a @ w.T at 196x1891x1891, 14x1891x1891 and a
      ragged shape, f32 and f64, w symmetric and not, each one forward and
      one tangent launch;
-  4. main path, f32: ECW('c2h2', 'cc-pvdz') (ERIs transformed on the card,
-     alternating layout, a PackedVVVV at nvir 62) -> HF target with a
-     field -> CCSD_GS over lambda = 0, 0.25, 0.5 (diis 'tl', conv_thres
-     1e-6); every lambda must converge on the packed route with exactly
-     one ladder launch per iteration; then a fixed 41-iteration chain
-     (conv_thres 0) for ms/iter;
+  4. main path, f32: ECW('c2h2', 'cc-pvdz') (ERIs transformed on the card;
+     at nvir 62 the ladder is packed, so ECW builds the spin-sorted layout
+     with a SectoredVVVV and its mo_perm, config.spin_sorted) -> HF target
+     with a field -> CCSD_GS over lambda = 0, 0.25, 0.5 (diis 'tl',
+     conv_thres 1e-6); every lambda must converge on the sectored route
+     with the mirror symmetry and exactly two ladder launches per
+     iteration; the same sweep on the ECW built with spin_sorted=False
+     (alternating layout, a PackedVVVV) on the packed route with exactly
+     one, within 1e-5 Ha and +-1 iteration per lambda; then a fixed
+     41-iteration chain (conv_thres 0) on the sorted ECW for ms/iter;
   5. main path, f64: lambda = 0.25 on the card (through the kernel) and on
      the CPU (plain versions), both on ECW's f64 route (host ERIs in the
      alternating layout, a PackedVVVV at nvir 62: one ladder launch per
      iteration), must take the same iterations and agree in Ep to 1e-9
-     Ha; the f32 card solve must agree to 1e-5 Ha, iterations +-1;
+     Ha; the f32 card solve (sectored) must agree to 1e-5 Ha, iterations
+     +-1;
   6. ERI build at cc-pVDZ on the card: build_eris_device at f64 and at f32,
-     alternating with a PackedVVVV (ECW's build) against the host f64
-     build_eris and its packed vvvv, and sorted with a SectoredVVVV against
-     sorted_from_host, block by block, to 1e-10 and 3e-6;
-  7. main path at full width, C2H2/cc-pVTZ f32: ECW -> HF target ->
-     CCSD_GS([0.25]) must converge on the packed route with 1 ladder
-     launch per iteration, and agree with the same solve on f64 ERIs
+     alternating with a PackedVVVV (ECW's f32 build with
+     spin_sorted=False) against the host f64 build_eris and its packed
+     vvvv, and sorted with a SectoredVVVV (ECW's f32 build; its mo_perm
+     the permutation) against sorted_from_host, block by block, to 1e-10
+     and 3e-6;
+  7. main path at full width, C2H2/cc-pVTZ f32: ECW (spin-sorted, a
+     SectoredVVVV) -> HF target -> CCSD_GS([0.25]) must converge on the
+     sectored route with the mirror symmetry and 2 ladder launches per
+     iteration, and agree with the same solve on alternating f64 ERIs
      built on the card to 1e-5 Ha, iterations +-1; prints the set-up
      seconds, peak device memory of the build and the solve, and ms/iter
      of a 20-iteration chain;
-  9. the sorted and dense routes:
+  9. the packed and dense routes:
      (a) C2H2/cc-pVTZ f32 on phase 7's molecule, SCF and target with
-         build_eris_device(pack_ladder=True, sort_spin=True) and its
-         mo_perm: lambda = 0.25 on the sectored route with exactly 2
-         ladder launches per iteration (mirror symmetry), within 1e-5 Ha
-         and +-1 iteration of phase 7's packed solve; build seconds, peak
+         build_eris_device(pack_ladder=True) (the alternating layout of
+         spin_sorted=False): lambda = 0.25 on the packed route with
+         exactly 1 ladder launch per iteration, within 1e-5 Ha and +-1
+         iteration of phase 7's sectored solve; build seconds, peak
          memory of build and solve, ms/iter of a 20-iteration chain;
-     (b) C2H2/cc-pVDZ f32 with a target that couples the spins: on sorted
-         ERIs the gate fails and the dense route takes 3 launches per
-         iteration, on ECW's alternating packed ERIs 1; the two agree to
-         1e-5 Ha, iterations +-1;
+     (b) C2H2/cc-pVDZ f32 with a target that couples the spins: on ECW's
+         sorted ERIs the gate fails and the dense route takes 3 launches
+         per iteration, on the spin_sorted=False ECW's alternating packed
+         ERIs 1; the two agree to 1e-5 Ha, iterations +-1;
      (c) C2H2/cc-pVDZ with ladder_mode='dense': f32 on dense alternating
          device ERIs, 2 launches per iteration of the 196x3844x3844 GEMM,
          against phase 5's f32 solve (1e-5 Ha, +-1 iteration); f64 on the
@@ -211,13 +222,13 @@ each); any failure raises and exits nonzero:
          structural null space (n = 2304), where f32 needs the projector;
   12. the precision modes of the CCSD solve (config.iter_precision):
      (a) C2H2/cc-pVDZ, the f32 ECW.CCSD_GS sweep over lambda = 0, 0.25,
-         0.5 on the packed route under 'highest', 'high', 'default',
+         0.5 on ECW's sectored route under 'highest', 'high', 'default',
          'bf16', 'hybrid' (fast leg 'high', and 'bf16'), and with
          refine=True after 'highest', 'high' and 'bf16' (the polish on
          ECW.eris_f64, built on the card; no host ERIs), each against the
          f64 sweep on those ERIs (converged to 1e-9): iterations,
          ms per iteration, solve ms, |dEp|, the legs of each solve, and
-         the ladder launches by variant, which must equal one per
+         the ladder launches by variant, which must equal two per
          iteration in its mode's variant ('highest' f32, 'high' and
          'default' TF32, 'bf16' BF16) plus 2 f64 per polish iteration; a
          30-iteration chain per mode gives its ms per iteration and the
@@ -229,15 +240,15 @@ each); any failure raises and exits nonzero:
      (b) C2H2/cc-pVTZ at lambda = 0.25 (phase 7's ECW): 'bf16' with and
          without refine, and both hybrids, the same way, and the chains of
          'highest', 'high' and 'bf16' (ms per iteration; every chain's
-         launches exactly one per iteration in its mode's variant);
+         launches exactly two per iteration in its mode's variant);
   13. EOM-CCSD (the Davidson is the JAX package's pipelined one, each
      cycle a captured program replayed, one copy in and one read out; the
      EE matvecs run off the residual evaluated once per problem, whose
      ladder launches the kernel forward once, then per right matvec a
      tangent (a double backward) and per left matvec a backward):
-     (a) the JAX package's EOM bench rows, C2H2/cc-pVDZ f32 on ECW's ERIs
-         (alternating, a PackedVVVV), solve_ccsd(conv_tol=1e-8), then
-         eom_ccsd(nroots=1), eom_ccsd(nroots=2, left=True),
+     (a) the JAX package's EOM bench rows, C2H2/cc-pVDZ f32 on the ERIs of
+         ECW built with spin_sorted=False (alternating, a PackedVVVV),
+         solve_ccsd(conv_tol=1e-8), then eom_ccsd(nroots=1), eom_ccsd(nroots=2, left=True),
          eom_ip_ccsd(nroots=2), eom_ea_ccsd(nroots=1), tol 1e-5: energies
          within 0.005 eV of BENCH_r05's 5.51, 6.682, 11.315 and 4.493 eV;
          the same solves at f64 on ERIs built on the card (tol 1e-7)
@@ -272,24 +283,26 @@ each); any failure raises and exits nonzero:
      (Solver_CCSD.SCF_batch: every lambda a lane of one vmapped iteration
      step, each ladder product one launch for all lanes, cold starts),
      each lane held to a cold-start sequential solve at its lambda:
-     (a) C2H2/cc-pVDZ f32 on phase 4's ECW (packed route), lambda = 0,
-         0.25, 0.5 and then an 8-lane grid over [0, 0.5] (M = 3136): every
-         lane converged within 1e-5 Ha and +-1 iteration of its cold
-         start, exactly one ladder launch per batched iteration; the
+     (a) C2H2/cc-pVDZ f32 on phase 4's ECW (the sectored route with the
+         mirror symmetry), lambda = 0, 0.25, 0.5 and then an 8-lane grid
+         over [0, 0.5] (M = 784): every lane converged within 1e-5 Ha and
+         +-1 iteration of its cold start, exactly two ladder launches per
+         batched iteration; the
          batched sweep's ms, ms per batched iteration, per-lane
          iterations and peak memory beside the warm-started and the
          cold-start sequential sweeps;
      (b) f64 at C2H2/6-31G: the batch on the card equal to the batch on
          the CPU (1e-9 Ha, equal iterations per lane) and to the card's
          cold-start sequential solves (1e-9 Ha, equal iterations);
-     (c) C2H2/cc-pVTZ f32 on phase 7's ECW, checked as (a), with solve
+     (c) C2H2/cc-pVTZ f32 on phase 7's ECW (sectored), checked as (a),
+         with solve
          ms, ms per batched iteration, peak memory and the busy share of a
          10-iteration batched chain (--profile's method);
-     (d) the sorted sectored route at cc-pVDZ batched with the mirror
-         symmetry (2 launches per batched iteration), then 'high' and
-         'hybrid' batched on the packed route, launching each leg's
-         variant once per batched iteration; every hybrid lane within
-         1e-5 Ha of its 'highest' cold start;
+     (d) the alternating packed route at cc-pVDZ batched (phase 4's ECW
+         with spin_sorted=False: 1 launch per batched iteration), then
+         'high' and 'hybrid' batched on it, launching each leg's variant
+         once per batched iteration; every hybrid lane within 1e-5 Ha of
+         its 'highest' cold start;
      (e) synchronizing calls per iteration by Python line
          (torch.cuda.set_sync_debug_mode('warn'), two chains differenced)
          of a 3-lane batched chain and of the sequential CCSD chain:
@@ -298,10 +311,11 @@ each); any failure raises and exits nonzero:
  15. (run after 14) the multi-device layer (ecw_cc_torch/parallel) on a
      world-size-1 NCCL group started in the process (mesh dp 1 x tp 1 on
      the card; NCCL takes no second rank on one card):
-     (a) C2H2/cc-pVDZ f32 at lambda = 0.25 on the packed route (phase 4's
-         ECW ERIs) and on the sorted sectored route with the mirror
-         symmetry, each solved whole and with ERIs, ladder operand and
-         amplitudes split (shard_eris, shard_vvvv_op, amp_shardings):
+     (a) C2H2/cc-pVDZ f32 at lambda = 0.25 on the packed route (the ERIs
+         of phase 4's spin_sorted=False ECW) and on the sorted sectored
+         route with the mirror symmetry (phase 4's ECW: its own sorted ERIs
+         and SectoredVVVV), each solved whole and with ERIs, ladder
+         operand and amplitudes split (shard_eris, shard_vvvv_op, amp_shardings):
          equal iterations, |dEp| <= 1e-9 Ha, ladder launches per
          iteration unchanged (1 packed, 2 sectored), every one on the
          rank's rows; the split solve's loop replayed its captured graph,
@@ -328,7 +342,7 @@ each); any failure raises and exits nonzero:
      (b) the gs_ccsd_sweep twin at C2H2/6-311++G(2d,2p) (148 spin
          orbitals, nvir 134), f32 on the card: the CCSD(T) 'mat' target
          (sorted sectored build) and the 8-point lambda sweep over 0..0.7
-         on the packed route, held to README's flagship numbers: every
+         on ECW's sectored route, held to README's flagship numbers: every
          lambda converged in 11-17 iterations, EHF -76.8462 and Eexp
          -77.1995 (1e-4); Delta falling, and Delta and Ep at each lambda
          within 1e-4 of the JAX package's f64 run of the same calls on
@@ -338,10 +352,11 @@ each); any failure raises and exits nonzero:
          where matplotlib imports, printed as plot_written); the ladder
          launches exactly as the iteration counts predict (per target
          CCSD iteration 2 with the mirror symmetry, else 3; 3 for the
-         adjoint's map and as many backward per adjoint iteration; 1 per
+         adjoint's map and as many backward per adjoint iteration; 2 per
          sweep iteration); seconds by stage, ms per iteration, peak memory;
-     (a) on (b)'s SCF: build_eris_device at f32 against the same build at
-         f64 on the card, block by block, to 3e-6, with cond(S) (7.5e5);
+     (a) on (b)'s SCF: build_eris_device at f32 (ECW's sorted build)
+         against the same build at f64 on the card, block by block, to
+         3e-6, with cond(S) (7.5e5);
      (c) es_solver, ipea_spectrum, newton_smoke and landscape_scan at
          their default configurations, f32 and f64 on the card: energies
          and roots within 1e-5 Ha, the landscapes within 1e-5 relative,
@@ -352,8 +367,8 @@ each); any failure raises and exits nonzero:
      (solvers/device_loop.py: one iteration captured per leg and
      replayed, one flag read per iteration):
      (a) C2H2 f32 at cc-pVDZ and cc-pVTZ, on the packed and the sorted
-         sectored route, 1 lane (lambda = 0.25) and 3 (lambda = 0, 0.25,
-         0.5; mode='parallel'): a converged solve (diis 'tl') whose every
+         sectored route (ECW's own sorted ERIs), 1 lane (lambda = 0.25)
+         and 3 (lambda = 0, 0.25, 0.5; mode='parallel'): a converged solve (diis 'tl') whose every
          loop replayed its graph, with the ladder launches per iteration
          exactly as in phase 4 / 9a (1 packed, 2 sectored), the capture
          and instantiation ms of each leg and the peak memory;
@@ -364,9 +379,9 @@ each); any failure raises and exits nonzero:
          device ms, the kernels and the host's launch calls per iteration
          (at most GRAPH_MAX_CALLS: the graph launch and the flag read) and
          the busy share; the same for the ES loop on phase 11a's system
-         (two states, f32); and phase 4's sweep at cc-pVDZ (one solver
-         over lambda = 0, 0.25, 0.5): its loops captured at the first
-         lambda only and replayed at the others;
+         (two states, f32); and phase 4's sweep at cc-pVDZ (ECW's sectored
+         route, one solver over lambda = 0, 0.25, 0.5): its loops captured
+         at the first lambda only and replayed at the others;
      (b) f64 at C2H2/6-31G, the captured solve on the card against the
          CPU's eager one on the same host ERIs, equal iterations and Ep to
          1e-9 Ha: CCSD on the packed, dense, sectored and dense sorted
@@ -425,6 +440,10 @@ PROFILE_ITERS = 10
 DTYPES = (torch.float32, torch.float64)
 MAIN_SHAPES = [(98, 465, 465), (98, 961, 961)]          # (M, N, K), pVDZ
 TZ_SHAPES = [(98, 3240, 3240), (98, 6561, 6561)]        # cc-pVTZ
+# the kernel line's headline: the main path's largest product at cc-pVTZ,
+# the alpha-beta sector GEMM of ECW's sectored route (mirror symmetry: the
+# canonical 98 of 196 occupied-pair rows, t and lambda stacked)
+MAIN_TZ = TZ_SHAPES[1]
 # phase 9's routes (C2H2, nocc 14): the dense ladder at cc-pVDZ, the
 # stacked packed GEMM at cc-pVDZ and cc-pVTZ, the stacked sector GEMMs
 DENSE_DZ, PACKED_DZ, PACKED_TZ = ((196, 3844, 3844), (392, 1891, 1891),
@@ -443,13 +462,14 @@ F64_SHAPES = [POLISH_TZ]     # checked and timed in f64 only
 EOM_SHAPES = [(196, 1891, 1891), (14, 1891, 1891), (196, 465, 465),
               (196, 961, 961)]
 # phase 14's batched sweeps: the lambda lanes stacked into M of each
-# ladder product (3 lanes of the packed route at cc-pVDZ and cc-pVTZ, the
-# 8-lane cc-pVDZ grid, 3 lanes of the sectored route's mirror-symmetric
-# sector GEMMs at cc-pVDZ and cc-pVTZ and of the sorted dense route's
-# stacked sectors)
+# ladder product (3 lanes of the packed route at cc-pVDZ and cc-pVTZ, its
+# 8-lane cc-pVDZ grid, 3 and 8 lanes of the sectored route's mirror-
+# symmetric sector GEMMs at cc-pVDZ (ECW's route) and 3 at cc-pVTZ, and 3
+# of the sorted dense route's stacked sectors)
 BATCH_SHAPES = [(1176, 1891, 1891), (3136, 1891, 1891), (1176, 13041, 13041),
                 (294, 465, 465), (294, 961, 961), (294, 3240, 3240),
-                (294, 6561, 6561), (1176, 465, 465), (1176, 961, 961)]
+                (294, 6561, 6561), (784, 465, 465), (784, 961, 961),
+                (1176, 465, 465), (1176, 961, 961)]
 BATCH_TC_SHAPES = [(1176, 1891, 1891), (1176, 13041, 13041)]
 # phase 16's flagship, C2H2/6-311++G(2d,2p) (nocc 14, nvir 134): the
 # sweep's stacked packed GEMM (392 rows, 134 * 133 / 2 = 8911 packed
@@ -964,12 +984,45 @@ def time_variants(lmm, only=None):
     return times
 
 
-def build_ecw(device, dtype, basis=BASIS):
+@contextlib.contextmanager
+def layout(spin_sorted):
+    """config.spin_sorted set inside and restored after: True is ECW's f32
+    default where the ladder is packed (spin-sorted ERIs, a SectoredVVVV),
+    False the alternating layout with a PackedVVVV.  In a checkout whose
+    config has no such flag (copied into an older one) ECW builds its own
+    layout either way."""
+    from ecw_cc_torch import get_config, set_config
+
+    if not hasattr(get_config(), "spin_sorted"):
+        yield
+        return
+    old = get_config().spin_sorted
+    set_config(spin_sorted=spin_sorted)
+    try:
+        yield
+    finally:
+        set_config(spin_sorted=old)
+
+
+def build_ecw(device, dtype, basis=BASIS, spin_sorted=True):
+    """ECW(MOLECULE, basis) with the HF 'mat' target in FIELD, built under
+    config.spin_sorted = spin_sorted (layout)."""
     from ecw_cc_torch import ECW
 
-    ecw = ECW(MOLECULE, basis, device=device, dtype=dtype)
+    with layout(spin_sorted):
+        ecw = ECW(MOLECULE, basis, device=device, dtype=dtype)
     ecw.Build_GS_exp("mat", "HF", field=FIELD)
     return ecw
+
+
+def route_launches(s):
+    """Ladder launches per iteration of a solve_log entry's route: the
+    stacked packed GEMM once, the dense ladder twice, the sector GEMMs
+    twice with the mirror symmetry (alpha-alpha, alpha-beta) and three
+    times without, the sorted dense route's stacked sectors three times."""
+    if s["route"] == "sectored":
+        return 2 if s["sym"] else 3
+    return {"packed": 1, "dense": 2, "dense_sorted": 3}[s["route"]]
 
 
 def solve(ecw, lambdas, **kw):
@@ -1014,7 +1067,7 @@ def chain_ops(run, iters=CHAIN_OPS_ITERS):
 
 def chain_times():
     """--chain: ms per iteration of the f32 main-path chain under the
-    default precision (ECW's packed route, lambda = 0.25, conv_thres 0),
+    default precision (ECW's route, lambda = 0.25, conv_thres 0),
     without DIIS and with the sweep's 'tl' DIIS, at C2H2/cc-pVDZ and
     cc-pVTZ: one untimed run, then CHAIN_REPS timed, on the wall clock and
     in the process's CPU time (which other load on the host moves less),
@@ -1229,10 +1282,11 @@ def ccs_sweep(ecw, lambdas, **kw):
 
 def with_eris(ecw, eris, vvvv_op, mo_perm):
     """A shallow copy of a built ECW that solves on other device ERIs (the
-    same molecule, SCF and targets; ECW.fock stays the alternating one)."""
+    same molecule, SCF and targets; ECW.fock stays the alternating one;
+    the CCS and ES solvers' alternating view is derived anew)."""
     out = copy.copy(ecw)
-    out.eris, out.vvvv_op, out.myccsd = eris, vvvv_op, None
-    out.mo_perm = mo_perm
+    out.eris, out.vvvv_op, out.myccsd, out.myccs = eris, vvvv_op, None, None
+    out.mo_perm, out._eris_alt_cache = mo_perm, None
     out.dtype = eris.oovv.dtype
     return out
 
@@ -1252,14 +1306,19 @@ def sort_perm(ecw):
 
 def check_eri_build(ecw):
     """Phase 6: build_eris_device at f64 and f32 on the card, alternating
-    with a PackedVVVV (ECW's build) against the host f64 build_eris and
-    pack_vvvv of its vvvv, and sorted with a SectoredVVVV against
-    sorted_from_host, block by block.  Returns {layout dtype: error}."""
+    with a PackedVVVV (ECW's f32 build with spin_sorted=False) against the
+    host f64 build_eris and pack_vvvv of its vvvv, and sorted with a
+    SectoredVVVV (ECW's f32 build) against sorted_from_host, block by
+    block; ECW's mo_perm is the permutation sorted_from_host takes.
+    Returns {layout dtype: error}."""
     from ecw_cc_torch.models.eris import (GEris, build_eris_device,
                                           sorted_from_host)
     from ecw_cc_torch.ops.ladder import pack_vvvv
 
     perm = sort_perm(ecw)
+    if not np.array_equal(ecw.mo_perm, perm):
+        raise AssertionError(f"ECW's mo_perm {ecw.mo_perm} is not the spin "
+                             f"sort {perm}")
     alt = ecw.eris_host.to_device(dtype=torch.float64, device="cuda")
     refs = {"alternating": (alt, pack_vvvv(alt.vvvv)),
             "sorted": sorted_from_host(ecw.eris_host, perm,
@@ -1299,8 +1358,10 @@ def check_eri_build(ecw):
 
 def run_tz(ladder_mm):
     """Phase 7: the full-width C2H2/cc-pVTZ solve at f32 on device-built
-    ERIs (ECW's packed route), and its f64 reference on packed ERIs built
-    on the card.  Returns the ladder launches of the f32 solve."""
+    ERIs (ECW's route: spin-sorted, the sectored solve with the mirror
+    symmetry), and its f64 reference on alternating packed ERIs built on
+    the card.  Returns the ladder launches of the f32 solve, the ECW and
+    the f32 solve's (Ep, iterations)."""
     from ecw_cc_torch.models.eris import build_eris_device
 
     torch.cuda.synchronize()
@@ -1320,18 +1381,19 @@ def run_tz(ladder_mm):
     res, log = solve(ecw, [0.25], conv_thres=CONV_THRES)
     launches = ladder_mm.launches
     s32, ep32 = log[0], float(res[1][-1])
-    phase(7, "solve_tz_f32", route=s32["route"],
+    phase(7, "solve_tz_f32", route=s32["route"], sym=s32["sym"],
           iterations=s32["iterations"], converged=s32["status"] == 1,
           Ep=ep32, Ep_total=ep32 + ecw.EHF, ms=s32["ms"],
           ladder_launches=launches,
           peak_bytes=torch.cuda.max_memory_allocated())
-    if s32["status"] != 1 or s32["route"] != "packed":
+    if (s32["status"] != 1 or s32["route"] != "sectored"
+            or not s32["sym"]):
         raise AssertionError(f"the cc-pVTZ f32 solve did not converge on "
-                             f"the packed route: {s32}")
-    if launches != s32["iterations"]:
+                             f"the sectored route with sym: {s32}")
+    if launches != 2 * s32["iterations"]:
         raise AssertionError(f"ladder kernel launched {launches} times in "
                              f"{s32['iterations']} cc-pVTZ iterations "
-                             "(expected 1 each)")
+                             "(expected 2 each)")
     if not np.all(np.isfinite(res[4])) or res[4].shape != (ecw.dim,) * 2:
         raise AssertionError("cc-pVTZ rdm1 is not finite or has the wrong "
                              "shape")
@@ -1341,9 +1403,9 @@ def run_tz(ladder_mm):
     phase(7, "chain_tz_f32", iterations=chain["iterations"], ms=chain["ms"],
           ms_per_iteration=chain["ms"] / chain["iterations"])
 
-    # the f64 reference: the same molecule, SCF, target and route, on f64
-    # ERIs built on the card (the host route would hold 176^4 f64 on the
-    # host)
+    # the f64 reference: the same molecule, SCF and target, on f64 ERIs
+    # built on the card in ECW's f64 layout, alternating (the host route
+    # would hold 176^4 f64 on the host)
     torch.cuda.reset_peak_memory_stats()
     timings = {}
     er64, packed64 = build_eris_device(ecw.mol, ecw.mf, dtype=torch.float64,
@@ -1404,44 +1466,46 @@ def check_route_solve(name, log, res, launches, route, per_iter,
     return ep, s0["iterations"]
 
 
-def run_sorted_tz(ladder_mm, ecw, ref):
-    """Phase 9 (a): C2H2/cc-pVTZ f32 on sorted sectored ERIs built on the
-    card, on phase 7's molecule, SCF and target.  Returns the launches."""
+def run_packed_tz(ladder_mm, ecw, ref):
+    """Phase 9 (a): C2H2/cc-pVTZ f32 on the alternating packed ERIs that
+    ECW builds with spin_sorted=False, built on the card for phase 7's
+    molecule, SCF and target: the packed route, 1 launch per iteration,
+    within 1e-5 Ha and +-1 iteration of phase 7's sectored solve.  Returns
+    the launches."""
     from ecw_cc_torch.models.eris import build_eris_device
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timings, t0 = {}, time.perf_counter()
-    er, sect = build_eris_device(ecw.mol, ecw.mf, dtype=torch.float32,
-                                 device="cuda", pack_ladder=True,
-                                 sort_spin=True, timings=timings)
+    er, packed = build_eris_device(ecw.mol, ecw.mf, dtype=torch.float32,
+                                   device="cuda", pack_ladder=True,
+                                   timings=timings)
     torch.cuda.synchronize()
-    phase(9, "build_tz_f32_sorted", seconds=time.perf_counter() - t0,
+    phase(9, "build_tz_f32_packed", seconds=time.perf_counter() - t0,
           **timings, peak_bytes=torch.cuda.max_memory_allocated(),
-          op_bytes=sum(w.numel() * w.element_size() for w in sect))
-    srt = with_eris(ecw, er, sect, sort_perm(ecw))
+          op_bytes=sum(w.numel() * w.element_size() for w in packed))
+    alt = with_eris(ecw, er, packed, None)
     torch.cuda.reset_peak_memory_stats()
     ladder_mm.launches = 0
-    res, log = solve(srt, [0.25], conv_thres=CONV_THRES)
+    res, log = solve(alt, [0.25], conv_thres=CONV_THRES)
     launches = ladder_mm.launches
-    phase(9, "solve_tz_f32_sectored_memory",
-          peak_bytes=torch.cuda.max_memory_allocated(), sym=log[0]["sym"])
-    check_route_solve("solve_tz_f32_sectored", log, res, launches,
-                      "sectored", 2, ref=ref)
-    _, chain = solve(srt, [0.25], diis="", conv_thres=0.0,
+    phase(9, "solve_tz_f32_packed_memory",
+          peak_bytes=torch.cuda.max_memory_allocated())
+    check_route_solve("solve_tz_f32_packed", log, res, launches, "packed", 1,
+                      ref=ref)
+    _, chain = solve(alt, [0.25], diis="", conv_thres=0.0,
                      maxiter=CHAIN_ITERS_TZ)
     chain = chain[0]
-    phase(9, "chain_tz_f32_sectored", iterations=chain["iterations"],
+    phase(9, "chain_tz_f32_packed", iterations=chain["iterations"],
           ms=chain["ms"], ms_per_iteration=chain["ms"] / chain["iterations"])
     return launches
 
 
-def run_spin_mixing(ladder_mm, ecw32):
+def run_spin_mixing(ladder_mm, ecw32, ecw32p):
     """Phase 9 (b): C2H2/cc-pVDZ f32 with a target that couples the spins,
-    on sorted ERIs (the gate fails: the dense route, 3 launches per
-    iteration) and on ECW's alternating packed ERIs (1).  Returns the
-    launches."""
-    from ecw_cc_torch.models.eris import build_eris_device
+    on ECW's sorted ERIs (the gate fails: the dense route, 3 launches per
+    iteration) and on the alternating packed ERIs of spin_sorted=False
+    (1).  Returns the launches."""
     from ecw_cc_torch.ops.ccsd import GCC
     from ecw_cc_torch.ops.vexp import Exp
     from ecw_cc_torch.solvers.gs import Solver_CCSD
@@ -1451,14 +1515,11 @@ def run_spin_mixing(ladder_mm, ecw32):
     mix = rng.standard_normal((nmo, nmo)) * 1e-3
     target = np.diag(np.asarray(ecw32.mo_occ, dtype=np.float64))
     target = target + 0.5 * (mix + mix.T)      # couples alpha and beta
-    er, sect = build_eris_device(ecw32.mol, ecw32.mf, dtype=torch.float32,
-                                 device="cuda", pack_ladder=True,
-                                 sort_spin=True)
     out, ref = {}, None
     for name, eris, op, perm, route, per_iter in (
-            ("spin_mixing_sorted", er, sect, sort_perm(ecw32),
+            ("spin_mixing_sorted", ecw32.eris, ecw32.vvvv_op, ecw32.mo_perm,
              "dense_sorted", 3),
-            ("spin_mixing_packed", ecw32.eris, ecw32.vvvv_op, None,
+            ("spin_mixing_packed", ecw32p.eris, ecw32p.vvvv_op, None,
              "packed", 1)):
         exp = Exp(0.05, [[["mat", target]]], mol=ecw32.mol,
                   mo_coeff=ecw32.mo_coeff)
@@ -1696,11 +1757,13 @@ def run_target_sweep(ladder_mm, ecw32):
     deltas = [float(d) for d in ecw.Delta_lamb]
     iters = [s["iterations"] for s in slog]
     phase(10, "sweep_on_ccsd_t_target", iterations=iters, Delta=deltas,
+          routes=[s["route"] for s in slog],
           Ep=[float(ecw.EHF - e) for e in ecw.Ep_lamb],
           ms=[s["ms"] for s in slog], ladder_launches=sweep)
-    if not all(s["status"] == 1 for s in slog) or sweep != sum(iters):
+    want_sweep = sum(route_launches(s) * s["iterations"] for s in slog)
+    if not all(s["status"] == 1 for s in slog) or sweep != want_sweep:
         raise AssertionError("the sweep on the CCSD(T) target did not "
-                             f"converge with 1 launch per iteration: {slog}")
+                             f"converge with {want_sweep} launches: {slog}")
     if not deltas[-1] < deltas[0]:
         raise AssertionError(f"Delta did not fall with lambda: {deltas}")
     return {"c2h2_ccpvdz_f32_ccsd_t_target": fwd + back,
@@ -2174,9 +2237,10 @@ def es_iterations(text):
 
 def es_with_eris(ecw, eris):
     """A shallow copy of a built ECW (same SCF, targets and guesses) whose
-    excited-state solve runs on other ERIs."""
+    excited-state solve runs on other ERIs, in the alternating layout."""
     out = copy.copy(ecw)
     out.eris, out.vvvv_op, out.myccs, out.myccsd = eris, None, None, None
+    out.mo_perm, out._eris_alt_cache = None, None
     out.dtype = eris.fock.dtype
     return out
 
@@ -2193,7 +2257,7 @@ def es_device_solver(ecw, conv_thres=1e-5, maxiter=80):
 
     with contextlib.redirect_stdout(io.StringIO()):
         vexp = Exp(0.0, ecw.exp_data, ecw.mol, ecw.mo_coeff)
-        solver = Solver_ES(Gccs(ecw.eris), vexp, rn_ini=ecw.r_ini,
+        solver = Solver_ES(Gccs(ecw._eris_alt()), vexp, rn_ini=ecw.r_ini,
                            conv_var=ES_KW["conv"], conv_thres=conv_thres,
                            maxiter=maxiter, diis=ES_KW["diis"],
                            maxdiis=ES_KW["maxdiis"])
@@ -2365,7 +2429,8 @@ def es_tdhf_targets(ecw):
     from ecw_cc_torch.utils import props
 
     t0 = time.perf_counter()
-    es, X, Y = tdscf.tdhf(ecw.eris, ecw.mf.mo_energy, nroots=ES_TDHF_ROOTS)
+    es, X, Y = tdscf.tdhf(ecw._eris_alt(), ecw.mf.mo_energy,
+                          nroots=ES_TDHF_ROOTS)
     tdhf_s = time.perf_counter() - t0
     nocc, nvir, dim = ecw.nocc, ecw.nvir, ecw.dim
     dip_int = ecw.mol.intor("r", origin=ecw.mol.charge_center())
@@ -2583,7 +2648,7 @@ def run_es_davidson(ecw32, ecw64, amp64):
             ("f32_projected", ecw32, torch.float32, True, 3e-5, 1e-5),
             ("f32_unprojected", ecw32, torch.float32, False, 3e-5, None)):
         ts = ts64.to(dtype)
-        inter = ccs_ops.R1inter(ecw.eris, ts, None, None)
+        inter = ccs_ops.R1inter(ecw._eris_alt(), ts, None, None)
         Fab, Fji, W, F = inter[:4]
         diag = (torch.diagonal(Fab)[None, :] - torch.diagonal(Fji)[:, None]
                 + torch.einsum("bjjb->jb", W) + F).reshape(-1)
@@ -2687,8 +2752,9 @@ def check_no_jax(es_ran, eom_ran=False, twins_ran=False):
 
 
 # Phase 12: the CCSD solve's precision modes.  Each mode runs the f32
-# ECW.CCSD_GS sweep on the packed route (one ladder launch per iteration,
-# in the variant of the iteration's mode); 'default' and 'bf16' may stall
+# ECW.CCSD_GS sweep on ECW's route (the sectored one with the mirror
+# symmetry at cc-pVDZ and cc-pVTZ: two ladder launches per iteration, in
+# the variant of the iteration's mode); 'default' and 'bf16' may stall
 # above 1e-6 (a coarser fixed point, ecw_cc_tpu/config.py:53-54), so a
 # 30-iteration chain first finds the Dconv at which each mode stalls and
 # those two run at 3 times it (1e-6 at least).
@@ -2700,7 +2766,6 @@ PREC_CHAIN, PREC_MAXITER, PREC_F64_THRES = 30, 40, 1e-9
 PREC_L_TZ = [0.25]
 LEG_VARIANT = {"highest": "f32", "high": "tf32", "default": "tf32",
                "bf16": "bf16"}
-ROUTE_LAUNCHES = {"packed": 1, "dense": 2}   # ladder launches per iteration
 POLISH_LAUNCHES = 2      # f64 ladder launches per polish iteration
 
 
@@ -2739,7 +2804,7 @@ def precision_chain(ecw, lmm, mode, basis):
                ms_per_iteration=log[0]["ms"] / n, floor=floor,
                route=log[0]["route"], launches=counts)
     phase(12, "precision_chain", **row)
-    want = {LEG_VARIANT[mode]: ROUTE_LAUNCHES[log[0]["route"]] * n}
+    want = {LEG_VARIANT[mode]: route_launches(log[0]) * n}
     if counts != want:
         raise AssertionError(f"{basis} {mode} chain launched {counts}, "
                              f"expected {want}")
@@ -2764,7 +2829,7 @@ def precision_sweep(ecw, lmm, mode, fast, lambdas, thres, refine, ref_ep,
     want = dict.fromkeys(lmm.VARIANTS, 0)
     for s in log:
         for leg_mode, n, _ in s["legs"]:
-            want[LEG_VARIANT[leg_mode]] += ROUTE_LAUNCHES[s["route"]] * n
+            want[LEG_VARIANT[leg_mode]] += route_launches(s) * n
     want["f64"] += POLISH_LAUNCHES * sum(s.get("refine_iterations", 0)
                                          for s in log)
     ep = [float(ecw.EHF - e) for e in ecw.Ep_lamb]
@@ -3077,9 +3142,102 @@ def route_sweeps(ladder_mm, cells=ROUTE_CELLS, reps=ROUTE_REPS,
     return rows
 
 
+LAYOUT_BASES = (BASIS, BASIS_TZ, "6-311++g(2d,2p)")
+
+
+def layout_sweeps(ladder_mm, bases=LAYOUT_BASES, reps=ROUTE_REPS):
+    """--routes, after route_sweeps: phase 4's converged f32 sweep (HF
+    target in FIELD, LAMBDAS, diis 'tl', CONV_THRES) through ECW.CCSD_GS
+    as a user runs it, at C2H2/cc-pVDZ, cc-pVTZ and the flagship basis, on
+    the ECW built with config.spin_sorted True (the sorted sectored route)
+    and False (the alternating packed route): one untimed sweep each, then
+    `reps` timed sweeps with the layouts in turns.  One line per basis and
+    layout (its set-up seconds, sweep ms, solve ms per lambda, iterations,
+    Ep, launches per iteration, capture ms, peak memory); the two layouts'
+    Ep within 1e-5 Ha and iterations within +-1 per lambda."""
+    import io
+
+    from ecw_cc_torch import ECW
+
+    rows = []
+    for basis in bases:
+        ecws, setup = {}, {}
+        for sort in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), layout(sort):
+                ecw = ECW(MOLECULE, basis, device="cuda",
+                          dtype=torch.float32)
+                ecw.Build_GS_exp("mat", "HF", field=FIELD)
+            torch.cuda.synchronize()
+            setup[sort] = dict(ecw.timings,
+                               seconds=time.perf_counter() - t0)
+            ecws[sort] = ecw
+        runs = {True: [], False: []}
+        for rep_ in range(reps + 1):
+            for sort in ((True, False) if rep_ % 2 == 0 else (False, True)):
+                ecw = ecws[sort]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ladder_mm.launches = 0
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    _, log = solve(ecw, LAMBDAS, conv_thres=CONV_THRES)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if rep_ == 0:
+                    continue                      # the untimed sweep
+                runs[sort].append(dict(
+                    ms=ms, solve_ms=[s["ms"] for s in log],
+                    iterations=[s["iterations"] for s in log],
+                    Ep=[float(ecw.EHF - e) for e in ecw.Ep_lamb],
+                    route=[s["route"] for s in log],
+                    sym=[s["sym"] for s in log],
+                    capture_ms=[lp.get("capture_ms") for lp in
+                                loops_of(log)],
+                    converged=all(s["status"] == 1 for s in log),
+                    launches=ladder_mm.launches,
+                    peak_bytes=torch.cuda.max_memory_allocated()))
+        out = {}
+        for sort in (True, False):
+            r = runs[sort]
+            its = sum(r[0]["iterations"])
+            ms = statistics.median(x["ms"] for x in r)
+            out[sort] = row = dict(
+                molecule=MOLECULE, basis=basis, nvir=ecws[sort].nvir,
+                spin_sorted=sort, routes=r[0]["route"], sym=r[0]["sym"],
+                setup=setup[sort], sweep_ms=ms,
+                sweep_ms_runs=[x["ms"] for x in r],
+                solve_ms_runs=[x["solve_ms"] for x in r],
+                capture_ms_runs=[x["capture_ms"] for x in r],
+                iterations=r[0]["iterations"], ms_per_iteration=ms / its,
+                Ep=r[0]["Ep"], launches_per_iteration=r[0]["launches"] / its,
+                peak_bytes=max(x["peak_bytes"] for x in r),
+                converged=all(x["converged"] for x in r))
+            rows.append(row)
+            phase("R", "layout_sweep", **row)
+        want = {True: "sectored", False: "packed"}
+        for sort, row in out.items():
+            if not row["converged"] or set(row["routes"]) != {want[sort]}:
+                raise AssertionError(f"{basis} spin_sorted={sort}: a lambda "
+                                     "did not converge or took the route "
+                                     f"{row['routes']}")
+        d_ep = max(abs(a - b) for a, b in zip(out[True]["Ep"],
+                                              out[False]["Ep"]))
+        d_it = max(abs(a - b) for a, b in zip(out[True]["iterations"],
+                                              out[False]["iterations"]))
+        if d_ep > 1e-5 or d_it > 1:
+            raise AssertionError(f"{basis}: the sorted and packed sweeps "
+                                 f"differ by {d_ep} Ha, {d_it} iterations")
+        del ecws, ecw
+        torch.cuda.empty_cache()
+    return rows
+
+
 # Phase 13: EOM-CCSD.  (a) runs the JAX package's EOM bench rows
 # (bench.py:713-776) at their full width, C2H2/cc-pVDZ f32 on the ERIs ECW
-# builds (alternating layout, a PackedVVVV), and holds the energies to
+# builds with spin_sorted=False (alternating layout, a PackedVVVV), and
+# holds the energies to
 # BENCH_r05's (rounded there to 3 decimals, so +-0.005 eV): EE 5.51 eV
 # (one root) and 6.682 (the second of two with left vectors), IP 11.315,
 # EA 4.493.
@@ -3398,11 +3556,12 @@ def run_eom_bench(ladder_mm):
     from ecw_cc_torch.ops.ladder import PackedVVVV
 
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), layout(False):
         ecw = ECW(MOLECULE, BASIS, device=CARD, dtype=torch.float32)
     setup_s = time.perf_counter() - t0
     if not isinstance(ecw.vvvv_op, PackedVVVV) or ecw.eris.vvvv.numel():
-        raise AssertionError("the f32 ECW did not build pack-on-build ERIs")
+        raise AssertionError("the f32 ECW with spin_sorted=False did not "
+                             "build alternating pack-on-build ERIs")
     ccsd_log = {}
     t0 = time.perf_counter()
     t1, t2, e_cc = ccsd_t.solve_ccsd(ecw.eris, conv_tol=EOM_CCSD_TOL,
@@ -3624,7 +3783,7 @@ def eom_times():
     from ecw_cc_torch import ECW
     from ecw_cc_torch.ops import ccsd_t
 
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), layout(False):
         ecw = ECW(MOLECULE, BASIS, device=CARD, dtype=torch.float32)
     t1, t2, _ = ccsd_t.solve_ccsd(ecw.eris, conv_tol=EOM_CCSD_TOL,
                                   vvvv_op=ecw.vvvv_op)
@@ -3753,9 +3912,10 @@ def check_lanes(name, b, cold, route, per_iter, tol=1e-5, dit=1):
 
 
 def run_batch_dz(ecw32):
-    """Phase 14 (a): 3 lanes and the 8-lane grid at cc-pVDZ f32, beside
-    the warm-started sequential sweep and the cold-start one.  Returns
-    ({path: launches}, the 3 lanes' cold starts)."""
+    """Phase 14 (a): 3 lanes and the 8-lane grid at cc-pVDZ f32 on ECW's
+    sectored route (2 launches per batched iteration), beside the
+    warm-started sequential sweep and the cold-start one.  Returns {path:
+    launches}."""
     # one untimed solve of each kind first (a process's first solve loads
     # its kernels)
     solve(ecw32, [0.25], conv_thres=CONV_THRES)
@@ -3764,17 +3924,19 @@ def run_batch_dz(ecw32):
     t0 = time.perf_counter()
     _, warm = solve(ecw32, LAMBDAS, conv_thres=CONV_THRES)
     warm_ms = (time.perf_counter() - t0) * 1e3
-    row, launches, cold3 = {}, {}, None
+    row, launches = {}, {}
     for name, lambdas in (("lanes3", LAMBDAS), ("grid8", BATCH_GRID)):
         cold, cold_ms = cold_starts(ecw32, lambdas, conv_thres=CONV_THRES)
         b = batch_solve(ecw32, lambdas, conv_thres=CONV_THRES)
-        row[name] = check_lanes(f"14a {name}", b, cold, "packed", 1)
+        row[name] = check_lanes(f"14a {name}", b, cold, "sectored", 2)
         row[name]["cold_sequential_ms"] = cold_ms
         launches[f"c2h2_ccpvdz_f32_batch_{name}"] = b["launches"]
-        cold3 = cold3 or cold
+        if not all(s["sym"] for s in b["log"]):
+            raise AssertionError(f"14a {name}: the sectored batch ran "
+                                 f"without sym")
     phase(14, "batch_ccpvdz_f32", **row, warm_sequential_ms=warm_ms,
           warm_iterations=[s["iterations"] for s in warm])
-    return launches, cold3
+    return launches
 
 
 def run_batch_f64():
@@ -3828,37 +3990,32 @@ def batch_busy_share(ecw, lambdas, iters=PROFILE_ITERS):
 
 def run_batch_tz(ecw_tz):
     """Phase 14 (c): 3 lanes at full width, C2H2/cc-pVTZ f32 on phase 7's
-    ECW (packed route)."""
+    ECW (the sectored route)."""
     cold, cold_ms = cold_starts(ecw_tz, LAMBDAS, conv_thres=CONV_THRES)
     b = batch_solve(ecw_tz, LAMBDAS, conv_thres=CONV_THRES)
-    fields = check_lanes("14c", b, cold, "packed", 1)
+    fields = check_lanes("14c", b, cold, "sectored", 2)
     phase(14, "batch_ccpvtz_f32", **fields, cold_sequential_ms=cold_ms,
           **batch_busy_share(ecw_tz, LAMBDAS))
     return {"c2h2_ccpvtz_f32_batch": b["launches"]}
 
 
-def run_batch_routes(lmm, ecw32, cold):
-    """Phase 14 (d): the sorted sectored route at cc-pVDZ batched with the
-    mirror symmetry (2 launches per batched iteration), then 'high' and
-    'hybrid' batched on the packed route, each iteration launching its
-    leg's variant once for all lanes; every hybrid lane within 1e-5 Ha of
-    its 'highest' cold start (`cold`, 14a's).  Returns ({path: launches},
-    {variant: launches} of the precision runs)."""
-    er, op, perm, build_s = route_eris(ecw32, "sectored")
-    ecw_s = with_eris(ecw32, er, op, perm)
-    cold_s, cold_ms = cold_starts(ecw_s, LAMBDAS, conv_thres=CONV_THRES)
-    b = batch_solve(ecw_s, LAMBDAS, conv_thres=CONV_THRES)
-    row = {"sectored": check_lanes("14d sectored", b, cold_s, "sectored", 2)
-           | {"cold_sequential_ms": cold_ms, "build_s": build_s}}
-    if not b["log"][0]["sym"]:
-        raise AssertionError("14d: the sectored batch ran without sym")
-    launches = {"c2h2_ccpvdz_f32_batch_sectored": b["launches"]}
+def run_batch_routes(lmm, ecw32p):
+    """Phase 14 (d): the alternating packed route at cc-pVDZ batched (the
+    ECW of spin_sorted=False, 1 launch per batched iteration), then 'high'
+    and 'hybrid' batched on it, each iteration launching its leg's
+    variant once for all lanes; every hybrid lane within 1e-5 Ha of its
+    'highest' cold start.  Returns ({path: launches}, {variant: launches}
+    of the precision runs)."""
+    cold, cold_ms = cold_starts(ecw32p, LAMBDAS, conv_thres=CONV_THRES)
+    b = batch_solve(ecw32p, LAMBDAS, conv_thres=CONV_THRES)
+    row = {"packed": check_lanes("14d packed", b, cold, "packed", 1)
+           | {"cold_sequential_ms": cold_ms}}
+    launches = {"c2h2_ccpvdz_f32_batch_packed": b["launches"]}
     by_variant = dict.fromkeys(lmm.VARIANTS, 0)
-    del ecw_s, er, op
     for mode in ("high", "hybrid"):
         reset_counts(lmm.ladder_mm, lmm.VARIANTS)
         with iter_precision(mode):
-            b = batch_solve(ecw32, LAMBDAS, conv_thres=CONV_THRES,
+            b = batch_solve(ecw32p, LAMBDAS, conv_thres=CONV_THRES,
                             maxiter=PREC_MAXITER)
         counts = dict(lmm.ladder_mm.launches_by_variant)
         want = dict.fromkeys(lmm.VARIANTS, 0)
@@ -3943,13 +4100,14 @@ def run_batch_syncs(ecw32):
                                  f"{want[k]})")
 
 
-def run_phase14(lmm, ecw32, ecw_tz):
-    """Phase 14; returns ({path: launches}, {variant: launches} of 14d's
+def run_phase14(lmm, ecw32, ecw32p, ecw_tz):
+    """Phase 14 on phase 4's ECWs (sorted, and spin_sorted=False) and
+    phase 7's; returns ({path: launches}, {variant: launches} of 14d's
     precision runs)."""
-    launches, cold = run_batch_dz(ecw32)
+    launches = run_batch_dz(ecw32)
     launches.update(run_batch_f64())
     launches.update(run_batch_tz(ecw_tz))
-    out, by_variant = run_batch_routes(lmm, ecw32, cold)
+    out, by_variant = run_batch_routes(lmm, ecw32p)
     launches.update(out)
     run_batch_syncs(ecw32)
     torch.cuda.empty_cache()
@@ -4018,23 +4176,20 @@ def par_solve(ecw, eris, op, perm, mesh, sharding, log=False):
             coll, counts)
 
 
-def run_par_solves(ecw32, mesh):
-    """15a: the packed and the sectored route at C2H2/cc-pVDZ f32, whole
-    and split over the 1 x 1 mesh: equal iterations, |dEp| <= 1e-9 Ha,
-    the same launches per iteration (each on the rank's rows), and no
-    collective on the operand.  Returns ({path: launches}, the sorted
-    system for 15c)."""
-    from ecw_cc_torch.models.eris import build_eris_device
+def run_par_solves(ecw32, ecw32p, mesh):
+    """15a: the packed route (the ERIs of the spin_sorted=False ECW) and
+    the sectored one (ECW's own sorted ERIs and SectoredVVVV) at
+    C2H2/cc-pVDZ f32, whole and split over the 1 x 1 mesh: equal
+    iterations, |dEp| <= 1e-9 Ha, the same launches per iteration (each
+    on the rank's rows), and no collective on the operand.  Returns
+    ({path: launches}, the sorted system for 15c)."""
     from ecw_cc_torch.parallel import sharding
 
-    er_s, sect = build_eris_device(ecw32.mol, ecw32.mf, dtype=torch.float32,
-                                   device="cuda", pack_ladder=True,
-                                   sort_spin=True)
-    perm = sort_perm(ecw32)
+    er_s, perm = ecw32.eris, ecw32.mo_perm
     launches = {}
     for route, eris, op, perm_, per_iter in (
-            ("packed", ecw32.eris, ecw32.vvvv_op, None, 1),
-            ("sectored", er_s, sect, perm, 2)):
+            ("packed", ecw32p.eris, ecw32p.vvvv_op, None, 1),
+            ("sectored", er_s, ecw32.vvvv_op, perm, 2)):
         # checked: whole, then split with its collectives logged; then
         # timed in turns, whole, split, split, whole, with no log
         (rw, sw, lw, _, _, _), (rs, ss, ls, shard_l, log, counts) = (
@@ -4215,7 +4370,7 @@ def _shard_grad(mm, a, sh, dc):
     return gx
 
 
-def run_phase15(lmm, ecw32):
+def run_phase15(lmm, ecw32, ecw32p):
     """Phase 15 on a world-size-1 NCCL group started here (and ended
     here).  Returns ({path: launches}, {tp: shard check fields},
     {shape: times})."""
@@ -4230,7 +4385,7 @@ def run_phase15(lmm, ecw32):
         mesh = make_mesh(n_tp=1, n_dp=1)
         phase(15, "mesh", shape=list(mesh.mesh.shape),
               names=list(mesh.mesh_dim_names), backend=dist.get_backend())
-        launches, sorted_system = run_par_solves(ecw32, mesh)
+        launches, sorted_system = run_par_solves(ecw32, ecw32p, mesh)
         check_par_t(mesh, sorted_system)
         del sorted_system
         check_shard_rules(lmm, mesh)
@@ -4303,7 +4458,8 @@ def run_flagship(ladder_mm, out_dir):
     log = res["target_log"]
     per_solve = 2 if log["sym"] else 3
     t_fwd, t_back = target_launches(log, per_solve, 3)
-    sweep = sum(res["iterations"])
+    sweep = sum(route_launches(s) * s["iterations"]
+                for s in res["ecw"].solve_log)
     deltas, iters = res["Delta"], res["iterations"]
     files = set(res["files"])
     want_files = flagship_files(res["lambdas"])
@@ -4330,8 +4486,10 @@ def run_flagship(ladder_mm, out_dir):
     if not all(res["converged"]) or not all(lo <= n <= hi for n in iters):
         raise AssertionError(f"16b: iterations {iters}, converged "
                              f"{res['converged']} (want {lo}-{hi} each)")
-    if set(res["routes"]) != {"packed"}:
-        raise AssertionError(f"16b: routes {res['routes']}")
+    if set(res["routes"]) != {"sectored"} or not all(
+            s["sym"] for s in res["ecw"].solve_log):
+        raise AssertionError(f"16b: routes {res['routes']}, sym "
+                             f"{[s['sym'] for s in res['ecw'].solve_log]}")
     if not all(b < a for a, b in zip(deltas, deltas[1:])):
         raise AssertionError(f"16b: Delta does not fall: {deltas}")
     if (len(deltas) != len(FLAGSHIP_JAX_DELTA)
@@ -4349,8 +4507,8 @@ def run_flagship(ladder_mm, out_dir):
 
 def check_flagship_eris(ecw):
     """Phase 16 (a): build_eris_device at f32 against the same build at f64
-    on the card, at the flagship's cond(S), block by block (ECW's build:
-    alternating, a PackedVVVV)."""
+    on the card, at the flagship's cond(S), block by block (ECW's f32
+    build: spin-sorted, a SectoredVVVV)."""
     from ecw_cc_torch.models.eris import GEris, build_eris_device
 
     cond = float(np.linalg.cond(ecw.mol.intor("ovlp")))
@@ -4359,7 +4517,7 @@ def check_flagship_eris(ecw):
         timings[str(dtype)] = {}
         built[dtype] = build_eris_device(
             ecw.mol, ecw.mf, dtype=dtype, device="cuda", pack_ladder=True,
-            timings=timings[str(dtype)])
+            sort_spin=True, timings=timings[str(dtype)])
     (e64, op64), (e32, op32) = built[torch.float64], built[torch.float32]
     errs = {f: max_abs_diff(getattr(e32, f), getattr(e64, f))
             for f in GEris._fields}
@@ -4883,11 +5041,14 @@ def run_phase17():
     for basis in (BASIS, BASIS_TZ):
         base = build_ecw(CARD, torch.float32, basis=basis)
         graph_sweeps(base, basis, es=basis == BASIS)
+        if basis == BASIS:
+            graph_sweep(base)            # phase 4's sweep, ECW's route
         for route in ("packed", "sectored"):
-            er, op, perm, _ = route_eris(base, route)
+            # the sectored cell on ECW's own sorted ERIs
+            er, op, perm = ((base.eris, base.vvvv_op, base.mo_perm)
+                            if route == "sectored" else
+                            route_eris(base, route)[:3])
             ecw = with_eris(base, er, op, perm)
-            if basis == BASIS and route == "packed":
-                graph_sweep(ecw)
             for lanes in (1, 3):
                 f = graph_cell(ecw, basis, route, lanes)
                 launches[f"graph_f32_{basis}_{route}_{lanes}lanes"] = round(
@@ -4909,10 +5070,11 @@ def kernel_report(launches, checks, times, backward, grads, variants,
                   eom_launches, tangents, batch_variants, shards):
     """The kernel line: one entry per variant of the ladder kernel.  f32
     and f64 (csrc/ladder_mm.cu): the headline numbers at the main path's
-    cc-pVTZ shape (392x13041x13041, the stacked packed GEMM), every timed
-    shape under by_dtype; launches: {path: ladder launches in its run},
-    split by the dtype in the path's name; backward: the launches among
-    them that a backward made (phase 10's response densities); grads:
+    cc-pVTZ shape (MAIN_TZ, 98x6561x6561, the sectored route's alpha-beta
+    GEMM), every timed shape under by_dtype; launches: {path: ladder
+    launches in its run}, split by the dtype in the path's name;
+    backward: the launches among them that a backward made (phase 10's
+    response densities); grads:
     {(dtype, shape): error of the kernel's gradient against the plain
     version's}.  variants: (checks, times) of the TF32 and BF16 kernels
     (csrc/ladder_mm_tc.cu, phase 3) and {variant: launches} of phase 12,
@@ -4941,7 +5103,7 @@ def kernel_report(launches, checks, times, backward, grads, variants,
     v_checks, v_times, v_launches = variants
     entries = []
     for dtype, v in ((torch.float32, "f32"), (torch.float64, "f64")):
-        main = (dtype, PACKED_TZ)
+        main = (dtype, MAIN_TZ)
         paths = {k: n for k, n in launches.items()
                  if ("f64" in k) == (v == "f64")}
         paths["phase12_precision_modes"] = v_launches[v]
@@ -4978,7 +5140,7 @@ def kernel_report(launches, checks, times, backward, grads, variants,
         shard_launches=sum(shard_launches.values()),
         shard_shapes=shard_shapes)
     for v in TC_VARIANTS:
-        t = v_times[(v, PACKED_TZ)]
+        t = v_times[(v, MAIN_TZ)]
         entries.append({
             "name": f"ladder_mm_{v}", "route": "cuda",
             "source": "ecw_cc_torch/csrc/ladder_mm_tc.cu",
@@ -4992,9 +5154,9 @@ def kernel_report(launches, checks, times, backward, grads, variants,
                                + ROUTE_SHAPES),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "shape": tag(PACKED_TZ),
-            "blocks": v_checks[(v, PACKED_TZ)][1].blocks,
-            "split_k": v_checks[(v, PACKED_TZ)][1].split,
+            "library_ms": t["library_ms"], "shape": tag(MAIN_TZ),
+            "blocks": v_checks[(v, MAIN_TZ)][1].blocks,
+            "split_k": v_checks[(v, MAIN_TZ)][1].split,
             "deterministic": True,
             "by_shape": {tag(s): {k: v_times[(v, s)][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -5043,6 +5205,7 @@ def main(argv):
         return 0
     if "--routes" in argv:
         route_sweeps(ladder_mm)
+        layout_sweeps(ladder_mm)
         print(smi)
         return 0
     if "--chain" in argv:
@@ -5110,6 +5273,7 @@ def main(argv):
         with timed(14, seconds):
             launches_14, by_variant_14 = run_phase14(
                 lmm, build_ecw("cuda", torch.float32),
+                build_ecw("cuda", torch.float32, spin_sorted=False),
                 build_ecw("cuda", torch.float32, basis=BASIS_TZ))
         with timed(8, seconds):
             check_no_jax(False)
@@ -5125,7 +5289,8 @@ def main(argv):
     if "--parallel" in argv:
         with timed(15, seconds):
             launches_15, shards_15 = run_phase15(
-                lmm, build_ecw("cuda", torch.float32))
+                lmm, build_ecw("cuda", torch.float32),
+                build_ecw("cuda", torch.float32, spin_sorted=False))
         with timed(8, seconds):
             check_no_jax(False)
         phase(0, "seconds", total=time.perf_counter() - t_start,
@@ -5209,31 +5374,63 @@ def main(argv):
         v_checks = check_variants(lmm, n_sm)
         v_times = time_variants(lmm)
 
-    # 4. main path, f32 (ERIs transformed on the card)
+    # 4. main path, f32 (ERIs transformed on the card): ECW's sorted
+    # sectored sweep, then the same sweep with spin_sorted=False (the
+    # alternating packed route)
     with timed(4, seconds):
-        ecw32 = build_ecw("cuda", torch.float32)
-        phase(4, "build_f32", **ecw32.timings,
-              host_eris_built=ecw32._eris_host is not None)
-        ladder_mm.launches = 0
-        t0 = time.perf_counter()
-        res, log = solve(ecw32, LAMBDAS, conv_thres=CONV_THRES)
-        sweep_ms = (time.perf_counter() - t0) * 1e3
-        launches = ladder_mm.launches
-        iters = sum(s["iterations"] for s in log)
-        for s, ep, delta in zip(log, ecw32.Ep_lamb, ecw32.Delta_lamb):
-            phase(4, "solve_f32", L=s["L"], route=s["route"],
-                  iterations=s["iterations"], converged=s["status"] == 1,
-                  Ep=ecw32.EHF - ep, Delta=delta, ms=s["ms"])
-        phase(4, "sweep_f32", ms=sweep_ms, iterations=iters,
-              ladder_launches=launches, launches_per_iteration=1)
-        if not all(s["status"] == 1 and s["route"] == "packed" for s in log):
-            raise AssertionError("an f32 lambda did not converge on the "
-                                 "packed route")
-        if launches != iters:
-            raise AssertionError(f"ladder kernel launched {launches} times "
-                                 f"in {iters} iterations (expected 1 each)")
-        if not np.all(np.isfinite(res[4])) or res[4].shape != (ecw32.dim,) * 2:
-            raise AssertionError("rdm1 is not finite or has the wrong shape")
+        launches, sweeps = {}, {}
+        for sort, route, name in ((True, "sectored", "sectored_sweep"),
+                                  (False, "packed", "packed_sweep")):
+            ecw = build_ecw("cuda", torch.float32, spin_sorted=sort)
+            phase(4, "build_f32", spin_sorted=sort, **ecw.timings,
+                  layout="sorted" if ecw.mo_perm is not None
+                  else "alternating", operand=type(ecw.vvvv_op).__name__,
+                  host_eris_built=ecw._eris_host is not None)
+            ladder_mm.launches = 0
+            t0 = time.perf_counter()
+            res, log = solve(ecw, LAMBDAS, conv_thres=CONV_THRES)
+            sweep_ms = (time.perf_counter() - t0) * 1e3
+            n = launches[f"c2h2_ccpvdz_f32_{name}"] = ladder_mm.launches
+            iters = sum(s["iterations"] for s in log)
+            for s, ep, delta in zip(log, ecw.Ep_lamb, ecw.Delta_lamb):
+                phase(4, "solve_f32", L=s["L"], route=s["route"],
+                      sym=s["sym"], iterations=s["iterations"],
+                      converged=s["status"] == 1, Ep=ecw.EHF - ep,
+                      Delta=delta, ms=s["ms"])
+            per = 2 if route == "sectored" else 1
+            phase(4, "sweep_f32", route=route, ms=sweep_ms,
+                  iterations=iters, ladder_launches=n,
+                  launches_per_iteration=n / iters)
+            if not all(s["status"] == 1 and s["route"] == route
+                       for s in log):
+                raise AssertionError(f"an f32 lambda did not converge on "
+                                     f"the {route} route: {log}")
+            if route == "sectored" and not all(s["sym"] for s in log):
+                raise AssertionError("the sectored sweep ran without the "
+                                     "mirror symmetry")
+            if n != per * iters:
+                raise AssertionError(f"ladder kernel launched {n} times in "
+                                     f"{iters} {route} iterations "
+                                     f"(expected {per} each)")
+            if (not np.all(np.isfinite(res[4]))
+                    or res[4].shape != (ecw.dim,) * 2):
+                raise AssertionError("rdm1 is not finite or has the wrong "
+                                     "shape")
+            sweeps[route] = ([ecw.EHF - e for e in ecw.Ep_lamb],
+                             [s["iterations"] for s in log])
+            if sort:
+                ecw32 = ecw
+            else:
+                ecw32p = ecw
+        del ecw
+        d_ep = max(abs(a - b) for a, b in zip(sweeps["sectored"][0],
+                                              sweeps["packed"][0]))
+        d_it = max(abs(a - b) for a, b in zip(sweeps["sectored"][1],
+                                              sweeps["packed"][1]))
+        phase(4, "sorted_vs_packed_f32", dEp=d_ep, diterations=d_it)
+        if d_ep > 1e-5 or d_it > 1:
+            raise AssertionError(f"the sorted and packed f32 sweeps differ: "
+                                 f"{sweeps}")
         _, chain = solve(ecw32, [0.25], diis="", conv_thres=0.0,
                          maxiter=CHAIN_ITERS)
         chain = chain[0]
@@ -5265,7 +5462,8 @@ def main(argv):
               ladder_launches_cuda_f64=launches_64)
         if not all(s[0]["status"] == 1 for s in (log64, logc, log32)):
             raise AssertionError("a lambda = 0.25 solve did not converge")
-        if set(routes.values()) != {"packed"}:
+        if routes != {"cuda_f64": "packed", "cpu_f64": "packed",
+                      "cuda_f32": "sectored"}:
             raise AssertionError(f"phase 5 took the routes {routes}")
         if launches_64 != it["cuda_f64"]:
             raise AssertionError(f"f64 packed solve launched the kernel "
@@ -5287,21 +5485,22 @@ def main(argv):
     with timed(7, seconds):
         launches_tz, ecw_tz, ref_tz = run_tz(ladder_mm)
 
-    # 9. the sorted and dense routes
+    # 9. the packed and dense routes
     with timed(9, seconds):
-        launches_9 = {"c2h2_ccpvtz_f32_sectored": run_sorted_tz(
+        launches_9 = {"c2h2_ccpvtz_f32_packed": run_packed_tz(
             ladder_mm, ecw_tz, ref_tz)}
         tz = (ecw_tz.mol, ecw_tz.mf)
-        launches_9.update(run_spin_mixing(ladder_mm, ecw32))
+        launches_9.update(run_spin_mixing(ladder_mm, ecw32, ecw32p))
         launches_9.update(run_dense(ladder_mm, ecw32, ref32, ecw64c, ecwc))
 
     # 14. the batched lambda sweep (phase 4's and phase 7's ECWs)
     with timed(14, seconds):
-        launches_14, by_variant_14 = run_phase14(lmm, ecw32, ecw_tz)
+        launches_14, by_variant_14 = run_phase14(lmm, ecw32, ecw32p, ecw_tz)
 
-    # 15. the multi-device layer (phase 4's ECW)
+    # 15. the multi-device layer (phase 4's ECWs)
     with timed(15, seconds):
-        launches_15, shards_15 = run_phase15(lmm, ecw32)
+        launches_15, shards_15 = run_phase15(lmm, ecw32, ecw32p)
+        del ecw32p
 
     # 10. correlated targets and the CCS ground state
     with timed(10, seconds):
@@ -5341,9 +5540,8 @@ def main(argv):
     phase(0, "seconds", total=time.perf_counter() - t_start,
           by_phase=seconds)
     print(json.dumps(kernel_report(
-        {"c2h2_ccpvdz_f32_packed_sweep": launches,
-         "c2h2_ccpvdz_f64_packed": launches_64,
-         "c2h2_ccpvtz_f32_packed": launches_tz, **launches_9,
+        {**launches, "c2h2_ccpvdz_f64_packed": launches_64,
+         "c2h2_ccpvtz_f32_sectored": launches_tz, **launches_9,
          **launches_10, **launches_14, **launches_16, **launches_17},
         checks, times, back_10, grads,
         (v_checks, v_times, by_variant_12), launches_13, tangents,

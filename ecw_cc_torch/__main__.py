@@ -83,6 +83,11 @@ def run_spec(spec):
     run.pop("Larray", None)
     results = getattr(ecw, solver)(L, **run)
     ecw.print_results()
+    if solver == "CCSD_GS":
+        # the layout rule (models/ecw.py): 'sectored' on the spin-sorted
+        # f32 ERIs, 'packed' or 'dense' on the alternating ones
+        print("route:", ", ".join(sorted({s["route"]
+                                          for s in ecw.solve_log})))
     return results
 
 

@@ -33,11 +33,21 @@ class Config:
     # 27-44): 'dense' is one (o^2, v^2) x (v^2, v^2) GEMM against the full
     # vvvv, 'packed' the antisymmetry-packed (o^2, p) x (p, p) GEMM of a
     # PackedVVVV, 'auto' packed at nvir >= ops/ladder.PACKED_MIN_NVIR and
-    # dense below.  The JAX package's 'sectors' (the alternating-layout spin
-    # sectors) is deliberately not ported: 'auto' never picks it, and the
-    # spin-sorted SectoredVVVV route does the same work without strided
-    # slices.
+    # dense below.  Where it resolves to 'packed' at f32, ECW builds the
+    # spin-sorted layout and its SectoredVVVV instead while spin_sorted is
+    # True (models/ecw.py).  The JAX package's 'sectors' (the
+    # alternating-layout spin sectors) is deliberately not ported: 'auto'
+    # never picks it, and the spin-sorted SectoredVVVV route (spin_sorted)
+    # does the same work without strided slices.
     ladder_mode: str = "auto"
+    # Spin-sorted MO layout of ECW's f32 ERIs where ladder_mode resolves to
+    # 'packed' (JAX config.py:76-84): alpha first within occ and vir
+    # (ops/ladder.spin_sort_perm), the ladder operand the block-diagonal
+    # SectoredVVVV, and the solve the sectored route
+    # (Solver_CCSD(mo_perm=...)); amplitudes, rdm1s and fock stay in the
+    # reference alternating convention.  False builds the alternating
+    # layout with a PackedVVVV (the packed route).
+    spin_sorted: bool = True
     # Sector-blocked soup kernels (ops/ccsd_sect.py) on the spin-sorted
     # layout, where the solver's structure gate passes; False (or a target
     # that couples the spins) runs the dense kernels of ops/ccsd.py on the
@@ -96,8 +106,9 @@ def set_config(**kwargs) -> Config:
             raise ValueError(
                 "config.ladder_mode='sectors' (the alternating-layout spin "
                 "sectors) is deliberately not ported: use the spin-sorted "
-                "layout (build_eris_device(sort_spin=True) and "
-                "Solver_CCSD(mo_perm=...)), whose SectoredVVVV does the "
+                "layout (config.spin_sorted=True, ECW's f32 default where "
+                "the ladder is packed; or build_eris_device(sort_spin=True) "
+                "and Solver_CCSD(mo_perm=...)), whose SectoredVVVV does the "
                 "same work, or 'auto'/'dense'/'packed'")
         if k in _CHOICES and v not in _CHOICES[k]:
             raise ValueError(f"config.{k} must be one of {_CHOICES[k]}, "

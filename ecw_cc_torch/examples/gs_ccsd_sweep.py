@@ -44,6 +44,9 @@ def main(basis="6-31+g**", out_dir="c2h2_results", lambdas=LAMBDAS,
     plot = save_plot(ecw.plot_results, out_dir + "/sweep.png")
     print(f"results written to {out_dir}/")
     log = ecw.solve_log
+    # ECW's layout rule: sectored on the spin-sorted f32 ERIs at nvir >= 48
+    # (the flagship basis), packed with spin_sorted=False, dense below
+    print("route:", ", ".join(sorted({s["route"] for s in log})))
     iterations = [s["iterations"] for s in log]
     return {
         "EHF": float(ecw.EHF), "Eexp": float(ecw.Eexp_GS),

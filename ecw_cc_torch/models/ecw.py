@@ -1,22 +1,26 @@
 """User API / driver: the ECW class (port of ecw_cc_tpu/models/ecw.py;
 reference Main.py class ECW).
 
-Builds the molecule and RHF -> GHF, then the device ERIs, always in the
-reference alternating layout:
+Builds the molecule and RHF -> GHF, then the device ERIs by the JAX
+driver's rule (ecw_cc_tpu/models/ecw.py:74-112):
 
   - f32, ladder_mode resolving to 'packed' (nvir >= 48 under 'auto'): the
-    device transform with a PackedVVVV (the packed solve, one ladder GEMM
-    per iteration);
-  - f32, 'dense': the dense device transform;
-  - f64 (the parity mode): the host f64 ErisHost, uploaded; the solver
-    derives its ladder operand per ladder_mode.
+    device transform with the ladder packed on build.  With
+    config.spin_sorted (the default) the MO layout is spin-sorted
+    (ops/ladder.spin_sort_perm, kept as self.mo_perm) and the operand is
+    the block-diagonal SectoredVVVV: the solve takes the sectored route
+    (the mirror-symmetric sector GEMMs, two ladder launches per
+    iteration), or 'dense_sorted' where a target couples the spins.
+    With spin_sorted=False the layout is the alternating one with a
+    PackedVVVV (the packed route, one launch per iteration);
+  - f32, 'dense': the dense device transform, alternating;
+  - f64 (the parity mode): the host f64 ErisHost, uploaded, alternating;
+    the solver derives its ladder operand per ladder_mode.
 
-The JAX ECW (ecw_cc_tpu/models/ecw.py:74-112) builds the spin-sorted
-layout at f32 by default (config.spin_sorted) for its sector-blocked
-solve.  On the H100 the alternating packed route ran the whole f32 sweep
-faster at every nvir measured, 16 to 162 (`chip_smoke.py --routes`,
-PERF.md), so ECW does not take the sorted route; it stays reachable
-through build_eris_device(sort_spin=True) and Solver_CCSD(mo_perm=...).
+Everything public stays in the reference alternating convention whatever
+the layout: fock, amplitudes, rdm1s, cube files and checkpoints
+(Solver_CCSD(mo_perm=...) sorts on entry and unsorts on exit).  The CCS
+and ES solvers take an alternating view of sorted ERIs (_eris_alt).
 
 Then it builds ground-state targets (HF, CCSD or CCSD(T), solved on the
 same device at the same precision) and runs the warm-started ECW-CCSD or
@@ -32,14 +36,15 @@ import time
 import numpy as np
 import torch
 
-from ecw_cc_torch.config import check_device, torch_dtype
+from ecw_cc_torch.config import check_device, get_config, torch_dtype
 from ecw_cc_torch.models import gamma_exp
-from ecw_cc_torch.models.eris import build_eris, build_eris_device
+from ecw_cc_torch.models.eris import (build_eris, build_eris_device,
+                                      permute_geris)
 from ecw_cc_torch.models.molecule import Molecule
 from ecw_cc_torch.models.scf import GHF, RHF
 from ecw_cc_torch.ops.ccs import Gccs, ccs_gradient
 from ecw_cc_torch.ops.ccsd import GCC
-from ecw_cc_torch.ops.ladder import resolve_mode
+from ecw_cc_torch.ops.ladder import resolve_mode, spin_sort_perm
 from ecw_cc_torch.ops.vexp import Exp
 from ecw_cc_torch.solvers.es import Solver_ES, SolverES_Device
 from ecw_cc_torch.solvers.gs import Solver_CCS, Solver_CCSD
@@ -99,27 +104,37 @@ class ECW:
             rdm1_r = convert.convert_g_to_ru_rdm1(self.rdm1_hf)[0]
             output.cube_density(mol, os.path.join(out_dir, "HF.cube"), rdm1_r)
 
-        # device ERIs by the route of the module docstring.  f32: the MO
+        # device ERIs by the rule of the module docstring.  f32: the MO
         # transform runs on the device and no host G-format ERIs are built;
         # f64: the host f64 ERIs, the parity mode.  The host ERIs stay
         # available lazily.
         self._int_thresh = int_thresh
         self._eris_host = None
         self._eris_f64 = None
+        self._eris_alt_cache = None
         self.vvvv_op = None
         self.mo_perm = None          # the alternating layout: no permutation
         if self.dtype == torch.float32:
             build = dict(dtype=self.dtype, device=self.device,
                          timings=self.timings)
             if resolve_mode(self.nvir) == "packed":
+                sort = bool(get_config().spin_sorted)
                 self.eris, self.vvvv_op = build_eris_device(
-                    mol, ghf, pack_ladder=True, **build)
+                    mol, ghf, pack_ladder=True, sort_spin=sort, **build)
+                if sort:
+                    self.mo_perm = spin_sort_perm(ghf.orbspin, self.nocc)
             else:
                 self.eris = build_eris_device(mol, ghf, **build)
         else:
             self.eris = self.eris_host.to_device(dtype=self.dtype,
                                                  device=self.device)
-        self.fock = _host(self.eris.fock).astype(np.float64)
+        # fock in the reference (alternating) convention, as every public
+        # quantity; only the device ERIs and the solver's state are sorted
+        fock = _host(self.eris.fock).astype(np.float64)
+        if self.mo_perm is not None:
+            ip = np.argsort(self.mo_perm)
+            fock = fock[np.ix_(ip, ip)]
+        self.fock = fock
 
         self.target_rdm1_GS = None
         self.cal_rdm1_Delta = False
@@ -330,9 +345,19 @@ class ECW:
 
     def _eris_alt(self):
         """The eris in the reference (alternating) MO layout, which the CCS
-        and ES solvers take.  ECW builds no other layout, so this is
-        self.eris; the JAX ECW derives it from its spin-sorted build."""
-        return self.eris
+        and ES solvers take (JAX ecw.py:308-323): self.eris, or with the
+        spin-sorted build an alternating view of it, gathered on the ECW's
+        device once and cached (CCS reads no vvvv block, so the sorted
+        sectors would buy it nothing)."""
+        if self.mo_perm is None:
+            return self.eris
+        if self._eris_alt_cache is None:
+            po = self.mo_perm[:self.nocc]
+            pv = self.mo_perm[self.nocc:] - self.nocc
+            self._eris_alt_cache = permute_geris(
+                self.eris, np.argsort(po), np.argsort(pv),
+                np.argsort(self.mo_perm))
+        return self._eris_alt_cache
 
     def _tl_init(self, tl1ini):
         nocc, nvir = self.nocc, self.nvir

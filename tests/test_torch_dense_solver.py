@@ -9,8 +9,9 @@ on the CPU, H2O/6-31G:
 
 each against JAX Solver_CCSD.SCF_device on the same inputs: the same
 status and iteration count, Ep to 1e-10, rdm1 to 1e-9, amplitudes to 1e-8.
-Also the layout warning of Solver_CCSD(mo_perm=None), and the port's ECW
-on the JAX ECW's route at f64, at lambda = 0 against a plain CCSD loop
+Also the layout warning of Solver_CCSD(mo_perm=None), the port's ECW on
+the JAX ECW's route at f64 and at f32 (the sorted layout, or the packed
+one with spin_sorted=False), and at lambda = 0 against a plain CCSD loop
 of the port's own tupdate (test_e2e_gs.py::test_ccsd_L0_equals_plain_ccsd).
 """
 
@@ -235,24 +236,37 @@ def test_ecw_f64_takes_the_alternating_dense_route(ecw_h2o):
     np.testing.assert_array_equal(ecw.eris.oovv.numpy(), ecw.eris_host.oovv)
 
 
-def test_ecw_f32_takes_the_alternating_packed_route(ecw_h2o):
+@pytest.mark.parametrize("spin_sorted", [True, False])
+def test_ecw_f32_takes_the_alternating_packed_route(ecw_h2o, spin_sorted):
     """ECW at f32 with the ladder packed (as 'auto' does at nvir >= 48)
-    builds the alternating layout with a PackedVVVV, never the sorted one,
-    and its sweep runs the packed route to the f64 solve within f32
-    rounding."""
-    from ecw_cc_torch.ops.ladder import PackedVVVV
+    follows the JAX driver's rule (JAX models/ecw.py:74-112): with
+    config.spin_sorted (the default) the spin-sorted layout with a
+    SectoredVVVV, the JAX spin_sort_perm as mo_perm and the sectored route;
+    with spin_sorted=False the alternating layout with a PackedVVVV and the
+    packed route.  Either way the same alternating fock, and a sweep within
+    f32 rounding of the f64 solve.  The test's name is kept from before
+    the sorted layout was the default; it describes the
+    spin_sorted=False case only."""
+    from ecw_cc_torch.ops.ladder import PackedVVVV, SectoredVVVV
 
-    ecw_cc_torch.set_config(ladder_mode="packed")
+    ecw_cc_torch.set_config(ladder_mode="packed", spin_sorted=spin_sorted)
     try:
         ecw = ecw_cc_torch.ECW("h2o", "6-31g", device="cpu",
                                dtype=torch.float32)
         ecw.Build_GS_exp("mat", "HF", field=[0.05, 0.01, 0.0])
-        assert ecw.mo_perm is None and isinstance(ecw.vvvv_op, PackedVVVV)
         assert ecw.eris.vvvv.shape == (ecw.nvir, 0, 0, 0)
+        if spin_sorted:
+            np.testing.assert_array_equal(
+                ecw.mo_perm, jl.spin_sort_perm(ecw.mf.orbspin, ecw.nocc))
+            assert isinstance(ecw.vvvv_op, SectoredVVVV)
+        else:
+            assert ecw.mo_perm is None
+            assert isinstance(ecw.vvvv_op, PackedVVVV)
         res = ecw.CCSD_GS([0.5], diis="tl")
     finally:
-        ecw_cc_torch.set_config(ladder_mode="auto")
-    assert ecw.solve_log[0]["route"] == "packed"
+        ecw_cc_torch.set_config(ladder_mode="auto", spin_sorted=True)
+    assert ecw.solve_log[0]["route"] == ("sectored" if spin_sorted
+                                         else "packed")
     np.testing.assert_allclose(ecw.fock, ecw_h2o.fock, rtol=0, atol=1e-5)
     ref = ecw_h2o.CCSD_GS([0.5], diis="tl")
     assert abs(len(res[1]) - len(ref[1])) <= 1

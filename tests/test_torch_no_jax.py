@@ -38,13 +38,15 @@ SCRIPT = textwrap.dedent("""
     import ecw_cc_torch
     from ecw_cc_torch import ECW
     # f64 (host ERIs) and f32 (device ERI build) on the dense alternating
-    # route that 'auto' takes at nvir 6; f32 'packed' on the alternating
-    # packed one
-    for dt, thres, mode, route in (
-            (torch.float64, 1e-8, "auto", "dense"),
-            (torch.float32, 1e-6, "auto", "dense"),
-            (torch.float32, 1e-6, "packed", "packed")):
-        ecw_cc_torch.set_config(ladder_mode=mode)
+    # route that 'auto' takes at nvir 6; f32 'packed' on ECW's sorted
+    # sectored route (config.spin_sorted), and with spin_sorted=False on the
+    # alternating packed one
+    for dt, thres, mode, sort, route in (
+            (torch.float64, 1e-8, "auto", True, "dense"),
+            (torch.float32, 1e-6, "auto", True, "dense"),
+            (torch.float32, 1e-6, "packed", True, "sectored"),
+            (torch.float32, 1e-6, "packed", False, "packed")):
+        ecw_cc_torch.set_config(ladder_mode=mode, spin_sorted=sort)
         ecw = ECW("H 0 0 0\\nH 0 0 1", "6-31g", device="cpu", dtype=dt)
         ecw.Build_GS_exp("mat", "HF", field=[0.05, 0.01, 0.0])
         res = ecw.CCSD_GS([0.5], diis="tl", conv_thres=thres)
@@ -52,8 +54,8 @@ SCRIPT = textwrap.dedent("""
         assert ecw.solve_log[0]["route"] == route, ecw.solve_log
     # the precision modes: a 'hybrid' solve with a bf16 fast leg, and an f32
     # solve polished in f64 (refine)
-    ecw_cc_torch.set_config(ladder_mode="auto", iter_precision="hybrid",
-                            hybrid_fast="bf16")
+    ecw_cc_torch.set_config(ladder_mode="auto", spin_sorted=True,
+                            iter_precision="hybrid", hybrid_fast="bf16")
     hyb = ecw.CCSD_GS([0.5], diis="tl", conv_thres=1e-6, refine=True)
     assert "Convergence reached" in hyb[0], hyb[0]
     assert [m for m, _, _ in ecw.solve_log[0]["legs"]] == ["bf16", "highest"]
