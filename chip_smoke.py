@@ -6,7 +6,11 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --kernel-times   # phase 1 and the kernel timing only
                                            # (f32, f64, and the TF32 and BF16
-                                           # variants after their check)
+                                           # variants after their check; the
+                                           # f32 variant's three-pass and
+                                           # FFMA kernels side by side, and
+                                           # the TF32 one-pass kernel beside
+                                           # ladder_mm_tc.cu's)
     python3 chip_smoke.py --profile        # phase 1 and a profiler trace of
                                            # the f32 chain, cc-pVDZ and cc-pVTZ,
                                            # sectored and packed routes
@@ -63,9 +67,12 @@ each); any failure raises and exits nonzero:
   2. build: the hand-written kernels compiled from ecw_cc_torch/csrc (one
      nvcc per source, started together), with ptxas's registers and spills
      per kernel, and the SASS check per kernel function: the f64 ladder_mm
-     runs DMMA, the f32 one no HMMA or HGMMA, the TF32 and BF16 variants
+     runs DMMA, the f32 FFMA one no HMMA or HGMMA, the TF32 and BF16
+     variants and ladder_mm_f32tc.cu's three-pass and one-pass instances
      HGMMA (wgmma) and UTMALDG (TMA loads);
-  3. kernel vs plain: ladder_mm against ladder_mm_ref (a @ b.T) in f32 and
+  3. kernel vs plain: ladder_mm (the kernel each shape's plan names: in
+     f32 the three-pass TF32 kernel from K = 2048 to 8192, the FFMA one
+     elsewhere) against ladder_mm_ref (a @ b.T) in f32 and
      f64 at the solver's sector-GEMM shapes of C2H2/cc-pVDZ and cc-pVTZ,
      at the GEMMs of the dense, packed and stacked-sector routes (phase
      9), of the target builds (phase 10) and (f64 only) of phase 12's
@@ -91,10 +98,19 @@ each); any failure raises and exits nonzero:
      196x900x900 timed in f32, 196x900x900 in f64, 196x1891x1891 with
      the EOM shapes); phase 16's flagship shapes (FLAGSHIP_SHAPES: the packed
      392x8911x8911 and the sector GEMMs 98x2211x2211, 98x4489x4489)
-     checked and timed in f32; and the kernel's tangent: torch.func.jvp of ladder_mm(a, w) in
-     a against that of a @ w.T at 196x1891x1891, 14x1891x1891 and a
-     ragged shape, f32 and f64, w symmetric and not, each one forward and
-     one tangent launch;
+     checked and timed in f32; and the kernel's tangent and gradient:
+     torch.func.jvp of ladder_mm(a, w) in a against that of a @ w.T, and
+     torch.autograd.grad of sum(ladder_mm(a, w) * g), at 196x1891x1891,
+     14x1891x1891, a ragged shape and 98x3240x3240 (the three-pass
+     kernel's), f32 and f64, w symmetric and not, each one forward and
+     one tangent or backward launch; then csrc/ladder_mm_f32tc.cu on its
+     own (check_f32tc): the three-pass kernel at F32TC_SHAPES against
+     a @ b.T (TOL) with its, the FFMA kernel's and cuBLAS's error against
+     an f64 product, the one-pass kernel against its plain version at
+     the sector shapes, both bitwise repeatable with a graph replay
+     equal; and the f32 variant's two kernels timed side by side with
+     cuBLAS SGEMM and the plain version (time_f32tc), the one-pass kernel
+     beside ladder_mm_tc.cu's TF32 and cuBLAS TF32 (time_tc1);
   4. main path, f32: ECW('c2h2', 'cc-pvdz') (ERIs transformed on the card;
      at nvir 62 the ladder is packed, so ECW builds the spin-sorted layout
      with a SectoredVVVV and its mo_perm, config.spin_sorted) -> HF target
@@ -394,9 +410,13 @@ each); any failure raises and exits nonzero:
          most twice; each sweep's ms;
   8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported,
      and the excited-state, EOM and example-twin modules were.
-Before the last line it prints the kernel report as one JSON object and
-the card's `nvidia-smi` name and power limit; the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+Phases 4, 7, 10a, 14c, 16b and 17a print the f32 sector launches by
+kernel (sector_kernels): each must be the kernel its plan names, and no
+launch may copy its B.  Every phase_seconds line carries the phase's
+launches by kernel, which the kernel report sums over the main path's
+phases.  Before the last line it prints the kernel report as one JSON
+object and the card's `nvidia-smi` name and power limit; the last line
+is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Kernel times are device times: a sleep kernel holds the stream while the
 host enqueues a run of TIMING_LAUNCHES back-to-back launches between two
@@ -416,6 +436,7 @@ import contextlib
 import copy
 import inspect
 import json
+import os
 import re
 import shutil
 import statistics
@@ -514,10 +535,39 @@ DEVICE_RNG_ELEMENTS = 10 ** 8   # operands this large are drawn on the card
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s
 # dense peak FLOP/s of each kernel variant on an H100 SXM (NVIDIA's data
 # sheet): FP32 on the CUDA cores and FP64 on the tensor cores 67 T, TF32
-# 494 T, BF16 989 T; and the bytes of one element
-VARIANT_PEAK = {"f32": 67e12, "f64": 67e12, "tf32": 494e12, "bf16": 989e12}
-VARIANT_BYTES = {"f32": 4, "f64": 8, "tf32": 4, "bf16": 2}
+# 494 T, BF16 989 T; and the bytes of one element.  'tc3' is the f32
+# product as three TF32 passes: three times the TF32 work
+VARIANT_PEAK = {"f32": 67e12, "f64": 67e12, "tf32": 494e12, "bf16": 989e12,
+                "tc3": 494e12 / 3}
+VARIANT_BYTES = {"f32": 4, "f64": 8, "tf32": 4, "bf16": 2, "tc3": 4}
 TC_VARIANTS = ("tf32", "bf16")       # the tensor-core variants (phase 3, 12)
+# csrc/ladder_mm_f32tc.cu: the 'f32' variant's three-pass kernel ('tc3')
+# and the 'tf32' variant's one-pass instance ('tc1').  Phase 3 checks
+# 'tc3' at every f32 shape the plan routes to it, the cc-pVDZ sector
+# shapes and their lanes (196 rows: the sorted EOM sigma; 784: 8 lanes),
+# a mesh rank's rows at tp = 4, and the edge, ragged and K = 8k +- 1
+# shapes, each against a @ b.T and, beside the FFMA kernel, an f64
+# product; then times both f32 kernels, cuBLAS SGEMM and the plain
+# version at the shapes of F32TC_TIMED, and 'tc1' beside ladder_mm_tc.cu's
+# TF32 kernel at the sector shapes (TC1_TIMED)
+F32_KERNELS = ("ffma", "tc3")
+F32TC_RAGGED = [(98, 1000, 7999), (98, 1000, 8001), (105, 129, 8191),
+                (211, 300, 8193), (300, 257, 4095)]
+F32TC_TIMED = [(98, 2211, 2211), (98, 3240, 3240), (98, 4489, 4489),
+               (98, 6561, 6561), (294, 3240, 3240), (294, 6561, 6561),
+               (98, 810, 3240), (98, 1641, 6561), DENSE_DZ]
+F32TC_SHAPES = (MAIN_SHAPES + F32TC_TIMED + [(196, 465, 465),
+                                              (196, 961, 961),
+                                              (294, 465, 465),
+                                              (294, 961, 961),
+                                              (784, 465, 465),
+                                              (784, 961, 961)]
+                + EDGE_SHAPES + RAGGED_SHAPES + F32TC_RAGGED)
+TC1_TIMED = MAIN_SHAPES + [(98, 2211, 2211), (98, 3240, 3240),
+                           (98, 4489, 4489), (98, 6561, 6561)]
+# C2H2's rows of a sector product on ECW's route (t and lambda stacked,
+# the mirror symmetry: 2 x 7^2), per lambda lane
+SECTOR_ROWS = 98
 
 
 def _json_value(x):
@@ -530,19 +580,84 @@ def phase(n, name, **fields):
                      default=_json_value), flush=True)
 
 
+# {phase: {kernel: launches}} of each phase that `timed` ran, and of the
+# launches inside it that only compare a kernel with its plain version
+# (`comparing`): the kernel report's launches per kernel are the former
+# less the latter, phase 3 (all comparisons) left out
+PHASE_KERNELS = {}
+COMPARE_KERNELS = collections.defaultdict(collections.Counter)
+
+
+def kernel_tally():
+    """ladder_mm's launches by kernel and its B copies ({} in a checkout
+    whose wrapper counts neither)."""
+    from ecw_cc_torch.kernels import ladder_mm as lmm
+
+    out = dict(getattr(lmm.ladder_mm, "launches_by_kernel", {}))
+    if hasattr(lmm.ladder_mm, "b_copies"):
+        out["b_copies"] = lmm.ladder_mm.b_copies
+    return out
+
+
+def tally_since(before):
+    return {k: v - before.get(k, 0) for k, v in kernel_tally().items()
+            if v != before.get(k, 0)}
+
+
+@contextlib.contextmanager
+def comparing(n):
+    """Launches inside are phase n's comparisons (COMPARE_KERNELS)."""
+    k0 = kernel_tally()
+    yield
+    COMPARE_KERNELS[n].update(tally_since(k0))
+
+
 @contextlib.contextmanager
 def timed(n, seconds):
-    """Record phase n's host seconds into `seconds` and print them."""
+    """Record phase n's host seconds into `seconds`, and its ladder
+    launches by kernel into PHASE_KERNELS, and print them."""
     t0 = time.perf_counter()
+    k0 = kernel_tally()
     yield
     seconds[n] = time.perf_counter() - t0
-    phase(n, "phase_seconds", seconds=seconds[n])
+    PHASE_KERNELS[n] = tally_since(k0)
+    phase(n, "phase_seconds", seconds=seconds[n],
+          launches_by_kernel=PHASE_KERNELS[n])
+
+
+def sector_kernels(n, path, before, op, lanes=1):
+    """Phase n, `path`: the ladder launches since the tally `before`, by
+    kernel, on a sorted ECW whose SectoredVVVV is `op` with `lanes`
+    lambda lanes (SECTOR_ROWS rows each).  Every f32 launch must have
+    taken the kernel that the plan names at the sector shapes (at C2H2
+    one K window holds both sectors of a basis), and none may have copied
+    its B.  Prints them; returns {kernel: launches}."""
+    from ecw_cc_torch.kernels import ladder_mm as lmm
+
+    delta = tally_since(before)
+    if not hasattr(lmm, "launch_kernel"):   # an older checkout
+        return delta
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shapes = sorted({(SECTOR_ROWS * lanes, w.shape[1], w.shape[1])
+                     for w in (op.wc_aa, op.w_ab)})
+    named = {tag(sh): lmm.device_plan(*sh, "f32", dev).kernel
+             for sh in shapes}
+    f32 = {k: delta.get(k, 0) for k in F32_KERNELS}
+    phase(n, "sector_kernels", path=path, plan_kernel=named,
+          launches_by_kernel=delta)
+    if (not sum(f32.values()) or delta.get("b_copies", 0)
+            or any(f32[k] for k in F32_KERNELS
+                   if k not in named.values())):
+        raise AssertionError(f"{path}: f32 launches by kernel {delta}, the "
+                             f"plan names {named} (and no B copy)")
+    return delta
 
 
 def bound(shape, dtype):
     """(ms, 'operations' or 'bytes'): the least time the card could take
     for C = A @ B.T at `shape`, one pass over A, B and C, for a torch
-    dtype (its full-precision variant) or a variant name."""
+    dtype (its full-precision variant), a variant name, or 'tc3' (the f32
+    product in three TF32 passes)."""
     v = dtype if isinstance(dtype, str) else {
         torch.float32: "f32", torch.float64: "f64"}[dtype]
     M, N, K = shape
@@ -596,18 +711,31 @@ def sass_counts(path):
     return counts
 
 
-# each kernel variant's functions in the SASS, by mangled template name
+# each kernel's functions in the SASS, by mangled template name: the
+# variants of ladder_mm.cu (f32 FFMA, f64) and ladder_mm_tc.cu (TF32,
+# BF16), and ladder_mm_f32tc.cu's three-pass ('tc3') and one-pass ('tc1')
+# instances
 SASS_NAMES = {"f32": "ladder_mm_ntIf", "f64": "ladder_mm_ntId",
-              "tf32": "ladder_mm_tcIf", "bf16": "ladder_mm_tcI13__nv_bfloat16"}
+              "tf32": "ladder_mm_tcIf", "bf16": "ladder_mm_tcI13__nv_bfloat16",
+              "tc3": "ladder_mm_f32tcILi3E", "tc1": "ladder_mm_f32tcILi1E"}
+TMA_KERNELS = TC_VARIANTS + ("tc3", "tc1")
 
 
 def check_sass(path):
     """Per kernel function: every f64 ladder_mm instance runs DMMA; no f32
-    one touches the tensor cores (no TF32, no HMMA or HGMMA); the TF32 and
-    BF16 variants run wgmma (HGMMA) on operands loaded by TMA (UTMALDG)."""
+    FFMA one touches the tensor cores (no TF32, no HMMA or HGMMA); the
+    TF32 and BF16 variants and ladder_mm_f32tc.cu's three-pass and
+    one-pass instances run wgmma (HGMMA) on operands loaded by TMA
+    (UTMALDG)."""
+    from ecw_cc_torch.kernels import build
+
     counts = sass_counts(path)
+    # ladder_mm_f32tc.cu's instances where the checkout has that source
+    # (copied into an older checkout, the script checks what it built)
+    built = {os.path.basename(src) for src in build.sources()}
     by = {v: {n: dict(c) for n, c in counts.items() if key in n}
-          for v, key in SASS_NAMES.items()}
+          for v, key in SASS_NAMES.items()
+          if v not in ("tc3", "tc1") or "ladder_mm_f32tc.cu" in built}
     if not all(by.values()):
         raise AssertionError(f"ladder_mm kernels not found in SASS: "
                              f"{sorted(counts)}")
@@ -617,7 +745,7 @@ def check_sass(path):
            for c in by["f32"].values()):
         raise AssertionError(f"an f32 ladder_mm uses tensor cores: "
                              f"{by['f32']}")
-    for v in TC_VARIANTS:
+    for v in [v for v in TMA_KERNELS if v in by]:
         if not all(c.get("HGMMA", 0) and c.get("UTMALDG", 0)
                    for c in by[v].values()):
             raise AssertionError(f"a {v} ladder_mm runs no HGMMA or no "
@@ -626,7 +754,8 @@ def check_sass(path):
 
 
 def plan_fields(p):
-    return {"tile": [p.bm, p.bn, p.bk], "tiles": [p.m_tiles, p.n_tiles],
+    return {"kernel": getattr(p, "kernel", None),
+            "tile": [p.bm, p.bn, p.bk], "tiles": [p.m_tiles, p.n_tiles],
             "split_k": p.split, "cluster_m": getattr(p, "cluster_m", 1),
             "blocks": p.blocks}
 
@@ -660,7 +789,11 @@ def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm, only=None):
                 raise AssertionError(f"ladder_mm disagrees at {shape} "
                                      f"{dtype}: {err} > {TOL[dtype]} * "
                                      f"{scale}")
+            # a full wave at the solver's shapes; the three-pass kernel's
+            # plan keeps to one wave instead (kernels/ladder_mm.py
+            # _f32tc_split)
             if (shape in MAIN_SHAPES + ROUTE_SHAPES + BATCH_SHAPES
+                    and getattr(p, "kernel", "ffma") not in ("tc3", "tc1")
                     and p.blocks < n_sm):
                 raise AssertionError(f"plan at {shape} {dtype} launches "
                                      f"{p.blocks} blocks on {n_sm} SMs")
@@ -668,17 +801,22 @@ def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm, only=None):
     return out
 
 
-# phase 3's tangent check: the EE and EA sigma shapes of phase 13 and a
-# ragged one
-TANGENT_SHAPES = [(196, 1891, 1891), (14, 1891, 1891), (37, 129, 129)]
+# phase 3's tangent check: the EE and EA sigma shapes of phase 13, a
+# ragged one, and the cc-pVTZ alpha-alpha sector shape, whose f32 product
+# takes the three-pass kernel
+TANGENT_SHAPES = [(196, 1891, 1891), (14, 1891, 1891), (37, 129, 129),
+                  (98, 3240, 3240)]
 
 
 def check_kernel_tangent(ladder_mm, ladder_mm_ref):
     """torch.func.jvp of ladder_mm(a, w) in a against that of a @ w.T, f32
     and f64, w symmetric (declared so) and not: the primal and the tangent
     to TOL * max|C|, and each jvp exactly one forward and one tangent
-    launch.  Returns {(dtype, shape, symmetric): max abs error of the
-    tangent}."""
+    launch; then the gradient, torch.autograd.grad of sum(ladder_mm(a, w)
+    * g), against the plain one's to TOL * max|dA|, one forward and one
+    backward launch, each launch through the kernel the shape's plan
+    names.  Returns {(dtype, shape, symmetric): max abs error of the
+    tangent and of the gradient}."""
     out = {}
     for dtype in DTYPES:
         for i, shape in enumerate(TANGENT_SHAPES):
@@ -712,7 +850,26 @@ def check_kernel_tangent(ladder_mm, ladder_mm_ref):
                         f"ladder_mm tangent at {shape} {dtype} symmetric="
                         f"{symmetric}: {err} against {TOL[dtype]} * {scale}"
                         f" (primal {err_c}), launches {n}")
-                out[(dtype, shape, symmetric)] = err
+                g = torch.as_tensor(rng.standard_normal((M, N)), dtype=dtype,
+                                    device="cuda")
+                a_k, a_p = (a.clone().requires_grad_(True) for _ in range(2))
+                (gk,), n_g = count_all(ladder_mm, lambda: torch.autograd.grad(
+                    (ladder_mm(a_k, op, symmetric=symmetric) * g).sum(), a_k))
+                gp, = torch.autograd.grad((ladder_mm_ref(a_p, op) * g).sum(),
+                                          a_p)
+                torch.cuda.synchronize()
+                err_g = float((gk - gp).abs().max())
+                scale_g = float(gp.abs().max())
+                ok = err_g <= TOL[dtype] * scale_g and tuple(n_g) == (1, 0, 1)
+                phase(3, "kernel_gradient", dtype=str(dtype), shape=shape,
+                      symmetric=symmetric, max_abs_err=err_g,
+                      max_abs_ref=scale_g, launches_fwd_tan_back=n_g, ok=ok)
+                if not ok:
+                    raise AssertionError(
+                        f"ladder_mm gradient at {shape} {dtype} symmetric="
+                        f"{symmetric}: {err_g} against {TOL[dtype]} * "
+                        f"{scale_g}, launches {n_g}")
+                out[(dtype, shape, symmetric)] = max(err, err_g)
     return out
 
 
@@ -771,17 +928,25 @@ def host_us(fn, n):
 
 
 def time_kernel(ladder_mm, ladder_mm_ref, only=None):
-    """{(dtype, shape): times} for the kernel and a @ b.T at TIMED_SHAPES
-    (only: these f32 shapes alone).  The plain version is one library call
-    (cuBLAS), so its time is also the report's library_ms."""
+    """{(dtype, shape): times} for the kernel that the plan names and
+    a @ b.T at TIMED_SHAPES (only: these f32 shapes alone), an f32 B in
+    the solver's 16-byte rows (f32_rows, in a checkout that has it).  The
+    plain version is one library call (cuBLAS), so its time is also the
+    report's library_ms."""
+    from ecw_cc_torch.kernels import ladder_mm as lmm
+
+    rows = getattr(lmm, "f32_rows", lambda x: x)
     times = {}
     for dtype in DTYPES[:1] if only else DTYPES:
         for shape in only or TIMED_SHAPES[dtype]:
             a, b = operands(shape, dtype, seed=0)
+            if dtype == torch.float32:
+                b = rows(b)
             b_bytes = b.numel() * b.element_size()
             n_copies = (-(-2 * L2_BYTES // b_bytes)
                         if b_bytes >= COLD_B_BYTES else 1)
-            ops = [(a, b)] + [(a.clone(), b.clone())
+            ops = [(a, b)] + [(a.clone(), b.clone() if dtype != torch.float32
+                               else rows(b.clone()))
                               for _ in range(n_copies - 1)]
             turn = [0]
 
@@ -803,8 +968,12 @@ def time_kernel(ladder_mm, ladder_mm_ref, only=None):
             for i in range(TIMING_RUNS):   # plain, kernel, kernel, plain, ...
                 for fn in ((plain, kern) if i % 2 == 0 else (kern, plain)):
                     runs[fn].append(device_run_ms(fn, TIMING_LAUNCHES))
-            bound_ms, bound_by = bound(shape, dtype)
-            t = {"ms": statistics.median(runs[kern]),
+            p = lmm.device_plan(*shape, dtype, a.device)
+            kernel = getattr(p, "kernel", None)
+            bound_ms, bound_by = bound(shape,
+                                       "tc3" if kernel == "tc3" else dtype)
+            t = {"kernel": kernel,
+                 "ms": statistics.median(runs[kern]),
                  "plain_ms": statistics.median(runs[plain]),
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "operand_copies": n_copies,
@@ -984,6 +1153,191 @@ def time_variants(lmm, only=None):
     return times
 
 
+def cycled_operands(shape, dtype, rows, seed=0):
+    """(args, copies): a function that hands out (a, b) at `shape` in
+    turn from copies of the operands that together exceed twice the L2
+    where B is large (as time_kernel times), B made by `rows` (the
+    solver's per-solve layout)."""
+    a, b = operands(shape, dtype, seed)
+    b = rows(b)
+    b_bytes = b.shape[0] * b.stride(0) * b.element_size()
+    n = -(-2 * L2_BYTES // b_bytes) if b_bytes >= COLD_B_BYTES else 1
+    ops = [(a, b)] + [(a.clone(), rows(b.clone())) for _ in range(n - 1)]
+    turn = [0]
+
+    def args():
+        turn[0] += 1
+        return ops[turn[0] % n]
+    return args, n
+
+
+def in_turns(fns):
+    """{name: median device ms} of each fn, TIMING_RUNS runs of
+    TIMING_LAUNCHES launches in turns (the order reversed every run),
+    with the runs under name + '_runs'."""
+    for _ in range(5):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    runs = {k: [] for k in fns}
+    order = list(fns)
+    for i in range(TIMING_RUNS):
+        for k in (order if i % 2 == 0 else order[::-1]):
+            runs[k].append(device_run_ms(fns[k], TIMING_LAUNCHES))
+    out = {k: statistics.median(v) for k, v in runs.items()}
+    out.update({f"{k}_runs": v for k, v in runs.items()})
+    return out
+
+
+def f64_error(c, a, b):
+    """max |c - a @ b.T| against the f64 product of the f32 operands."""
+    return float((c.double() - a.double() @ b.double().T).abs().max())
+
+
+def check_f32tc(lmm, n_sm):
+    """Phase 3 for csrc/ladder_mm_f32tc.cu.  The three-pass instance ('tc3',
+    the 'f32' variant) at every shape of F32TC_SHAPES, its B in the
+    solver's 16-byte rows (f32_rows), against a @ b.T to TOL * max|C|,
+    with its error and the FFMA kernel's (and cuBLAS's) against the f64
+    product; the one-pass instance ('tc1') against the 'tf32' variant's
+    plain version at the sector shapes; both bitwise repeatable and a
+    CUDA-graph replay equal to the launch.  Returns ({shape: (max abs
+    error against a @ b.T, plan)}, {shape: tc1's error})."""
+    from ecw_cc_torch.config import matmul_precision
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out, out1 = {}, {}
+    for i, shape in enumerate(dict.fromkeys(F32TC_SHAPES)):
+        a, b = operands(shape, torch.float32, seed=400 + i)
+        b = lmm.f32_rows(b)
+        c = lmm.launch_kernel(a, b, "tc3")
+        cf = lmm.launch_kernel(a, b, "ffma")
+        torch.cuda.synchronize()
+        with matmul_precision("highest"):
+            ref = a @ b.T
+        scale = float(ref.abs().max()) if ref.numel() else 0.0
+        err = float((c - ref).abs().max()) if ref.numel() else 0.0
+        p = lmm.device_plan(*shape, "f32", dev, "tc3")
+        ok = bool(torch.isfinite(c).all()) and err <= TOL[torch.float32] * scale
+        phase(3, "f32tc_vs_plain", shape=shape, max_abs_err=err,
+              max_abs_ref=scale, ok=ok,
+              routed=lmm.device_plan(*shape, "f32", dev).kernel,
+              max_abs_err_vs_f64={"tc3": f64_error(c, a, b),
+                                  "ffma": f64_error(cf, a, b),
+                                  "cublas": f64_error(ref, a, b)},
+              waves=p.blocks / n_sm, **plan_fields(p))
+        if not ok:
+            raise AssertionError(f"the three-pass kernel disagrees at "
+                                 f"{shape}: {err} > {TOL[torch.float32]} * "
+                                 f"{scale}")
+        out[shape] = (err, p)
+    for i, shape in enumerate(TC1_TIMED):
+        a, b = operands(shape, torch.float32, seed=500 + i)
+        c = lmm.launch_kernel(a, lmm.f32_rows(b), "tc1", precision="tf32")
+        ref = lmm.ladder_mm_plain(a, b, "tf32")
+        err = float((c - ref).abs().max())
+        scale = float(ref.abs().max())
+        ok = bool(torch.isfinite(c).all()) and err <= 1e-5 * scale
+        phase(3, "tc1_vs_plain", shape=shape, max_abs_err=err,
+              max_abs_ref=scale, ok=ok, **plan_fields(
+                  lmm.device_plan(*shape, "tf32", dev, "tc1")))
+        if not ok:
+            raise AssertionError(f"the one-pass kernel disagrees at {shape}: "
+                                 f"{err} > 1e-5 * {scale}")
+        out1[shape] = err
+    for kernel, shape in ([("tc3", sh) for sh in TZ_SHAPES
+                           + [(294, 6561, 6561), (211, 300, 8193)]]
+                          + [("tc1", sh) for sh in TZ_SHAPES]):
+        a, b = operands(shape, torch.float32, seed=11)
+        b = lmm.f32_rows(b)
+        prec = "tf32" if kernel == "tc1" else None
+
+        def launch():
+            return lmm.launch_kernel(a, b, kernel, precision=prec)
+        c1, c2 = launch(), launch()
+        st = torch.cuda.Stream()
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            launch()
+        st.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=st):
+            cg = launch()
+        replays = []
+        for _ in range(2):
+            cg.fill_(float("nan"))
+            g.replay()
+            torch.cuda.synchronize()
+            replays.append(bool(torch.equal(cg, c1)))
+        bitwise = bool(torch.equal(c1, c2))
+        phase(3, "f32tc_deterministic", kernel=kernel, shape=shape,
+              bitwise=bitwise, graph_replays_equal=replays)
+        if not (bitwise and all(replays)):
+            raise AssertionError(f"{kernel} is not deterministic at {shape}: "
+                                 f"{bitwise}, {replays}")
+    return out, out1
+
+
+def time_f32tc(lmm, shapes=None):
+    """{shape: times} of the 'f32' variant's two kernels side by side, in
+    turns: the three-pass 'tc3' and the FFMA kernel (each launched at its
+    own plan, whichever the rule names), cuBLAS SGEMM with TF32 off
+    (library_ms, the yardstick) and the plain version of the three-pass
+    arithmetic (ladder_mm_plain_split), B in the solver's 16-byte rows;
+    bound_ms the three-pass bound (3 x 2MNK at TF32's 494 TFLOP/s, or the
+    bytes), ffma_bound_ms the FFMA kernel's (67 TFLOP/s)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for shape in shapes or MAIN_SHAPES + F32TC_TIMED + [
+            (294, 465, 465), (294, 961, 961), (784, 465, 465),
+            (784, 961, 961)]:
+        args, n = cycled_operands(shape, torch.float32, lmm.f32_rows)
+        t = in_turns({
+            "ms": lambda: lmm.launch_kernel(*args(), "tc3"),
+            "ffma_ms": lambda: lmm.launch_kernel(*args(), "ffma"),
+            "library_ms": lambda: (lambda x, y: x @ y.T)(*args()),
+            "plain_ms": lambda: lmm.ladder_mm_plain_split(*args(), 3)})
+        p3 = lmm.device_plan(*shape, "f32", dev, "tc3")
+        pf = lmm.device_plan(*shape, "f32", dev, "ffma")
+        bound_ms, bound_by = bound(shape, "tc3")
+        t.update(bound_ms=bound_ms, bound_by=bound_by,
+                 ffma_bound_ms=bound(shape, "f32")[0], operand_copies=n,
+                 routed=lmm.device_plan(*shape, "f32", dev).kernel,
+                 tc3_blocks=p3.blocks, tc3_split=p3.split,
+                 tc3_cluster_m=p3.cluster_m, tc3_bm=p3.bm,
+                 ffma_blocks=pf.blocks, ffma_split=pf.split)
+        out[shape] = t
+        phase(3, "f32tc_time", shape=shape, runs=TIMING_RUNS,
+              launches_per_run=TIMING_LAUNCHES, **t)
+    return out
+
+
+def time_tc1(lmm, shapes=TC1_TIMED):
+    """{shape: times} of the 'tf32' variant's two kernels in turns: the
+    one-pass instance of csrc/ladder_mm_f32tc.cu ('tc1') and
+    ladder_mm_tc.cu's TF32 kernel ('tc'), beside cuBLAS with TF32 on
+    (library_ms) and the plain version; B as the solver holds it
+    (tf32_rows)."""
+    lib = library_call("tf32")
+    out = {}
+    for shape in shapes:
+        args, n = cycled_operands(shape, torch.float32, lmm.tf32_rows)
+        t = in_turns({
+            "ms": lambda: lmm.launch_kernel(*args(), "tc1", precision="tf32"),
+            "tc_ms": lambda: lmm.launch_kernel(*args(), "tc",
+                                               precision="tf32"),
+            "library_ms": lambda: lib(*args()),
+            "plain_ms": lambda: lmm.ladder_mm_plain(*args(), "tf32")})
+        bound_ms, bound_by = bound(shape, "tf32")
+        t.update(bound_ms=bound_ms, bound_by=bound_by, operand_copies=n,
+                 routed=lmm.device_plan(*shape, "tf32", torch.device(
+                     "cuda", torch.cuda.current_device())).kernel)
+        out[shape] = t
+        phase(3, "tc1_time", shape=shape, runs=TIMING_RUNS,
+              launches_per_run=TIMING_LAUNCHES, **t)
+    return out
+
+
 @contextlib.contextmanager
 def layout(spin_sorted):
     """config.spin_sorted set inside and restored after: True is ECW's f32
@@ -1032,8 +1386,10 @@ def solve(ecw, lambdas, **kw):
 
 def is_ladder_kernel(name):
     """Whether a profiled device event is a ladder kernel's: its name,
-    mangled (SASS_NAMES) or demangled, names ladder_mm_nt or ladder_mm_tc."""
-    return re.search(r"ladder_mm_(nt|tc)(\b|I)", name) is not None
+    mangled (SASS_NAMES) or demangled, names ladder_mm_nt, ladder_mm_tc or
+    ladder_mm_f32tc (not its split pass, split_a: one ladder kernel a
+    launch)."""
+    return re.search(r"ladder_mm_(nt|tc|f32tc)(\b|I)", name) is not None
 
 
 def chain_ops(run, iters=CHAIN_OPS_ITERS):
@@ -1378,8 +1734,10 @@ def run_tz(ladder_mm):
 
     torch.cuda.reset_peak_memory_stats()
     ladder_mm.launches = 0
+    k0 = kernel_tally()
     res, log = solve(ecw, [0.25], conv_thres=CONV_THRES)
     launches = ladder_mm.launches
+    sector_kernels(7, "c2h2_ccpvtz_f32_sectored", k0, ecw.vvvv_op)
     s32, ep32 = log[0], float(res[1][-1])
     phase(7, "solve_tz_f32", route=s32["route"], sym=s32["sym"],
           iterations=s32["iterations"], converged=s32["status"] == 1,
@@ -1730,6 +2088,7 @@ def run_target_sweep(ladder_mm, ecw32):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    k0 = kernel_tally()
     _, fwd, back = count_launches(
         ladder_mm, lambda: ecw.Build_GS_exp("mat", "CCSD(T)", field=FIELD))
     torch.cuda.synchronize()
@@ -1754,6 +2113,8 @@ def run_target_sweep(ladder_mm, ecw32):
     ladder_mm.launches = 0
     res, slog = solve(ecw, LAMBDAS, conv_thres=CONV_THRES)
     sweep = ladder_mm.launches
+    sector_kernels(10, "c2h2_ccpvdz_f32_ccsd_t_target_and_sweep", k0,
+                   ecw.vvvv_op)
     deltas = [float(d) for d in ecw.Delta_lamb]
     iters = [s["iterations"] for s in slog]
     phase(10, "sweep_on_ccsd_t_target", iterations=iters, Delta=deltas,
@@ -2180,7 +2541,8 @@ def run_phase10(ladder_mm, ladder_mm_ref, ecw32, ecw64c, ecwc, tz):
         out, b = step()
         launches.update(out)
         back += b
-    grads = check_kernel_gradient(ladder_mm, ladder_mm_ref, ecw32)
+    with comparing(10):
+        grads = check_kernel_gradient(ladder_mm, ladder_mm_ref, ecw32)
     run_ccs(ecw32, ecw64c, ecwc)
     run_ccs_steps()
     run_ccs_newton_dz(ecw64c)
@@ -2952,7 +3314,7 @@ def run_phase12(lmm, ecw_tz=None):
 def kernel_kind(name):
     """The §5 breakdown's class of a kernel, from its name."""
     low = name.lower()
-    for kind, keys in (("ladder_mm", ("ladder_mm",)),
+    for kind, keys in (("ladder_mm", ("ladder_mm", "split_a")),
                        ("gemm", ("gemm", "gemv", "splitk")),
                        ("elementwise", ("elementwise", "vectorized")),
                        ("reduce", ("reduce",)),
@@ -3992,7 +4354,10 @@ def run_batch_tz(ecw_tz):
     """Phase 14 (c): 3 lanes at full width, C2H2/cc-pVTZ f32 on phase 7's
     ECW (the sectored route)."""
     cold, cold_ms = cold_starts(ecw_tz, LAMBDAS, conv_thres=CONV_THRES)
+    k0 = kernel_tally()
     b = batch_solve(ecw_tz, LAMBDAS, conv_thres=CONV_THRES)
+    sector_kernels(14, "c2h2_ccpvtz_f32_batch", k0, ecw_tz.vvvv_op,
+                   lanes=len(LAMBDAS))
     fields = check_lanes("14c", b, cold, "sectored", 2)
     phase(14, "batch_ccpvtz_f32", **fields, cold_sequential_ms=cold_ms,
           **batch_busy_share(ecw_tz, LAMBDAS))
@@ -4388,15 +4753,18 @@ def run_phase15(lmm, ecw32, ecw32p):
         launches, sorted_system = run_par_solves(ecw32, ecw32p, mesh)
         check_par_t(mesh, sorted_system)
         del sorted_system
-        check_shard_rules(lmm, mesh)
+        with comparing(15):
+            check_shard_rules(lmm, mesh)
     finally:
         dist.destroy_process_group()
-    shards = check_shard_launches(lmm)
-    checks = check_kernel(lmm.ladder_mm, lmm.ladder_mm_ref, lmm.device_plan,
-                          torch.cuda.get_device_properties(0)
-                          .multi_processor_count, only=SHARD_SHAPES)
-    times = time_kernel(lmm.ladder_mm, lmm.ladder_mm_ref,
-                        only=SHARD_SHAPES)
+    with comparing(15):
+        shards = check_shard_launches(lmm)
+        checks = check_kernel(lmm.ladder_mm, lmm.ladder_mm_ref,
+                              lmm.device_plan, torch.cuda
+                              .get_device_properties(0).multi_processor_count,
+                              only=SHARD_SHAPES)
+        times = time_kernel(lmm.ladder_mm, lmm.ladder_mm_ref,
+                            only=SHARD_SHAPES)
     by_shape = {}
     for tp, shape in zip(SHARD_TPS, SHARD_SHAPES):
         t = times[(torch.float32, shape)]
@@ -4452,9 +4820,12 @@ def run_flagship(ladder_mm, out_dir):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    k0 = kernel_tally()
     (res, fwd, back) = count_launches(
         ladder_mm, lambda: gs_ccsd_sweep.main(FLAGSHIP_BASIS, out_dir))
     peak = torch.cuda.max_memory_allocated()
+    sector_kernels(16, "c2h2_6311ppg2d2p_f32_target_and_sweep", k0,
+                   res["ecw"].vvvv_op)
     log = res["target_log"]
     per_solve = 2 if log["sym"] else 3
     t_fwd, t_back = target_launches(log, per_solve, 3)
@@ -4780,8 +5151,11 @@ def graph_run(ecw, lanes, n=None):
 
 def graph_cell(ecw, basis, route, lanes):
     """Phase 17 (a): one cell (the phase's comment)."""
+    k0 = kernel_tally()
     conv = graph_run(ecw, lanes)
     name = f"17a {basis} {route} {lanes} lane(s)"
+    if route == "sectored":
+        sector_kernels(17, name, k0, ecw.vvvv_op, lanes=lanes)
     capture_ms = check_graphs(name, conv["log"])
     per_iter = GRAPH_LAUNCHES[route]
     if not all(s["status"] == 1 and s["route"] == route
@@ -5067,28 +5441,42 @@ def run_phase17():
 
 
 def kernel_report(launches, checks, times, backward, grads, variants,
-                  eom_launches, tangents, batch_variants, shards):
-    """The kernel line: one entry per variant of the ladder kernel.  f32
-    and f64 (csrc/ladder_mm.cu): the headline numbers at the main path's
-    cc-pVTZ shape (MAIN_TZ, 98x6561x6561, the sectored route's alpha-beta
-    GEMM), every timed shape under by_dtype; launches: {path: ladder
-    launches in its run}, split by the dtype in the path's name;
-    backward: the launches among them that a backward made (phase 10's
-    response densities); grads:
-    {(dtype, shape): error of the kernel's gradient against the plain
-    version's}.  variants: (checks, times) of the TF32 and BF16 kernels
-    (csrc/ladder_mm_tc.cu, phase 3) and {variant: launches} of phase 12,
-    whose f32 and f64 launches join those entries.  eom_launches: {path:
-    (forward, tangent, backward)} of phase 13, joining the f32 and f64
-    entries by the dtype in the path's name; tangents: {(dtype, shape,
-    symmetric): error of the kernel's tangent} (phase 3); batch_variants:
-    {variant: launches} of phase 14's batched precision runs, joining
-    phase 12's; shards: phase 15's ({path: launches}, {shape: fields}):
-    the sharded solves' launches (each on the rank's rows) join the f32
-    entry, with the shard shapes' checks and times."""
+                  eom_launches, tangents, batch_variants, shards, f32tc):
+    """The kernel line: one entry per kernel.  Each entry's launches are
+    its launches in the main path's phases (every phase after 3, whose
+    launches only compare a kernel with its plain version, and less the
+    comparisons inside later phases), from the per-kernel tallies
+    (PHASE_KERNELS less COMPARE_KERNELS), with launches_by_phase.
+
+    FFMA and DMMA (csrc/ladder_mm.cu, the 'f32' and 'f64' variants):
+    variant_launches_by_path holds {path: ladder launches in its run} of
+    the variant, both f32 kernels together (launches, split by the dtype
+    in the path's name; phase 12's and 14's precision runs; phase 13's
+    EOM paths, eom_launches {path: (forward, tangent, backward)}; phase
+    15's shard launches, shards = ({path: launches}, {shape: fields}));
+    backward: phase 10's backward launches; grads {(dtype, shape): error
+    of the kernel's gradient}; tangents {(dtype, shape, symmetric): error
+    of its tangent and gradient} (phase 3).  The f64 headline is the main
+    path's cc-pVTZ shape (MAIN_TZ), the FFMA one the cc-pVDZ alpha-beta
+    sector shape it still runs, both timed under by_dtype at every shape
+    (times through the plan, the kernel named per shape).  variants:
+    (checks, times) of ladder_mm_tc.cu's TF32 and BF16 kernels and
+    {variant: launches} of phase 12 (batch_variants: phase 14's).
+    f32tc: (checks, times, tc1 errors, tc1 times) of csrc/
+    ladder_mm_f32tc.cu's three-pass ('tc3') and one-pass ('tc1')
+    instances (phase 3), headlined at MAIN_TZ."""
+    main = {n: {k: v - COMPARE_KERNELS[n][k] for k, v in c.items()}
+            for n, c in PHASE_KERNELS.items() if n not in (1, 2, 3)}
+
+    def launched(kernel):
+        return (sum(c.get(kernel, 0) for c in main.values()),
+                {str(n): c[kernel] for n, c in sorted(main.items())
+                 if c.get(kernel)})
+
     by_dtype = {}
     for dtype in DTYPES:
         by_dtype[str(dtype).split(".")[-1]] = {tag(shape): {
+            "kernel": times[(dtype, shape)].get("kernel"),
             "ms": times[(dtype, shape)]["ms"],
             "plain_ms": times[(dtype, shape)]["plain_ms"],
             "library_ms": times[(dtype, shape)]["plain_ms"],
@@ -5101,9 +5489,11 @@ def kernel_report(launches, checks, times, backward, grads, variants,
             "split_k": checks[(dtype, shape)][1].split}
             for shape in TIMED_SHAPES[dtype]}
     v_checks, v_times, v_launches = variants
+    t3_checks, t3_times, t1_errs, t1_times = f32tc
+    ffma_main = MAIN_SHAPES[1]
     entries = []
-    for dtype, v in ((torch.float32, "f32"), (torch.float64, "f64")):
-        main = (dtype, MAIN_TZ)
+    for dtype, v, kernel in ((torch.float32, "f32", "ffma"),
+                             (torch.float64, "f64", "dmma")):
         paths = {k: n for k, n in launches.items()
                  if ("f64" in k) == (v == "f64")}
         paths["phase12_precision_modes"] = v_launches[v]
@@ -5111,42 +5501,89 @@ def kernel_report(launches, checks, times, backward, grads, variants,
         eom = {k: n for k, n in eom_launches.items()
                if ("f64" in k) == (v == "f64")}
         paths.update({k: sum(n) for k, n in eom.items()})
+        n, per_phase = launched(kernel)
+        if v == "f32":
+            t = t3_times[ffma_main]
+            head = {"ms": t["ffma_ms"], "plain_ms": t["library_ms"],
+                    "bound_ms": t["ffma_bound_ms"],
+                    "bound_by": bound(ffma_main, "f32")[1],
+                    "library_ms": t["library_ms"], "shape": tag(ffma_main),
+                    "blocks": t["ffma_blocks"], "split_k": t["ffma_split"]}
+        else:
+            main_t = times[(dtype, MAIN_TZ)]
+            head = {"ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+                    "bound_ms": main_t["bound_ms"],
+                    "bound_by": main_t["bound_by"],
+                    "library_ms": main_t["plain_ms"], "shape": tag(MAIN_TZ),
+                    "blocks": checks[(dtype, MAIN_TZ)][1].blocks,
+                    "split_k": checks[(dtype, MAIN_TZ)][1].split}
         entries.append({
-            "name": f"ladder_mm_{v}", "route": "cuda",
+            "name": f"ladder_mm_{v}", "kernel": kernel, "route": "cuda",
             "source": "ecw_cc_torch/csrc/ladder_mm.cu",
             "replaces": "ecw_cc_tpu/ops/ladder.py:54",
-            "launches": sum(paths.values()),
-            "launches_by_path": paths,
+            "launches": n, "launches_by_phase": per_phase,
+            "variant_launches_by_path": paths,
             "max_abs_err": max(checks[(dtype, s)][0]
-                               for s in TIMED_SHAPES[dtype]),
-            "ms": times[main]["ms"], "plain_ms": times[main]["plain_ms"],
-            "bound_ms": times[main]["bound_ms"],
-            "bound_by": times[main]["bound_by"],
-            "library_ms": times[main]["plain_ms"],
-            "shape": tag(main[1]), "dtype": str(dtype).split(".")[-1],
-            "blocks": checks[main][1].blocks,
-            "split_k": checks[main][1].split, "deterministic": True,
+                               for s in TIMED_SHAPES[dtype]
+                               if checks[(dtype, s)][1].kernel == kernel),
+            **head, "dtype": str(dtype).split(".")[-1],
+            "deterministic": True,
             "eom_launches_fwd_tan_back": eom,
             "tangent_launches": sum(n[1] for n in eom.values()),
             "tangent_max_abs_err": {
                 f"{tag(sh)} {'symmetric' if sym else 'general'}": e
                 for (d, sh, sym), e in tangents.items() if d == dtype}})
     shard_launches, shard_shapes = shards
-    entries[0]["launches_by_path"].update(shard_launches)
-    entries[0]["launches"] += sum(shard_launches.values())
     entries[0].update(backward_launches=backward, gradient_max_abs_err={
         f"{str(d).split('.')[-1]} {tag(sh)}": e
         for (d, sh), e in grads.items()}, by_dtype=by_dtype,
         shard_launches=sum(shard_launches.values()),
         shard_shapes=shard_shapes)
+    t = t3_times[MAIN_TZ]
+    n, per_phase = launched("tc3")
+    routed = [sh for sh, (_, p) in t3_checks.items()
+              if lmm_kernel(sh, "f32") == "tc3"]
+    entries.append({
+        "name": "ladder_mm_f32_tc3", "kernel": "tc3", "route": "cuda",
+        "source": "ecw_cc_torch/csrc/ladder_mm_f32tc.cu",
+        "replaces": "ecw_cc_tpu/ops/ladder.py:54",
+        "launches": n, "launches_by_phase": per_phase,
+        "max_abs_err": max(t3_checks[sh][0] for sh in routed),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": tag(MAIN_TZ), "dtype": "float32",
+        "blocks": t["tc3_blocks"], "split_k": t["tc3_split"],
+        "deterministic": True,
+        "routed_shapes": [tag(sh) for sh in routed],
+        "by_shape": {tag(sh): {k: t3_times[sh][k] for k in (
+            "routed", "ms", "ffma_ms", "library_ms", "plain_ms", "bound_ms",
+            "bound_by", "ffma_bound_ms", "tc3_blocks", "tc3_split",
+            "tc3_cluster_m", "tc3_bm", "ffma_blocks", "ffma_split")}
+            for sh in t3_times}})
+    tc1_head = TZ_SHAPES[0]
+    t = t1_times[tc1_head]
+    n, per_phase = launched("tc1")
+    entries.append({
+        "name": "ladder_mm_tf32_tc1", "kernel": "tc1", "route": "cuda",
+        "source": "ecw_cc_torch/csrc/ladder_mm_f32tc.cu",
+        "replaces": "ecw_cc_tpu/ops/ladder.py:54",
+        "launches": n, "launches_by_phase": per_phase,
+        "max_abs_err": max(t1_errs.values()),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": tag(tc1_head), "dtype": "float32", "deterministic": True,
+        "by_shape": {tag(sh): {k: t1_times[sh][k] for k in (
+            "routed", "ms", "tc_ms", "library_ms", "plain_ms", "bound_ms",
+            "bound_by")} for sh in t1_times}})
     for v in TC_VARIANTS:
         t = v_times[(v, MAIN_TZ)]
+        n, per_phase = launched(f"tc_{v}")
         entries.append({
-            "name": f"ladder_mm_{v}", "route": "cuda",
+            "name": f"ladder_mm_{v}", "kernel": f"tc_{v}", "route": "cuda",
             "source": "ecw_cc_torch/csrc/ladder_mm_tc.cu",
             "replaces": "ecw_cc_tpu/ops/ladder.py:54",
-            "launches": v_launches[v] + batch_variants[v],
-            "launches_by_path": {
+            "launches": n, "launches_by_phase": per_phase,
+            "variant_launches_by_path": {
                 "phase12_precision_modes": v_launches[v],
                 "phase14_batch_precision_modes": batch_variants[v]},
             "max_abs_err": max(v_checks[(v, s)][0]
@@ -5164,6 +5601,14 @@ def kernel_report(launches, checks, times, backward, grads, variants,
                 for s in MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
                 + BATCH_TC_SHAPES}})
     return {"kernels": entries}
+
+
+def lmm_kernel(shape, v):
+    """The kernel the plan names for variant v at `shape` on this card."""
+    from ecw_cc_torch.kernels import ladder_mm as lmm
+
+    return lmm.device_plan(*shape, v, torch.device(
+        "cuda", torch.cuda.current_device())).kernel
 
 
 def main(argv):
@@ -5198,9 +5643,19 @@ def main(argv):
         times = time_kernel(ladder_mm, ladder_mm_ref)
         check_variants(lmm, n_sm)
         v_times = time_variants(lmm)
+        f32tc = {}
+        if hasattr(lmm, "launch_kernel"):
+            # the f32 variant's two kernels side by side, and the TF32
+            # one-pass kernel beside ladder_mm_tc.cu's
+            check_f32tc(lmm, n_sm)
+            f32tc = {f"f32 tc3/ffma {tag(s)}": t
+                     for s, t in time_f32tc(lmm).items()}
+            f32tc.update({f"tf32 tc1/tc {tag(s)}": t
+                          for s, t in time_tc1(lmm).items()})
         print(json.dumps({"kernel_times": {
             f"{str(d).split('.')[-1]} {tag(s)}": t
-            for (d, s), t in list(times.items()) + list(v_times.items())}}))
+            for (d, s), t in list(times.items()) + list(v_times.items())}
+            | f32tc}))
         print(smi)
         return 0
     if "--routes" in argv:
@@ -5373,6 +5828,8 @@ def main(argv):
         times = time_kernel(ladder_mm, ladder_mm_ref)
         v_checks = check_variants(lmm, n_sm)
         v_times = time_variants(lmm)
+        t3_checks, t1_errs = check_f32tc(lmm, n_sm)
+        f32tc = (t3_checks, time_f32tc(lmm), t1_errs, time_tc1(lmm))
 
     # 4. main path, f32 (ERIs transformed on the card): ECW's sorted
     # sectored sweep, then the same sweep with spin_sorted=False (the
@@ -5387,10 +5844,14 @@ def main(argv):
                   else "alternating", operand=type(ecw.vvvv_op).__name__,
                   host_eris_built=ecw._eris_host is not None)
             ladder_mm.launches = 0
+            k0 = kernel_tally()
             t0 = time.perf_counter()
             res, log = solve(ecw, LAMBDAS, conv_thres=CONV_THRES)
             sweep_ms = (time.perf_counter() - t0) * 1e3
             n = launches[f"c2h2_ccpvdz_f32_{name}"] = ladder_mm.launches
+            if sort:
+                sector_kernels(4, f"c2h2_ccpvdz_f32_{name}", k0,
+                               ecw.vvvv_op)
             iters = sum(s["iterations"] for s in log)
             for s, ep, delta in zip(log, ecw.Ep_lamb, ecw.Delta_lamb):
                 phase(4, "solve_f32", L=s["L"], route=s["route"],
@@ -5545,7 +6006,7 @@ def main(argv):
          **launches_10, **launches_14, **launches_16, **launches_17},
         checks, times, back_10, grads,
         (v_checks, v_times, by_variant_12), launches_13, tangents,
-        by_variant_14, (launches_15, shards_15))))
+        by_variant_14, (launches_15, shards_15), f32tc)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

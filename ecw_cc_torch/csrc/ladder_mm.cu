@@ -3,8 +3,11 @@
 //
 //     C[m, n] = sum_k A[m, k] * B[n, k]
 //
-// with A (M, K) and B (N, K) both row-major and contiguous along K, so the
-// symmetric <ab||ef> ladder operand is contracted without a transpose.
+// with A (M, K) and B (N, K) both row-major and contiguous along K (row
+// strides lda, ldb >= K: the solver's f32 operands have rows padded to 16
+// bytes for csrc/ladder_mm_f32tc.cu, which this kernel reads as they are),
+// so the symmetric <ab||ef> ladder operand is contracted without a
+// transpose.
 //
 // Replaces the TPU kernel ecw_cc_tpu/ops/ladder.py::_ladder_mm_pallas.  That
 // kernel zero-padded M and N to 128 and K to 512 and walked K as the
@@ -54,11 +57,16 @@
 //   k + stages - 1 loads while chunk k is multiplied.  The copies are one
 //   element wide (4-byte f32, 8-byte f64): K = 465 and 961 are odd, so the
 //   operands' rows (1860 and 3844 bytes in f32) are not 16-byte aligned, and
-//   16-byte cp.async or TMA would need a padded row stride in the solver's
-//   SectoredVVVV layout.  16-byte copies were measured at K = 960 and
-//   gained nothing, so element copies keep that layout as it is.
+//   16-byte cp.async or TMA would need a padded row stride.  16-byte copies
+//   were measured at K = 960 and gained nothing, so element copies take
+//   the rows at any stride (the f32 SectoredVVVV's rows are padded to 16
+//   bytes since the three-pass kernel, which loads them by TMA).
 // * f32 stays on the CUDA cores in full f32 (no TF32, the solver's
-//   'highest' mode): each thread owns 7 x 8 outputs (7 x 4 in the narrow
+//   'highest' mode) where the planner keeps it here: the cc-pVDZ sector
+//   shapes (98 x {465, 961}^2), which are latency-bound and where this
+//   kernel beats cuBLAS, the packed and dense routes' products, and every
+//   shape past the three-pass TF32 kernel's rule (csrc/ladder_mm_f32tc.cu,
+//   kernels/ladder_mm.py plan).  Each thread owns 7 x 8 outputs (7 x 4 in the narrow
 //   tile) and reads its A rows and B columns as float4 along K, 15 LDS.128
 //   per 224 FFMA, where the 64 x 64 kernel this replaces did 8 scalar LDS
 //   per 16 FFMA.  Shared-memory bandwidth, not the FMA pipes, limits the
@@ -136,8 +144,8 @@ __device__ __forceinline__ void cp_async_wait() {
 template <typename T, int BN>
 __device__ __forceinline__ void load_chunk(T* s, const T* __restrict__ a,
                                            const T* __restrict__ b, int M,
-                                           int N, int K, int m0, int n0,
-                                           int k0, int tid) {
+                                           int N, int K, int lda, int ldb,
+                                           int m0, int n0, int k0, int tid) {
   constexpr int kLd = Ring<T>::kLd;
   constexpr int kRowsPerPass = kThreads / kBK;   // 8
   const int kk = tid % kBK;
@@ -150,12 +158,12 @@ __device__ __forceinline__ void load_chunk(T* s, const T* __restrict__ a,
       const int gm = m0 + r;
       const bool ok = k_ok && gm < M;
       cp_async_elem(s + r * kLd + kk,
-                    ok ? a + static_cast<size_t>(gm) * K + gk : a, ok);
+                    ok ? a + static_cast<size_t>(gm) * lda + gk : a, ok);
     } else {
       const int gn = n0 + r - kBM;
       const bool ok = k_ok && gn < N;
       cp_async_elem(s + r * kLd + kk,
-                    ok ? b + static_cast<size_t>(gn) * K + gk : b, ok);
+                    ok ? b + static_cast<size_t>(gn) * ldb + gk : b, ok);
     }
   }
 }
@@ -270,7 +278,8 @@ struct Math<double, 32> {
 template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads)
 ladder_mm_nt(const T* __restrict__ a, const T* __restrict__ b,
-             T* __restrict__ c, int M, int N, int K, int split) {
+             T* __restrict__ c, int M, int N, int K, int lda, int ldb,
+             int split) {
   using Tl = Tile<T, BN>;
   using Mt = Math<T, BN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -296,8 +305,8 @@ ladder_mm_nt(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < nch)
-      load_chunk<T, BN>(ring + st * Tl::kStageElems, a, b, M, N, K, m0, n0,
-                        (c0 + st) * kBK, tid);
+      load_chunk<T, BN>(ring + st * Tl::kStageElems, a, b, M, N, K, lda,
+                        ldb, m0, n0, (c0 + st) * kBK, tid);
     cp_async_commit();
   }
   for (int ch = 0; ch < nch; ++ch) {
@@ -306,7 +315,7 @@ ladder_mm_nt(const T* __restrict__ a, const T* __restrict__ b,
     const int next = ch + kStages - 1;
     if (next < nch)
       load_chunk<T, BN>(ring + (next % kStages) * Tl::kStageElems, a, b, M,
-                        N, K, m0, n0, (c0 + next) * kBK, tid);
+                        N, K, lda, ldb, m0, n0, (c0 + next) * kBK, tid);
     cp_async_commit();
     Mt::chunk(ring + (ch % kStages) * Tl::kStageElems, acc, tid, rows, cols);
   }
@@ -347,8 +356,8 @@ ladder_mm_nt(const T* __restrict__ a, const T* __restrict__ b,
 }
 
 template <typename T, int BN>
-int launch_tile(const T* a, const T* b, T* c, int M, int N, int K, int split,
-                int device, cudaStream_t stream) {
+int launch_tile(const T* a, const T* b, T* c, int M, int N, int K, int lda,
+                int ldb, int split, int device, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};   // per instantiation and device
   cudaError_t err = cudaSuccess;
   if (!configured[device]) {
@@ -379,20 +388,23 @@ int launch_tile(const T* a, const T* b, T* c, int M, int N, int K, int split,
       cudaClusterSchedulingPolicyLoadBalancing;
   cfg.attrs = attrs;
   cfg.numAttrs = 2;
-  err = cudaLaunchKernelEx(&cfg, ladder_mm_nt<T, BN>, a, b, c, M, N, K,
-                           split);
+  err = cudaLaunchKernelEx(&cfg, ladder_mm_nt<T, BN>, a, b, c, M, N, K, lda,
+                           ldb, split);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(int device, const T* a, const T* b, T* c, int M, int N, int K,
-           int bm, int bn, int bk, int split, void* stream) {
+           int lda, int ldb, int bm, int bn, int bk, int split,
+           void* stream) {
   // The planner's tile must be one of this kernel's, and its split must
-  // fit a cluster and leave every block at least one chunk (or be 1).
+  // fit a cluster and leave every block at least one chunk (or be 1); a
+  // row stride holds at least K.
   const int chunks = (K + kBK - 1) / kBK;
   if (bm != kBM || (bn != 32 && (bn != 64 || sizeof(T) != 4)) || bk != kBK ||
-      M < 1 || N < 1 || K < 0 || split < 1 || split > kMaxSplit ||
+      M < 1 || N < 1 || K < 0 || lda < K || ldb < K || split < 1 ||
+      split > kMaxSplit ||
       split > (chunks > 1 ? chunks : 1) || (M + kBM - 1) / kBM > 65535 ||
       device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -402,25 +414,31 @@ int launch(int device, const T* a, const T* b, T* c, int M, int N, int K,
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto st = static_cast<cudaStream_t>(stream);
   if constexpr (sizeof(T) == 4) {
-    if (bn == 64) return launch_tile<T, 64>(a, b, c, M, N, K, split, device, st);
+    if (bn == 64)
+      return launch_tile<T, 64>(a, b, c, M, N, K, lda, ldb, split, device,
+                                st);
   }
-  return launch_tile<T, 32>(a, b, c, M, N, K, split, device, st);
+  return launch_tile<T, 32>(a, b, c, M, N, K, lda, ldb, split, device, st);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes.  Each returns the cudaError_t of the launch
-// (0 on success).  The caller allocates c and owns the stream; bm/bn/bk and
+// (0 on success).  The caller allocates c (contiguous) and owns the stream;
+// lda and ldb are the operands' row strides in elements; bm/bn/bk and
 // split are the planner's, checked against this build's tiles.
 extern "C" int ecw_ladder_mm_f32(int device, const float* a, const float* b,
-                                 float* c, int M, int N, int K, int bm,
-                                 int bn, int bk, int split, void* stream) {
-  return launch<float>(device, a, b, c, M, N, K, bm, bn, bk, split, stream);
+                                 float* c, int M, int N, int K, int lda,
+                                 int ldb, int bm, int bn, int bk, int split,
+                                 void* stream) {
+  return launch<float>(device, a, b, c, M, N, K, lda, ldb, bm, bn, bk, split,
+                       stream);
 }
 
 extern "C" int ecw_ladder_mm_f64(int device, const double* a,
                                  const double* b, double* c, int M, int N,
-                                 int K, int bm, int bn, int bk, int split,
-                                 void* stream) {
-  return launch<double>(device, a, b, c, M, N, K, bm, bn, bk, split, stream);
+                                 int K, int lda, int ldb, int bm, int bn,
+                                 int bk, int split, void* stream) {
+  return launch<double>(device, a, b, c, M, N, K, lda, ldb, bm, bn, bk, split,
+                        stream);
 }

@@ -30,18 +30,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 # name -> argtypes; every function returns its launch's cudaError_t
-# ladder_mm: device, a, b, c, M, N, K, bm, bn, bk, split, stream
-_LADDER_MM = [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
-              _INT, _PTR]
-# the tensor-core variants also take the operands' row strides, the
-# blocks of an M group and whether B still needs its TF32 rounding:
-# device, a, b, c, M, N, K, lda, ldb, bm, bn, bk, cm, split, round_b, stream
+# ladder_mm: device, a, b, c, M, N, K, lda, ldb, bm, bn, bk, split, stream
+_LADDER_MM = [_INT, _PTR, _PTR, _PTR] + [_INT] * 9 + [_PTR]
+# ladder_mm_tc.cu also takes the blocks of an M group (cm) and whether B
+# still needs its TF32 rounding: device, a, b, c, M, N, K, lda, ldb, bm,
+# bn, bk, cm, split, round_b, stream
 _LADDER_MM_LD = [_INT, _PTR, _PTR, _PTR] + [_INT] * 11 + [_PTR]
+# ladder_mm_f32tc.cu the split pass's scratch and cm: device, a, b, c,
+# scratch, M, N, K, lda, ldb, bm, bn, bk, cm, split, stream
+_LADDER_MM_TC = [_INT, _PTR, _PTR, _PTR, _PTR] + [_INT] * 10 + [_PTR]
 _SIGNATURES = {
     "ecw_ladder_mm_f32": _LADDER_MM,
     "ecw_ladder_mm_f64": _LADDER_MM,
     "ecw_ladder_mm_tf32": _LADDER_MM_LD,
     "ecw_ladder_mm_bf16": _LADDER_MM_LD,
+    "ecw_ladder_mm_f32_tc3": _LADDER_MM_TC,
+    "ecw_ladder_mm_tf32_tc1": _LADDER_MM_TC,
 }
 
 

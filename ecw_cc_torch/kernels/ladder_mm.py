@@ -1,25 +1,38 @@
-"""The ladder GEMM C = A @ B.T: the hand-written Hopper kernel, its planner
-and its plain PyTorch versions.
+"""The ladder GEMM C = A @ B.T: the hand-written Hopper kernels, their
+planner and their plain PyTorch versions.
 
-Four variants, named by `variant(dtype, precision)`:
-  'f32'  float32, full precision on the CUDA cores (csrc/ladder_mm.cu);
-  'f64'  float64 on the FP64 tensor cores (csrc/ladder_mm.cu);
+Four variants, named by `variant(dtype, precision)`, and the kernels that
+run them (`Plan.kernel`, chosen by `plan` from the shape):
+  'f32'  float32 to the full-precision contract (1e-5 max|C| of a @ b.T):
+         'tc3', three TF32 passes on the tensor cores (csrc/
+         ladder_mm_f32tc.cu, TMA and wgmma) at the shapes of `tc3_rule`,
+         the sector GEMMs from cc-pVTZ up; 'ffma', the CUDA cores in full
+         f32 (csrc/ladder_mm.cu) everywhere else;
+  'f64'  float64 on the FP64 tensor cores: 'dmma' (csrc/ladder_mm.cu);
   'tf32' float32 operands rounded to TF32 (cvt.rna), f32 accumulation and
-         output, on the tensor cores (csrc/ladder_mm_tc.cu, TMA and wgmma):
-         the solver's 'high' and 'default' modes;
+         output, on the tensor cores: 'tc1', the one-pass instance of
+         csrc/ladder_mm_f32tc.cu, at the shapes of `tc1_rule`, else 'tc'
+         (csrc/ladder_mm_tc.cu): the solver's 'high' and 'default' modes;
   'bf16' bfloat16 operands, f32 accumulation, the sum rounded once to a
-         bfloat16 output (csrc/ladder_mm_tc.cu): the solver's 'bf16' mode.
+         bfloat16 output: 'tc' (csrc/ladder_mm_tc.cu): the solver's 'bf16'
+         mode.
 
-`ladder_mm` launches the variant's kernel for CUDA tensors and raises on
-anything it does not take; it never falls back.  Only for CPU tensors does
-it compute the variant's plain version (`ladder_mm_plain`).
+`ladder_mm` launches the kernel its plan names for CUDA tensors and raises
+on anything it does not take; it never falls back to another kernel.
+Only for CPU tensors does it compute the variant's plain version
+(`ladder_mm_plain`; `ladder_mm_plain_split` is the three-pass kernel's
+arithmetic, for the tests and the card's checks).
 `ladder_mm.launches` counts kernel launches, forward, tangent and
 backward, so a run can show that its main path went through the kernel;
 `ladder_mm.backward_launches` and `ladder_mm.tangent_launches` count the
-backward and the tangent ones among them, and
-`ladder_mm.launches_by_variant` the launches of each variant.  A launch
-captured into a CUDA graph is counted at each replay instead
-(`launch_counts`, `add_launch_counts`; solvers/device_loop.py).
+backward and the tangent ones among them,
+`ladder_mm.launches_by_variant` the launches of each variant,
+`ladder_mm.launches_by_kernel` those of each kernel function ('ffma',
+'dmma', 'tc_tf32', 'tc_bf16', 'tc3', 'tc1'), and
+`ladder_mm.b_copies` the launches that had to copy their B into 16-byte
+rows first.  A launch captured into a CUDA graph is counted at each
+replay instead (`launch_counts`, `add_launch_counts`; solvers/
+device_loop.py).
 
 The full-precision launch is a `torch.autograd.Function`: the gradient
 for `a` is dA = dC @ b, one more launch of the same kernel: on `b` itself
@@ -29,7 +42,10 @@ the EOM-EE right sigma through torch.func.jvp) is dC = dA @ b.T, one
 more launch on the same `b`.  The gradient launch is itself such a
 function, so a double backward (the EOM-EE right matvec, ops/eom.py: the
 backward of a backward product taken for its cotangent) is one more
-launch on `b`, a tangent dA @ b.T, and is counted as one.  A backward or tangent pass through a reduced-precision product raises: no
+launch on `b`, a tangent dA @ b.T, and is counted as one.  Every one of
+these launches, and the vmap-folded and row-shard ones below, takes the
+plan of its own shape; on a symmetric B that is the forward's.  A
+backward or tangent pass through a reduced-precision product raises: no
 path differentiates through a reduced-precision solve.
 
 Under torch.func.vmap (the batched lambda sweep, whose lanes share every
@@ -43,15 +59,16 @@ all-gather of C's columns over the rank's group (`_ShardMM`), with the
 same forward, backward, tangent and vmap rules, each one launch on the
 local rows; `ladder_mm.shard_launches` counts those launches.
 
-`plan` is pure Python: it picks the tile width and the split of K across
-the blocks of a thread block cluster that fill the card at the solver's
-skinny shapes (M = 98), and for the tensor-core variants the cluster of
+`plan` is pure Python: it picks the kernel, the tile and the split of K
+across the blocks of a thread block cluster that fill the card at the
+solver's skinny shapes (M = 98), and for the TMA kernels the cluster of
 row tiles that share each B tile.  The wrapper hands the plan to the
 kernel, which checks the tile against its own.
 
-The tensor-core variants load their operands by TMA, which needs row
-strides of whole 16 bytes: `tf32_rows` and `bf16_rows` make such copies
-(the solver makes its ladder operand's once per solve), and the wrapper
+The TMA kernels ('tc', 'tc3', 'tc1') load their operands by TMA, which
+needs row strides of whole 16 bytes: `f32_rows`, `tf32_rows` and
+`bf16_rows` make such copies (the solver's f32 operand is built in them,
+models/eris.py; a cast one gets them once per solve), and the wrapper
 copies an operand that lacks them.  A TF32 B made by `tf32_rows` is
 already rounded; any other B is rounded by the kernel as it arrives.
 """
@@ -68,9 +85,16 @@ import torch.distributed as dist
 from ecw_cc_torch.config import matmul_precision
 from ecw_cc_torch.kernels import build
 
-_FUNCS = {"f32": "ecw_ladder_mm_f32", "f64": "ecw_ladder_mm_f64",
-          "tf32": "ecw_ladder_mm_tf32", "bf16": "ecw_ladder_mm_bf16"}
-VARIANTS = tuple(_FUNCS)
+# (kernel, variant) -> (its key in ladder_mm.launches_by_kernel, the C
+# function that launches it)
+_FUNCS = {("ffma", "f32"): ("ffma", "ecw_ladder_mm_f32"),
+          ("dmma", "f64"): ("dmma", "ecw_ladder_mm_f64"),
+          ("tc", "tf32"): ("tc_tf32", "ecw_ladder_mm_tf32"),
+          ("tc", "bf16"): ("tc_bf16", "ecw_ladder_mm_bf16"),
+          ("tc3", "f32"): ("tc3", "ecw_ladder_mm_f32_tc3"),
+          ("tc1", "tf32"): ("tc1", "ecw_ladder_mm_tf32_tc1")}
+VARIANTS = ("f32", "f64", "tf32", "bf16")
+KERNELS = ("ffma", "dmma", "tc", "tc3", "tc1")   # Plan.kernel
 REDUCED = ("tf32", "bf16")
 _DTYPE_VARIANT = {torch.float32: "f32", torch.float64: "f64",
                   torch.bfloat16: "bf16"}
@@ -85,6 +109,14 @@ MAX_SPLIT = 16            # blocks per cluster
 # cluster_m row tiles times split K ranges
 TC_TILE = {"tf32": (128, 128, 32), "bf16": (128, 128, 64)}
 TC_MAX_CLUSTER = 8
+# csrc/ladder_mm_f32tc.cu: its instances' rows of A per block (wgmma's N;
+# 'tc1' is built at 104 only), B's rows per block (kBN) and K per chunk;
+# at most F32TC_MAX_GROUPS row groups of A and F32TC_MAX_CLUSTER blocks
+# per cluster
+F32TC_WIDTHS = {"tc3": (104, 152), "tc1": (104,)}
+F32TC_BN, F32TC_BK = 128, 32
+F32TC_MAX_GROUPS = 8
+F32TC_MAX_CLUSTER = 16
 # row strides the TMA loads take: multiples of 16 bytes
 TF32_ROW_ALIGN, BF16_ROW_ALIGN = 4, 8
 
@@ -103,7 +135,7 @@ def variant(dtype, precision=None):
 
 
 def _as_variant(v):
-    return v if v in _FUNCS else variant(v)
+    return v if v in VARIANTS else variant(v)
 
 
 class Plan(NamedTuple):
@@ -117,7 +149,8 @@ class Plan(NamedTuple):
     partials: int             # elements of partial tiles summed across each
                               # cluster: split * tiles * bm * bn (0 if split 1)
     cluster_m: int = 1        # row tiles per cluster that share each B tile
-                              # by TMA multicast (tensor-core variants)
+                              # by TMA multicast (the TMA kernels)
+    kernel: str = "ffma"      # the kernel that runs it (KERNELS)
 
     @property
     def tiles(self):
@@ -132,26 +165,78 @@ def _cdiv(x, y):
     return -(-x // y)
 
 
+def _k_ranges(K, bk, split):
+    chunks = _cdiv(K, bk)
+    bounds = [s * chunks // split * bk for s in range(split)] + [K]
+    return tuple((bounds[s], min(bounds[s + 1], K)) for s in range(split))
+
+
+def tc3_rule(M, N, K):
+    """The 'f32' shapes that take the three-pass kernel 'tc3' (else
+    'ffma'): K from TC3_MIN_K to TC3_MAX_K and at most F32TC_MAX_GROUPS
+    row groups of A.  In that window 'tc3' beat the FFMA kernel in turn at
+    every shape timed, 1.7-3.4x (chip_smoke.py --kernel-times and
+    tools/f32tc_splits.py on an H100 SXM; PERF.md section 6): the sector
+    GEMMs of cc-pVTZ (98 x {3240, 6561}^2), of the flagship basis (98 x
+    {2211, 4489}^2) and of their lambda lanes and mesh ranks, and the
+    dense ladder from nvir 46 (196 x 3844^2 at cc-pVDZ).  Below it the
+    FFMA kernel is kept: at 98 x {465, 961}^2 it is as fast or faster;
+    above it, the packed operands of cc-pVTZ and the flagship basis (K =
+    13041, 8911), the three-pass sum is unchecked."""
+    return M <= F32TC_MAX_GROUPS * max(F32TC_WIDTHS["tc3"]) and (
+        TC3_MIN_K <= K <= TC3_MAX_K)
+
+
+def tc1_rule(M, N, K):
+    """The 'tf32' shapes that take the one-pass instance 'tc1' (else 'tc',
+    csrc/ladder_mm_tc.cu): one row group of A (M <= 104, the sector
+    GEMMs) and K in tc3_rule's window, where it beat ladder_mm_tc.cu's
+    TF32 kernel in turn (98 x {2211, 3240, 4489}^2 by 1.1-1.4x, 6561^2
+    even)."""
+    return M <= F32TC_WIDTHS["tc1"][0] and TC3_MIN_K <= K <= TC3_MAX_K
+
+
+# the K window of the rules above
+TC3_MIN_K, TC3_MAX_K = 2048, 8192
+
+
+def kernel_for(M, N, K, v):
+    """The kernel `plan` names for variant v at C (M, N) = A (M, K) @
+    B (N, K).T."""
+    if v == "f32":
+        return "tc3" if tc3_rule(M, N, K) else "ffma"
+    if v == "tf32":
+        return "tc1" if tc1_rule(M, N, K) else "tc"
+    return "dmma" if v == "f64" else "tc"
+
+
 @functools.lru_cache(maxsize=256)
-def plan(M, N, K, dtype, n_sm):
+def plan(M, N, K, dtype, n_sm, kernel=None):
     """The launch of C (M, N) = A (M, K) @ B (N, K).T on a card of `n_sm` SMs;
     `dtype` is a variant name or the operands' dtype (its full-precision
-    variant).
+    variant); `kernel` one of KERNELS that runs the variant, or None for
+    `kernel_for`'s (tc3_rule, tc1_rule).
 
-    The output is cut into BM x bn tiles, bn the widest of WIDTHS[variant]
-    whose tiles can still fill the card; K into BK chunks, dealt to `split`
-    blocks per tile (one cluster) as evenly as whole chunks allow: split s
-    takes chunks [s * chunks // split, (s+1) * chunks // split).  The split
-    is the smallest power of two, at most MAX_SPLIT and the chunk count,
-    that gives at least one full wave of n_sm blocks, or the largest there
-    is.  Powers of two because clusters of 9 to 15 blocks ran slower on an
-    H100 than clusters of 8 or 16 at the same shapes."""
+    'ffma' and 'dmma': the output is cut into BM x bn tiles, bn the widest
+    of WIDTHS[variant] whose tiles can still fill the card; K into BK
+    chunks, dealt to `split` blocks per tile (one cluster) as evenly as
+    whole chunks allow: split s takes chunks [s * chunks // split, (s+1) *
+    chunks // split).  The split is the smallest power of two, at most
+    MAX_SPLIT and the chunk count, that gives at least one full wave of
+    n_sm blocks, or the largest there is.  Powers of two because clusters
+    of 9 to 15 blocks ran slower on an H100 than clusters of 8 or 16 at
+    the same shapes.  'tc': `_plan_tc`; 'tc3' and 'tc1': `_plan_f32tc`."""
     v = _as_variant(dtype)
     if min(M, N) < 1 or K < 0 or n_sm < 1:
         raise ValueError(f"ladder_mm cannot plan M={M}, N={N}, K={K} on "
                          f"{n_sm} SMs")
-    if v in TC_TILE:
+    kernel = kernel or kernel_for(M, N, K, v)
+    if (kernel, v) not in _FUNCS:
+        raise ValueError(f"no {kernel!r} kernel runs the {v!r} variant")
+    if kernel == "tc":
         return _plan_tc(M, N, K, v, n_sm)
+    if kernel in ("tc3", "tc1"):
+        return _plan_f32tc(M, N, K, kernel, n_sm)
     m_tiles, chunks = _cdiv(M, BM), _cdiv(K, BK)
     splits = [s for s in (1, 2, 4, 8, 16) if s <= max(1, min(chunks, MAX_SPLIT))]
     for bn in WIDTHS[v]:
@@ -159,11 +244,9 @@ def plan(M, N, K, dtype, n_sm):
         if tiles * splits[-1] >= n_sm:
             break
     split = next((s for s in splits if tiles * s >= n_sm), splits[-1])
-    bounds = [s * chunks // split * BK for s in range(split)] + [K]
-    k_ranges = tuple((bounds[s], min(bounds[s + 1], K)) for s in range(split))
     partials = split * tiles * BM * bn if split > 1 else 0
-    return Plan(BM, bn, BK, m_tiles, tiles // m_tiles, split, k_ranges,
-                partials)
+    return Plan(BM, bn, BK, m_tiles, tiles // m_tiles, split,
+                _k_ranges(K, BK, split), partials, 1, kernel)
 
 
 def _plan_tc(M, N, K, v, n_sm):
@@ -184,10 +267,51 @@ def _plan_tc(M, N, K, v, n_sm):
               if cm * s <= TC_MAX_CLUSTER and s <= max(1, chunks)]
     tiles = m_tiles * n_tiles
     split = next((s for s in splits if tiles * s >= n_sm), splits[-1])
-    bounds = [s * chunks // split * bk for s in range(split)] + [K]
-    k_ranges = tuple((bounds[s], min(bounds[s + 1], K)) for s in range(split))
     partials = split * tiles * bm * bn if split > 1 else 0
-    return Plan(bm, bn, bk, m_tiles, n_tiles, split, k_ranges, partials, cm)
+    return Plan(bm, bn, bk, m_tiles, n_tiles, split, _k_ranges(K, bk, split),
+                partials, cm, "tc")
+
+
+def _plan_f32tc(M, N, K, kernel, n_sm):
+    """csrc/ladder_mm_f32tc.cu's plan (both instances): B in tiles of 128
+    rows; A in cm row groups of bm rows, bm the width of
+    F32TC_WIDTHS[kernel] that pads M the least (then the fewer groups:
+    104 for 98 rows a lambda lane, 152 for 294), cm = ceil(M / bm) <=
+    F32TC_MAX_GROUPS; the cm blocks of one B tile one cluster that shares
+    it by multicast; K in chunks of 32, split by `_f32tc_split`."""
+    fits = [w for w in F32TC_WIDTHS[kernel] if _cdiv(M, w) <= F32TC_MAX_GROUPS]
+    if not fits:
+        raise ValueError(f"the {kernel!r} kernel takes at most "
+                         f"{F32TC_MAX_GROUPS * max(F32TC_WIDTHS[kernel])} "
+                         f"rows of A (got {M})")
+    bm = min(fits, key=lambda w: (_cdiv(M, w) * w, _cdiv(M, w)))
+    bn, bk = F32TC_BN, F32TC_BK
+    cm = _cdiv(M, bm)
+    n_tiles, chunks = _cdiv(N, bn), _cdiv(K, bk)
+    split = _f32tc_split(cm, cm * n_tiles, chunks, n_sm)
+    partials = split * cm * n_tiles * bm * bn if split > 1 else 0
+    return Plan(bm, bn, bk, cm, n_tiles, split, _k_ranges(K, bk, split),
+                partials, cm, kernel)
+
+
+def _f32tc_split(cm, tiles, chunks, n_sm):
+    """The split of K for csrc/ladder_mm_f32tc.cu: the largest power of two
+    s that keeps the launch within one wave (tiles * s <= n_sm blocks, one
+    block an SM), with at least F32TC_MIN_CHUNKS chunks a block and a
+    cluster cm * s of at most 8 blocks (16 with one row group); 1 where
+    the tiles alone fill the card.  A second wave ran slower than the
+    first with half the K each: on an H100 (tools/f32tc_splits.py, in
+    turn) 98 x 6561^2 took 128 us at split 2 (104 blocks) and 142 us at 4
+    (208), 98 x 3240^2 43 us at 4 (104) and 51 us at 8; clusters of 16
+    blocks with two row groups, and splits of under 3 chunks a block, were
+    slower too."""
+    limit = 16 if cm == 1 else 8
+    splits = [s for s in (1, 2, 4, 8, 16)
+              if cm * s <= limit and (s == 1 or chunks >= F32TC_MIN_CHUNKS * s)]
+    return max(s for s in splits if s == 1 or tiles * s <= n_sm)
+
+
+F32TC_MIN_CHUNKS = 3
 
 
 @functools.cache
@@ -195,9 +319,9 @@ def _n_sm(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def device_plan(M, N, K, dtype, device):
+def device_plan(M, N, K, dtype, device, kernel=None):
     """`plan` for the CUDA device `device`, with its SM count read from it."""
-    return plan(M, N, K, dtype, _n_sm(device.index))
+    return plan(M, N, K, dtype, _n_sm(device.index), kernel)
 
 
 def ladder_mm_ref(a, b):
@@ -214,6 +338,35 @@ def round_tf32(x):
     bits = x.contiguous().view(torch.int32)
     r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
     return torch.where(torch.isnan(x), x, r)
+
+
+def split_tf32(x):
+    """float32 x as (hi, lo), x = hi + lo + O(2^-22 |x|): hi = round_tf32(x),
+    lo = round_tf32(x - hi), or 0 where x - hi is not finite (x Inf or NaN,
+    or hi rounded to Inf), as csrc/ladder_mm_f32tc.cu splits.  A NaN in an
+    operand gives a NaN in C; an Inf an Inf, or a NaN where a cross term
+    is Inf x 0."""
+    hi = round_tf32(x)
+    d = x - hi
+    return hi, torch.where(torch.isfinite(d), round_tf32(d),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def ladder_mm_plain_split(a, b, passes=3):
+    """Plain version of csrc/ladder_mm_f32tc.cu's arithmetic on float32
+    operands: each split by split_tf32, then passes=3 the three products
+    lo_a hi_b + hi_a lo_b + hi_a hi_b at full f32 precision, summed;
+    passes=1 round_tf32(a) @ round_tf32(b).T (the 'tf32' variant's plain
+    version)."""
+    if passes not in (1, 3):
+        raise ValueError(f"ladder_mm_plain_split takes 1 or 3 passes "
+                         f"(got {passes})")
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    with matmul_precision("highest"):
+        if passes == 1:
+            return ah @ bh.T
+        return (al @ bh.T + ah @ bl.T) + ah @ bh.T
 
 
 def ladder_mm_plain(a, b, precision=None):
@@ -244,12 +397,9 @@ def _check(a, b, v):
     if a.shape[1] != b.shape[1]:
         raise ValueError(f"ladder_mm: K mismatch, a {tuple(a.shape)} vs "
                          f"b {tuple(b.shape)}")
-    if v in REDUCED:
-        # rows contiguous along K; the row stride is passed to the kernel
-        if a.shape[1] > 1 and (a.stride(1) != 1 or b.stride(1) != 1):
-            raise ValueError("ladder_mm takes operands contiguous along K")
-    elif not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("ladder_mm takes contiguous operands")
+    # rows contiguous along K; the row stride is passed to the kernel
+    if a.shape[1] > 1 and (a.stride(1) != 1 or b.stride(1) != 1):
+        raise ValueError("ladder_mm takes operands contiguous along K")
     if max(a.shape[0], b.shape[0], a.shape[1], a.stride(0),
            b.stride(0)) > _INT_MAX:
         raise ValueError("ladder_mm: dimension exceeds int32")
@@ -270,6 +420,18 @@ def _padded(x, dtype, align, values=None):
                       device=x.device)
     out[:, :k] = x if values is None else values
     return out[:, :k]
+
+
+def f32_rows(x):
+    """x (2-D) as float32 with a row stride the TMA kernels take: x itself
+    where it has one, else a copy (cast on the way, values unchanged) into
+    zero-filled rows padded to a multiple of TF32_ROW_ALIGN floats,
+    returned as a view of its first x.shape[1] columns.  The unrounded
+    twin of tf32_rows: the solver's f32 ladder operand (models/eris.py,
+    ops/ladder.py _cast), which every f32 kernel reads as it is."""
+    if x.dtype == torch.float32 and _has_rows(x, TF32_ROW_ALIGN):
+        return x
+    return _padded(x, torch.float32, TF32_ROW_ALIGN)
 
 
 def bf16_rows(x):
@@ -304,12 +466,13 @@ def is_tf32_rows(x):
     return ref is not None and ref() is x
 
 
-def _launch(a, b, backward=False, precision=None, tangent=False):
-    """One launch of the kernel on checked CUDA operands: C = a @ b.T.
-    backward, tangent: the launch computes a gradient or a tangent
-    (counted as such); backward="second": the backward of a backward
-    launch (a double backward), whose product is a tangent and is
-    counted as one."""
+def _launch(a, b, backward=False, precision=None, tangent=False,
+            kernel=None):
+    """One launch of the kernel that the plan names (or `kernel`) on checked
+    CUDA operands: C = a @ b.T.  backward, tangent: the launch computes a
+    gradient or a tangent (counted as such); backward="second": the
+    backward of a backward launch (a double backward), whose product is a
+    tangent and is counted as one."""
     v = variant(a.dtype, precision)
     _check(a, b, v)
     M, K = a.shape
@@ -317,36 +480,59 @@ def _launch(a, b, backward=False, precision=None, tangent=False):
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if c.numel() == 0:
         return c
-    p = device_plan(M, N, K, v, a.device)
-    fn = getattr(build.library().cdll, _FUNCS[v])
+    p = device_plan(M, N, K, v, a.device, kernel)
+    key, name = _FUNCS[(p.kernel, v)]
+    fn = getattr(build.library().cdll, name)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    if v in REDUCED:
+    head = ()
+    if p.kernel == "tc":
         a, b, round_b = _tc_operands(a, b, v)
-        # row strides (no row is read at K = 0), the plan's M group and
-        # split, and whether the kernel rounds B
-        args = ((a.stride(0), b.stride(0)) if K else (0, 0)) + (
-            p.bm, p.bn, p.bk, p.cluster_m, p.split, round_b)
+        tail = (p.cluster_m, p.split, round_b)
+    elif p.kernel in ("tc3", "tc1"):
+        # B in 16-byte rows for TMA (split or rounded in the kernel); A's
+        # hi and lo written by the launch's split pass into the scratch
+        b = _f32tc_rows(b)
+        scratch = torch.empty(
+            (2 if p.kernel == "tc3" else 1, M,
+             _cdiv(K, TF32_ROW_ALIGN) * TF32_ROW_ALIGN), dtype=torch.float32,
+            device=a.device)
+        head = (scratch.data_ptr(),)
+        tail = (p.cluster_m, p.split)
     else:
-        args = (p.bm, p.bn, p.bk, p.split)
+        tail = (p.split,)
+    # row strides (no row is read at K = 0)
+    lds = (a.stride(0), b.stride(0)) if K else (max(K, 1),) * 2
     err = fn(a.device.index, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-             M, N, K, *args, stream)
+             *head, M, N, K, *lds, p.bm, p.bn, p.bk, *tail, stream)
     if err != 0:
-        raise RuntimeError(f"ladder_mm {v} kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"ladder_mm {v} kernel {p.kernel!r} launch "
+                           f"failed: cudaError {err}")
     ladder_mm.launches += 1
     ladder_mm.backward_launches += backward is True
     ladder_mm.tangent_launches += bool(tangent) or backward == "second"
     ladder_mm.launches_by_variant[v] += 1
+    ladder_mm.launches_by_kernel[key] += 1
     return c
 
 
+def _f32tc_rows(b):
+    """B with 16-byte rows for csrc/ladder_mm_f32tc.cu: b itself, or a
+    padded copy (counted in ladder_mm.b_copies)."""
+    if _has_rows(b, TF32_ROW_ALIGN):
+        return b
+    ladder_mm.b_copies += 1
+    return _padded(b, torch.float32, TF32_ROW_ALIGN)
+
+
 def _tc_operands(a, b, v):
-    """(a, b, round_b) for a tensor-core launch: operands with 16-byte rows
-    (a copy only of one that lacks them) and round_b = 1 where the TF32
-    kernel must round B itself: a B with such rows that `tf32_rows` did
-    not make (the dense route's view of the whole vvvv block, which no
-    call copies).  A is always rounded by the kernel."""
+    """(a, b, round_b) for a csrc/ladder_mm_tc.cu launch: operands with
+    16-byte rows (a copy only of one that lacks them) and round_b = 1
+    where the TF32 kernel must round B itself: a B with such rows that
+    `tf32_rows` did not make (the dense route's view of the whole vvvv
+    block, which no call copies).  A is always rounded by the kernel."""
     if v == "bf16":
+        if not _has_rows(b, BF16_ROW_ALIGN):
+            ladder_mm.b_copies += 1
         return bf16_rows(a), bf16_rows(b), 0
     if not _has_rows(a, TF32_ROW_ALIGN):
         a = _padded(a, torch.float32, TF32_ROW_ALIGN)
@@ -354,7 +540,16 @@ def _tc_operands(a, b, v):
         return a, b, 0
     if _has_rows(b, TF32_ROW_ALIGN):
         return a, b, 1
+    ladder_mm.b_copies += 1
     return a, tf32_rows(b), 0
+
+
+def launch_kernel(a, b, kernel, precision=None):
+    """One launch of `kernel` (KERNELS) on CUDA operands, its plan at this
+    shape with the kernel fixed: the card's checks and timings of a kernel
+    at a shape its rule does not route to it.  Counted as a forward
+    launch; no gradient."""
+    return _launch(a, b, precision=precision, kernel=kernel)
 
 
 class _LadderMM(torch.autograd.Function):
@@ -673,20 +868,25 @@ ladder_mm.launches = 0             # every launch of the kernel
 ladder_mm.backward_launches = 0    # those of them made by a backward
 ladder_mm.tangent_launches = 0     # those of them made by a tangent (jvp)
 ladder_mm.shard_launches = 0       # those of them on a RowShard's rows
+ladder_mm.b_copies = 0             # launches that copied B into TMA rows
 ladder_mm.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+# by kernel function: ladder_mm_tc.cu's TF32 and BF16 apart
+ladder_mm.launches_by_kernel = dict.fromkeys(
+    (key for key, _ in _FUNCS.values()), 0)
 
 _COUNTERS = ("launches", "backward_launches", "tangent_launches",
-             "shard_launches")
+             "shard_launches", "b_copies")
 
 
 def launch_counts(since=None):
-    """The launch counters as a dict (the variants' under their names),
-    or their change since an earlier such dict."""
+    """The launch counters as a dict (the variants' and the kernels'
+    under their names), or their change since an earlier such dict."""
     now = {n: getattr(ladder_mm, n) for n in _COUNTERS}
     now.update(ladder_mm.launches_by_variant)
+    now.update(ladder_mm.launches_by_kernel)
     if since is None:
         return now
-    return {n: v - since[n] for n, v in now.items()}
+    return {n: v - since.get(n, 0) for n, v in now.items()}
 
 
 def add_launch_counts(delta, times=1):
@@ -696,5 +896,7 @@ def add_launch_counts(delta, times=1):
     for n, v in delta.items():
         if n in ladder_mm.launches_by_variant:
             ladder_mm.launches_by_variant[n] += times * v
+        elif n in ladder_mm.launches_by_kernel:
+            ladder_mm.launches_by_kernel[n] += times * v
         else:
             setattr(ladder_mm, n, getattr(ladder_mm, n) + times * v)

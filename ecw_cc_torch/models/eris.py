@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ecw_cc_torch.config import check_device, torch_dtype
+from ecw_cc_torch.kernels.ladder_mm import TF32_ROW_ALIGN
 from ecw_cc_torch.ops.ladder import (PackedVVVV, SectoredVVVV, _pack_pairs,
                                      pack_vvvv_sorted, spin_sort_perm)
 
@@ -274,6 +275,23 @@ def _sector_rows_from_slab(slab4, lo, hi, ma):
             cat(bb, mb, mb * (mb - 1) // 2))
 
 
+def _stack_rows(rows):
+    """One sector's row groups stacked into its SectoredVVVV block; at f32
+    into zero-filled rows padded to 16 bytes (kernels.ladder_mm.f32_rows'
+    layout, which the TMA kernels load), written in place, as a view of
+    the block's columns."""
+    if rows[0].dtype != torch.float32:
+        return torch.cat(rows, dim=0)
+    k = rows[0].shape[1]
+    out = rows[0].new_zeros((sum(r.shape[0] for r in rows),
+                             -(-k // TF32_ROW_ALIGN) * TF32_ROW_ALIGN))
+    r0 = 0
+    for r in rows:
+        out[r0:r0 + r.shape[0], :k] = r
+        r0 += r.shape[0]
+    return out[:, :k]
+
+
 _BLOCKS = ("oooo", "ooov", "oovo", "oovv", "ovov", "ovvo", "ovvv", "ovoo",
            "vooo", "vovo", "voov", "vovv", "vvoo", "vvvo")
 
@@ -418,7 +436,7 @@ def build_eris_device(mol, ghf, *, dtype=None, device="cuda",
     if pack_ladder:
         blocks["vvvv"] = torch.zeros((nvir, 0, 0, 0), dtype=dtype, device=dev)
         if sort_spin:
-            wc_aa, w_ab, wc_bb = (torch.cat(g, dim=0) for g in groups)
+            wc_aa, w_ab, wc_bb = (_stack_rows(g) for g in groups)
             op = SectoredVVVV(wc_aa=wc_aa, wc_bb=wc_bb, w_ab=w_ab)
         else:
             op = PackedVVVV(wc=wc)

@@ -45,8 +45,8 @@ import torch
 
 from ecw_cc_torch.config import active_precision, get_config
 from ecw_cc_torch.kernels.ladder_mm import (BF16_ROW_ALIGN, TF32_ROW_ALIGN,
-                                            RowShard, bf16_rows, ladder_mm,
-                                            tf32_rows)
+                                            RowShard, bf16_rows, f32_rows,
+                                            ladder_mm, tf32_rows)
 from ecw_cc_torch.ops import promote
 
 einsum = promote.lane_einsum
@@ -105,10 +105,10 @@ def _row_align(x):
 
 def _cast(w, dtype):
     """An operand block in `dtype`, or 'tf32': the float32 block rounded to
-    TF32 once (kernels.ladder_mm.tf32_rows).  The bfloat16 and TF32 blocks
-    get rows padded for the tensor-core kernels' TMA loads
-    (kernels.ladder_mm.bf16_rows, tf32_rows), so no launch copies them
-    again."""
+    TF32 once (kernels.ladder_mm.tf32_rows).  The float32, bfloat16 and
+    TF32 blocks get rows padded for the TMA kernels' loads
+    (kernels.ladder_mm.f32_rows, bf16_rows, tf32_rows; a float32 block
+    that has them is itself), so no launch copies them again."""
     if type(w) is not torch.Tensor:
         # a sharded operand (RowShard, DTensor): its local rows, placement
         # kept
@@ -117,6 +117,8 @@ def _cast(w, dtype):
         return map_local(lambda x: _cast(x, dtype), w)
     if dtype == "tf32":
         return tf32_rows(w)
+    if dtype == torch.float32:
+        return f32_rows(w)
     return bf16_rows(w) if dtype == torch.bfloat16 else w.to(dtype)
 
 

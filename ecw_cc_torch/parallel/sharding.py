@@ -37,7 +37,7 @@ import sys
 import torch
 import torch.distributed as dist
 
-from ecw_cc_torch.kernels.ladder_mm import RowShard
+from ecw_cc_torch.kernels.ladder_mm import RowShard, f32_rows
 from ecw_cc_torch.models.eris import GEris
 
 
@@ -128,7 +128,10 @@ def from_rows(local, mesh, n_rows):
     any rank."""
     dt = _dt()
     shape = (n_rows,) + tuple(local.shape[1:])
-    return dt.DTensor.from_local(local.contiguous(), mesh,
+    # rows contiguous along K stay as they are (padded TMA rows)
+    if local.dim() != 2 or local.stride(-1) != 1:
+        local = local.contiguous()
+    return dt.DTensor.from_local(local, mesh,
                                  [dt.Replicate(), dt.Shard(0)],
                                  run_check=False, shape=shape,
                                  stride=_strides(shape))
@@ -141,6 +144,10 @@ def _pad_rows(w, mesh):
     rows = w.shape[0] + (-w.shape[0]) % tp
     lo, hi = row_range(rows, mesh)
     local = w.new_zeros((hi - lo,) + tuple(w.shape[1:]))
+    if w.dim() == 2 and w.dtype == torch.float32:
+        # the f32 operand's 16-byte rows, so that no launch on the rank's
+        # rows copies them
+        local = f32_rows(local)
     top = min(hi, w.shape[0])
     if top > lo:
         local[:top - lo] = w[lo:top]

@@ -74,6 +74,13 @@ def test_plan_at_the_route_shapes(shape, dtype):
     M, N, K = shape
     p = lmm.plan(M, N, K, dtype, N_SM)
     v = lmm._as_variant(dtype)
+    if p.kernel in ("tc3", "tc1"):
+        # the dense ladder at cc-pVDZ lies in the three-pass kernel's K
+        # window (tc3_rule): two 104-row groups of A share each B tile
+        assert (v, shape) == ("f32", (196, 3844, 3844))
+        assert (p.bm, p.cluster_m, p.m_tiles) == (104, 2, 2)
+        assert p.cluster_m * p.split <= 8 and p.blocks <= N_SM
+        return
     if v in lmm.REDUCED:
         assert (p.bm, p.bn, p.bk) == lmm.TC_TILE[v]
         assert p.m_tiles == -(-M // p.bm) in (2, 4)
@@ -113,7 +120,8 @@ def test_plan_tensor_core_tile_and_cluster(shape, var):
     cluster's room of 8 blocks and the chunk count."""
     M, N, K = shape
     v = lmm._as_variant(var)
-    p = lmm.plan(M, N, K, var, N_SM)
+    p = lmm.plan(M, N, K, var, N_SM, "tc")      # csrc/ladder_mm_tc.cu's plan
+    assert p.kernel == "tc"
     assert (p.bm, p.bn, p.bk) == (128, 128, 32 if v == "tf32" else 64)
     m_tiles, cm, split = TC_PLANS[shape]
     if v == "bf16" and shape == (98, 465, 33):
@@ -122,7 +130,7 @@ def test_plan_tensor_core_tile_and_cluster(shape, var):
     assert p.m_tiles % p.cluster_m == 0
     assert p.n_tiles == -(-N // 128)
     assert p.blocks == p.m_tiles * p.n_tiles * p.split
-    assert lmm.plan(M, N, K, torch.float32, N_SM).cluster_m == 1
+    assert lmm.plan(M, N, K, torch.float32, N_SM, "ffma").cluster_m == 1
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (1, 5, 7), (7, 1, 5),
@@ -157,3 +165,119 @@ def test_split_sum_in_plan_order_matches_plain(shape):
         c = c + a[:, k0:k1] @ b[:, k0:k1].T
     ref = lmm.ladder_mm_ref(a, b)
     assert float((c - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+# ---- the kernel each plan names (PR: the three-pass TF32 kernel) --------
+
+# f32 shapes that chip_smoke.py routes to the three-pass kernel 'tc3': the
+# sector GEMMs of cc-pVTZ and the flagship basis, their three lambda lanes
+# (294 rows), a mesh rank's rows at tp = 4, and the dense ladder at
+# cc-pVDZ (inside the K window)
+TC3 = [(98, 2211, 2211), (98, 3240, 3240), (98, 4489, 4489),
+       (98, 6561, 6561), (294, 3240, 3240), (294, 6561, 6561),
+       (98, 810, 3240), (98, 1641, 6561), (196, 3844, 3844)]
+# ... and those it keeps on the FFMA kernel: the cc-pVDZ sector shapes and
+# their lanes, the packed route's products, the dense one at 6-31G, the
+# EOM sigmas, the 3- and 8-lane packed and stacked-sector shapes
+FFMA_F32 = [(98, 465, 465), (98, 961, 961), (196, 465, 465),
+            (196, 961, 961), (294, 465, 465), (294, 961, 961),
+            (784, 465, 465), (784, 961, 961), (392, 465, 465),
+            (392, 961, 961), (392, 1891, 1891), (392, 13041, 13041),
+            (392, 8911, 8911), (196, 1891, 1891), (196, 13041, 13041),
+            (196, 900, 900), (14, 1891, 1891), (1176, 1891, 1891),
+            (3136, 1891, 1891), (1176, 13041, 13041), (1176, 465, 465),
+            (1176, 961, 961), (392, 6521, 13041)]
+# the cc-pVTZ, flagship and lane shapes of ECW's main path: (bm, cm, split)
+MAIN_TC3 = {(98, 2211, 2211): (104, 1, 4), (98, 3240, 3240): (104, 1, 4),
+            (98, 4489, 4489): (104, 1, 2), (98, 6561, 6561): (104, 1, 2),
+            (294, 3240, 3240): (152, 2, 2), (294, 6561, 6561): (152, 2, 1)}
+F32TC_EDGES = [(1, 1, 1), (37, 513, 129), (100, 130, 1001), (98, 465, 31),
+               (98, 465, 33), (105, 129, 8191), (211, 300, 8193),
+               (832, 961, 961), (1216, 465, 465), (5, 3, 0)]
+
+
+@pytest.mark.parametrize("shape", TC3 + FFMA_F32)
+def test_plan_names_the_f32_kernel(shape):
+    p = lmm.plan(*shape, torch.float32, N_SM)
+    assert p.kernel == ("tc3" if shape in TC3 else "ffma")
+    assert (p.kernel == "tc3") == lmm.tc3_rule(*shape)
+    if p.kernel == "ffma":
+        assert (p.bm, p.bk, p.cluster_m) == (lmm.BM, lmm.BK, 1)
+
+
+@pytest.mark.parametrize("shape", TC3 + FFMA_F32)
+def test_plan_keeps_dmma_for_f64_and_tc_for_bf16(shape):
+    assert lmm.plan(*shape, torch.float64, N_SM).kernel == "dmma"
+    assert lmm.plan(*shape, torch.bfloat16, N_SM).kernel == "tc"
+    tf32 = lmm.plan(*shape, "tf32", N_SM).kernel
+    assert tf32 == ("tc1" if shape in TC3 and shape[0] <= 104 else "tc")
+
+
+@pytest.mark.parametrize("kernel", ["tc3", "tc1"])
+@pytest.mark.parametrize("shape", TC3 + FFMA_F32[:12] + F32TC_EDGES)
+def test_f32tc_plan_tiles_k_and_groups_a(shape, kernel):
+    """csrc/ladder_mm_f32tc.cu's plan at any shape it takes: K ranges that
+    tile K in whole 32-deep chunks, no split empty; A in cm groups of bm
+    rows (104, or 152 for three passes) that cover M; the cluster of cm
+    row groups times split at most 8 blocks (16 with one group)."""
+    M, N, K = shape
+    if kernel == "tc1" and M > 8 * 104:
+        return
+    p = lmm.plan(M, N, K, "f32" if kernel == "tc3" else "tf32", N_SM, kernel)
+    assert p.kernel == kernel and (p.bn, p.bk) == (128, 32)
+    assert p.bm in lmm.F32TC_WIDTHS[kernel]
+    assert p.m_tiles == p.cluster_m == -(-M // p.bm) <= lmm.F32TC_MAX_GROUPS
+    assert p.n_tiles == -(-N // 128)
+    assert p.cluster_m * p.split <= (16 if p.cluster_m == 1 else 8)
+    assert p.cluster_m * p.split <= lmm.F32TC_MAX_CLUSTER
+    assert len(p.k_ranges) == p.split
+    assert p.k_ranges[0][0] == 0 and p.k_ranges[-1][1] == K
+    for (_, k1), (k0, _) in zip(p.k_ranges, p.k_ranges[1:]):
+        assert k1 == k0 and k0 % 32 == 0
+    assert all(k1 > k0 for k0, k1 in p.k_ranges) or K == 0
+    assert p.blocks == p.m_tiles * p.n_tiles * p.split
+    assert p.partials == (p.blocks * p.bm * p.bn if p.split > 1 else 0)
+
+
+@pytest.mark.parametrize("shape", list(MAIN_TC3))
+def test_f32tc_plan_is_one_wave_at_the_main_shapes(shape):
+    """At the cc-pVTZ, flagship and lane shapes the split is the largest
+    power of two that keeps the launch in one wave of at most 132 blocks
+    (on an H100 a second wave with half the K a block ran slower: 98 x
+    6561^2 128 us at 104 blocks against 142 us at 208), and at least 72
+    blocks run."""
+    M, N, K = shape
+    p = lmm.plan(M, N, K, torch.float32, N_SM)
+    assert (p.kernel, p.bm, p.cluster_m, p.split) == ("tc3",) + MAIN_TC3[shape]
+    assert 72 <= p.blocks <= N_SM
+    assert (p.blocks * 2 > N_SM
+            or p.cluster_m * p.split * 2 > (16 if p.cluster_m == 1 else 8))
+
+
+def test_f32tc_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        lmm.plan(8 * 152 + 1, 465, 465, torch.float32, N_SM, "tc3")
+    with pytest.raises(ValueError):
+        lmm.plan(8 * 104 + 1, 465, 465, "tf32", N_SM, "tc1")
+    with pytest.raises(ValueError):
+        lmm.plan(98, 465, 465, torch.float32, N_SM, "tc1")   # tc1 is TF32
+    with pytest.raises(ValueError):
+        lmm.plan(98, 465, 465, torch.float64, N_SM, "tc3")
+
+
+def test_launch_counts_carry_the_kernels():
+    """launch_counts names each kernel beside each variant, and
+    add_launch_counts (a replayed graph's launches) adds to both."""
+    before = lmm.launch_counts()
+    assert {"ffma", "dmma", "tc_tf32", "tc_bf16", "tc3", "tc1",
+            "b_copies"} <= set(before)
+    delta = dict.fromkeys(before, 0)
+    delta.update(launches=2, f32=2, tc3=1, ffma=1)
+    try:
+        lmm.add_launch_counts(delta, times=3)
+        after = lmm.launch_counts(since=before)
+        assert (after["tc3"], after["ffma"], after["f32"],
+                after["launches"]) == (3, 3, 6, 6)
+    finally:
+        lmm.add_launch_counts(delta, times=-3)
+    assert lmm.launch_counts() == before

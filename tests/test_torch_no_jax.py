@@ -10,9 +10,10 @@
     one sharded ECW-CCSD step on a 2-rank gloo group (each rank a fresh
     interpreter with the same imports made to fail); and an example twin
     from its command line the same way;
-  - no file of the port, and not chip_smoke.py, has an import statement
-    naming jax or ecw_cc_tpu (read with `ast`, so lazy imports inside
-    functions count too).
+  - no file of the port, and not chip_smoke.py or the kernel timing tool
+    tools/f32tc_splits.py, has an import statement naming jax or
+    ecw_cc_tpu (read with `ast`, so lazy imports inside functions count
+    too).
 """
 
 import ast
@@ -219,7 +220,8 @@ PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "ecw_cc_torch", "**", "*.py"),
               recursive=True)
-    + [os.path.join(REPO, "chip_smoke.py")])
+    + [os.path.join(REPO, "chip_smoke.py"),
+       os.path.join(REPO, "tools", "f32tc_splits.py")])
 
 
 def _imported_roots(path):
