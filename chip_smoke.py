@@ -8,9 +8,11 @@ Run from the repository root on a machine with a CUDA card:
                                            # (f32, f64, and the TF32 and BF16
                                            # variants after their check; the
                                            # f32 variant's three-pass and
-                                           # FFMA kernels side by side, and
-                                           # the TF32 one-pass kernel beside
-                                           # ladder_mm_tc.cu's)
+                                           # FFMA kernels side by side, the
+                                           # TF32 one-pass kernel beside
+                                           # ladder_mm_tc.cu's, and the f64
+                                           # variant's f64tc and DMMA
+                                           # kernels after f64tc's check)
     python3 chip_smoke.py --profile        # phase 1 and a profiler trace of
                                            # the f32 chain, cc-pVDZ and cc-pVTZ,
                                            # sectored and packed routes
@@ -60,6 +62,12 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --graphs         # phases 1, 2 and 17 only: the
                                            # solver loops captured as CUDA
                                            # graphs
+    python3 chip_smoke.py --f64-chain      # phase 1 and the ms per
+                                           # iteration of ECW's f64 route
+                                           # at cc-pVDZ and cc-pVTZ and of
+                                           # the cc-pVTZ f64 polish (copied
+                                           # into an older checkout, it
+                                           # times that one)
 
 Phases, one output line each (and one "phase_seconds" line at the end of
 each); any failure raises and exits nonzero:
@@ -69,7 +77,8 @@ each); any failure raises and exits nonzero:
      per kernel, and the SASS check per kernel function: the f64 ladder_mm
      runs DMMA, the f32 FFMA one no HMMA or HGMMA, the TF32 and BF16
      variants and ladder_mm_f32tc.cu's three-pass and one-pass instances
-     HGMMA (wgmma) and UTMALDG (TMA loads);
+     HGMMA (wgmma) and UTMALDG (TMA loads), ladder_mm_f64tc.cu's kernel
+     DMMA and UTMALDG;
   3. kernel vs plain: ladder_mm (the kernel each shape's plan names: in
      f32 the three-pass TF32 kernel from K = 2048 to 8192, the FFMA one
      elsewhere) against ladder_mm_ref (a @ b.T) in f32 and
@@ -110,7 +119,18 @@ each); any failure raises and exits nonzero:
      the sector shapes, both bitwise repeatable with a graph replay
      equal; and the f32 variant's two kernels timed side by side with
      cuBLAS SGEMM and the plain version (time_f32tc), the one-pass kernel
-     beside ladder_mm_tc.cu's TF32 and cuBLAS TF32 (time_tc1);
+     beside ladder_mm_tc.cu's TF32 and cuBLAS TF32 (time_tc1); then
+     csrc/ladder_mm_f64tc.cu ('f64tc', the f64 variant from K = 1024,
+     f64tc_rule) on its own (check_f64tc): at every f64 path shape
+     (F64_PATH_SHAPES: the packed GEMM of ECW's f64 route at cc-pVDZ and
+     cc-pVTZ, the cc-pVTZ polish's and cc-pVDZ's dense ladder, the EOM
+     sigmas, 6-31G's dense product), every f64 shape of TIMED_SHAPES and
+     its edges (F64TC_EDGES: the packed K odd in padded rows, M = 1 and
+     14, K below one chunk, K = 0, ragged shapes, 8 row tiles) against
+     a @ b.T to 1e-12 max|C|, its operands in the solver's 16-byte rows,
+     two launches bitwise equal and a graph replay equal; and it timed
+     beside the DMMA kernel, cuBLAS DGEMM and the plain version at the f64
+     path shapes (time_f64tc);
   4. main path, f32: ECW('c2h2', 'cc-pvdz') (ERIs transformed on the card;
      at nvir 62 the ladder is packed, so ECW builds the spin-sorted layout
      with a SectoredVVVV and its mo_perm, config.spin_sorted) -> HF target
@@ -410,6 +430,8 @@ each); any failure raises and exits nonzero:
          most twice; each sweep's ms;
   8. (run last) neither JAX nor the JAX package ecw_cc_tpu was imported,
      and the excited-state, EOM and example-twin modules were.
+The kernel report fails if a main-path launch copied its B into 16-byte
+rows (b_copies by phase); f64tc's A copies by phase are printed.
 Phases 4, 7, 10a, 14c, 16b and 17a print the f32 sector launches by
 kernel (sector_kernels): each must be the kernel its plan names, and no
 launch may copy its B.  Every phase_seconds line carries the phase's
@@ -504,8 +526,25 @@ TIMED_SHAPES = {torch.float32: MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES
                 + EOM_SHAPES + BATCH_SHAPES + FLAGSHIP_SHAPES
                 + TARGET_SHAPES[1:],
                 torch.float64: MAIN_SHAPES + TZ_SHAPES + [DENSE_DZ,
+                                                          PACKED_DZ,
                                                           PACKED_TZ]
                 + F64_SHAPES + EOM_SHAPES + TARGET_SHAPES[2:]}
+# csrc/ladder_mm_f64tc.cu ('f64tc', the 'f64' variant where f64tc_rule
+# routes it): the products of ECW's f64 route (the packed GEMM at cc-pVDZ,
+# phase 5, and cc-pVTZ, phase 7's f64 twin), the dense ladder of the f64
+# polish at cc-pVTZ (phase 12) and cc-pVDZ (9c), the f64 EOM sigmas (13a)
+# and the f64 dense products at 6-31G (10b, 13b), each checked and timed
+# beside the 'dmma' kernel, cuBLAS DGEMM and the plain version; then its
+# edges: K odd (the packed K, padded rows), one row, 14 rows, K below one
+# 16-deep chunk, K = 0, ragged M, N and K, eight row tiles (832)
+F64_PATH_SHAPES = [PACKED_TZ, POLISH_TZ, DENSE_DZ, PACKED_DZ,
+                   (196, 1891, 1891), (14, 1891, 1891), (196, 900, 900)]
+F64TC_EDGES = [(1, 1891, 1891), (14, 13041, 13041), (98, 465, 15),
+               (98, 465, 17), (98, 465, 0), (1, 1, 1), (37, 513, 129),
+               (100, 130, 1001), (105, 129, 1891), (196, 1000, 999),
+               (209, 257, 33), (832, 300, 257), (392, 1891, 1889)]
+F64TC_SHAPES = list(dict.fromkeys(F64_PATH_SHAPES + TIMED_SHAPES[torch.float64]
+                                  + F64TC_EDGES))
 RAGGED_SHAPES = [(1, 1, 1), (37, 513, 129), (100, 130, 1001)]
 # The split-K plan's edges: K across 16 chunks (split 8 -> 16 at N = 465)
 # and 17, K across a chunk boundary at N = 961, K below one chunk, one row,
@@ -594,8 +633,9 @@ def kernel_tally():
     from ecw_cc_torch.kernels import ladder_mm as lmm
 
     out = dict(getattr(lmm.ladder_mm, "launches_by_kernel", {}))
-    if hasattr(lmm.ladder_mm, "b_copies"):
-        out["b_copies"] = lmm.ladder_mm.b_copies
+    for name in ("b_copies", "a_copies"):
+        if hasattr(lmm.ladder_mm, name):
+            out[name] = getattr(lmm.ladder_mm, name)
     return out
 
 
@@ -717,8 +757,13 @@ def sass_counts(path):
 # instances
 SASS_NAMES = {"f32": "ladder_mm_ntIf", "f64": "ladder_mm_ntId",
               "tf32": "ladder_mm_tcIf", "bf16": "ladder_mm_tcI13__nv_bfloat16",
-              "tc3": "ladder_mm_f32tcILi3E", "tc1": "ladder_mm_f32tcILi1E"}
+              "tc3": "ladder_mm_f32tcILi3E", "tc1": "ladder_mm_f32tcILi1E",
+              "f64tc": "ladder_mm_f64tc"}
 TMA_KERNELS = TC_VARIANTS + ("tc3", "tc1")
+# each kernel's source, for the kernels a checkout may lack (copied into
+# an older checkout, the script checks what it built)
+SASS_SOURCES = {"tc3": "ladder_mm_f32tc.cu", "tc1": "ladder_mm_f32tc.cu",
+                "f64tc": "ladder_mm_f64tc.cu"}
 
 
 def check_sass(path):
@@ -726,16 +771,15 @@ def check_sass(path):
     FFMA one touches the tensor cores (no TF32, no HMMA or HGMMA); the
     TF32 and BF16 variants and ladder_mm_f32tc.cu's three-pass and
     one-pass instances run wgmma (HGMMA) on operands loaded by TMA
-    (UTMALDG)."""
+    (UTMALDG); ladder_mm_f64tc.cu's kernel runs DMMA on operands loaded
+    by TMA."""
     from ecw_cc_torch.kernels import build
 
     counts = sass_counts(path)
-    # ladder_mm_f32tc.cu's instances where the checkout has that source
-    # (copied into an older checkout, the script checks what it built)
     built = {os.path.basename(src) for src in build.sources()}
     by = {v: {n: dict(c) for n, c in counts.items() if key in n}
           for v, key in SASS_NAMES.items()
-          if v not in ("tc3", "tc1") or "ladder_mm_f32tc.cu" in built}
+          if SASS_SOURCES.get(v, "ladder_mm.cu") in built}
     if not all(by.values()):
         raise AssertionError(f"ladder_mm kernels not found in SASS: "
                              f"{sorted(counts)}")
@@ -750,6 +794,10 @@ def check_sass(path):
                    for c in by[v].values()):
             raise AssertionError(f"a {v} ladder_mm runs no HGMMA or no "
                                  f"UTMALDG: {by[v]}")
+    if "f64tc" in by and not all(c.get("DMMA", 0) and c.get("UTMALDG", 0)
+                                 for c in by["f64tc"].values()):
+        raise AssertionError(f"the f64tc ladder_mm runs no DMMA or no "
+                             f"UTMALDG: {by['f64tc']}")
     return {v: list(c.values()) for v, c in by.items()}
 
 
@@ -791,9 +839,11 @@ def check_kernel(ladder_mm, ladder_mm_ref, device_plan, n_sm, only=None):
                                      f"{scale}")
             # a full wave at the solver's shapes; the three-pass kernel's
             # plan keeps to one wave instead (kernels/ladder_mm.py
-            # _f32tc_split)
+            # _f32tc_split), the f64tc kernel's to its measured splits
+            # (_f64tc_split)
             if (shape in MAIN_SHAPES + ROUTE_SHAPES + BATCH_SHAPES
-                    and getattr(p, "kernel", "ffma") not in ("tc3", "tc1")
+                    and getattr(p, "kernel", "ffma") not in ("tc3", "tc1",
+                                                             "f64tc")
                     and p.blocks < n_sm):
                 raise AssertionError(f"plan at {shape} {dtype} launches "
                                      f"{p.blocks} blocks on {n_sm} SMs")
@@ -873,6 +923,26 @@ def check_kernel_tangent(ladder_mm, ladder_mm_ref):
     return out
 
 
+def graph_replays_equal(launch, c1):
+    """[bool, bool]: a launch captured in a CUDA graph on a side stream,
+    replayed twice into NaN-filled output, equals c1."""
+    st = torch.cuda.Stream()
+    st.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(st):
+        launch()   # warm-up on the capture stream
+    st.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=st):
+        cg = launch()
+    replays = []
+    for _ in range(2):
+        cg.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        replays.append(bool(torch.equal(cg, c1)))
+    return replays
+
+
 def check_deterministic(ladder_mm):
     """Two launches on the same inputs give the same bits; so does a launch
     captured in a CUDA graph on a side stream, replayed twice."""
@@ -880,20 +950,7 @@ def check_deterministic(ladder_mm):
         for shape in MAIN_SHAPES + TZ_SHAPES + ROUTE_SHAPES:
             a, b = operands(shape, dtype, seed=11)
             c1, c2 = ladder_mm(a, b), ladder_mm(a, b)
-            s = torch.cuda.Stream()
-            s.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(s):
-                ladder_mm(a, b)   # warm-up on the capture stream
-            s.synchronize()
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, stream=s):
-                cg = ladder_mm(a, b)
-            replays = []
-            for _ in range(2):
-                cg.fill_(float("nan"))
-                g.replay()
-                torch.cuda.synchronize()
-                replays.append(bool(torch.equal(cg, c1)))
+            replays = graph_replays_equal(lambda: ladder_mm(a, b), c1)
             bitwise = bool(torch.equal(c1, c2))
             phase(3, "kernel_deterministic", dtype=str(dtype), shape=shape,
                   bitwise=bitwise, graph_replays_equal=replays)
@@ -929,24 +986,25 @@ def host_us(fn, n):
 
 def time_kernel(ladder_mm, ladder_mm_ref, only=None):
     """{(dtype, shape): times} for the kernel that the plan names and
-    a @ b.T at TIMED_SHAPES (only: these f32 shapes alone), an f32 B in
-    the solver's 16-byte rows (f32_rows, in a checkout that has it).  The
-    plain version is one library call (cuBLAS), so its time is also the
-    report's library_ms."""
+    a @ b.T at TIMED_SHAPES (only: these f32 shapes alone), an f32 B and
+    both f64 operands in the solver's 16-byte rows (f32_rows, f64_rows, in
+    a checkout that has them).  The plain version is one library call
+    (cuBLAS), so its time is also the report's library_ms."""
     from ecw_cc_torch.kernels import ladder_mm as lmm
 
-    rows = getattr(lmm, "f32_rows", lambda x: x)
+    same = lambda x: x  # noqa: E731
+    rows = {torch.float32: (same, getattr(lmm, "f32_rows", same)),
+            torch.float64: (getattr(lmm, "f64_rows", same),) * 2}
     times = {}
     for dtype in DTYPES[:1] if only else DTYPES:
+        row_a, row_b = rows[dtype]
         for shape in only or TIMED_SHAPES[dtype]:
             a, b = operands(shape, dtype, seed=0)
-            if dtype == torch.float32:
-                b = rows(b)
+            a, b = row_a(a), row_b(b)
             b_bytes = b.numel() * b.element_size()
             n_copies = (-(-2 * L2_BYTES // b_bytes)
                         if b_bytes >= COLD_B_BYTES else 1)
-            ops = [(a, b)] + [(a.clone(), b.clone() if dtype != torch.float32
-                               else rows(b.clone()))
+            ops = [(a, b)] + [(row_a(a.clone()), row_b(b.clone()))
                               for _ in range(n_copies - 1)]
             turn = [0]
 
@@ -1153,16 +1211,18 @@ def time_variants(lmm, only=None):
     return times
 
 
-def cycled_operands(shape, dtype, rows, seed=0):
+def cycled_operands(shape, dtype, rows, seed=0, rows_a=False):
     """(args, copies): a function that hands out (a, b) at `shape` in
     turn from copies of the operands that together exceed twice the L2
     where B is large (as time_kernel times), B made by `rows` (the
-    solver's per-solve layout)."""
+    solver's per-solve layout), and A too with rows_a."""
     a, b = operands(shape, dtype, seed)
-    b = rows(b)
+    row_a = rows if rows_a else (lambda x: x)
+    a, b = row_a(a), rows(b)
     b_bytes = b.shape[0] * b.stride(0) * b.element_size()
     n = -(-2 * L2_BYTES // b_bytes) if b_bytes >= COLD_B_BYTES else 1
-    ops = [(a, b)] + [(a.clone(), rows(b.clone())) for _ in range(n - 1)]
+    ops = [(a, b)] + [(row_a(a.clone()), rows(b.clone()))
+                      for _ in range(n - 1)]
     turn = [0]
 
     def args():
@@ -1255,20 +1315,7 @@ def check_f32tc(lmm, n_sm):
         def launch():
             return lmm.launch_kernel(a, b, kernel, precision=prec)
         c1, c2 = launch(), launch()
-        st = torch.cuda.Stream()
-        st.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(st):
-            launch()
-        st.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, stream=st):
-            cg = launch()
-        replays = []
-        for _ in range(2):
-            cg.fill_(float("nan"))
-            g.replay()
-            torch.cuda.synchronize()
-            replays.append(bool(torch.equal(cg, c1)))
+        replays = graph_replays_equal(launch, c1)
         bitwise = bool(torch.equal(c1, c2))
         phase(3, "f32tc_deterministic", kernel=kernel, shape=shape,
               bitwise=bitwise, graph_replays_equal=replays)
@@ -1334,6 +1381,77 @@ def time_tc1(lmm, shapes=TC1_TIMED):
                      "cuda", torch.cuda.current_device())).kernel)
         out[shape] = t
         phase(3, "tc1_time", shape=shape, runs=TIMING_RUNS,
+              launches_per_run=TIMING_LAUNCHES, **t)
+    return out
+
+
+def check_f64tc(lmm, n_sm):
+    """Phase 3 for csrc/ladder_mm_f64tc.cu: the kernel ('f64tc', launched
+    at its own plan whichever kernel the rule names) at every shape of
+    F64TC_SHAPES, its operands in the solver's 16-byte rows (f64_rows),
+    against a @ b.T to TOL * max|C|, two launches bitwise equal and a
+    CUDA-graph replay equal to the launch; the 'dmma' kernel's error at
+    the same shape beside it.  Returns {shape: (max abs error, plan)}."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    f64, out = torch.float64, {}
+    for i, shape in enumerate(F64TC_SHAPES):
+        a, b = (lmm.f64_rows(x) for x in operands(shape, f64, seed=600 + i))
+
+        def launch():
+            return lmm.launch_kernel(a, b, "f64tc")
+        c1, c2 = launch(), launch()
+        cd = lmm.launch_kernel(a, b, "dmma")
+        torch.cuda.synchronize()
+        ref = a @ b.T
+        scale = float(ref.abs().max()) if ref.numel() else 0.0
+        err = float((c1 - ref).abs().max()) if ref.numel() else 0.0
+        replays = graph_replays_equal(launch, c1)
+        bitwise = bool(torch.equal(c1, c2))
+        p = lmm.device_plan(*shape, f64, dev, "f64tc")
+        ok = (bool(torch.isfinite(c1).all()) and err <= TOL[f64] * scale
+              and bitwise and all(replays))
+        phase(3, "f64tc_vs_plain", shape=shape, max_abs_err=err,
+              max_abs_ref=scale, ok=ok, bitwise=bitwise,
+              graph_replays_equal=replays,
+              dmma_max_abs_err=(float((cd - ref).abs().max())
+                                if ref.numel() else 0.0),
+              routed=lmm.device_plan(*shape, f64, dev).kernel,
+              waves=p.blocks / n_sm, **plan_fields(p))
+        if not ok:
+            raise AssertionError(f"the f64tc kernel disagrees at {shape}: "
+                                 f"{err} > {TOL[f64]} * {scale}, bitwise "
+                                 f"{bitwise}, graph replays {replays}")
+        out[shape] = (err, p)
+    return out
+
+
+def time_f64tc(lmm, shapes=F64_PATH_SHAPES):
+    """{shape: times} of the 'f64' variant's two kernels side by side, in
+    turns: csrc/ladder_mm_f64tc.cu ('f64tc') and ladder_mm.cu's 'dmma'
+    (each at its own plan, whichever the rule names), cuBLAS DGEMM
+    (library_ms, a @ b.T) and the plain version (ladder_mm_plain), the
+    operands in the solver's 16-byte rows (f64_rows); bound_ms the FP64
+    tensor cores' 67 TFLOP/s or the bytes."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for shape in shapes:
+        args, n = cycled_operands(shape, torch.float64, lmm.f64_rows,
+                                  rows_a=True)
+        t = in_turns({
+            "ms": lambda: lmm.launch_kernel(*args(), "f64tc"),
+            "dmma_ms": lambda: lmm.launch_kernel(*args(), "dmma"),
+            "library_ms": lambda: (lambda x, y: x @ y.T)(*args()),
+            "plain_ms": lambda: lmm.ladder_mm_plain(*args())})
+        p = lmm.device_plan(*shape, torch.float64, dev, "f64tc")
+        pd = lmm.device_plan(*shape, torch.float64, dev, "dmma")
+        bound_ms, bound_by = bound(shape, torch.float64)
+        t.update(bound_ms=bound_ms, bound_by=bound_by, operand_copies=n,
+                 routed=lmm.device_plan(*shape, torch.float64, dev).kernel,
+                 f64tc_blocks=p.blocks, f64tc_split=p.split,
+                 dmma_blocks=pd.blocks,
+                 dmma_split=pd.split)
+        out[shape] = t
+        phase(3, "f64tc_time", shape=shape, runs=TIMING_RUNS,
               launches_per_run=TIMING_LAUNCHES, **t)
     return out
 
@@ -1419,6 +1537,61 @@ def chain_ops(run, iters=CHAIN_OPS_ITERS):
     calls = {k: (c2[k] - c1[k]) / dn for k in c1.keys() | c2.keys()
              if c2[k] != c1[k]}
     return (k2 - k1) / dn, (u2 - u1) / dn, calls, (l2 - l1) / dn
+
+
+F64_CHAIN_ITERS = (20, 10)   # --f64-chain: cc-pVDZ and cc-pVTZ chains
+F64_CHAIN_REPS = 3
+F64_POLISH_REPS = 2
+
+
+def f64_chain_times():
+    """--f64-chain: ms per iteration of ECW's f64 route (lambda = 0.25, no
+    DIIS, conv_thres 0), one untimed run then F64_CHAIN_REPS timed:
+    C2H2/cc-pVDZ through ECW(dtype=float64) (host ERIs, a PackedVVVV,
+    phase 5's route: one 392 x 1891^2 launch an iteration), and cc-pVTZ
+    on f64 alternating packed ERIs built on the card (phase 7's f64 twin:
+    one 392 x 13041^2 launch); then the f64 polish of phase 12 at cc-pVTZ,
+    CCSD_GS([0.25], refine=True) on the f32 ECW, F64_POLISH_REPS times:
+    its refine_ms over refine_iterations (two 196 x 26244^2 launches an
+    iteration).  Each with its ladder launches by kernel.  It calls only
+    ECW, CCSD_GS and build_eris_device, so a copy of this script times an
+    older checkout the same way."""
+    from ecw_cc_torch.models.eris import build_eris_device
+
+    def chain(name, ecw, iters):
+        runs = []
+        for _ in range(F64_CHAIN_REPS + 1):
+            k0 = kernel_tally()
+            _, log = solve(ecw, [0.25], diis="", conv_thres=0.0,
+                           maxiter=iters)
+            s0 = log[0]
+            runs.append((s0["ms"] / s0["iterations"], s0, tally_since(k0)))
+        phase(0, "f64_chain", path=name, route=runs[1][1]["route"],
+              iterations=runs[1][1]["iterations"],
+              ms_per_iteration=statistics.median(r[0] for r in runs[1:]),
+              ms_per_iteration_runs=[r[0] for r in runs[1:]],
+              untimed_run=runs[0][0], launches_by_kernel=runs[1][2])
+
+    chain("c2h2_ccpvdz_f64_packed", build_ecw("cuda", torch.float64),
+          F64_CHAIN_ITERS[0])
+    ecw = build_ecw("cuda", torch.float32, basis=BASIS_TZ)
+    er64, packed64 = build_eris_device(ecw.mol, ecw.mf, dtype=torch.float64,
+                                       device="cuda", pack_ladder=True)
+    chain("c2h2_ccpvtz_f64_packed", with_eris(ecw, er64, packed64, None),
+          F64_CHAIN_ITERS[1])
+    del er64, packed64
+    ecw.eris_f64     # the polish's f64 ERIs, built once here
+    for _ in range(F64_POLISH_REPS):
+        k0 = kernel_tally()
+        ecw.CCSD_GS([0.25], diis="tl", conv="tl", conv_thres=CONV_THRES,
+                    refine=True)
+        s0 = ecw.solve_log[0]
+        phase(0, "f64_polish", path="c2h2_ccpvtz_refine",
+              iterations=s0["iterations"], refine_ms=s0["refine_ms"],
+              refine_iterations=s0["refine_iterations"],
+              ms_per_polish_iteration=(s0["refine_ms"]
+                                       / s0["refine_iterations"]),
+              launches_by_kernel=tally_since(k0))
 
 
 def chain_times():
@@ -5441,7 +5614,8 @@ def run_phase17():
 
 
 def kernel_report(launches, checks, times, backward, grads, variants,
-                  eom_launches, tangents, batch_variants, shards, f32tc):
+                  eom_launches, tangents, batch_variants, shards, f32tc,
+                  f64tc):
     """The kernel line: one entry per kernel.  Each entry's launches are
     its launches in the main path's phases (every phase after 3, whose
     launches only compare a kernel with its plain version, and less the
@@ -5464,9 +5638,18 @@ def kernel_report(launches, checks, times, backward, grads, variants,
     {variant: launches} of phase 12 (batch_variants: phase 14's).
     f32tc: (checks, times, tc1 errors, tc1 times) of csrc/
     ladder_mm_f32tc.cu's three-pass ('tc3') and one-pass ('tc1')
-    instances (phase 3), headlined at MAIN_TZ."""
+    instances (phase 3), headlined at MAIN_TZ.  f64tc: (checks, times) of
+    csrc/ladder_mm_f64tc.cu (check_f64tc, time_f64tc), headlined at
+    PACKED_TZ, ECW's f64 route at cc-pVTZ; the 'dmma' entry's headline is
+    then the largest f64 path shape the rule keeps on it.  No main-path
+    launch may have copied its B (b_copies)."""
     main = {n: {k: v - COMPARE_KERNELS[n][k] for k, v in c.items()}
             for n, c in PHASE_KERNELS.items() if n not in (1, 2, 3)}
+    b_copies = {str(n): c["b_copies"] for n, c in sorted(main.items())
+                if c.get("b_copies")}
+    if b_copies:
+        raise AssertionError(f"main-path launches copied their B: "
+                             f"{b_copies} (by phase)")
 
     def launched(kernel):
         return (sum(c.get(kernel, 0) for c in main.values()),
@@ -5490,7 +5673,12 @@ def kernel_report(launches, checks, times, backward, grads, variants,
             for shape in TIMED_SHAPES[dtype]}
     v_checks, v_times, v_launches = variants
     t3_checks, t3_times, t1_errs, t1_times = f32tc
+    t64_checks, t64_times = f64tc
     ffma_main = MAIN_SHAPES[1]
+    on_dmma = [sh for sh in F64_PATH_SHAPES
+               if t64_times[sh]["routed"] == "dmma"]
+    dmma_main = max(on_dmma or F64_PATH_SHAPES[-1:],
+                    key=lambda sh: sh[0] * sh[1] * sh[2])
     entries = []
     for dtype, v, kernel in ((torch.float32, "f32", "ffma"),
                              (torch.float64, "f64", "dmma")):
@@ -5510,13 +5698,11 @@ def kernel_report(launches, checks, times, backward, grads, variants,
                     "library_ms": t["library_ms"], "shape": tag(ffma_main),
                     "blocks": t["ffma_blocks"], "split_k": t["ffma_split"]}
         else:
-            main_t = times[(dtype, MAIN_TZ)]
-            head = {"ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
-                    "bound_ms": main_t["bound_ms"],
-                    "bound_by": main_t["bound_by"],
-                    "library_ms": main_t["plain_ms"], "shape": tag(MAIN_TZ),
-                    "blocks": checks[(dtype, MAIN_TZ)][1].blocks,
-                    "split_k": checks[(dtype, MAIN_TZ)][1].split}
+            t = t64_times[dmma_main]
+            head = {"ms": t["dmma_ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "library_ms": t["library_ms"], "shape": tag(dmma_main),
+                    "blocks": t["dmma_blocks"], "split_k": t["dmma_split"]}
         entries.append({
             "name": f"ladder_mm_{v}", "kernel": kernel, "route": "cuda",
             "source": "ecw_cc_torch/csrc/ladder_mm.cu",
@@ -5560,6 +5746,29 @@ def kernel_report(launches, checks, times, backward, grads, variants,
             "bound_by", "ffma_bound_ms", "tc3_blocks", "tc3_split",
             "tc3_cluster_m", "tc3_bm", "ffma_blocks", "ffma_split")}
             for sh in t3_times}})
+    t = t64_times[PACKED_TZ]
+    n, per_phase = launched("f64tc")
+    routed = [sh for sh in t64_checks if lmm_kernel(sh, "f64") == "f64tc"]
+    entries.append({
+        "name": "ladder_mm_f64_tc", "kernel": "f64tc", "route": "cuda",
+        "source": "ecw_cc_torch/csrc/ladder_mm_f64tc.cu",
+        "replaces": "ecw_cc_tpu/ops/ladder.py:54",
+        "launches": n, "launches_by_phase": per_phase,
+        "a_copies_by_phase": {str(k): c["a_copies"]
+                              for k, c in sorted(main.items())
+                              if c.get("a_copies")},
+        "max_abs_err": max(t64_checks[sh][0] for sh in routed),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": tag(PACKED_TZ), "dtype": "float64",
+        "blocks": t["f64tc_blocks"], "split_k": t["f64tc_split"],
+        "deterministic": True,
+        "routed_shapes": [tag(sh) for sh in routed],
+        "by_shape": {tag(sh): {k: t64_times[sh][k] for k in (
+            "routed", "ms", "dmma_ms", "library_ms", "plain_ms", "bound_ms",
+            "bound_by", "f64tc_blocks", "f64tc_split",
+            "dmma_blocks", "dmma_split")}
+            for sh in t64_times}})
     tc1_head = TZ_SHAPES[0]
     t = t1_times[tc1_head]
     n, per_phase = launched("tc1")
@@ -5652,6 +5861,11 @@ def main(argv):
                      for s, t in time_f32tc(lmm).items()}
             f32tc.update({f"tf32 tc1/tc {tag(s)}": t
                           for s, t in time_tc1(lmm).items()})
+        if hasattr(lmm, "f64tc_rule"):
+            # the f64 variant's two kernels side by side
+            check_f64tc(lmm, n_sm)
+            f32tc.update({f"f64 f64tc/dmma {tag(s)}": t
+                          for s, t in time_f64tc(lmm).items()})
         print(json.dumps({"kernel_times": {
             f"{str(d).split('.')[-1]} {tag(s)}": t
             for (d, s), t in list(times.items()) + list(v_times.items())}
@@ -5661,6 +5875,10 @@ def main(argv):
     if "--routes" in argv:
         route_sweeps(ladder_mm)
         layout_sweeps(ladder_mm)
+        print(smi)
+        return 0
+    if "--f64-chain" in argv:
+        f64_chain_times()
         print(smi)
         return 0
     if "--chain" in argv:
@@ -5830,6 +6048,7 @@ def main(argv):
         v_times = time_variants(lmm)
         t3_checks, t1_errs = check_f32tc(lmm, n_sm)
         f32tc = (t3_checks, time_f32tc(lmm), t1_errs, time_tc1(lmm))
+        f64tc = (check_f64tc(lmm, n_sm), time_f64tc(lmm))
 
     # 4. main path, f32 (ERIs transformed on the card): ECW's sorted
     # sectored sweep, then the same sweep with spin_sorted=False (the
@@ -6006,7 +6225,7 @@ def main(argv):
          **launches_10, **launches_14, **launches_16, **launches_17},
         checks, times, back_10, grads,
         (v_checks, v_times, by_variant_12), launches_13, tangents,
-        by_variant_14, (launches_15, shards_15), f32tc)))
+        by_variant_14, (launches_15, shards_15), f32tc, f64tc)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

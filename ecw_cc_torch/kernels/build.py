@@ -42,6 +42,9 @@ _LADDER_MM_TC = [_INT, _PTR, _PTR, _PTR, _PTR] + [_INT] * 10 + [_PTR]
 _SIGNATURES = {
     "ecw_ladder_mm_f32": _LADDER_MM,
     "ecw_ladder_mm_f64": _LADDER_MM,
+    "ecw_ladder_mm_f64_tc": _LADDER_MM,
+    # device, split: clusters of split blocks the card holds at once
+    "ecw_ladder_mm_f64_tc_clusters": [_INT] * 2,
     "ecw_ladder_mm_tf32": _LADDER_MM_LD,
     "ecw_ladder_mm_bf16": _LADDER_MM_LD,
     "ecw_ladder_mm_f32_tc3": _LADDER_MM_TC,

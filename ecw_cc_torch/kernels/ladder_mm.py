@@ -8,7 +8,10 @@ run them (`Plan.kernel`, chosen by `plan` from the shape):
          ladder_mm_f32tc.cu, TMA and wgmma) at the shapes of `tc3_rule`,
          the sector GEMMs from cc-pVTZ up; 'ffma', the CUDA cores in full
          f32 (csrc/ladder_mm.cu) everywhere else;
-  'f64'  float64 on the FP64 tensor cores: 'dmma' (csrc/ladder_mm.cu);
+  'f64'  float64 on the FP64 tensor cores: 'f64tc' (csrc/
+         ladder_mm_f64tc.cu, TMA and a register-blocked DMMA tile) at the
+         shapes of `f64tc_rule`, the packed, dense and polish GEMMs; 'dmma'
+         (csrc/ladder_mm.cu) everywhere else;
   'tf32' float32 operands rounded to TF32 (cvt.rna), f32 accumulation and
          output, on the tensor cores: 'tc1', the one-pass instance of
          csrc/ladder_mm_f32tc.cu, at the shapes of `tc1_rule`, else 'tc'
@@ -28,9 +31,9 @@ backward, so a run can show that its main path went through the kernel;
 backward and the tangent ones among them,
 `ladder_mm.launches_by_variant` the launches of each variant,
 `ladder_mm.launches_by_kernel` those of each kernel function ('ffma',
-'dmma', 'tc_tf32', 'tc_bf16', 'tc3', 'tc1'), and
-`ladder_mm.b_copies` the launches that had to copy their B into 16-byte
-rows first.  A launch captured into a CUDA graph is counted at each
+'dmma', 'f64tc', 'tc_tf32', 'tc_bf16', 'tc3', 'tc1'), and
+`ladder_mm.b_copies` (`a_copies`) the launches that had to copy their B
+(their A) into 16-byte rows first.  A launch captured into a CUDA graph is counted at each
 replay instead (`launch_counts`, `add_launch_counts`; solvers/
 device_loop.py).
 
@@ -65,11 +68,12 @@ solver's skinny shapes (M = 98), and for the TMA kernels the cluster of
 row tiles that share each B tile.  The wrapper hands the plan to the
 kernel, which checks the tile against its own.
 
-The TMA kernels ('tc', 'tc3', 'tc1') load their operands by TMA, which
-needs row strides of whole 16 bytes: `f32_rows`, `tf32_rows` and
-`bf16_rows` make such copies (the solver's f32 operand is built in them,
-models/eris.py; a cast one gets them once per solve), and the wrapper
-copies an operand that lacks them.  A TF32 B made by `tf32_rows` is
+The TMA kernels ('tc', 'tc3', 'tc1', 'f64tc') load their operands by
+TMA, which needs row strides of whole 16 bytes: `f32_rows`, `f64_rows`,
+`tf32_rows` and `bf16_rows` make such copies (the solver's f32 and f64
+operands are built in them, models/eris.py and ops/ladder.py; a cast one
+gets them once per solve), and the wrapper copies an operand that lacks
+them.  A TF32 B made by `tf32_rows` is
 already rounded; any other B is rounded by the kernel as it arrives.
 """
 
@@ -89,12 +93,13 @@ from ecw_cc_torch.kernels import build
 # function that launches it)
 _FUNCS = {("ffma", "f32"): ("ffma", "ecw_ladder_mm_f32"),
           ("dmma", "f64"): ("dmma", "ecw_ladder_mm_f64"),
+          ("f64tc", "f64"): ("f64tc", "ecw_ladder_mm_f64_tc"),
           ("tc", "tf32"): ("tc_tf32", "ecw_ladder_mm_tf32"),
           ("tc", "bf16"): ("tc_bf16", "ecw_ladder_mm_bf16"),
           ("tc3", "f32"): ("tc3", "ecw_ladder_mm_f32_tc3"),
           ("tc1", "tf32"): ("tc1", "ecw_ladder_mm_tf32_tc1")}
 VARIANTS = ("f32", "f64", "tf32", "bf16")
-KERNELS = ("ffma", "dmma", "tc", "tc3", "tc1")   # Plan.kernel
+KERNELS = ("ffma", "dmma", "f64tc", "tc", "tc3", "tc1")   # Plan.kernel
 REDUCED = ("tf32", "bf16")
 _DTYPE_VARIANT = {torch.float32: "f32", torch.float64: "f64",
                   torch.bfloat16: "bf16"}
@@ -117,8 +122,10 @@ F32TC_WIDTHS = {"tc3": (104, 152), "tc1": (104,)}
 F32TC_BN, F32TC_BK = 128, 32
 F32TC_MAX_GROUPS = 8
 F32TC_MAX_CLUSTER = 16
+# csrc/ladder_mm_f64tc.cu: rows of A and of B per block, K per chunk
+F64TC_TILE = (104, 128, 16)
 # row strides the TMA loads take: multiples of 16 bytes
-TF32_ROW_ALIGN, BF16_ROW_ALIGN = 4, 8
+TF32_ROW_ALIGN, BF16_ROW_ALIGN, F64_ROW_ALIGN = 4, 8, 2
 
 
 def variant(dtype, precision=None):
@@ -200,6 +207,23 @@ def tc1_rule(M, N, K):
 TC3_MIN_K, TC3_MAX_K = 2048, 8192
 
 
+def f64tc_rule(M, N, K):
+    """The 'f64' shapes that take csrc/ladder_mm_f64tc.cu ('f64tc'; else
+    'dmma'): K of at least F64TC_MIN_K.  There it beat the 'dmma' kernel
+    in turn at every f64 shape a path runs (tools/f64tc_splits.py on an
+    H100 SXM at 700 W, us): 392 x 13041^2 3175 against 5283 (ECW's f64
+    route at cc-pVTZ), 196 x 26244^2 6627 against 11246 (the cc-pVTZ
+    polish), 196 x 3844^2 146 against 237, 392 x 1891^2 80 against 125
+    (cc-pVDZ), 196 x 13041^2 1601 against 2877, 196 x 1891^2 46 against
+    68, 14 x 1891^2 29 against 32 (the EOM sigmas); below it 'dmma' is
+    faster: 196 x 900^2 21 against 26 (6-31G), 98 x {465, 961}^2 8 and
+    16 against 13 and 18 (the sorted sectors)."""
+    return K >= F64TC_MIN_K
+
+
+F64TC_MIN_K = 1024
+
+
 def kernel_for(M, N, K, v):
     """The kernel `plan` names for variant v at C (M, N) = A (M, K) @
     B (N, K).T."""
@@ -207,7 +231,9 @@ def kernel_for(M, N, K, v):
         return "tc3" if tc3_rule(M, N, K) else "ffma"
     if v == "tf32":
         return "tc1" if tc1_rule(M, N, K) else "tc"
-    return "dmma" if v == "f64" else "tc"
+    if v == "f64":
+        return "f64tc" if f64tc_rule(M, N, K) else "dmma"
+    return "tc"
 
 
 @functools.lru_cache(maxsize=256)
@@ -215,7 +241,7 @@ def plan(M, N, K, dtype, n_sm, kernel=None):
     """The launch of C (M, N) = A (M, K) @ B (N, K).T on a card of `n_sm` SMs;
     `dtype` is a variant name or the operands' dtype (its full-precision
     variant); `kernel` one of KERNELS that runs the variant, or None for
-    `kernel_for`'s (tc3_rule, tc1_rule).
+    `kernel_for`'s (tc3_rule, tc1_rule, f64tc_rule).
 
     'ffma' and 'dmma': the output is cut into BM x bn tiles, bn the widest
     of WIDTHS[variant] whose tiles can still fill the card; K into BK
@@ -225,7 +251,8 @@ def plan(M, N, K, dtype, n_sm, kernel=None):
     MAX_SPLIT and the chunk count, that gives at least one full wave of
     n_sm blocks, or the largest there is.  Powers of two because clusters
     of 9 to 15 blocks ran slower on an H100 than clusters of 8 or 16 at
-    the same shapes.  'tc': `_plan_tc`; 'tc3' and 'tc1': `_plan_f32tc`."""
+    the same shapes.  'tc': `_plan_tc`; 'tc3' and 'tc1': `_plan_f32tc`;
+    'f64tc': `_plan_f64tc`."""
     v = _as_variant(dtype)
     if min(M, N) < 1 or K < 0 or n_sm < 1:
         raise ValueError(f"ladder_mm cannot plan M={M}, N={N}, K={K} on "
@@ -237,6 +264,8 @@ def plan(M, N, K, dtype, n_sm, kernel=None):
         return _plan_tc(M, N, K, v, n_sm)
     if kernel in ("tc3", "tc1"):
         return _plan_f32tc(M, N, K, kernel, n_sm)
+    if kernel == "f64tc":
+        return _plan_f64tc(M, N, K, n_sm)
     m_tiles, chunks = _cdiv(M, BM), _cdiv(K, BK)
     splits = [s for s in (1, 2, 4, 8, 16) if s <= max(1, min(chunks, MAX_SPLIT))]
     for bn in WIDTHS[v]:
@@ -312,6 +341,50 @@ def _f32tc_split(cm, tiles, chunks, n_sm):
 
 
 F32TC_MIN_CHUNKS = 3
+
+
+def _plan_f64tc(M, N, K, n_sm):
+    """csrc/ladder_mm_f64tc.cu's plan: 104 x 128 output tiles, K in chunks
+    of 16 split over the blocks of a cluster (`_f64tc_split`); the row
+    tiles of one B tile are neighbours in the grid and share no
+    cluster."""
+    bm, bn, bk = F64TC_TILE
+    m_tiles, n_tiles, chunks = _cdiv(M, bm), _cdiv(N, bn), _cdiv(K, bk)
+    split = _f64tc_split(m_tiles * n_tiles, chunks, n_sm)
+    partials = split * m_tiles * n_tiles * bm * bn if split > 1 else 0
+    return Plan(bm, bn, bk, m_tiles, n_tiles, split, _k_ranges(K, bk, split),
+                partials, 1, "f64tc")
+
+
+def _f64tc_split(tiles, chunks, n_sm):
+    """The split s of K (a power of two up to 16, at most the chunk count)
+    that minimizes the kernel's time in the model that measured it: one
+    block an SM, so ceil(tiles * s / slots(s)) waves of blocks, each
+    block's time its chunks / s plus F64TC_SPLIT_CHUNKS for the split's
+    fixed costs (the partials' sum, the pipeline's fill and drain);
+    slots(s) the blocks that clusters of s hold at once (F64TC_SLOTS, read
+    by cudaOccupancyMaxActiveClusters on an H100 SXM; elsewhere whole
+    clusters of n_sm).  The smallest s of the least time.  It picked the
+    fastest split at every f64 path shape timed (tools/f64tc_splits.py):
+    2 at 392 x 13041^2, 196 x 26244^2, 196 x 3844^2 and 392 x 1891^2
+    (408, 412, 62 and 60 tiles), 4 at 196 x 13041^2 and 196 x 1891^2, 8
+    at 14 x 1891^2."""
+    slots = F64TC_SLOTS.get(n_sm, {})
+
+    def cost(s):
+        waves = _cdiv(tiles * s, slots.get(s, n_sm // s * s))
+        return waves * (chunks / s + F64TC_SPLIT_CHUNKS)
+    return min((s for s in (1, 2, 4, 8, 16) if s <= max(1, chunks)),
+               key=cost)
+
+
+# {SMs: {split: blocks of the kernel the card holds at once in clusters of
+# split}}: an H100 SXM holds 132, 66, 30, 15 and 7 clusters of 1, 2, 4, 8
+# and 16 (cudaOccupancyMaxActiveClusters, tools/f64tc_splits.py)
+F64TC_SLOTS = {132: {1: 132, 2: 132, 4: 120, 8: 120, 16: 112}}
+# a split block's fixed costs in chunk times: about 10 us against 1.09 us
+# a chunk (the 104 x 128 x 16 DMMA work of a block) on an H100 SXM
+F64TC_SPLIT_CHUNKS = 10
 
 
 @functools.cache
@@ -434,6 +507,33 @@ def f32_rows(x):
     return _padded(x, torch.float32, TF32_ROW_ALIGN)
 
 
+def f64_rows(x):
+    """x (2-D) as float64 with a row stride the TMA kernels take: x itself
+    where it has one, else a copy (cast on the way, values unchanged) into
+    zero-filled rows padded to a multiple of F64_ROW_ALIGN doubles,
+    returned as a view of its first x.shape[1] columns.  The solver's f64
+    ladder operands (ops/ladder.py _cast, pack_vvvv, models/eris.py), which
+    csrc/ladder_mm_f64tc.cu reads as they are."""
+    if x.dtype == torch.float64 and _has_rows(x, F64_ROW_ALIGN):
+        return x
+    return _padded(x, torch.float64, F64_ROW_ALIGN)
+
+
+def tma_rows(x):
+    """x (2-D) in the 16-byte rows its dtype's TMA kernels take (row_align):
+    x itself where it has them or where no kernel loads its dtype by TMA,
+    else a padded copy."""
+    align = row_align(x.dtype)
+    return x if _has_rows(x, align) else _padded(x, x.dtype, align)
+
+
+def row_align(dtype):
+    """The elements of a 16-byte row of `dtype` (1 where no TMA kernel
+    loads it)."""
+    return {torch.float32: TF32_ROW_ALIGN, torch.float64: F64_ROW_ALIGN,
+            torch.bfloat16: BF16_ROW_ALIGN}.get(dtype, 1)
+
+
 def bf16_rows(x):
     """x (2-D) as bfloat16 with a row stride the BF16 kernel's TMA loads
     take: x itself where it has one, else a copy (cast on the way) into
@@ -491,7 +591,7 @@ def _launch(a, b, backward=False, precision=None, tangent=False,
     elif p.kernel in ("tc3", "tc1"):
         # B in 16-byte rows for TMA (split or rounded in the kernel); A's
         # hi and lo written by the launch's split pass into the scratch
-        b = _f32tc_rows(b)
+        b = _counted_rows(b, "b_copies")
         scratch = torch.empty(
             (2 if p.kernel == "tc3" else 1, M,
              _cdiv(K, TF32_ROW_ALIGN) * TF32_ROW_ALIGN), dtype=torch.float32,
@@ -499,6 +599,8 @@ def _launch(a, b, backward=False, precision=None, tangent=False,
         head = (scratch.data_ptr(),)
         tail = (p.cluster_m, p.split)
     else:
+        if p.kernel == "f64tc":
+            a, b = _counted_rows(a, "a_copies"), _counted_rows(b, "b_copies")
         tail = (p.split,)
     # row strides (no row is read at K = 0)
     lds = (a.stride(0), b.stride(0)) if K else (max(K, 1),) * 2
@@ -515,13 +617,14 @@ def _launch(a, b, backward=False, precision=None, tangent=False,
     return c
 
 
-def _f32tc_rows(b):
-    """B with 16-byte rows for csrc/ladder_mm_f32tc.cu: b itself, or a
-    padded copy (counted in ladder_mm.b_copies)."""
-    if _has_rows(b, TF32_ROW_ALIGN):
-        return b
-    ladder_mm.b_copies += 1
-    return _padded(b, torch.float32, TF32_ROW_ALIGN)
+def _counted_rows(x, counter):
+    """An operand with the 16-byte rows of the TMA loads of
+    csrc/ladder_mm_f32tc.cu (B) and ladder_mm_f64tc.cu (A and B): x itself,
+    or a padded copy (counted in ladder_mm.<counter>)."""
+    y = tma_rows(x)
+    if y is not x:
+        setattr(ladder_mm, counter, getattr(ladder_mm, counter) + 1)
+    return y
 
 
 def _tc_operands(a, b, v):
@@ -869,13 +972,14 @@ ladder_mm.backward_launches = 0    # those of them made by a backward
 ladder_mm.tangent_launches = 0     # those of them made by a tangent (jvp)
 ladder_mm.shard_launches = 0       # those of them on a RowShard's rows
 ladder_mm.b_copies = 0             # launches that copied B into TMA rows
+ladder_mm.a_copies = 0             # f64tc launches that copied A into them
 ladder_mm.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 # by kernel function: ladder_mm_tc.cu's TF32 and BF16 apart
 ladder_mm.launches_by_kernel = dict.fromkeys(
     (key for key, _ in _FUNCS.values()), 0)
 
 _COUNTERS = ("launches", "backward_launches", "tangent_launches",
-             "shard_launches", "b_copies")
+             "shard_launches", "b_copies", "a_copies")
 
 
 def launch_counts(since=None):

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ecw_cc_torch.config import check_device, torch_dtype
-from ecw_cc_torch.kernels.ladder_mm import TF32_ROW_ALIGN
+from ecw_cc_torch.kernels.ladder_mm import TF32_ROW_ALIGN, row_align
 from ecw_cc_torch.ops.ladder import (PackedVVVV, SectoredVVVV, _pack_pairs,
                                      pack_vvvv_sorted, spin_sort_perm)
 
@@ -408,9 +408,13 @@ def build_eris_device(mol, ghf, *, dtype=None, device="cuda",
     slabs, groups = [], ([], [], [])
     if pack_ladder and not sort_spin:
         # the PackedVVVV rows, filled slab by slab: no second copy of the
-        # (p, p) operand at the end of the build
+        # (p, p) operand at the end of the build; each row padded to the
+        # TMA kernels' 16 bytes (p = 1891, 13041 are odd), a view of its
+        # first p columns
         npair = nvir * (nvir - 1) // 2
-        wc = torch.empty((npair, npair), dtype=dtype, device=dev)
+        align = row_align(dtype)
+        wc = torch.zeros((npair, -(-npair // align) * align), dtype=dtype,
+                         device=dev)[:, :npair]
     for lo in range(0, nvir, width):
         hi = min(lo + width, nvir)
         t = C[nocc + lo:nocc + hi, nocc:, nocc:, nocc:]   # chemists (a,e,b,f)

@@ -44,9 +44,9 @@ import numpy as np
 import torch
 
 from ecw_cc_torch.config import active_precision, get_config
-from ecw_cc_torch.kernels.ladder_mm import (BF16_ROW_ALIGN, TF32_ROW_ALIGN,
-                                            RowShard, bf16_rows, f32_rows,
-                                            ladder_mm, tf32_rows)
+from ecw_cc_torch.kernels.ladder_mm import (RowShard, bf16_rows, f32_rows,
+                                            f64_rows, ladder_mm, row_align,
+                                            tf32_rows)
 from ecw_cc_torch.ops import promote
 
 einsum = promote.lane_einsum
@@ -95,19 +95,20 @@ def _precision(x):
 
 
 def _row_align(x):
-    """The row alignment (elements) of a ladder product's A on x: the
-    tensor-core kernels' 16 bytes (bfloat16, or float32 under the reduced
-    modes), else 1."""
-    if x.dtype == torch.bfloat16:
-        return BF16_ROW_ALIGN
-    return TF32_ROW_ALIGN if _precision(x) == "tf32" else 1
+    """The row alignment (elements) of a ladder product's A on x: the TMA
+    kernels' 16 bytes (bfloat16, float64, or float32 under the reduced
+    modes), else 1 (float32 at full precision, whose kernels read A at any
+    row stride)."""
+    if x.dtype == torch.float32 and _precision(x) != "tf32":
+        return 1
+    return row_align(x.dtype)
 
 
 def _cast(w, dtype):
     """An operand block in `dtype`, or 'tf32': the float32 block rounded to
-    TF32 once (kernels.ladder_mm.tf32_rows).  The float32, bfloat16 and
-    TF32 blocks get rows padded for the TMA kernels' loads
-    (kernels.ladder_mm.f32_rows, bf16_rows, tf32_rows; a float32 block
+    TF32 once (kernels.ladder_mm.tf32_rows).  The float32, float64,
+    bfloat16 and TF32 blocks get rows padded for the TMA kernels' loads
+    (kernels.ladder_mm.f32_rows, f64_rows, bf16_rows, tf32_rows; a block
     that has them is itself), so no launch copies them again."""
     if type(w) is not torch.Tensor:
         # a sharded operand (RowShard, DTensor): its local rows, placement
@@ -119,6 +120,8 @@ def _cast(w, dtype):
         return tf32_rows(w)
     if dtype == torch.float32:
         return f32_rows(w)
+    if dtype == torch.float64:
+        return f64_rows(w)
     return bf16_rows(w) if dtype == torch.bfloat16 else w.to(dtype)
 
 
@@ -143,11 +146,14 @@ class PackedVVVV(NamedTuple):
 
 
 def pack_vvvv(vvvv):
-    """The PackedVVVV of a dense <ab||ef> block (JAX ladder.py:233)."""
+    """The PackedVVVV of a dense <ab||ef> block (JAX ladder.py:233), its
+    rows written by the last gather into the 16-byte rows of the TMA
+    kernels (kernels.ladder_mm.row_align; p = 1891 and 13041 are odd), a
+    view of their first p columns that no launch or cast copies."""
     v = vvvv.shape[0]
     wc_rows = _pack_pairs(vvvv.reshape(v * v, v * v), v)       # (v^2, p)
-    return PackedVVVV(
-        wc=_pack_pairs(wc_rows.T.contiguous(), v).contiguous())  # (p, p)
+    return PackedVVVV(wc=_pack_pairs(wc_rows.T.contiguous(), v,
+                                     row_align(vvvv.dtype)))   # (p, p)
 
 
 def _packed_mm(xc, packed, p):

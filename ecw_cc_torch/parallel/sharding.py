@@ -37,7 +37,7 @@ import sys
 import torch
 import torch.distributed as dist
 
-from ecw_cc_torch.kernels.ladder_mm import RowShard, f32_rows
+from ecw_cc_torch.kernels.ladder_mm import RowShard, tma_rows
 from ecw_cc_torch.models.eris import GEris
 
 
@@ -144,10 +144,10 @@ def _pad_rows(w, mesh):
     rows = w.shape[0] + (-w.shape[0]) % tp
     lo, hi = row_range(rows, mesh)
     local = w.new_zeros((hi - lo,) + tuple(w.shape[1:]))
-    if w.dim() == 2 and w.dtype == torch.float32:
-        # the f32 operand's 16-byte rows, so that no launch on the rank's
-        # rows copies them
-        local = f32_rows(local)
+    if w.dim() == 2:
+        # the operand's 16-byte rows, so that no launch on the rank's rows
+        # copies them
+        local = tma_rows(local)
     top = min(hi, w.shape[0])
     if top > lo:
         local[:top - lo] = w[lo:top]

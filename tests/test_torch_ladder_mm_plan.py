@@ -2,10 +2,13 @@
 ladder_mm.plan), on the CPU: the plan is pure Python, and the kernel only
 checks the tile it is handed and recomputes the same K ranges."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from ecw_cc_torch.kernels import build
 from ecw_cc_torch.kernels import ladder_mm as lmm
 
 DTYPES = [torch.float32, torch.float64]
@@ -80,6 +83,14 @@ def test_plan_at_the_route_shapes(shape, dtype):
         assert (v, shape) == ("f32", (196, 3844, 3844))
         assert (p.bm, p.cluster_m, p.m_tiles) == (104, 2, 2)
         assert p.cluster_m * p.split <= 8 and p.blocks <= N_SM
+        return
+    if p.kernel == "f64tc":
+        # f64 from K = 1024 (f64tc_rule): 104-row tiles of A, no cluster of
+        # row tiles, the split of the wave model (_f64tc_split)
+        assert v == "f64" and K >= lmm.F64TC_MIN_K
+        assert (p.bm, p.bn, p.bk, p.cluster_m) == lmm.F64TC_TILE + (1,)
+        assert p.m_tiles == -(-M // 104) in (2, 4)
+        assert p.split == 2 and p.blocks >= 120
         return
     if v in lmm.REDUCED:
         assert (p.bm, p.bn, p.bk) == lmm.TC_TILE[v]
@@ -207,7 +218,12 @@ def test_plan_names_the_f32_kernel(shape):
 
 @pytest.mark.parametrize("shape", TC3 + FFMA_F32)
 def test_plan_keeps_dmma_for_f64_and_tc_for_bf16(shape):
-    assert lmm.plan(*shape, torch.float64, N_SM).kernel == "dmma"
+    """f64 takes the f64tc kernel where f64tc_rule names it (K >= 1024)
+    and 'dmma' elsewhere; bf16 ladder_mm_tc.cu's kernel."""
+    M, N, K = shape
+    f64 = lmm.plan(*shape, torch.float64, N_SM).kernel
+    assert f64 == ("f64tc" if lmm.f64tc_rule(*shape) else "dmma")
+    assert (f64 == "f64tc") == (K >= 1024)
     assert lmm.plan(*shape, torch.bfloat16, N_SM).kernel == "tc"
     tf32 = lmm.plan(*shape, "tf32", N_SM).kernel
     assert tf32 == ("tc1" if shape in TC3 and shape[0] <= 104 else "tc")
@@ -269,8 +285,8 @@ def test_launch_counts_carry_the_kernels():
     """launch_counts names each kernel beside each variant, and
     add_launch_counts (a replayed graph's launches) adds to both."""
     before = lmm.launch_counts()
-    assert {"ffma", "dmma", "tc_tf32", "tc_bf16", "tc3", "tc1",
-            "b_copies"} <= set(before)
+    assert {"ffma", "dmma", "f64tc", "tc_tf32", "tc_bf16", "tc3", "tc1",
+            "b_copies", "a_copies"} <= set(before)
     delta = dict.fromkeys(before, 0)
     delta.update(launches=2, f32=2, tc3=1, ffma=1)
     try:
@@ -281,3 +297,134 @@ def test_launch_counts_carry_the_kernels():
     finally:
         lmm.add_launch_counts(delta, times=-3)
     assert lmm.launch_counts() == before
+
+
+# ---- the f64 kernel each plan names (csrc/ladder_mm_f64tc.cu) ------------
+
+# the f64 path shapes: (kernel, split) of their plan on an H100 SXM, the
+# split the fastest one timed (tools/f64tc_splits.py)
+F64_PATH = {(392, 13041, 13041): ("f64tc", 2),   # ECW's f64 route, cc-pVTZ
+            (196, 26244, 26244): ("f64tc", 2),   # the cc-pVTZ f64 polish
+            (196, 3844, 3844): ("f64tc", 2),     # dense / polish, cc-pVDZ
+            (392, 1891, 1891): ("f64tc", 2),     # ECW's f64 route, cc-pVDZ
+            (196, 13041, 13041): ("f64tc", 4),   # packed target, cc-pVTZ
+            (196, 1891, 1891): ("f64tc", 4),     # f64 EOM-EE sigma
+            (14, 1891, 1891): ("f64tc", 8),      # f64 EOM-EA sigma
+            (196, 900, 900): ("dmma", 4),        # 6-31G dense (10b, 13b)
+            (98, 465, 465): ("dmma", 16),        # sorted sectors, cc-pVDZ
+            (98, 961, 961): ("dmma", 8)}
+F64TC_EDGES = [(1, 1, 1), (1, 1891, 1891), (98, 465, 15), (98, 465, 17),
+               (98, 465, 0), (37, 513, 129), (105, 129, 1891),
+               (832, 300, 257), (1176, 13041, 13041), (392, 1891, 1889)]
+
+
+@pytest.mark.parametrize("shape", list(F64_PATH))
+def test_f64_plan_names_the_kernel_of_each_path_shape(shape):
+    kernel, split = F64_PATH[shape]
+    p = lmm.plan(*shape, torch.float64, N_SM)
+    assert p.kernel == kernel == ("f64tc" if lmm.f64tc_rule(*shape)
+                                  else "dmma")
+    if kernel == "f64tc":
+        assert p.split == split
+
+
+@pytest.mark.parametrize("shape", list(F64_PATH) + F64TC_EDGES)
+def test_f64tc_plan_tiles_k_and_covers_c(shape):
+    """The f64tc plan at any shape: 104 x 128 tiles covering C, no cluster
+    of row tiles, K in whole 16-deep chunks over at most 16 split blocks
+    (each one chunk at least), the blocks tiles x split."""
+    M, N, K = shape
+    p = lmm.plan(M, N, K, torch.float64, N_SM, "f64tc")
+    assert p.kernel == "f64tc" and (p.bm, p.bn, p.bk) == (104, 128, 16)
+    assert p.cluster_m == 1
+    assert p.m_tiles == -(-M // 104) and p.n_tiles == -(-N // 128)
+    assert p.split in (1, 2, 4, 8, 16)
+    assert p.split <= max(1, -(-K // 16))
+    assert len(p.k_ranges) == p.split
+    assert p.k_ranges[0][0] == 0 and p.k_ranges[-1][1] == K
+    for (_, k1), (k0, _) in zip(p.k_ranges, p.k_ranges[1:]):
+        assert k1 == k0 and k0 % 16 == 0
+    assert all(k1 > k0 for k0, k1 in p.k_ranges) or K == 0
+    assert p.blocks == p.m_tiles * p.n_tiles * p.split
+    assert p.partials == (p.blocks * p.bm * p.bn if p.split > 1 else 0)
+
+
+@pytest.mark.parametrize("shape", [(392, 13041, 13041), (196, 26244, 26244),
+                                   (196, 13041, 13041)])
+def test_f64tc_plan_fills_whole_waves_at_the_large_shapes(shape):
+    """At the cc-pVTZ shapes the tiles alone (408, 412, 204 blocks) leave
+    a last wave mostly idle on 132 SMs; the split fills its waves to at
+    least 85% of the blocks that its clusters can hold at once."""
+    M, N, K = shape
+    p = lmm.plan(M, N, K, torch.float64, N_SM)
+    slots = lmm.F64TC_SLOTS[N_SM][p.split]
+    waves = -(-p.blocks // slots)
+    assert p.split > 1 and p.blocks / (waves * slots) >= 0.85
+    assert (p.tiles / (-(-p.tiles // N_SM) * N_SM)) < 0.8
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 78])
+def test_f64tc_split_model_picks_the_least_modelled_time(n_sm):
+    """_f64tc_split's split minimizes waves x (chunks / s + the split's
+    fixed cost), the smallest s among equals, on any SM count."""
+    for tiles, chunks in ((408, 816), (62, 241), (15, 119), (4, 30),
+                          (1, 1), (7, 0)):
+        s = lmm._f64tc_split(tiles, chunks, n_sm)
+        slots = lmm.F64TC_SLOTS.get(n_sm, {})
+
+        def cost(x):
+            return -(-tiles * x // slots.get(x, n_sm // x * x)) * (
+                chunks / x + lmm.F64TC_SPLIT_CHUNKS)
+        allowed = [x for x in (1, 2, 4, 8, 16) if x <= max(1, chunks)]
+        assert s in allowed
+        assert cost(s) == min(cost(x) for x in allowed)
+        assert all(cost(x) > cost(s) for x in allowed if x < s)
+
+
+def test_f64tc_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        lmm.plan(98, 465, 465, torch.float32, N_SM, "f64tc")   # f64 only
+    with pytest.raises(ValueError):
+        lmm.plan(98, 465, 465, "tf32", N_SM, "f64tc")
+    with pytest.raises(ValueError):
+        lmm.plan(0, 465, 465, torch.float64, N_SM, "f64tc")
+    with pytest.raises(ValueError):
+        lmm.plan(98, 465, 465, torch.float64, N_SM, "tc3")
+
+
+@pytest.mark.parametrize("kernel,dtype,precision", [
+    ("f64tc", torch.float64, None), ("dmma", torch.float64, None),
+    ("ffma", torch.float32, None), ("tc3", torch.float32, None),
+    ("tc1", torch.float32, "tf32"), ("tc", torch.float32, "tf32"),
+    ("tc", torch.bfloat16, None)])
+def test_launch_passes_each_c_function_its_signature(monkeypatch, kernel,
+                                                     dtype, precision):
+    """_launch hands every kernel's C function exactly the arguments of its
+    ctypes signature (kernels/build.py), the stream last: ctypes passes
+    surplus arguments on unchecked, so a stale tail would reach the card
+    as a stream handle.  The library, the device checks and the stream are
+    stand-ins here."""
+    calls = []
+
+    class Cdll:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(build, "library",
+                        lambda: build.Library(Cdll(), "", 0.0, ""))
+    monkeypatch.setattr(lmm, "_check", lambda a, b, v: None)
+    monkeypatch.setattr(lmm, "_n_sm", lambda index: N_SM)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=12345))
+    a = torch.ones((196, 1891), dtype=dtype)
+    b = torch.ones((1891, 1891), dtype=dtype)
+    before = lmm.launch_counts()
+    try:
+        lmm._launch(a, b, precision=precision, kernel=kernel)
+    finally:
+        lmm.add_launch_counts(lmm.launch_counts(since=before), times=-1)
+    (name, args), = calls
+    assert name == lmm._FUNCS[(kernel, lmm.variant(dtype, precision))][1]
+    assert len(args) == len(build._SIGNATURES[name])
+    assert args[-1] == 12345

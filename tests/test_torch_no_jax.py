@@ -10,10 +10,11 @@
     one sharded ECW-CCSD step on a 2-rank gloo group (each rank a fresh
     interpreter with the same imports made to fail); and an example twin
     from its command line the same way;
-  - no file of the port, and not chip_smoke.py or the kernel timing tool
-    tools/f32tc_splits.py, has an import statement naming jax or
-    ecw_cc_tpu (read with `ast`, so lazy imports inside functions count
-    too).
+  - no file of the port, and not chip_smoke.py, the kernel timing tools
+    tools/f32tc_splits.py and tools/f64tc_splits.py or the card's test
+    of the f64 kernel tests/test_torch_f64tc_card.py, has an import
+    statement naming jax or ecw_cc_tpu (read with `ast`, so lazy imports
+    inside functions count too).
 """
 
 import ast
@@ -221,7 +222,9 @@ PORT_FILES = sorted(
     glob.glob(os.path.join(REPO, "ecw_cc_torch", "**", "*.py"),
               recursive=True)
     + [os.path.join(REPO, "chip_smoke.py"),
-       os.path.join(REPO, "tools", "f32tc_splits.py")])
+       os.path.join(REPO, "tools", "f32tc_splits.py"),
+       os.path.join(REPO, "tools", "f64tc_splits.py"),
+       os.path.join(REPO, "tests", "test_torch_f64tc_card.py")])
 
 
 def _imported_roots(path):
