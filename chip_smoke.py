@@ -1720,7 +1720,6 @@ def target_times():
     from ecw_cc_torch.models import gamma_exp
     from ecw_cc_torch.models.molecule import Molecule
     from ecw_cc_torch.models.scf import GHF, RHF
-    from ecw_cc_torch.utils.metrics import StageClock
 
     for basis in TARGET_TIME_BASES:
         mol = Molecule(MOLECULE, basis, charge=0, spin=0)
@@ -1731,10 +1730,10 @@ def target_times():
         for _ in range(TARGET_TIME_REPS):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            log = {}
-            clock = StageClock(torch.device(CARD), log)
+            t0 = time.perf_counter()
             built = target_eris("sorted", mol, ghf)
-            clock.done("eris_s")
+            torch.cuda.synchronize()
+            log = {"eris_s": time.perf_counter() - t0}
             built_sym = built[2][1]
             e_cc, e_t, _ = gamma_exp._run_gccsd_t_rdm1(built, log=log)
             ad = log["adjoint"]
@@ -2485,16 +2484,15 @@ def run_target_stages(ladder_mm, tag, mol, ghf, layouts, t_row=False,
     launches}, backward launches); the launches of target_calls are not
     among them."""
     from ecw_cc_torch.models import gamma_exp
-    from ecw_cc_torch.utils.metrics import StageClock
 
     out, total_back, e_ref = {}, 0, None
     for layout in layouts:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        log = {}
-        clock = StageClock(torch.device(CARD), log)
+        t0 = time.perf_counter()
         built = target_eris(layout, mol, ghf)
-        clock.done("eris_s")
+        torch.cuda.synchronize()
+        log = {"eris_s": time.perf_counter() - t0}
         sect = built[2]
         (e_cc, e_t, gamma), fwd, back = count_launches(
             ladder_mm, lambda: gamma_exp._run_gccsd_t_rdm1(built, log=log))
@@ -5354,8 +5352,8 @@ def graph_cell(ecw, basis, route, lanes):
                   / conv["its"], ladder_kernels_per_iteration=ladder,
                   capture_ms_per_leg=capture_ms,
                   peak_bytes=conv["peak_bytes"],
-                  loop_memory=[lp.get("memory")
-                               for lp in loops_of(conv["log"])], **chain,
+                  loop_nodes=[(lp.get("nodes"), lp.get("other_nodes"))
+                              for lp in loops_of(conv["log"])], **chain,
                   **replay, device_ms_per_iteration=dev_ms,
                   busy_share=dev_ms / chain["ms_per_iteration"],
                   busy_share_replayed=dev_ms

@@ -48,7 +48,8 @@ from ecw_cc_torch.ops.ladder import resolve_mode, spin_sort_perm
 from ecw_cc_torch.ops.vexp import Exp
 from ecw_cc_torch.solvers.es import Solver_ES, SolverES_Device
 from ecw_cc_torch.solvers.gs import Solver_CCS, Solver_CCSD
-from ecw_cc_torch.utils import checkpoint, convert, linalg, output, props
+from ecw_cc_torch.utils import (checkpoint, convert, linalg, metrics, output,
+                                props)
 
 format_float = "{:10.5e}"
 
@@ -189,9 +190,15 @@ class ECW:
     # Target construction (reference Main.py:267-398)
     # ------------------------------------------------------------------
 
+    @metrics.job()
     def Build_GS_exp(self, prop="mat", posthf="HF", field=None,
                      para_factor=None, max_def=None, basis=None):
-        """Build GS target data.  Reference Main.py:267-398."""
+        """Build GS target data.  Reference Main.py:267-398.
+
+        self.target_log: the build's Gexp.log (the seconds of its stages)
+        with 'init_s' (the Gexp construction), 'target_store_s' (the
+        target's conversion into this ECW's MO basis) and 'spans', the
+        rows of the build's job (utils/metrics.py)."""
         if basis is not None and "mat" in prop and self.mol.basis_name != basis:
             print("WARNING: rdm1 comparison requires identical bases; using "
                   f"{self.mol.basis_name} for the target rdm1")
@@ -200,8 +207,10 @@ class ECW:
             print("WARNING: rdm1 comparison requires the same geometry")
             max_def = None
 
-        gexp = gamma_exp.Gexp(self.mol, posthf, basis=basis,
-                              device=self.device, dtype=self.dtype)
+        init = {}
+        with metrics.span("ecw.target.init", init, "init_s"):
+            gexp = gamma_exp.Gexp(self.mol, posthf, basis=basis,
+                                  device=self.device, dtype=self.dtype)
         if max_def is not None:
             gexp.deform(max_def)
         if field is not None:
@@ -209,7 +218,7 @@ class ECW:
                 raise SyntaxError("external field must be a list [vx, vy, vz]")
             gexp.Vext(field)
         gexp.build()
-        self.target_log = gexp.log   # stages of a correlated target build
+        self.target_log = log = {**init, **gexp.log}
         if para_factor is not None:
             gexp.underfit(para_factor)
         self.Eexp_GS = gexp.Eexp
@@ -218,12 +227,13 @@ class ECW:
             prop = [prop]
         for p in prop:
             if p == "mat":
-                tgt = convert.convert_r_to_g_rdm1(gexp.gamma_ao)
-                tgt = convert.ao_to_mo(tgt, self.mo_coeff)
-                self.exp_data[0].append(["mat", tgt])
-                self.Ek_exp_GS = props.Ekin(gexp.mol_def, gexp.gamma_ao,
-                                            g=False)
-                self.HF_prop[0].append(np.diag(self.mo_occ))
+                with metrics.span("ecw.target.store", log, "target_store_s"):
+                    tgt = convert.convert_r_to_g_rdm1(gexp.gamma_ao)
+                    tgt = convert.ao_to_mo(tgt, self.mo_coeff)
+                    self.exp_data[0].append(["mat", tgt])
+                    self.Ek_exp_GS = props.Ekin(gexp.mol_def, gexp.gamma_ao,
+                                                g=False)
+                    self.HF_prop[0].append(np.diag(self.mo_occ))
             elif isinstance(p, (list, np.ndarray)):
                 raise NotImplementedError(
                     "structure-factor targets are not wired into the driver "
@@ -255,6 +265,7 @@ class ECW:
             output.cube_density(gexp.mol_def,
                                 os.path.join(self.out_dir, "target_GS.cube"),
                                 gexp.gamma_ao)
+        log["spans"] = metrics.current_job().rows
         print("*** GS data stored ***")
 
     def Build_ES_exp_MOM(self, nbr_of_es=(1, 0), field=None):
@@ -377,6 +388,7 @@ class ECW:
             lsini = np.zeros((nocc, nvir))
         return tsini, lsini
 
+    @metrics.job()
     def CCSD_GS(self, Larray, alpha=None, diis="", nbr_cube_file=2, tl1ini=0,
                 print_ite_info=False, diis_max=15, conv="tl", conv_thres=1e-5,
                 maxiter=40, tablefmt="rst", HF_prop=False, target_rdm1_GS=None,
@@ -398,108 +410,137 @@ class ECW:
         f64 polish iterations on eris_f64 (built on the device at f32, at
         first use),
         for f64 parity of the returned energies, amplitudes and rdm1 (JAX
-        models/ecw.py:441-504)."""
-        refine = refine and mode != "parallel"
-        self.diis = diis + f" diis_max={diis_max}"
-        if len(self.exp_data) > 1:
-            print("Warning: ES data found but GS solver used; only GS data "
-                  "used")
-        tsini, lsini = self._tl_init(tl1ini)
-        ts, ls = tsini.copy(), lsini.copy()
-        idx_L_print = np.round(np.linspace(0, len(Larray) - 1,
-                                           nbr_cube_file)).astype(int)
-        if target_rdm1_GS is None:
-            target_rdm1_GS = self.target_rdm1_GS
-        self.Delta_rdm1 = []
+        models/ecw.py:441-504).
 
-        Ek_HF_GS = self.Ek_HF_GS if HF_prop else None
-        hf_prop = self.HF_prop if HF_prop else False
-        VXexp = Exp(Larray[0], [self.exp_data[0]], self.mol, self.mo_coeff,
-                    Ek_exp_GS=self.Ek_exp_GS, HF_prop=hf_prop,
-                    Ek_HF_GS=Ek_HF_GS)
-        if self.myccsd is None:
-            self.myccsd = GCC(self.eris)
-        Solve = Solver_CCSD(self.myccsd, VXexp, conv=conv,
-                            conv_thres=conv_thres, tsini=tsini, lsini=lsini,
-                            diis=diis, maxdiis=diis_max, maxiter=maxiter,
-                            vvvv_op=self.vvvv_op, mo_perm=self.mo_perm,
-                            eris_host=self.eris_f64 if refine else None)
-        td = ld = None
-        Result = None
-        Ep = Delta = vmax = None
-        self.init_plot_var(Larray)
-        print()
-        print("##############################################")
-        print("#  Results using SCF for CCSD- GS calculation ")
-        print("##############################################")
-        print()
+        The sweep is one job of spans (utils/metrics.py): each solve_log
+        entry holds under 'spans' the rows of the spans that ended while
+        its lambda ran (the preparation's in the first, the release's and
+        the fetch's in the last), and under 'driver' the ms of its host
+        spans: 'prepare_ms' (first entry), 'record_ms', 'release_ms'
+        (Solve.release_graphs(), last entry), 'fetch_ms' (the final
+        prints and results and the amplitudes' fetch to the host, last
+        entry), and Solver_CCSD.SCF's 'enter_ms' and 'exit_ms'."""
+        job = metrics.current_job()
+        prepare = {}
+        with metrics.span("ecw.sweep.prepare", prepare, "prepare_ms"):
+            refine = refine and mode != "parallel"
+            self.diis = diis + f" diis_max={diis_max}"
+            if len(self.exp_data) > 1:
+                print("Warning: ES data found but GS solver used; only GS "
+                      "data used")
+            tsini, lsini = self._tl_init(tl1ini)
+            ts, ls = tsini.copy(), lsini.copy()
+            idx_L_print = np.round(np.linspace(0, len(Larray) - 1,
+                                               nbr_cube_file)).astype(int)
+            if target_rdm1_GS is None:
+                target_rdm1_GS = self.target_rdm1_GS
+            self.Delta_rdm1 = []
+
+            Ek_HF_GS = self.Ek_HF_GS if HF_prop else None
+            hf_prop = self.HF_prop if HF_prop else False
+            VXexp = Exp(Larray[0], [self.exp_data[0]], self.mol,
+                        self.mo_coeff, Ek_exp_GS=self.Ek_exp_GS,
+                        HF_prop=hf_prop, Ek_HF_GS=Ek_HF_GS)
+            if self.myccsd is None:
+                self.myccsd = GCC(self.eris)
+            Solve = Solver_CCSD(self.myccsd, VXexp, conv=conv,
+                                conv_thres=conv_thres, tsini=tsini,
+                                lsini=lsini, diis=diis, maxdiis=diis_max,
+                                maxiter=maxiter, vvvv_op=self.vvvv_op,
+                                mo_perm=self.mo_perm,
+                                eris_host=self.eris_f64 if refine else None)
+            td = ld = None
+            Result = None
+            Ep = Delta = vmax = None
+            self.init_plot_var(Larray)
+            print()
+            print("##############################################")
+            print("#  Results using SCF for CCSD- GS calculation ")
+            print("##############################################")
+            print()
         batch = None
         if mode == "parallel":
             batch = Solve.SCF_batch(list(Larray), alpha=alpha, diis=diis)
             lanes = Solve.last_solve
+        filed = 0       # the job's rows already in an entry
         for idx_L, L in enumerate(Larray):
-            print("LAMBDA= ", L)
-            if batch is not None:
-                Result = batch[idx_L]
-                self.solve_log.append(
-                    {**lanes, "L": L, "lane": idx_L,
-                     "iterations": lanes["iterations"][idx_L],
-                     "status": lanes["status"][idx_L]})
-            else:
-                if resume and checkpoint_dir is not None:
-                    saved = checkpoint.load_amplitudes(checkpoint_dir, L)
-                    if saved is not None:
-                        ts, ls = saved["ts"], saved["ls"]
-                        td, ld = saved["td"], saved["ld"]
-                # amplitudes stay on the device across the warm-started
-                # sweep
-                Result = Solve.SCF(L, ts=ts, ls=ls, td=td, ld=ld,
-                                   alpha=alpha, keep_device=True,
-                                   refine=refine)
-                self.solve_log.append(Solve.last_solve)
-            ts, ls, td, ld = Result[5]
-            if checkpoint_dir is not None:
-                checkpoint.save_amplitudes(
-                    checkpoint_dir, L,
-                    {"ts": _host(ts), "ls": _host(ls), "td": _host(td),
-                     "ld": _host(ld)},
-                    meta={"Ep": float(Result[1][-1])})
-            if self.out_dir is not None and idx_L in idx_L_print:
-                fout = os.path.join(self.out_dir, f"L{L:.2f}")
-                output.cube_rdm1(Result[4], self.mo_coeff, self.mol, fout)
-            if print_ite_info:
-                output.print_iteration_table(Result, conv, tablefmt)
-            print(Result[0])
-            Ep = Result[1][-1]
-            Delta = Result[2][-1][0]
-            vmax = Result[2][-1][1]
-            print("Delta = ", Delta)
+            with metrics.span("ecw.sweep.lambda"):
+                print("LAMBDA= ", L)
+                if batch is not None:
+                    Result = batch[idx_L]
+                    entry = {**lanes, "L": L, "lane": idx_L,
+                             "iterations": lanes["iterations"][idx_L],
+                             "status": lanes["status"][idx_L],
+                             "driver": {}}
+                else:
+                    if resume and checkpoint_dir is not None:
+                        saved = checkpoint.load_amplitudes(checkpoint_dir, L)
+                        if saved is not None:
+                            ts, ls = saved["ts"], saved["ls"]
+                            td, ld = saved["td"], saved["ld"]
+                    # amplitudes stay on the device across the warm-started
+                    # sweep
+                    Result = Solve.SCF(L, ts=ts, ls=ls, td=td, ld=ld,
+                                       alpha=alpha, keep_device=True,
+                                       refine=refine)
+                    entry = Solve.last_solve
+                self.solve_log.append(entry)
+                if idx_L == 0:
+                    entry["driver"].update(prepare)
+                with metrics.span("ecw.sweep.record", entry["driver"],
+                                  "record_ms"):
+                    ts, ls, td, ld = Result[5]
+                    if checkpoint_dir is not None:
+                        checkpoint.save_amplitudes(
+                            checkpoint_dir, L,
+                            {"ts": _host(ts), "ls": _host(ls),
+                             "td": _host(td), "ld": _host(ld)},
+                            meta={"Ep": float(Result[1][-1])})
+                    if self.out_dir is not None and idx_L in idx_L_print:
+                        fout = os.path.join(self.out_dir, f"L{L:.2f}")
+                        output.cube_rdm1(Result[4], self.mo_coeff, self.mol,
+                                         fout)
+                    if print_ite_info:
+                        output.print_iteration_table(Result, conv, tablefmt)
+                    print(Result[0])
+                    Ep = Result[1][-1]
+                    Delta = Result[2][-1][0]
+                    vmax = Result[2][-1][1]
+                    print("Delta = ", Delta)
+                    print()
+                    if target_rdm1_GS is not None and self.cal_rdm1_Delta:
+                        diff = np.subtract(target_rdm1_GS, Result[4])
+                        self.Delta_rdm1.append(
+                            np.sum(np.abs(diff)) / np.sum(np.abs(
+                                target_rdm1_GS - np.diag(self.mo_occ))))
+                    self.Delta_lamb.append(Delta)
+                    self.Ep_lamb.append(self.EHF - Ep)
+                    self.vmax_lamb.append(vmax)
+                    if VXexp.Delta_Ek_GS is not None:
+                        self.Delta_Ek.append(VXexp.Delta_Ek_GS)
+            entry["spans"] = job.rows[filed:]
+            filed = len(job.rows)
+        with metrics.span("ecw.sweep.release", entry["driver"],
+                          "release_ms"):
+            Solve.release_graphs()
+        with metrics.span("ecw.sweep.fetch", entry["driver"], "fetch_ms"):
             print()
-            if target_rdm1_GS is not None and self.cal_rdm1_Delta:
-                diff = np.subtract(target_rdm1_GS, Result[4])
-                self.Delta_rdm1.append(
-                    np.sum(np.abs(diff)) / np.sum(np.abs(
-                        target_rdm1_GS - np.diag(self.mo_occ))))
-            self.Delta_lamb.append(Delta)
-            self.Ep_lamb.append(self.EHF - Ep)
-            self.vmax_lamb.append(vmax)
+            print("FINAL RESULTS")
+            print("Ep   = " + format_float.format(Ep + self.EHF))
+            print("Delta   = " + format_float.format(Delta))
             if VXexp.Delta_Ek_GS is not None:
-                self.Delta_Ek.append(VXexp.Delta_Ek_GS)
-        Solve.release_graphs()
-        print()
-        print("FINAL RESULTS")
-        print("Ep   = " + format_float.format(Ep + self.EHF))
-        print("Delta   = " + format_float.format(Delta))
-        if VXexp.Delta_Ek_GS is not None:
-            print("DEk  = " + format_float.format(VXexp.Delta_Ek_GS))
-        print()
-        print("EHF    = " + format_float.format(self.EHF))
-        if self.Eexp_GS is not None:
-            print("Eexp   = " + format_float.format(self.Eexp_GS))
-        if self.out_dir is not None:
-            self.print_results()
-        # the public API returns NumPy amplitudes (one fetch, at the end)
-        return tuple(Result[:5]) + ([_host(a) for a in Result[5]],)
+                print("DEk  = " + format_float.format(VXexp.Delta_Ek_GS))
+            print()
+            print("EHF    = " + format_float.format(self.EHF))
+            if self.Eexp_GS is not None:
+                print("Eexp   = " + format_float.format(self.Eexp_GS))
+            if self.out_dir is not None:
+                self.print_results()
+            # the public API returns NumPy amplitudes (one fetch, at the
+            # end)
+            out = tuple(Result[:5]) + ([_host(a) for a in Result[5]],)
+        entry["spans"] += job.rows[filed:]
+        return out
 
     def CCS_GS(self, Larray, alpha=None, method="scf", diis="",
                nbr_cube_file=2, tl1ini=0, print_ite_info=False, beta=None,

@@ -30,7 +30,7 @@ from ecw_cc_torch.ops.ladder import ensure_sorted_vvvv_op, spin_sort_perm
 from ecw_cc_torch.ops.spinsect import sector_info
 from ecw_cc_torch.solvers import device_loop
 from ecw_cc_torch.utils import convert, linalg, props
-from ecw_cc_torch.utils.metrics import StageClock
+from ecw_cc_torch.utils.metrics import StageClock, span
 
 
 def _l_step(eris, vvvv_op, t1, t2, l1, l2, sect=None):
@@ -162,14 +162,16 @@ def _run_gccsd_rdm1(built, conv_tol=None, max_cycle=200, log=None):
     """Plain GCCSD + Lambda on the (eris, vvvv_op, sect, unperm) of a
     build: (e_corr, rdm1_mo_G as NumPy in the alternating MO order)."""
     eris, vvvv_op, sect, unperm = built
-    stage = StageClock(eris.fock.device, log)
-    t1, t2, e_cc = ccsd_t.solve_ccsd(eris, conv_tol=conv_tol,
-                                     max_cycle=max_cycle, vvvv_op=vvvv_op,
-                                     sect=sect, log=stage.sub("ccsd"))
-    stage.done("ccsd_s")
-    l1, l2 = solve_lambda(eris, t1, t2, conv_tol, max_cycle, vvvv_op=vvvv_op,
-                          sect=sect, log=stage.sub("lambda"))
-    stage.done("lambda_s")
+    stage = StageClock(eris.fock.device, log, "gexp.")
+    with stage("ccsd_s"):
+        t1, t2, e_cc = ccsd_t.solve_ccsd(eris, conv_tol=conv_tol,
+                                         max_cycle=max_cycle,
+                                         vvvv_op=vvvv_op, sect=sect,
+                                         log=stage.sub("ccsd"))
+    with stage("lambda_s"):
+        l1, l2 = solve_lambda(eris, t1, t2, conv_tol, max_cycle,
+                              vvvv_op=vvvv_op, sect=sect,
+                              log=stage.sub("lambda"))
     with torch.no_grad():
         rdm1_mo = _gamma(t1, t2, l1, l2, sect=sect).cpu().numpy()
     if unperm is not None:
@@ -183,18 +185,17 @@ def _run_gccsd_t_rdm1(built, log=None):
     NumPy in the alternating MO order, symmetrized).  log receives the
     iterations and the seconds of each stage."""
     eris, vvvv_op, sect, unperm = built
-    stage = StageClock(eris.fock.device, log)
-    t1, t2, e_cc = ccsd_t.solve_ccsd(eris, vvvv_op=vvvv_op, sect=sect,
-                                     log=stage.sub("ccsd"))
-    stage.done("ccsd_s")
-    with torch.no_grad():
+    stage = StageClock(eris.fock.device, log, "gexp.")
+    with stage("ccsd_s"):
+        t1, t2, e_cc = ccsd_t.solve_ccsd(eris, vvvv_op=vvvv_op, sect=sect,
+                                         log=stage.sub("ccsd"))
+    with stage("energy_t_s"), torch.no_grad():
         e_t = float(ccsd_t.energy_t(eris, t1, t2, sect=sect,
                                     log=stage.sub("energy_t")))
-    stage.done("energy_t_s")
-    rdm1_mo = ccsd_t.ccsd_t_rdm1_response(
-        eris, t1, t2, vvvv_op=vvvv_op, sect=sect,
-        log=stage.sub("adjoint")).cpu().numpy().astype(np.float64)
-    stage.done("adjoint_s")
+    with stage("adjoint_s"):
+        rdm1_mo = ccsd_t.ccsd_t_rdm1_response(
+            eris, t1, t2, vvvv_op=vvvv_op, sect=sect,
+            log=stage.sub("adjoint")).cpu().numpy().astype(np.float64)
     if unperm is not None:
         # back to the alternating-spin MO order of ghf.mo_coeff
         rdm1_mo = rdm1_mo[np.ix_(unperm, unperm)]
@@ -259,8 +260,10 @@ class Gexp:
         if method not in ("HF", "CCSD", "CCSDT"):
             raise ValueError("method not recognized (use 'HF', 'CCSD' or "
                              "'CCSD(T)')")
+        self.log = log = {}
         self.mf_def.conv_tol = 1e-11
-        self.mf_def.kernel()
+        with span("gexp.scf", log, "scf_s"):
+            self.mf_def.kernel()
         self.mo_coeff_def = self.mf_def.mo_coeff
         self.nocc = int(np.sum(self.mf_def.mo_occ > 0))
         self.nvir = int(np.sum(self.mf_def.mo_occ == 0))
@@ -270,25 +273,24 @@ class Gexp:
             self.gamma_ao = self.mf_def.make_rdm1()
             return
 
-        ghf = GHF(self.mf_def)
-        self.log = log = {}
+        with span("gexp.ghf", log, "ghf_s"):
+            ghf = GHF(self.mf_def)
         dev = check_device(self.device)
-        stage = StageClock(dev, log)
-        built = _build_eris_sorted(self.mol_def, ghf, self.dtype, dev)
-        stage.done("eris_s")
+        stage = StageClock(dev, log, "gexp.")
+        with stage("eris_s"):
+            built = _build_eris_sorted(self.mol_def, ghf, self.dtype, dev)
         log["sym"] = bool(built[2][1]) if built[2] is not None else False
         if method == "CCSD":
             e_corr, rdm1_mo_g = _run_gccsd_rdm1(built, log=log)
             self.ECCSD_def = e_corr
             self.Eexp = self.EHF_def + e_corr
+        else:
+            e_cc, et, rdm1_mo_g = _run_gccsd_t_rdm1(built, log=log)
+            self.ECCSD_def = e_cc
+            self.ECCSD_t_def = e_cc + et
+            self.Eexp = self.EHF_def + e_cc + et
+        with span("gexp.store", log, "store_s"):
             self._store_mo_g(rdm1_mo_g, ghf)
-            return
-
-        e_cc, et, rdm1_mo_g = _run_gccsd_t_rdm1(built, log=log)
-        self.ECCSD_def = e_cc
-        self.ECCSD_t_def = e_cc + et
-        self.Eexp = self.EHF_def + e_cc + et
-        self._store_mo_g(rdm1_mo_g, ghf)
 
     def underfit(self, para_factor, rng=None):
         """Randomly zero elements of gamma_ao to simulate under-fitting;
@@ -402,81 +404,82 @@ class ESexp:
         ghf = GHF(self.mf)
         self.log = log = {}
         dev = check_device(self.device)
-        stage = StageClock(dev, log)
-        eris, vvvv_op, sect, unperm = _build_eris_sorted(self.mol, ghf,
-                                                         self.dtype, dev)
-        stage.done("eris_s")
+        stage = StageClock(dev, log, "gexp.")
+        with stage("eris_s"):
+            eris, vvvv_op, sect, unperm = _build_eris_sorted(
+                self.mol, ghf, self.dtype, dev)
         log["sym"] = bool(sect[1]) if sect is not None else False
-        t1, t2, e_cc = ccsd_t.solve_ccsd(eris, vvvv_op=vvvv_op, sect=sect,
-                                         log=stage.sub("ccsd"))
-        stage.done("ccsd_s")
+        with stage("ccsd_s"):
+            t1, t2, e_cc = ccsd_t.solve_ccsd(eris, vvvv_op=vvvv_op,
+                                             sect=sect,
+                                             log=stage.sub("ccsd"))
         # GS Lambda (textbook equations; plain-CCSD target generation)
-        l1, l2 = solve_lambda(eris, t1, t2, vvvv_op=vvvv_op, sect=sect,
-                              log=stage.sub("lambda"))
-        stage.done("lambda_s")
-        omegas, Rs, Ls = eom_ops.eom_ccsd(eris, t1, t2, nroots=nbr_ES,
-                                          tol=tol, left=True,
-                                          vvvv_op=vvvv_op, sect=sect,
-                                          log=stage.sub("eom"))
-        stage.done("eom_s")
-        nocc = eris.nocc
-        if unperm is not None:
-            io, iv = unperm[:nocc], unperm[nocc:] - nocc
-        self.ECCSD = float(e_cc)
-        self.gamma_tr_mo = []
-        self.gamma_es_mo = []  # EOM excited-state densities (Tr = N)
-        self.spin_labels = []  # singlet/triplet/spin-flip per root
-        self.ini_r = []
-        self.trdip_exp = []   # [(d_0k, d_k0, oscillator strength), ...]
-        dip_int = self.mol.intor("r", origin=self.mol.charge_center())
-
-        def host(x):
-            return x.detach().cpu().numpy().astype(np.float64)
-
-        for k in range(nbr_ES):
-            r1, r2 = Rs[k]
-            lk1, lk2 = Ls[k]
-            with torch.no_grad():
-                r0 = eom_ops.eom_r0(eris, t1, t2, r1, r2, omegas[k])
-                # the Wick transition densities, stored in the reference
-                # index convention (ov/vo blocks transposed relative to
-                # <p+ q>), as the ES solver's gamma_tr kernels read them
-                tr_l = _swap_ov_vo(host(eom_ops.tr_rdm1_right(
-                    t1, t2, l1, l2, r1, r2, r0)), nocc)
-                tr_r = _swap_ov_vo(host(eom_ops.tr_rdm1_left(
-                    t1, t2, lk1, lk2)), nocc)
-                g_es = _swap_ov_vo(host(eom_ops.es_rdm1(
-                    t1, t2, lk1, lk2, r1, r2, r0)), nocc)
-            r1_out = host(r1)
+        with stage("lambda_s"):
+            l1, l2 = solve_lambda(eris, t1, t2, vvvv_op=vvvv_op, sect=sect,
+                                  log=stage.sub("lambda"))
+        with stage("eom_s"):
+            omegas, Rs, Ls = eom_ops.eom_ccsd(eris, t1, t2, nroots=nbr_ES,
+                                              tol=tol, left=True,
+                                              vvvv_op=vvvv_op, sect=sect,
+                                              log=stage.sub("eom"))
+        with stage("densities_s"):
+            nocc = eris.nocc
             if unperm is not None:
-                tr_l = tr_l[np.ix_(unperm, unperm)]
-                tr_r = tr_r[np.ix_(unperm, unperm)]
-                g_es = g_es[np.ix_(unperm, unperm)]
-                r1_out = r1_out[np.ix_(io, iv)]
-            # canonical phase in the ALTERNATING layout, so that the f32
-            # sorted and the f64 dense paths agree: first near-maximal r1
-            # component positive.  tr_l carries R's phase, tr_r L's (tied
-            # to R by <L|R> = 1): both flip together; g_es and the
-            # oscillator strengths do not depend on it
-            flat = r1_out.ravel()
-            aflat = np.abs(flat)
-            if aflat.max() > 0 and flat[int(np.argmax(
-                    aflat >= 0.999 * aflat.max()))] < 0:
-                r1_out = -r1_out
-                tr_l = -tr_l
-                tr_r = -tr_r
-            self.DE_exp.append(float(omegas[k]))
-            self.gamma_tr_mo.append((tr_l, tr_r))
-            self.gamma_es_mo.append(g_es)
-            self.ini_r.append(r1_out)
-            self.spin_labels.append(_spin_label(r1_out))
-            # the biorthogonal product d(0,k).d(k,0) equals |<0|mu|k>|^2
-            # in the FCI limit
-            dl = props.dipole(self.mol, tr_l, g=True, aobasis=False,
-                              mo_coeff=ghf.mo_coeff, dip_int=dip_int)
-            dr = props.dipole(self.mol, tr_r, g=True, aobasis=False,
-                              mo_coeff=ghf.mo_coeff, dip_int=dip_int)
-            f_osc = 2.0 / 3.0 * float(omegas[k]) * float(np.dot(dl, dr))
-            self.trdip_exp.append((np.real(dl), np.real(dr), f_osc))
-        stage.done("densities_s")
+                io, iv = unperm[:nocc], unperm[nocc:] - nocc
+            self.ECCSD = float(e_cc)
+            self.gamma_tr_mo = []
+            self.gamma_es_mo = []  # EOM excited-state densities (Tr = N)
+            self.spin_labels = []  # singlet/triplet/spin-flip per root
+            self.ini_r = []
+            self.trdip_exp = []   # [(d_0k, d_k0, oscillator strength), ...]
+            dip_int = self.mol.intor("r", origin=self.mol.charge_center())
+
+            def host(x):
+                return x.detach().cpu().numpy().astype(np.float64)
+
+            for k in range(nbr_ES):
+                r1, r2 = Rs[k]
+                lk1, lk2 = Ls[k]
+                with torch.no_grad():
+                    r0 = eom_ops.eom_r0(eris, t1, t2, r1, r2, omegas[k])
+                    # the Wick transition densities, stored in the reference
+                    # index convention (ov/vo blocks transposed relative to
+                    # <p+ q>), as the ES solver's gamma_tr kernels read them
+                    tr_l = _swap_ov_vo(host(eom_ops.tr_rdm1_right(
+                        t1, t2, l1, l2, r1, r2, r0)), nocc)
+                    tr_r = _swap_ov_vo(host(eom_ops.tr_rdm1_left(
+                        t1, t2, lk1, lk2)), nocc)
+                    g_es = _swap_ov_vo(host(eom_ops.es_rdm1(
+                        t1, t2, lk1, lk2, r1, r2, r0)), nocc)
+                r1_out = host(r1)
+                if unperm is not None:
+                    tr_l = tr_l[np.ix_(unperm, unperm)]
+                    tr_r = tr_r[np.ix_(unperm, unperm)]
+                    g_es = g_es[np.ix_(unperm, unperm)]
+                    r1_out = r1_out[np.ix_(io, iv)]
+                # canonical phase in the ALTERNATING layout, so that the f32
+                # sorted and the f64 dense paths agree: first near-maximal r1
+                # component positive.  tr_l carries R's phase, tr_r L's (tied
+                # to R by <L|R> = 1): both flip together; g_es and the
+                # oscillator strengths do not depend on it
+                flat = r1_out.ravel()
+                aflat = np.abs(flat)
+                if aflat.max() > 0 and flat[int(np.argmax(
+                        aflat >= 0.999 * aflat.max()))] < 0:
+                    r1_out = -r1_out
+                    tr_l = -tr_l
+                    tr_r = -tr_r
+                self.DE_exp.append(float(omegas[k]))
+                self.gamma_tr_mo.append((tr_l, tr_r))
+                self.gamma_es_mo.append(g_es)
+                self.ini_r.append(r1_out)
+                self.spin_labels.append(_spin_label(r1_out))
+                # the biorthogonal product d(0,k).d(k,0) equals |<0|mu|k>|^2
+                # in the FCI limit
+                dl = props.dipole(self.mol, tr_l, g=True, aobasis=False,
+                                  mo_coeff=ghf.mo_coeff, dip_int=dip_int)
+                dr = props.dipole(self.mol, tr_r, g=True, aobasis=False,
+                                  mo_coeff=ghf.mo_coeff, dip_int=dip_int)
+                f_osc = 2.0 / 3.0 * float(omegas[k]) * float(np.dot(dl, dr))
+                self.trdip_exp.append((np.real(dl), np.real(dr), f_osc))
         return omegas

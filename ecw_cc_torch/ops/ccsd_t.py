@@ -496,10 +496,11 @@ def ccsd_t_rdm1_response(eris, t1, t2, fsp=None, with_t=True, tol=None,
     the test, is captured and replayed, one flag read per iteration.
 
     log: a dict that receives 'iterations', 'converged', the host seconds
-    of the three parts ('energy_grad_s', 'map_s', 'iterations_s'; the
-    device is synchronized before each reading), the (T) gradient's scan
-    logs ('energy_grad') and the loop's ('loop'), or None."""
-    clock = StageClock(t1.device, log)
+    of the three parts ('energy_grad_s', 'map_s', 'iterations_s':
+    StageClock stages, the device synchronized at both ends), the (T)
+    gradient's scan logs ('energy_grad') and the loop's ('loop'), or
+    None."""
+    clock = StageClock(t1.device, log, "ops.ccsd_t.")
     nocc, nvir = t1.shape
     tol = _default_tol(tol, t1.dtype, 1e-10, 1e-5)
     f0 = (eris.fock if fsp is None else fsp).detach()
@@ -515,24 +516,23 @@ def ccsd_t_rdm1_response(eris, t1, t2, fsp=None, with_t=True, tol=None,
     # on the side stream of the loop below: the map's graph, which its
     # body applies, is then launched on the stream it is captured on
     with device_loop.on_side_stream(t1.device):
-        # dE/dt and dE/df of E = E_CCSD (+ E_T)
-        with torch.enable_grad():
-            e_cc = ccsd_ops.energy(eris, t1g, t2g, fg)
-            g1, g2, dE_df = torch.autograd.grad(e_cc, (t1g, t2g, fg))
-        if with_t:
-            _, h1, h2, hfo, hfv = energy_t_grad(eris, t1g, t2g, fg,
-                                                sect=sect,
-                                                log=sub("energy_grad"))
-            g1, g2 = g1 + h1, g2 + h2
-            # f enters (T) through its diagonal only
-            dE_df = dE_df + torch.diag(torch.cat([hfo, hfv]))
-        dE_dt = flat(g1, g2)
-        clock.done("energy_grad_s")
+        with clock("energy_grad_s"):
+            # dE/dt and dE/df of E = E_CCSD (+ E_T)
+            with torch.enable_grad():
+                e_cc = ccsd_ops.energy(eris, t1g, t2g, fg)
+                g1, g2, dE_df = torch.autograd.grad(e_cc, (t1g, t2g, fg))
+            if with_t:
+                _, h1, h2, hfo, hfv = energy_t_grad(eris, t1g, t2g, fg,
+                                                    sect=sect,
+                                                    log=sub("energy_grad"))
+                g1, g2 = g1 + h1, g2 + h2
+                # f enters (T) through its diagonal only
+                dE_df = dE_df + torch.diag(torch.cat([hfo, hfv]))
+            dE_dt = flat(g1, g2)
 
         # the map, evaluated once; its graph serves every product below
-        with torch.enable_grad():
+        with clock("map_s"), torch.enable_grad():
             G = _update_map(eris, t1g, t2g, fg, vvvv_op=vvvv_op, sect=sect)
-        clock.done("map_s")
 
         def vjp(w, wrt):
             cot = (w[:n1].reshape(nocc, nvir),
@@ -553,16 +553,16 @@ def ccsd_t_rdm1_response(eris, t1, t2, fsp=None, with_t=True, tol=None,
             return (~conv & (k < maxiter), torch.where(conv, w_new, w_d),
                     *dstate, k, conv)
 
-        i0 = torch.zeros((), dtype=torch.int64, device=t1.device)
-        _, w, *_, k, conv = device_loop.Loop(body)(
-            (torch.full((), maxiter > 0, device=t1.device), dE_dt,
-             *diis_ops.diis_init(dE_dt.numel(), space=10, dtype=dE_dt.dtype,
-                                 device=dE_dt.device),
-             i0, torch.zeros((), dtype=torch.bool, device=t1.device)),
-            sub("loop"))
-        gamma = dE_df + vjp(w, (fg,))[0]
-        del G
-    clock.done("iterations_s")
+        with clock("iterations_s"):
+            i0 = torch.zeros((), dtype=torch.int64, device=t1.device)
+            _, w, *_, k, conv = device_loop.Loop(body)(
+                (torch.full((), maxiter > 0, device=t1.device), dE_dt,
+                 *diis_ops.diis_init(dE_dt.numel(), space=10,
+                                     dtype=dE_dt.dtype, device=dE_dt.device),
+                 i0, torch.zeros((), dtype=torch.bool, device=t1.device)),
+                sub("loop"))
+            gamma = dE_df + vjp(w, (fg,))[0]
+            del G
     if log is not None:
         log.update(iterations=int(k), converged=bool(conv))
 

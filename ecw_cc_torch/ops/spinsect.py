@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ecw_cc_torch.ops import promote
+from ecw_cc_torch.utils.metrics import span
 
 
 class SectorInfo(NamedTuple):
@@ -209,7 +210,8 @@ def sector_einsum(spec, *operands, info=None):
     """einsum over SpinBlocked operands -> SpinBlocked output.
 
     One dense `torch.einsum` per spin assignment that every operand stores,
-    summed into the output blocks.  When every operand is sym, mirrored
+    summed into the output blocks; each is a span named
+    'ops.sector_einsum.<spec>.<spins of the sorted index letters>'.  When every operand is sym, mirrored
     output keys are skipped (their content equals the canonical block); a
     scalar output keeps one assignment of each mirror pair and doubles it."""
     ins, out = spec.split("->")
@@ -245,7 +247,9 @@ def sector_einsum(spec, *operands, info=None):
                 break
             subs.append(val)
         else:
-            val = einsum(spec, *subs)
+            with span(f"ops.sector_einsum.{spec}."
+                      f"{''.join(map(str, combo))}"):
+                val = einsum(spec, *subs)
             out_blocks[okey] = (out_blocks[okey] + val if okey in out_blocks
                                 else val)
     if sym and not out:

@@ -32,8 +32,15 @@ the body reads, until their release_graphs()).
 
 A replay launches the ladder kernel without passing through its wrapper,
 so the loop takes the wrapper's launch counters' change over the capture
-(which launched nothing) and adds it at every replay: the counts stay
-those of the kernel launches made.
+(which launched nothing) and adds it times the replays once per call:
+after each call the counts are those of the kernel launches made.
+
+A Loop counts its graph's nodes once, at the capture (`_graph_nodes`,
+through the CUDA driver's cuGraphGetNodes on the graph kept for it):
+'nodes', its kernel nodes, the launches of one replay, and
+'other_nodes', its memcpy and memset nodes.  The stages of a call are
+spans (utils/metrics.py): 'loop.warm_up', 'loop.empty_cache',
+'loop.capture', 'loop.replays'.
 
 On the CPU the same body is called eagerly.
 
@@ -70,14 +77,16 @@ on the host).
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import gc
-import time
 
 import numpy as np
 import torch
 
 from ecw_cc_torch.config import matmul_precision
 from ecw_cc_torch.kernels import ladder_mm as _lmm
+from ecw_cc_torch.utils.metrics import span
 
 
 @contextlib.contextmanager
@@ -95,14 +104,15 @@ class Loop:
     from a state until state[0] is false, under config.matmul_precision(
     mode) and torch.no_grad(), and returns the final state; log:
     a dict that receives 'graph' (whether the iterations after the first
-    replayed a captured graph), 'iterations', where this call captured
-    'capture_ms' (the capture and the graph's instantiation, wall time),
-    where it replayed 'replays' and 'replay_ms' (their wall time, each
-    flag read included), and on the card 'memory': {stage: (bytes
-    allocated, peak bytes allocated)} as the caching allocator counts
-    them at the 'entry', after the 'warm_up' and the 'capture' where they
-    ran, and at the 'end' (the peak since the caller's last reset: the
-    first stage it grows at is where the call's peak fell).
+    replayed a captured graph), 'iterations', where this call ran the
+    warm-up 'warm_up_ms' (the eager first iteration with its flag read),
+    where it captured 'empty_cache_ms' and 'capture_ms' (the capture and
+    the graph's instantiation, wall time), and where it replayed
+    'replays', 'replay_ms' (their wall time, each flag read included),
+    'replay_dev_ms' (CUDA events around each replay, read after its flag
+    read: the graph's launch and its execution, since the stream is idle
+    when the first event is recorded), 'nodes' and 'other_nodes' (the
+    graph's, as counted at its capture).
 
     The graph and its static state live as long as the Loop: a next call
     copies its state into the static buffers and replays at once (no
@@ -113,7 +123,8 @@ class Loop:
 
     def __init__(self, body, *, mode="highest"):
         self.body, self.mode = body, mode
-        self.graph = self.static = self.per_replay = None
+        self.graph = self.static = self.per_replay = self.nodes = None
+        self.events = None
 
     def __call__(self, state, log=None):
         state = tuple(state)
@@ -135,35 +146,43 @@ class Loop:
                 caller.wait_stream(side)
 
     def _run_graph(self, state, log):
-        mem = log["memory"] = {"entry": _bytes()}
         if not bool(state[0]):
             return state
         if self.graph is None:
-            state = tuple(self.body(state))    # the warm-up iteration
-            log["iterations"] = 1
-            mem["warm_up"] = _bytes()
-            if not bool(state[0]):
+            with span("loop.warm_up", log, "warm_up_ms"):
+                state = tuple(self.body(state))
+                log["iterations"] = 1
+                go = bool(state[0])
+            if not go:
                 return state
             self.static = _owned(state)
             del state
             self.graph, self.per_replay = _capture(self.body, self.static,
                                                    log)
-            mem["capture"] = _bytes()
+            self.nodes = _graph_nodes(self.graph.raw_cuda_graph())
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
         else:
             for s, t in zip(self.static, state):
                 s.copy_(t)
             del state
-        log["graph"] = True
-        t0, n0 = time.perf_counter(), log["iterations"]
-        while True:
-            self.graph.replay()
-            _lmm.add_launch_counts(self.per_replay)
-            log["iterations"] += 1
-            if not bool(self.static[0]):       # the one read per iteration
-                break
-        log.update(replays=log["iterations"] - n0,
-                   replay_ms=(time.perf_counter() - t0) * 1e3)
-        mem["end"] = _bytes()
+        log.update(graph=True, nodes=self.nodes[0],
+                   other_nodes=self.nodes[1])
+        start, end = self.events
+        n0, dev_ms = log["iterations"], 0.0
+        with span("loop.replays", log, "replay_ms"):
+            while True:
+                start.record()
+                self.graph.replay()
+                end.record()
+                log["iterations"] += 1
+                go = bool(self.static[0])      # the one read per iteration
+                dev_ms += start.elapsed_time(end)
+                if not go:
+                    break
+        replays = log["iterations"] - n0
+        _lmm.add_launch_counts(self.per_replay, replays)
+        log.update(replays=replays, replay_dev_ms=dev_ms)
         return self.static
 
     @property
@@ -178,46 +197,92 @@ def _capture(body, static, log):
     receives 'empty_cache_ms' and 'capture_ms'."""
     ptrs = {t.untyped_storage().data_ptr() for t in static}
     # the warm-up's blocks go back before the graph's pool is filled
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    log["empty_cache_ms"] = (t1 - t0) * 1e3
+    with span("loop.empty_cache", log, "empty_cache_ms"):
+        torch.cuda.empty_cache()
     before = _lmm.launch_counts()
-    graph = torch.cuda.CUDAGraph()
+    # the graph is kept after instantiation, so that a Loop can count its
+    # nodes
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     # capture_begin/end on the side stream (the current one here), not
     # the torch.cuda.graph context, which runs a full garbage
     # collection first.  The collector is off during the capture
     # instead: a graph it freed there (one left in a reference cycle)
     # would invalidate the capture
-    gc_was_on = gc.isenabled()
-    gc.disable()
-    graph.capture_begin()
-    try:
-        out = tuple(body(static))
-        if len(out) != len(static):
-            raise ValueError("device_loop: the body returned "
-                             f"{len(out)} tensors for a state of "
-                             f"{len(static)}")
-        for s, o in zip(static, out):
-            if (o.data_ptr() == s.data_ptr() and o.shape == s.shape
-                    and o.stride() == s.stride()):
-                continue                   # written in place
-            if o.untyped_storage().data_ptr() in ptrs:
-                raise ValueError("device_loop: the body returned a "
-                                 "view of a state tensor in another "
-                                 "place; the copies into the static "
-                                 "state would overwrite it")
-            s.copy_(o)
-    finally:
-        graph.capture_end()
-        if gc_was_on:
-            gc.enable()
-    del out
-    log["capture_ms"] = (time.perf_counter() - t1) * 1e3
+    with span("loop.capture", log, "capture_ms"):
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        graph.capture_begin()
+        try:
+            out = tuple(body(static))
+            if len(out) != len(static):
+                raise ValueError("device_loop: the body returned "
+                                 f"{len(out)} tensors for a state of "
+                                 f"{len(static)}")
+            for s, o in zip(static, out):
+                if (o.data_ptr() == s.data_ptr() and o.shape == s.shape
+                        and o.stride() == s.stride()):
+                    continue                   # written in place
+                if o.untyped_storage().data_ptr() in ptrs:
+                    raise ValueError("device_loop: the body returned a "
+                                     "view of a state tensor in another "
+                                     "place; the copies into the static "
+                                     "state would overwrite it")
+                s.copy_(o)
+        finally:
+            graph.capture_end()
+            if gc_was_on:
+                gc.enable()
+        del out
+        graph.instantiate()
     per_replay = _lmm.launch_counts(since=before)
     # the capture launched nothing
     _lmm.add_launch_counts(per_replay, -1)
     return graph, per_replay
+
+
+# CUgraphNodeType (cuda.h): kernel, memcpy, memset
+_KERNEL_NODE, _MEMCPY_NODE, _MEMSET_NODE = 0, 1, 2
+
+
+@functools.cache
+def _libcuda():
+    """The CUDA driver, which every CUDA process has loaded, with the two
+    graph queries declared."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = (ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t))
+    cu.cuGraphGetNodes.restype = ctypes.c_int
+    cu.cuGraphNodeGetType.argtypes = (ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int))
+    cu.cuGraphNodeGetType.restype = ctypes.c_int
+    return cu
+
+
+def _graph_nodes(raw):
+    """(kernel nodes, memcpy + memset nodes) of the cudaGraph_t `raw` (an
+    int), by the driver's cuGraphGetNodes and cuGraphNodeGetType (a
+    runtime graph is a driver graph)."""
+    cu = _libcuda()
+    n = ctypes.c_size_t(0)
+    _cu_check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)),
+              "cuGraphGetNodes")
+    handles = (ctypes.c_void_p * n.value)()
+    _cu_check(cu.cuGraphGetNodes(raw, handles, ctypes.byref(n)),
+              "cuGraphGetNodes")
+    kinds = []
+    kind = ctypes.c_int(0)
+    for h in handles[:n.value]:
+        _cu_check(cu.cuGraphNodeGetType(h, ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+        kinds.append(kind.value)
+    return (kinds.count(_KERNEL_NODE),
+            kinds.count(_MEMCPY_NODE) + kinds.count(_MEMSET_NODE))
+
+
+def _cu_check(status, what):
+    if status != 0:
+        raise RuntimeError(f"device_loop: {what} returned CUresult "
+                           f"{status}")
 
 
 def scan(body, state, n, log=None):
@@ -234,7 +299,7 @@ def scan(body, state, n, log=None):
     and the graph replayed for steps 2 to n, n - 1 replays, on the side
     stream, ordered after the caller's work and before what follows; the
     graph and its pool are freed on return.  The launch counters grow by
-    the capture's count at each replay, as in Loop.  n = 0 and n = 1
+    the capture's count times the replays, as in Loop.  n = 0 and n = 1
     capture nothing.  log: a dict that receives 'steps', 'graph', and where
     a graph ran 'empty_cache_ms', 'capture_ms', 'replays' and 'replay_ms'
     (the replays' wall time, enqueue only)."""
@@ -253,19 +318,19 @@ def scan(body, state, n, log=None):
     try:
         with (torch.no_grad(), matmul_precision("highest"),
               torch.cuda.stream(side), _cusolver()):
-            state = tuple(body(state))          # the warm-up step
+            with span("loop.warm_up"):
+                state = tuple(body(state))
             if n == 1:
                 return state
             static = _owned(state)
             del state
             graph, per_replay = _capture(body, static, log)
             log["graph"] = True
-            t0 = time.perf_counter()
-            for _ in range(n - 1):
-                graph.replay()
-                _lmm.add_launch_counts(per_replay)
-            log.update(replays=n - 1,
-                       replay_ms=(time.perf_counter() - t0) * 1e3)
+            with span("loop.replays", log, "replay_ms"):
+                for _ in range(n - 1):
+                    graph.replay()
+            _lmm.add_launch_counts(per_replay, n - 1)
+            log["replays"] = n - 1
             del graph
             return static
     finally:
@@ -358,10 +423,6 @@ def _side_stream(device):
     if idx not in _SIDE:
         _SIDE[idx] = torch.cuda.Stream(idx)
     return _SIDE[idx]
-
-
-def _bytes():
-    return torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
 
 
 def _owned(state):

@@ -73,7 +73,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-import time
 import types
 
 import numpy as np
@@ -96,7 +95,7 @@ from ecw_cc_torch.ops.l1reg import subdiff
 from ecw_cc_torch.ops.vexp import make_gs_vexp_device
 from ecw_cc_torch.parallel import sharding
 from ecw_cc_torch.solvers import device_loop
-from ecw_cc_torch.utils.metrics import IterationMetrics
+from ecw_cc_torch.utils.metrics import IterationMetrics, span
 
 # the iter_precision modes whose float32 ladder products run TF32
 TF32_MODES = ("high", "default")
@@ -674,52 +673,57 @@ class Solver_CCSD:
         if refine and self.eris_host is None:
             raise ValueError("refine=True requires eris_host at "
                              "Solver_CCSD construction")
-        mesh = self.mesh or sharding.mesh_of(ts, ls, td, ld)
-        route = self.route()
-        sym = (route == "sectored" and get_config().soup_sym
-               and self._spin_restricted())
-        amps0 = [self._amp(a) if a is not None else d for a, d in
-                 zip((ts, ls, td, ld),
-                     (self.tsini, self.lsini, self.tdini, self.ldini))]
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            out = self._solve([L], amps0, alpha=alpha, diis=diis or self.diis,
-                              sectored=route == "sectored", sym=sym)
-        ts, ls, td, ld, rdm1, ite, k, status, hist, legs, loops = out
-        ite, k, status = int(ite[0]), int(k[0]), int(status[0])
-        Ep_h, Delta_h, vmax_h, conv_h = hist[0]
+        # the host work around the solve: spans whose ms go to
+        # last_solve["driver"] (ECW.CCSD_GS adds its own there)
+        driver = {}
+        with span("solver.enter", driver, "enter_ms"):
+            mesh = self.mesh or sharding.mesh_of(ts, ls, td, ld)
+            route = self.route()
+            sym = (route == "sectored" and get_config().soup_sym
+                   and self._spin_restricted())
+            amps0 = [self._amp(a) if a is not None else d for a, d in
+                     zip((ts, ls, td, ld),
+                         (self.tsini, self.lsini, self.tdini, self.ldini))]
         # wall time to solution: _solve ends in a device->host copy
-        self.last_solve = {"L": L, "iterations": k, "status": status,
-                           "route": route, "sym": sym,
-                           "precision": get_config().iter_precision,
-                           "legs": [(m, n[0], d[0]) for m, n, d in legs],
-                           "loops": loops,
-                           "ms": (time.perf_counter() - t0) * 1e3}
-        text = _conv_text(status, L, ite, alpha=alpha, ccsd=True)
-        Delta_it = np.stack([Delta_h[:k], vmax_h[:k]], axis=1)
-        amps = [ts[0], ls[0], td[0], ld[0]]
-        rdm1 = rdm1[0].cpu().numpy()
-        if refine:
-            t1 = time.perf_counter()
-            amps, Ep64, rdm1, n_pol = polish_f64(
-                self._polish_eris(), self.myVexp, L, amps,
-                n_iter=refine_iter, alpha=alpha,
-                energy_term=self.energy_term)
-            self.last_solve["refine_ms"] = (time.perf_counter() - t1) * 1e3
-            self.last_solve["refine_iterations"] = n_pol
-            Ep_h = np.concatenate([Ep_h[:k], [Ep64]])
-            conv_h = np.concatenate([conv_h[:k], [conv_h[k - 1]]])
-            Delta_it = np.concatenate([Delta_it, Delta_it[-1:]], axis=0)
-            k += 1
-        if not keep_device:
-            amps = [a.cpu().numpy() for a in amps]
-        elif mesh is not None:
-            sh = sharding.amp_shardings(mesh)
-            amps = [sharding.shard_tensor(a, mesh, sh[n])
-                    for a, n in zip(amps, ("t1", "l1", "t2", "l2"))]
-        self.myVexp.Vexp_update(rdm1, rdm1, (0, 0), L=L)
-        _record_metrics(self, "CCSD_device", L, Ep_h[:k], Delta_it,
-                        conv_h[:k])
+        solve = {}
+        with span("solver.solve", solve, "ms"), torch.no_grad():
+            out = self._solve([L], amps0, alpha=alpha,
+                              diis=diis or self.diis,
+                              sectored=route == "sectored", sym=sym,
+                              log=solve)
+        with span("solver.exit", driver, "exit_ms"):
+            ts, ls, td, ld, rdm1, ite, k, status, hist, legs, loops = out
+            ite, k, status = int(ite[0]), int(k[0]), int(status[0])
+            Ep_h, Delta_h, vmax_h, conv_h = hist[0]
+            self.last_solve = {"L": L, "iterations": k, "status": status,
+                               "route": route, "sym": sym,
+                               "precision": get_config().iter_precision,
+                               "legs": [(m, n[0], d[0]) for m, n, d in legs],
+                               "loops": loops, **solve, "driver": driver}
+            text = _conv_text(status, L, ite, alpha=alpha, ccsd=True)
+            Delta_it = np.stack([Delta_h[:k], vmax_h[:k]], axis=1)
+            amps = [ts[0], ls[0], td[0], ld[0]]
+            rdm1 = rdm1[0].cpu().numpy()
+            if refine:
+                with span("solver.refine", self.last_solve, "refine_ms"):
+                    amps, Ep64, rdm1, n_pol = polish_f64(
+                        self._polish_eris(), self.myVexp, L, amps,
+                        n_iter=refine_iter, alpha=alpha,
+                        energy_term=self.energy_term)
+                self.last_solve["refine_iterations"] = n_pol
+                Ep_h = np.concatenate([Ep_h[:k], [Ep64]])
+                conv_h = np.concatenate([conv_h[:k], [conv_h[k - 1]]])
+                Delta_it = np.concatenate([Delta_it, Delta_it[-1:]], axis=0)
+                k += 1
+            if not keep_device:
+                amps = [a.cpu().numpy() for a in amps]
+            elif mesh is not None:
+                sh = sharding.amp_shardings(mesh)
+                amps = [sharding.shard_tensor(a, mesh, sh[n])
+                        for a, n in zip(amps, ("t1", "l1", "t2", "l2"))]
+            self.myVexp.Vexp_update(rdm1, rdm1, (0, 0), L=L)
+            _record_metrics(self, "CCSD_device", L, Ep_h[:k], Delta_it,
+                            conv_h[:k])
         return (text, Ep_h[:k], Delta_it, conv_h[:k], rdm1, amps)
 
     def release_graphs(self):
@@ -767,14 +771,15 @@ class Solver_CCSD:
         route = self.route()
         sym = (route == "sectored" and get_config().soup_sym
                and self._spin_restricted())
-        t0 = time.perf_counter()
         n0 = ladder_mm.launches
-        with torch.no_grad():
+        solve = {}
+        with span("solver.solve", solve, "ms"), torch.no_grad():
             out = self._solve(list(Larray),
                               (self.tsini, self.lsini, self.tdini,
                                self.ldini),
                               alpha=alpha, diis=diis or self.diis,
-                              sectored=route == "sectored", sym=sym)
+                              sectored=route == "sectored", sym=sym,
+                              log=solve)
         ts, ls, td, ld, rdm1 = (a.cpu().numpy() for a in out[:5])
         ite, k, status, hist, legs, loops = out[5:]
         self.last_solve = {"L": list(Larray), "lanes": len(Larray),
@@ -782,8 +787,7 @@ class Solver_CCSD:
                            "status": status.tolist(), "route": route,
                            "sym": sym,
                            "precision": get_config().iter_precision,
-                           "legs": legs, "loops": loops,
-                           "ms": (time.perf_counter() - t0) * 1e3,
+                           "legs": legs, "loops": loops, **solve,
                            "ladder_launches": ladder_mm.launches - n0}
         results = []
         for i, L in enumerate(Larray):
@@ -991,7 +995,7 @@ class Solver_CCSD:
         return (_perm2(ts, io, iv), _perm2(ls, io, iv), _perm4(td, io, iv),
                 _perm4(ld, io, iv), rdm1[ip][:, ip])
 
-    def _solve(self, Ls, amps0, alpha, diis, sectored, sym):
+    def _solve(self, Ls, amps0, alpha, diis, sectored, sym, log=None):
         """The loop of SCF (one lane) and SCF_batch (one lane per lambda of
         Ls), every lane started from amps0 = (ts, ls, td, ld) (public
         layout).  The state of every lane lives on the device; one lane
@@ -1008,81 +1012,93 @@ class Solver_CCSD:
         axis), iterations, steps, status and hist (NumPy; hist: (lanes, 4,
         maxiter + 2)), the legs' log [(mode, steps, Dconv) per lane] and
         the loops' logs (one per leg).  The set-up and the legs' loops are
-        kept for the next call with the same arguments (release_graphs)."""
+        kept for the next call with the same arguments (release_graphs).
+
+        log: a dict that receives the ms of the host work around the legs,
+        each a span: 'setup_ms' (_setup, where the kept set-up is rebuilt),
+        'lanes_ms' (the lanes' state and, per leg, its DIIS ring and step)
+        and 'finish_ms' (the copies, the unsort and the host reads); the
+        legs are 'solver.leg' spans."""
+        log = {} if log is None else log
         dev, dt, f64 = self.device, self.dtype, torch.float64
         thres, maxiter = self.conv_thres, self.maxiter
         nL = len(Ls)
-        Lw_host = torch.tensor([self.myVexp.L_check(L)[0] for L in Ls],
-                               dtype=dt)
-        # the set-up and the legs' loops are kept for the next call with
-        # the same arguments and config (the lambdas of a sweep): its
-        # loops start replaying at once.  The weights are a device tensor
-        # the kept bodies read, refilled per call
-        key = (nL, alpha, diis, sectored, sym,
-               dataclasses.astuple(get_config()), self.conv,
-               self.conv_thres, self.maxiter, self.mindiis, self.maxdiis,
-               self.energy_term, tuple(Lw_host.shape))
+        with span("solver.lanes", log, "lanes_ms"):
+            Lw_host = torch.tensor([self.myVexp.L_check(L)[0] for L in Ls],
+                                   dtype=dt)
+            # the set-up and the legs' loops are kept for the next call
+            # with the same arguments and config (the lambdas of a sweep):
+            # its loops start replaying at once.  The weights are a device
+            # tensor the kept bodies read, refilled per call
+            key = (nL, alpha, diis, sectored, sym,
+                   dataclasses.astuple(get_config()), self.conv,
+                   self.conv_thres, self.maxiter, self.mindiis,
+                   self.maxdiis, self.energy_term, tuple(Lw_host.shape))
         if self._kept is None or self._kept[0] != key:
-            self.release_graphs()
-            su = self._setup(diis, sectored, sym)
-            self._kept = (key, su, torch.empty_like(Lw_host, device=dev),
-                          [None] * len(su.legs))
-        _, su, Lw_t, loops = self._kept
-        Lw_t.copy_(Lw_host)
-        Lw = Lw_t[0] if nL == 1 else Lw_t
-        amps0 = self._sort_in(*amps0)
-        # one materialized copy per lane
-        amps = tuple(a.unsqueeze(0).repeat(nL, *(1,) * a.dim())
-                     for a in amps0)
-        conv0 = _ccsd_conv_vec(self.conv, su, *amps0, su.eris.fock)
-        conv = conv0.new_zeros((nL,) + conv0.shape)
-        hist = torch.zeros((nL, 4, maxiter + 2), dtype=dt, device=dev)
-        # the lane controls: Dconv (compared in f64, as the host float the
-        # threshold is), iterations, steps, status
-        Dconv = torch.ones(nL, dtype=f64, device=dev)
-        ite = torch.zeros(nL, dtype=torch.int64, device=dev)
-        k = torch.zeros_like(ite)
-        status = torch.full_like(ite, RUNNING)
-        rdm1 = torch.zeros((nL,) + (self.nocc + self.nvir,) * 2, dtype=dt,
-                           device=dev)
+            with span("solver.setup", log, "setup_ms"):
+                self.release_graphs()
+                su = self._setup(diis, sectored, sym)
+                self._kept = (key, su,
+                              torch.empty_like(Lw_host, device=dev),
+                              [None] * len(su.legs))
+        with span("solver.lanes", log, "lanes_ms"):
+            _, su, Lw_t, loops = self._kept
+            Lw_t.copy_(Lw_host)
+            Lw = Lw_t[0] if nL == 1 else Lw_t
+            amps0 = self._sort_in(*amps0)
+            # one materialized copy per lane
+            amps = tuple(a.unsqueeze(0).repeat(nL, *(1,) * a.dim())
+                         for a in amps0)
+            conv0 = _ccsd_conv_vec(self.conv, su, *amps0, su.eris.fock)
+            conv = conv0.new_zeros((nL,) + conv0.shape)
+            hist = torch.zeros((nL, 4, maxiter + 2), dtype=dt, device=dev)
+            # the lane controls: Dconv (compared in f64, as the host float
+            # the threshold is), iterations, steps, status
+            Dconv = torch.ones(nL, dtype=f64, device=dev)
+            ite = torch.zeros(nL, dtype=torch.int64, device=dev)
+            k = torch.zeros_like(ite)
+            status = torch.full_like(ite, RUNNING)
+            rdm1 = torch.zeros((nL,) + (self.nocc + self.nvir,) * 2,
+                               dtype=dt, device=dev)
         # a single lane steps only while it is active: nothing to keep
         keep = ((lambda act, new, old: new) if nL == 1 else
                 lambda act, new, old: torch.where(
                     act.view((-1,) + (1,) * (new.dim() - 1)), new, old))
         leg_log, loop_log = [], []
         for leg, (mode, stop) in enumerate(su.legs):
-            # a fresh DIIS ring per leg: the 'highest' leg of 'hybrid' (JAX
-            # gs.py:1019-1035) must not extrapolate over the fast leg's
-            # noisy differences, which poison the subspace.  The ring is
-            # not frozen with the lanes: a finished lane never reads it
-            # again, and the freeze's copy of the history (~1.3 GB per
-            # iteration at cc-pVTZ, as the JAX package notes) would cost
-            # more than the step it guards
-            # (a kept loop's ring is emptied by copies of broadcast zeros:
-            # a fresh one would cost the history's size again)
-            ring = self._fresh_diis(
-                su, lanes=nL,
-                reset=loops[leg] is not None and loops[leg].captured)
-            ring = tuple(ring) if ring is not None else ()
-            ring_dims = ((0,) * len(diis_ops.LANE_FIELDS)
-                         + (None,) * len(diis_ops.SHARED_FIELDS)
-                         if ring else 0)
-            if leg:
-                # at least one full-precision iteration per running lane
-                Dconv = torch.where(status == RUNNING,
-                                    Dconv.clamp(min=1.5 * thres), Dconv)
-            step = self._make_step(su, mode, alpha)
-            step = (torch.func.vmap(
-                step, in_dims=(0, ring_dims, 0, 0),
-                out_dims=(0, ring_dims, 0, 0, 0, 0, 0, 0))
-                if nL > 1 else _one_lane(step, ring_dims))
-            # the fast leg of 'hybrid' also ends when Dconv stalls: 3
-            # iterations without a new best below 0.95 * best
-            stall_on = len(su.legs) > 1 and leg == 0
-            dmin = torch.full((nL,), float("inf"), dtype=f64, device=dev)
-            stall = torch.zeros_like(ite)
-            k0 = k.clone()
-            nr = len(ring)
+            with span("solver.lanes", log, "lanes_ms"):
+                # a fresh DIIS ring per leg: the 'highest' leg of 'hybrid' (JAX
+                # gs.py:1019-1035) must not extrapolate over the fast leg's
+                # noisy differences, which poison the subspace.  The ring is
+                # not frozen with the lanes: a finished lane never reads it
+                # again, and the freeze's copy of the history (~1.3 GB per
+                # iteration at cc-pVTZ, as the JAX package notes) would cost
+                # more than the step it guards
+                # (a kept loop's ring is emptied by copies of broadcast zeros:
+                # a fresh one would cost the history's size again)
+                ring = self._fresh_diis(
+                    su, lanes=nL,
+                    reset=loops[leg] is not None and loops[leg].captured)
+                ring = tuple(ring) if ring is not None else ()
+                ring_dims = ((0,) * len(diis_ops.LANE_FIELDS)
+                             + (None,) * len(diis_ops.SHARED_FIELDS)
+                             if ring else 0)
+                if leg:
+                    # at least one full-precision iteration per running lane
+                    Dconv = torch.where(status == RUNNING,
+                                        Dconv.clamp(min=1.5 * thres), Dconv)
+                step = self._make_step(su, mode, alpha)
+                step = (torch.func.vmap(
+                    step, in_dims=(0, ring_dims, 0, 0),
+                    out_dims=(0, ring_dims, 0, 0, 0, 0, 0, 0))
+                    if nL > 1 else _one_lane(step, ring_dims))
+                # the fast leg of 'hybrid' also ends when Dconv stalls: 3
+                # iterations without a new best below 0.95 * best
+                stall_on = len(su.legs) > 1 and leg == 0
+                dmin = torch.full((nL,), float("inf"), dtype=f64, device=dev)
+                stall = torch.zeros_like(ite)
+                k0 = k.clone()
+                nr = len(ring)
 
             def active_of(Dconv, status, stall, stop=stop,
                           stall_on=stall_on):
@@ -1129,24 +1145,28 @@ class Solver_CCSD:
                         status, hist, stall, dmin)
 
             go = active_of(Dconv, status, stall).any()
-            log = {}
             if loops[leg] is None:
                 loops[leg] = device_loop.Loop(body, mode=mode)
-            state = loops[leg](
-                (go, *amps, *ring, conv, rdm1, Dconv, ite, k, status, hist,
-                 stall, dmin), log)
-            amps, rest = tuple(state[1:5]), state[5 + nr:]
-            conv, rdm1, Dconv, ite, k, status, hist = rest[:7]
-            del state, rest
-            loop_log.append(log)
-            leg_log.append((mode, (k - k0).tolist(), Dconv.tolist()))
-        status = torch.where(status == RUNNING, CONVERGED, status)
-        # copies: the kept loops' static state is overwritten by the next
-        # call
-        amps, rdm1 = tuple(a.clone() for a in amps), rdm1.clone()
-        ts, ls, td, ld, rdm1 = torch.func.vmap(self._sort_out)(*amps, rdm1)
-        return (ts, ls, td, ld, rdm1, ite.cpu().numpy(), k.cpu().numpy(),
-                status.cpu().numpy(), hist.cpu().numpy(), leg_log, loop_log)
+            with span("solver.leg"):
+                lp = {}
+                state = loops[leg](
+                    (go, *amps, *ring, conv, rdm1, Dconv, ite, k, status,
+                     hist, stall, dmin), lp)
+                amps, rest = tuple(state[1:5]), state[5 + nr:]
+                conv, rdm1, Dconv, ite, k, status, hist = rest[:7]
+                del state, rest
+                loop_log.append(lp)
+                leg_log.append((mode, (k - k0).tolist(), Dconv.tolist()))
+        with span("solver.finish", log, "finish_ms"):
+            status = torch.where(status == RUNNING, CONVERGED, status)
+            # copies: the kept loops' static state is overwritten by the
+            # next call
+            amps, rdm1 = tuple(a.clone() for a in amps), rdm1.clone()
+            ts, ls, td, ld, rdm1 = torch.func.vmap(self._sort_out)(*amps,
+                                                                   rdm1)
+            return (ts, ls, td, ld, rdm1, ite.cpu().numpy(),
+                    k.cpu().numpy(), status.cpu().numpy(),
+                    hist.cpu().numpy(), leg_log, loop_log)
 
 
 def _ccsd_conv_vec(conv, su, ts, ls, td, ld, fsp):

@@ -11,7 +11,8 @@
     interpreter with the same imports made to fail); and an example twin
     from its command line the same way;
   - no file of the port, and not chip_smoke.py, the kernel timing tools
-    tools/f32tc_splits.py and tools/f64tc_splits.py or the card's test
+    tools/f32tc_splits.py and tools/f64tc_splits.py, the tracing tools
+    tools/replay_split.py and tools/soup_einsums.py, or the card's test
     of the f64 kernel tests/test_torch_f64tc_card.py, has an import
     statement naming jax or ecw_cc_tpu (read with `ast`, so lazy imports
     inside functions count too).
@@ -224,6 +225,8 @@ PORT_FILES = sorted(
     + [os.path.join(REPO, "chip_smoke.py"),
        os.path.join(REPO, "tools", "f32tc_splits.py"),
        os.path.join(REPO, "tools", "f64tc_splits.py"),
+       os.path.join(REPO, "tools", "replay_split.py"),
+       os.path.join(REPO, "tools", "soup_einsums.py"),
        os.path.join(REPO, "tests", "test_torch_f64tc_card.py")])
 
 
