@@ -195,10 +195,13 @@ class ECW:
                      para_factor=None, max_def=None, basis=None):
         """Build GS target data.  Reference Main.py:267-398.
 
-        self.target_log: the build's Gexp.log (the seconds of its stages)
-        with 'init_s' (the Gexp construction), 'target_store_s' (the
-        target's conversion into this ECW's MO basis) and 'spans', the
-        rows of the build's job (utils/metrics.py)."""
+        A target on this ECW's own molecule (no basis, max_def or field)
+        reuses the RHF that __init__ converged instead of running it again.
+
+        self.target_log: the build's Gexp.log (the seconds of its stages,
+        'scf_reused' 1 or 0) with 'init_s' (the Gexp construction),
+        'target_store_s' (the target's conversion into this ECW's MO basis)
+        and 'spans', the rows of the build's job (utils/metrics.py)."""
         if basis is not None and "mat" in prop and self.mol.basis_name != basis:
             print("WARNING: rdm1 comparison requires identical bases; using "
                   f"{self.mol.basis_name} for the target rdm1")
@@ -207,10 +210,13 @@ class ECW:
             print("WARNING: rdm1 comparison requires the same geometry")
             max_def = None
 
+        # a target on this ECW's own molecule takes its converged RHF
+        own = basis is None and max_def is None and field is None
         init = {}
         with metrics.span("ecw.target.init", init, "init_s"):
             gexp = gamma_exp.Gexp(self.mol, posthf, basis=basis,
-                                  device=self.device, dtype=self.dtype)
+                                  device=self.device, dtype=self.dtype,
+                                  mf=self.mf._rhf if own else None)
         if max_def is not None:
             gexp.deform(max_def)
         if field is not None:

@@ -209,15 +209,29 @@ class Gexp:
     device, dtype: where and at what precision a correlated target is
     solved (None = config.dtype); an HF target is host work.  After a
     correlated build, `self.log` holds the iterations and the seconds of
-    each stage."""
+    each stage.
+
+    mf: optional converged RHF of the very molecule to be built (mol and
+    basis are then not read).  The build takes its orbitals, and its
+    molecule with the integrals that molecule holds, instead of running
+    the SCF again; log['scf_reused'] says which happened.  A borrowed RHF
+    or molecule is never changed: Vext() and deform() first give the
+    target its own."""
 
     def __init__(self, mol: Molecule, method, basis=None, *, device="cuda",
-                 dtype=None):
+                 dtype=None, mf=None):
         self.device = device
         self.dtype = torch_dtype(dtype)
         self.log = {}
-        self.mol_def = mol.with_basis(basis) if basis is not None else mol.copy()
-        self.mf_def = RHF(self.mol_def)
+        if mf is not None:
+            if mf.mo_coeff is None:
+                raise ValueError("mf must be a converged RHF")
+            self.mol_def, self.mf_def = mf.mol, mf
+        else:
+            self.mol_def = (mol.with_basis(basis) if basis is not None
+                            else mol.copy())
+            self.mf_def = RHF(self.mol_def)
+        self._borrowed = mf is not None
         self.mo_coeff_def = None
         self.nocc = None
         self.nvir = None
@@ -238,10 +252,15 @@ class Gexp:
                      for i, (sym, xyz) in enumerate(self.mol_def.atoms)]
         self.mol_def = self.mol_def.with_geometry(new_atoms)
         self.mf_def = RHF(self.mol_def)
+        self._borrowed = False
 
     def Vext(self, field):
         """Static external field on the one-electron operator; reference
         gamma_exp.py:170-191 (dipole origin at [0,0,0])."""
+        if self._borrowed:
+            self.mol_def = self.mol_def.copy()
+            self.mf_def = RHF(self.mol_def)
+            self._borrowed = False
         mol = self.mol_def
         h = (mol.intor("kin") + mol.intor("nuc")
              + np.einsum("x,xij->ij", np.asarray(field, float),
@@ -260,10 +279,11 @@ class Gexp:
         if method not in ("HF", "CCSD", "CCSDT"):
             raise ValueError("method not recognized (use 'HF', 'CCSD' or "
                              "'CCSD(T)')")
-        self.log = log = {}
-        self.mf_def.conv_tol = 1e-11
+        self.log = log = {"scf_reused": int(self._borrowed)}
         with span("gexp.scf", log, "scf_s"):
-            self.mf_def.kernel()
+            if not self._borrowed:
+                self.mf_def.conv_tol = 1e-11
+                self.mf_def.kernel()
         self.mo_coeff_def = self.mf_def.mo_coeff
         self.nocc = int(np.sum(self.mf_def.mo_occ > 0))
         self.nvir = int(np.sum(self.mf_def.mo_occ == 0))

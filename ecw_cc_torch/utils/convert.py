@@ -117,14 +117,14 @@ def ao_to_mo(rdm1_ao, mo_coeff):
     if rdm1_ao.shape != mo_coeff.shape:
         raise ValueError("rdm1 and MO coefficients must have the same dimension")
     cinv = np.linalg.inv(mo_coeff)
-    return np.einsum("pi,ij,qj->pq", cinv, rdm1_ao, cinv.conj())
+    return cinv @ rdm1_ao @ cinv.conj().T
 
 
 def mo_to_ao(rdm1_mo, mo_coeff):
     """rdm1 MO -> AO basis. Reference utilities.py:381-394."""
     if rdm1_mo.shape != mo_coeff.shape:
         raise ValueError("rdm1 and mo coeff must have the same size")
-    return np.einsum("pi,ij,qj->pq", mo_coeff, rdm1_mo, mo_coeff.conj())
+    return mo_coeff @ rdm1_mo @ mo_coeff.conj().T
 
 
 def convert_aoint(int_ao, mo_coeff, g=True):

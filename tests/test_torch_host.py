@@ -161,6 +161,41 @@ def test_convert_round_trips(pair):
         rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("operands", ["real", "complex", "ghf"])
+def test_rdm1_basis_changes_are_the_three_operand_einsum(pair, operands):
+    """mo_to_ao and ao_to_mo as GEMM chains give the reference's
+    einsum('pi,ij,qj->pq') to 1e-14 relative."""
+    rng = np.random.default_rng(11)
+
+    def rand(n):
+        a = rng.standard_normal((n, n))
+        return a + 1j * rng.standard_normal((n, n)) if operands == "complex" \
+            else a
+
+    if operands == "ghf":
+        mo = pair["t"]["ghf"].mo_coeff
+        ao = pair["t"]["ghf"].make_rdm1()
+        mo_rdm = np.diag(pair["t"]["ghf"].mo_occ.astype(float))
+    else:
+        mo = np.eye(16) + 0.1 * rand(16)
+        ao = rand(16)
+        ao = ao + ao.conj().T
+        mo_rdm = rand(16)
+        mo_rdm = mo_rdm + mo_rdm.conj().T
+    cinv = np.linalg.inv(mo)
+    for got, ref in (
+            (convert.mo_to_ao(mo_rdm, mo),
+             np.einsum("pi,ij,qj->pq", mo, mo_rdm, mo.conj())),
+            (convert.ao_to_mo(ao, mo),
+             np.einsum("pi,ij,qj->pq", cinv, ao, cinv.conj()))):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert np.abs(got - ref).max() <= 1e-14 * np.abs(ref).max()
+    with pytest.raises(ValueError):
+        convert.mo_to_ao(mo_rdm[:-1], mo)
+    with pytest.raises(ValueError):
+        convert.ao_to_mo(ao[:, :-1], mo)
+
+
 def test_checkpoint_round_trip(tmp_path):
     rng = np.random.default_rng(3)
     amps = {k: rng.standard_normal((4, 6)) for k in ("ts", "ls")}

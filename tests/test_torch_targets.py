@@ -196,3 +196,92 @@ def test_f32_stopping_tolerances_hold_the_target():
     assert "conv_tol" in inspect.signature(tg.solve_lambda).parameters
     assert "tol" in inspect.signature(
         ccsd_t.ccsd_t_rdm1_response).parameters
+
+
+def _ecw_build(monkeypatch, ecw_basis, posthf, reuse, **kw):
+    """ECW(h2o, ecw_basis).Build_GS_exp(posthf, **kw) at f32 on the CPU, with
+    the reuse of the ECW's RHF as it comes (reuse=True) or kept off (the
+    Gexp is given no mf); returns the ECW and the build's Gexp."""
+    made = []
+
+    class Spy(tg.Gexp):
+        def __init__(self, *args, mf=None, **kwargs):
+            super().__init__(*args, mf=mf if reuse else None, **kwargs)
+            made.append(self)
+
+    monkeypatch.setattr(tg, "Gexp", Spy)
+    ecw = ECW("h2o", ecw_basis, device="cpu", dtype=torch.float32)
+    ecw.Build_GS_exp(kw.pop("prop", "mat"), posthf, **kw)
+    return ecw, made[0]
+
+
+@pytest.mark.parametrize("basis", ["sto-3g", "6-31g"])
+@pytest.mark.parametrize("posthf", ["HF", "CCSD", "CCSD(T)"])
+def test_target_on_the_reused_rhf_is_bitwise_the_rerun_one(monkeypatch, basis,
+                                                           posthf):
+    """A 'mat' target on the ECW's own molecule takes the ECW's converged
+    RHF: the target, its energy and gamma_ao are bitwise those of the build
+    that runs its SCF again."""
+    out = {}
+    for reuse in (True, False):
+        ecw, gexp = _ecw_build(monkeypatch, basis, posthf, reuse)
+        out[reuse] = ecw, gexp
+        assert ecw.target_log["scf_reused"] == int(reuse)
+        assert ecw.target_log["scf_s"] >= 0.0
+        assert (gexp.mf_def is ecw.mf._rhf) == reuse
+        assert (gexp.mol_def is ecw.mol) == reuse
+    (a, ga), (b, gb) = out[True], out[False]
+    np.testing.assert_array_equal(a.exp_data[0][0][1], b.exp_data[0][0][1])
+    assert a.Eexp_GS == b.Eexp_GS
+    np.testing.assert_array_equal(ga.gamma_ao, gb.gamma_ao)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(field=FIELD),
+    dict(prop="dip", max_def=0.01),
+    dict(prop="dip", basis="6-31g"),
+    dict(),
+], ids=["field", "max_def", "basis", "reused"])
+def test_the_reuse_is_declined_off_the_ecws_molecule(monkeypatch, kw):
+    """A field, a deformation or another basis changes the molecule: the
+    target runs its own SCF.  No build changes the ECW's RHF."""
+    ecw, gexp = _ecw_build(monkeypatch, "sto-3g", "HF", True, **kw)
+    rhf = ecw.mf._rhf
+    ref = RHF(Molecule("h2o", "sto-3g"))
+    ref.kernel()
+    assert ecw.target_log["scf_reused"] == int(not kw)
+    assert "scf_s" in ecw.target_log
+    assert (gexp.mf_def is rhf) == (not kw)
+    np.testing.assert_array_equal(rhf.mo_coeff, ref.mo_coeff)
+    assert rhf.e_tot == ref.e_tot and rhf.mol is ecw.mol
+    assert rhf._hcore_override is None
+    if "basis" in kw:
+        assert gexp.mol_def.basis_name == "6-31g"
+
+
+@pytest.mark.parametrize("change", ["Vext", "deform"])
+def test_gexp_never_changes_a_borrowed_rhf(change):
+    """Vext() and deform() on a Gexp given mf first give it its own RHF and
+    molecule: the build is the one without mf, and mf is as it was."""
+    mol = Molecule("h2o", "sto-3g")
+    rhf = RHF(mol)
+    rhf.kernel()
+    mo, e_tot, cache = rhf.mo_coeff.copy(), rhf.e_tot, dict(mol._cache)
+    out = []
+    for mf in (rhf, None):
+        g = tg.Gexp(mol, "HF", device="cpu", mf=mf)
+        if change == "Vext":
+            g.Vext(FIELD)
+        else:
+            g.deform(0.01, rng=np.random.default_rng(5))
+        g.build()
+        assert g.mf_def is not rhf and g.mol_def is not mol
+        assert g.log["scf_reused"] == 0
+        out.append(g)
+    np.testing.assert_array_equal(out[0].gamma_ao, out[1].gamma_ao)
+    assert out[0].Eexp == out[1].Eexp
+    np.testing.assert_array_equal(rhf.mo_coeff, mo)
+    assert rhf.e_tot == e_tot and rhf._hcore_override is None
+    assert rhf.mol is mol and mol._cache.keys() == cache.keys()
+    with pytest.raises(ValueError, match="converged"):
+        tg.Gexp(mol, "HF", device="cpu", mf=RHF(mol))
