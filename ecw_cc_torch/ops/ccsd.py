@@ -15,8 +15,11 @@ Both vvvv ladders go through ops/ladder.py, whose every product is the
 hand-written GEMM kernel: the t ladder in `ladder_contract`, the lambda
 ladder as the same NT product of l2 (the JAX package's
 0.5*einsum('ijcd,cdab->ijab', l2, vvvv), ccsd.py:543).  The JAX package's
-pre-permuted ERI views (SoupViews, `views=`) are not ported: the port
-computes the reference-ordered contractions, the same math.
+pre-permuted ERI views on these dense updates (SoupViews, `views=`) are
+not ported: they compute the reference-ordered contractions, the same
+math.  The sectored route's updates (ops/ccsd_sect.py) have their
+counterpart, ccsd_sect.SoupPlan: the step's ERI operands laid out once
+per solve, one GEMM per output block.
 """
 
 from __future__ import annotations

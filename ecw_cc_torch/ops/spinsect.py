@@ -10,7 +10,11 @@ into a few dense sub-block contractions.
 
 `SpinBlocked` holds only the nonzero blocks; `sector_einsum` enumerates the
 spin assignments compatible with every operand's stored blocks and runs one
-`torch.einsum` per survivor, summed into the output blocks.
+`torch.einsum` per survivor, summed into the output blocks.  `SectorGemm`
+runs a two-operand contraction whose one operand is fixed (an ERI block of
+a solve) as one matrix product per output block instead, the survivors'
+contraction axes concatenated, against that operand laid out once (the
+JAX package's soup_gemm='kconcat'; ops/ccsd_sect.SoupPlan builds them).
 
 sym=True (closed-shell mirror symmetry): each block equals the block at the
 alpha<->beta flipped key, so only one canonical block per mirror pair is
@@ -20,7 +24,9 @@ stored and computed.  The solver enables it only behind its gate
 
 from __future__ import annotations
 
+import functools
 import itertools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -256,6 +262,208 @@ def sector_einsum(spec, *operands, info=None):
         out_blocks = {k: v + v for k, v in out_blocks.items()}
     out_kinds = "".join(kind_of[c] for c in out)
     return SpinBlocked(out_kinds, out_blocks, info, sym=sym)
+
+
+def gemm_letters(spec, pos):
+    """The letters of a two-operand spec as one GEMM against its operand
+    `pos`: (m, k, n), m the other operand's free letters and n operand
+    pos's, both in the output's order, k the contracted letters in the
+    other operand's order.  None where the spec is no plain product: a
+    letter repeated within a subscript, or one kept in the output or summed
+    within one operand while the other also has it."""
+    ins, out = spec.split("->")
+    subs = ins.split(",")
+    fixed, other = subs[pos], subs[1 - pos]
+    if any(len(set(s)) != len(s) for s in (fixed, other, out)):
+        return None
+    k = [c for c in other if c in fixed and c not in out]
+    m = [c for c in out if c in other and c not in fixed]
+    n = [c for c in out if c in fixed and c not in other]
+    if (len(m) + len(k) != len(other) or len(n) + len(k) != len(fixed)
+            or len(m) + len(n) != len(out)):
+        return None
+    return m, k, n
+
+
+class _Block(NamedTuple):
+    """One output block of a SectorGemm.  fixed: the fixed operand's blocks
+    of every spin assignment that feeds it laid out as one GEMM operand,
+    (K, N), or (N, K) when the product is taken transposed, their
+    contracted sizes concatenated along K in enumeration order (while the
+    gemm is built: the key of the layout in its FixedLayouts); segs: where
+    each assignment's block of the other operand goes in the (M, K)
+    operand, (key, k0, k1, view shape)."""
+    okey: tuple
+    name: str
+    fixed: object
+    segs: tuple
+    mk: tuple          # (M, K)
+    shape: tuple       # the product's shape, its letters split
+    out_perm: tuple    # from the product's letter order to the output's
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_structure(spec, pos, f_kinds, f_keys, f_sym, other, info):
+    """What a SectorGemm computes, without tensors: (trans, the other
+    operand's permutation, the output's kinds, sym, blocks), each block an
+    _Block whose `fixed` is (the fixed operand's keys, f_perm, nshape,
+    their cshapes), in sector_einsum's enumeration order of the spin
+    assignments that every operand stores."""
+    m, k, n = gemm_letters(spec, pos)
+    ins, out = spec.split("->")
+    subs = ins.split(",")
+    f_sub, o_sub = subs[pos], subs[1 - pos]
+    o_kinds, o_keys, o_sym = other
+    kind_of = dict(zip(f_sub, f_kinds))
+    kind_of.update(zip(o_sub, o_kinds))
+    size_of = {("o", 0): info.oa, ("o", 1): info.ob,
+               ("v", 0): info.va, ("v", 1): info.vb}
+    sym = f_sym and o_sym
+    # the product taken transposed when the output leads with the fixed
+    # operand's letters, so that it comes out in the output's order
+    trans = bool(out) and out[0] in n
+    res = n + m if trans else m + n
+    out_perm = tuple(res.index(c) for c in out)
+    f_perm = tuple(f_sub.index(c) for c in (n + k if trans else k + n))
+    groups = {}
+    for combo in itertools.product((0, 1), repeat=len(kind_of)):
+        sp = dict(zip(sorted(kind_of), combo))
+        okey = tuple(sp[c] for c in out)
+        if sym and (not _is_canon(okey) if out else not _is_canon(combo)):
+            continue   # the mirror assignment produces the mirror block
+        o_key = tuple(sp[c] for c in o_sub)
+        f_key = tuple(sp[c] for c in f_sub)
+        if (o_key in o_keys or o_sym and _flip(o_key) in o_keys) and (
+                f_key in f_keys or f_sym and _flip(f_key) in f_keys):
+            groups.setdefault(okey, []).append((combo, sp, o_key, f_key))
+    size = lambda sp, letters: tuple(size_of[(kind_of[c], sp[c])]
+                                     for c in letters)
+    blocks = []
+    for okey, members in groups.items():
+        mshape, nshape = size(members[0][1], m), size(members[0][1], n)
+        segs, k0 = [], 0
+        for _, sp, o_key, _ in members:
+            k1 = k0 + math.prod(size(sp, k))
+            segs.append((o_key, k0, k1, mshape + size(sp, k)))
+            k0 = k1
+        blocks.append(_Block(
+            okey, "".join(map(str, members[0][0])),
+            (tuple(f for *_, f in members), f_perm, nshape,
+             tuple(size(sp, k) for _, sp, _, _ in members)),
+            tuple(segs), (math.prod(mshape), k0),
+            (nshape + mshape) if trans else (mshape + nshape),
+            None if out_perm == tuple(range(len(out))) else out_perm))
+    return (trans, tuple(o_sub.index(c) for c in m + k),
+            "".join(kind_of[c] for c in out), sym, tuple(blocks))
+
+
+class FixedLayouts:
+    """The laid-out operands of SectorGemms, held in one buffer: each gemm
+    reserves its layouts as it is built (equal layouts of one fixed block
+    once), build() allocates the buffer, copies every fixed block into
+    place and hands each gemm its operands."""
+
+    def __init__(self):
+        self._want, self._gemms = {}, []
+        self.nbytes = 0
+
+    def reserve(self, fixed, trans, lay):
+        """The key of the layout `lay` (_gemm_structure's) of `fixed`."""
+        f_keys, f_perm, nshape, cshapes = lay
+        blocks = tuple(fixed.get(f) for f in f_keys)
+        key = (id(fixed), trans, f_perm, len(nshape), tuple(map(id, blocks)))
+        if key not in self._want:
+            self._want[key] = (trans, f_perm, nshape, cshapes, blocks)
+        return key
+
+    def build(self):
+        """Allocate, fill, and bind the reserved layouts to their gemms."""
+        sizes = {key: math.prod(w[2]) * sum(map(math.prod, w[3]))
+                 for key, w in self._want.items()}
+        some = next(iter(self._want.values()), None)
+        if some is None:
+            return
+        flat = some[4][0].new_empty(sum(sizes.values()))
+        self.nbytes = flat.numel() * flat.element_size()
+        lays, off = {}, 0
+        for key, (trans, f_perm, nshape, cshapes, blocks) in (
+                self._want.items()):
+            nn, kk = math.prod(nshape), sizes[key] // math.prod(nshape)
+            lay = flat[off:off + sizes[key]].view((nn, kk) if trans
+                                                  else (kk, nn))
+            off += sizes[key]
+            k0 = 0
+            for blk, cshape in zip(blocks, cshapes):
+                k1 = k0 + math.prod(cshape)
+                dst = (lay[:, k0:k1].view(nshape + cshape) if trans
+                       else lay[k0:k1].view(cshape + nshape))
+                dst.copy_(blk.permute(f_perm))
+                k0 = k1
+            lays[key] = lay
+        for gemm in self._gemms:
+            gemm.blocks = tuple(b._replace(fixed=lays[b.fixed])
+                                for b in gemm.blocks)
+        self._want, self._gemms = {}, []
+
+
+class SectorGemm:
+    """A two-operand sector contraction whose operand `pos` is fixed for
+    the life of the object (an ERI block of a solve): what sector_einsum
+    computes as one dense einsum per spin assignment, summed into the
+    output blocks, done as ONE matrix product per output block against an
+    operand laid out once (the JAX package's soup_gemm='kconcat',
+    ops/gemm.gemm_einsum_sum, on loop-invariant layouts like its
+    SoupViews).  Usable once `layouts.build()` has run.
+
+    Per call the other operand's blocks of a block's assignments are copied
+    side by side into one (M, K) operand (none copied where one assignment
+    feeds the block and its block is already a matrix view), and the
+    product's view in the output's letter order is the output block.  The
+    same products and sums as sector_einsum; within an output block the
+    sum runs in another order.
+
+    other: (kinds, stored keys, sym) of the operand it will be called with,
+    which fixes the assignments; a call with an operand stored otherwise
+    returns None (the caller runs sector_einsum)."""
+
+    def __init__(self, spec, fixed, pos, other, layouts):
+        self.spec, self.info, self.other = spec, fixed.info, other
+        (self.trans, self.o_perm, self.out_kinds, self.sym,
+         blocks) = _gemm_structure(spec, pos, fixed.kinds,
+                                   frozenset(fixed.blocks), fixed.sym,
+                                   other, fixed.info)
+        self.blocks = tuple(b._replace(fixed=layouts.reserve(
+            fixed, self.trans, b.fixed)) for b in blocks)
+        layouts._gemms.append(self)
+
+    def __call__(self, other):
+        """The contraction with `other`, a SpinBlocked; None where it is not
+        stored as this object was built for."""
+        o_kinds, o_keys, o_sym = self.other
+        if (other.sym != o_sym or other.kinds != o_kinds
+                or other.info != self.info or other.blocks.keys() != o_keys):
+            return None
+        out_blocks = {}
+        for b in self.blocks:
+            with span(f"ops.sector_einsum.{self.spec}.{b.name}"):
+                if len(b.segs) == 1:
+                    a = (other.get(b.segs[0][0]).permute(self.o_perm)
+                         .reshape(b.mk))
+                else:
+                    a = b.fixed.new_empty(b.mk)
+                    for key, k0, k1, shape in b.segs:
+                        a[:, k0:k1].view(shape).copy_(
+                            other.get(key).permute(self.o_perm))
+                c = (torch.mm(b.fixed, a.t()) if self.trans
+                     else torch.mm(a, b.fixed))
+                val = c.view(b.shape)
+                if b.out_perm is not None:
+                    val = val.permute(b.out_perm)
+                if self.sym and not self.out_kinds:
+                    val = val + val
+            out_blocks[b.okey] = val
+        return SpinBlocked(self.out_kinds, out_blocks, self.info,
+                           sym=self.sym)
 
 
 def _pack_keys(kinds, sym):

@@ -12,7 +12,9 @@ JAX loop (gs.py:681-1067), chosen per solver:
   - sectored: ERIs in the spin-SORTED layout (mo_perm given), and every
     Vexp target / potential spin-block-diagonal (the structure gate) with
     config.soup_sector: the sector-blocked updates of ops/ccsd_sect.py
-    (with the closed-shell mirror symmetry where its gate passes), both
+    (with the closed-shell mirror symmetry where its gate passes; one
+    f32 lane's step runs them through a ccsd_sect.SoupPlan built once per
+    set-up, last_solve["soup"] its counts), both
     ladders as one stacked sector GEMM per spin sector (a dense sorted
     vvvv is first packed into a SectoredVVVV), and the DIIS in the packed
     balanced-block space;
@@ -802,10 +804,18 @@ class Solver_CCSD:
         self.myVexp.Vexp_update(rdm1[-1], rdm1[-1], (0, 0), L=Larray[-1])
         return results
 
-    def _setup(self, diis, sectored, sym):
+    def _setup(self, diis, sectored, sym, lanes, alpha):
         """What an SCF or SCF_batch call builds once: the ladder operand,
         the packed-space maps of the route, the legs of the precision mode
-        and their update operands, the Vexp update, the DIIS vector size."""
+        and their update operands, the Vexp update, the DIIS vector size;
+        on the f32 sectored route of one lane, the updates' SoupPlan (its
+        ERI operands laid out for the step's products).  The lanes of
+        SCF_batch run under vmap, which the plan leaves to sector_einsum.
+        An f64 sectored solve is the route's check against the JAX
+        package on the host (the card's f64 solves take the alternating
+        layout): it keeps sector_einsum's order of summation, which an
+        rdm1-DIIS trajectory amplifies from 1e-16 to 1e-9 within 15
+        iterations."""
         eris = self.mycc.eris
         vv = self._sectored_vvvv_op() if sectored else self._get_vvvv_op()
         info = self._sinfo
@@ -843,13 +853,20 @@ class Solver_CCSD:
         vv_tf = (vv.to("tf32") if vv is not None and dt == torch.float32
                  and any(m in TF32_MODES for m, _ in legs) else vv)
         dim = nocc + nvir
+        eris_sb = (ccsd_sect.wrap_eris(eris, info, sym=sym) if sectored
+                   else None)
+        plan = None
+        if (sectored and lanes == 1 and dt == torch.float32
+                and any(m != "bf16" for m, _ in legs)):
+            with span("solver.soup_plan"):
+                plan = ccsd_sect.SoupPlan(eris, eris_sb, info, sym,
+                                          alpha=alpha)
         return types.SimpleNamespace(
             eris=eris, vv=vv, vv_tf=vv_tf, upd_bf=upd_bf, info=info,
             sectored=sectored, sym=sym, legs=legs, diis=diis,
             p_ov=p_ov, p_4=p_4, u_ov=u_ov, u_4=u_4, n_ov=n_ov, n_4=n_4,
             nvec=(2 * n_ov + 2 * n_4) if diis == "tl" else dim * dim,
-            eris_sb=(ccsd_sect.wrap_eris(eris, info, sym=sym) if sectored
-                     else None),
+            eris_sb=eris_sb, plan=plan,
             vexp_fn=make_gs_vexp_device(self.myVexp, perm=self.mo_perm,
                                         dtype=dt, device=self.device))
 
@@ -890,6 +907,7 @@ class Solver_CCSD:
         er_u, vv_u, sb_u = (
             su.upd_bf if mode == "bf16" else
             (su_eris, su.vv_tf if mode in TF32_MODES else su.vv, su.eris_sb))
+        plan = su.plan if mode != "bf16" else None
         cast = ((lambda x: x) if mode != "bf16"
                 else (lambda x: x.to(torch.bfloat16)))
 
@@ -904,7 +922,7 @@ class Solver_CCSD:
             rdm1 = ccsd_ops.gamma_CCSD(
                 ts, td, ls, ld,
                 inter=(ccsd_sect.gamma_inter_sect(ts, td, ls, ld, info,
-                                                  sym=sym)
+                                                  sym=sym, plan=plan)
                        if sectored else None))
             if diis == "rdm1":
                 ring_t, vec = diis_step(ring_t, rdm1.reshape(-1))
@@ -938,12 +956,12 @@ class Solver_CCSD:
                 ts, td = ccsd_sect.tupdate_sect(
                     er_u, ts_u, td_u, fsp_u, info, alpha=alpha,
                     vvvv_op=vv_u, ladder_pre=ladder_t, eris_sb=sb_u,
-                    sym=sym, tau_pre=tau_pre)
+                    sym=sym, tau_pre=tau_pre, plan=plan)
                 ls, ld = ccsd_sect.lupdate_sect(
                     er_u, cast(ts), cast(td), ls_u, ld_u, fsp_u, info,
                     alpha=alpha, energy_term=energy_term,
                     vvvv_op=vv_u, ladder_pre=ladder_l, eris_sb=sb_u,
-                    sym=sym)
+                    sym=sym, plan=plan)
             else:
                 ts, td = ccsd_ops.tupdate(
                     er_u, ts_u, td_u, fsp=fsp_u, alpha=alpha,
@@ -1037,12 +1055,14 @@ class Solver_CCSD:
         if self._kept is None or self._kept[0] != key:
             with span("solver.setup", log, "setup_ms"):
                 self.release_graphs()
-                su = self._setup(diis, sectored, sym)
+                su = self._setup(diis, sectored, sym, nL, alpha)
                 self._kept = (key, su,
                               torch.empty_like(Lw_host, device=dev),
                               [None] * len(su.legs))
         with span("solver.lanes", log, "lanes_ms"):
             _, su, Lw_t, loops = self._kept
+            if su.plan is not None:
+                log["soup"] = dict(su.plan.counts)
             Lw_t.copy_(Lw_host)
             Lw = Lw_t[0] if nL == 1 else Lw_t
             amps0 = self._sort_in(*amps0)

@@ -5,6 +5,8 @@ form against round_tf32 exactly; an f32 ECW sweep whose sector products
 take the three-pass arithmetic against the JAX package's f64 sweep; and
 the 16-byte rows of the f32 ladder operand that its TMA loads take."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -114,7 +116,8 @@ def test_ecw_f32_sweep_on_three_pass_products_matches_the_jax_f64_sweep(
     ref.Build_GS_exp("mat", "HF", field=field)
     res_j = [ref.CCSD_GS([L], diis="tl") for L in lambdas]
 
-    saved = ecw_cc_torch.get_config()
+    # a copy: get_config() is the live object that set_config changes
+    saved = dataclasses.replace(ecw_cc_torch.get_config())
     ecw_cc_torch.set_config(ladder_mode="packed", spin_sorted=True)
     try:
         ecw = ecw_cc_torch.ECW("h2o", "6-31g", device="cpu",
